@@ -1,0 +1,26 @@
+"""slate_tpu_torch — the PyTorch/CUDA port of slate_tpu for NVIDIA Hopper.
+
+It imports torch and numpy, never jax and nothing of ``slate_tpu``. Entry
+points take an explicit ``device`` that defaults to "cuda" and raise
+without a card unless "cpu" is asked for. The hand-written kernels live
+in ``csrc/`` and are built with nvcc on first use (``ops/_build.py``).
+"""
+
+from .api import (chol_factor, chol_solve, chol_solve_using_factor,
+                  lu_factor, lu_solve, lu_solve_using_factor)
+from .core.exceptions import SlateError
+from .core.tiled_matrix import (TiledMatrix, from_dense, hermitian,
+                                resolve_device)
+from .core.types import (Diag, MatrixKind, MethodLU, Norm, Op, Options,
+                         Side, Uplo)
+from .linalg.cholesky import posv, potrf, potrs
+from .linalg.lu import gesv, getrf, getrs
+from .runtime.session import Session
+
+__all__ = [
+    "chol_factor", "chol_solve", "chol_solve_using_factor", "lu_factor",
+    "lu_solve", "lu_solve_using_factor", "SlateError", "TiledMatrix",
+    "from_dense", "hermitian", "resolve_device",
+    "Diag", "MatrixKind", "MethodLU", "Norm", "Op", "Options", "Side",
+    "Uplo", "posv", "potrf", "potrs", "gesv", "getrf", "getrs", "Session",
+]

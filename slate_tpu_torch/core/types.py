@@ -1,0 +1,97 @@
+"""Enums and options of the port (trimmed copy of ``slate_tpu/core/types.py``).
+
+Only what the dense Cholesky/LU slice reads is kept. The names and
+defaults match the reference, so an ``Options`` written for one package
+reads the same in the other.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+class Uplo(enum.Enum):
+    """Which triangle of a matrix is stored/referenced."""
+
+    General = "g"
+    Lower = "l"
+    Upper = "u"
+
+    def flipped(self) -> "Uplo":
+        if self is Uplo.Lower:
+            return Uplo.Upper
+        if self is Uplo.Upper:
+            return Uplo.Lower
+        return self
+
+
+class Op(enum.Enum):
+    """Transposition view state (metadata, applied lazily)."""
+
+    NoTrans = "n"
+    Trans = "t"
+    ConjTrans = "c"
+
+
+class Diag(enum.Enum):
+    NonUnit = "n"
+    Unit = "u"
+
+
+class Side(enum.Enum):
+    Left = "l"
+    Right = "r"
+
+
+class Norm(enum.Enum):
+    One = "1"
+    Two = "2"
+    Inf = "i"
+    Fro = "f"
+    Max = "m"
+
+
+class MatrixKind(enum.Enum):
+    General = "ge"
+    Trapezoid = "tz"
+    Triangular = "tr"
+    Symmetric = "sy"
+    Hermitian = "he"
+    Band = "gb"
+    TriangularBand = "tb"
+    HermitianBand = "hb"
+
+
+class MethodLU(enum.Enum):
+    Auto = "auto"
+    PartialPiv = "ppiv"
+    CALU = "calu"
+    NoPiv = "nopiv"
+    RBT = "rbt"
+
+
+@dataclasses.dataclass(frozen=True)
+class Options:
+    """Per-call options bag (the fields this slice reads).
+
+    ``method_lu`` and ``pivot_threshold`` are read (the unported methods
+    raise). The others are accepted for parity and ignored:
+    ``update_precision`` because every factorization path runs its
+    matmuls in full precision with TF32 off (core/precision.py);
+    ``lookahead``, ``lu_pivot_fusion`` and ``factor_iter_large`` because
+    the port runs one path, the reference's default (fused pivoting,
+    lookahead-1, the iterative loop wherever it applies)."""
+
+    lookahead: int = 1
+    pivot_threshold: float = 1.0
+    update_precision: str = "high"
+    method_lu: MethodLU = MethodLU.Auto
+    lu_pivot_fusion: bool = True
+    factor_iter_large: bool = True
+
+    def replace(self, **kw) -> "Options":
+        return dataclasses.replace(self, **kw)
+
+
+DEFAULT_OPTIONS = Options()
+

@@ -1,0 +1,47 @@
+"""Carry operators and resident factors of the JAX package into the port.
+
+Both functions take numpy arrays only (a ``slate_tpu`` TiledMatrix's
+padded ``data`` and its metadata; a resident factor payload ``(L,)`` or
+``(LU, perm)``) and never import the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+
+from ..core.exceptions import SlateError
+from ..core.tiled_matrix import TiledMatrix, as_tensor, from_dense
+from ..core.types import MatrixKind, Uplo
+
+
+def tiled_from_arrays(data: np.ndarray, *, nb: int,
+                      kind: MatrixKind = MatrixKind.General,
+                      uplo: Uplo = Uplo.General, logical_shape=None,
+                      device="cuda") -> TiledMatrix:
+    """A port TiledMatrix from a reference matrix's padded storage."""
+    data = np.asarray(data)
+    if data.ndim != 2:
+        raise SlateError("tiled_from_arrays: data must be 2-D")
+    return from_dense(data, nb, kind=kind, uplo=uplo,
+                      logical_shape=logical_shape, device=device)
+
+
+def factor_from_arrays(op: str, arrays: Sequence[np.ndarray], *, nb: int,
+                       logical_shape, uplo: Uplo = Uplo.Lower,
+                       device="cuda") -> Tuple:
+    """A reference resident-factor payload as the port's payload:
+    ``op="chol"``: ``(L,)`` → (triangular TiledMatrix,);
+    ``op="lu"``: ``(LU, perm)`` → (TiledMatrix, int32 perm tensor)."""
+    if op == "chol":
+        (l,) = arrays
+        return (tiled_from_arrays(l, nb=nb, kind=MatrixKind.Triangular,
+                                  uplo=uplo, logical_shape=logical_shape,
+                                  device=device),)
+    if op == "lu":
+        lu, perm = arrays
+        return (tiled_from_arrays(lu, nb=nb, logical_shape=logical_shape,
+                                  device=device),
+                as_tensor(np.asarray(perm, dtype=np.int32), device))
+    raise SlateError(f"factor_from_arrays: unsupported op {op!r}")

@@ -1,0 +1,33 @@
+"""Model FLOP formulas of the slice (own copy of the lawn41 conventions
+in ``slate_tpu/obs/flops.py``), for GFLOP/s readouts and the Session's
+flop counters."""
+
+from __future__ import annotations
+
+
+def gemm(m: int, n: int, k: int) -> float:
+    return 2.0 * m * n * k
+
+
+def potrf(n: int) -> float:
+    return n ** 3 / 3.0
+
+
+def getrf(n: int, m=None) -> float:
+    return 2.0 * n ** 3 / 3.0
+
+
+def factor_flops(op: str, m: int, n: int) -> float:
+    """Model flops of one dense factorization, by Session op kind."""
+    if op == "lu":
+        return getrf(n)
+    if op == "chol":
+        return potrf(n)
+    raise ValueError(f"factor_flops: unsupported op {op!r}")
+
+
+def solve_flops(op: str, m: int, n: int, k: int) -> float:
+    """Model flops of a k-column solve against a resident factor."""
+    if op in ("lu", "chol"):
+        return 2.0 * n * n * k
+    raise ValueError(f"solve_flops: unsupported op {op!r}")

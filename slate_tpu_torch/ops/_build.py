@@ -1,0 +1,94 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each source under ``slate_tpu_torch/csrc/`` is compiled on first use into
+its own shared library with a plain C interface::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so <name>.cu
+
+into ``slate_tpu_torch/_build/`` (listed in ``.gitignore``). The file name
+carries a hash of the source, so an edited source is rebuilt and a
+stale library is never loaded. Only the sources in the repository are
+used, ``--use_fast_math`` is never passed (the kernels' NaN contracts
+need IEEE arithmetic), and a failed build raises.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict
+
+from ..core.exceptions import SlateError
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+SOURCES = ("chol_tile", "lu_panel")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+# what the last build of each source printed (ptxas register/smem use)
+BUILD_LOG: Dict[str, dict] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise SlateError("slate_tpu_torch: nvcc not found (set CUDA_HOME or "
+                     "put nvcc on PATH) — the CUDA kernels cannot be built")
+
+
+def _lib_path(name: str) -> str:
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+
+
+def _compile(name: str) -> str:
+    out = _lib_path(name)
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+           os.path.join(CSRC_DIR, f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SlateError(f"nvcc failed for {name}.cu "
+                         f"(exit {proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
+                       "ptxas": proc.stderr.strip()}
+    return out
+
+
+def build_all() -> Dict[str, dict]:
+    """Compile every kernel source, one nvcc per source, all started
+    together. Returns BUILD_LOG (seconds and ptxas output per source)."""
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        for fut in [pool.submit(_compile, s) for s in SOURCES]:
+            fut.result()
+    return dict(BUILD_LOG)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for one source (built on first use)."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = _libs[name] = ctypes.CDLL(_compile(name))
+        return lib

@@ -1,0 +1,268 @@
+"""Gemm-based blocked building blocks of the factorizations.
+
+Counterpart of ``slate_tpu/ops/blocked.py`` (the parts the dense
+Cholesky/LU slice runs). The algorithms and the reference's dispatch
+decisions are kept — recursion bases (``TRTRI_BASE``, ``TRSM_BASE``),
+``PANEL_IB`` and the ``panel_getrf`` width recursion, pow2 panel-height
+buckets, ``ITER_MAX_NT`` — so the CPU tests compare the same algorithm
+step for step. The XLA workarounds are not ported (``dus_i32``,
+``lift_tail_perm``, ``rebalance``/``replicate_on_grid``, jit wrappers).
+
+Where the reference writes a functional update (``dynamic_update_slice``,
+``.at[].set``), the port writes the slice IN PLACE on the factorization's one
+working copy, cloned once per call. The reference's ``mm(a, b, prec)``
+is plain ``a @ b`` here, at full precision under the factorizations'
+``accurate_matmuls`` (TF32 off), and its ``permute_rows_limited(x, perm,
+max_moved)`` is ``x.index_select(0, perm)``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from . import hopper_ops
+
+TRTRI_BASE = 64
+TRSM_BASE = 512
+PANEL_IB = 32
+# bound on the python-unrolled iterative outer loops (shared by
+# linalg/cholesky.py and linalg/lu.py, as in the reference)
+ITER_MAX_NT = 64
+
+
+def _round_to(x: int, q: int) -> int:
+    return -(-x // q) * q
+
+
+def _half(n: int, q: int) -> int:
+    """Split point for 2×2 recursion: ~n/2 rounded up to a multiple of q,
+    clamped to keep both halves non-empty."""
+    h = _round_to(n // 2, q)
+    if h >= n:
+        h = _round_to(n // 2, 8)
+    if h >= n or h == 0:
+        h = max(1, n // 2)
+    return h
+
+
+def bucket_pow2(h: int, q: int) -> int:
+    """Smallest q·2^i ≥ h — the panel-height bucketing quantum."""
+    b = q
+    while b < h:
+        b *= 2
+    return b
+
+
+# ---------------------------------------------------------------------------
+# triangular inverse
+# ---------------------------------------------------------------------------
+
+def _trtri_lower_base(l: torch.Tensor, unit: bool) -> torch.Tensor:
+    """Inverse of a lower-triangular block by row substitution (reads
+    only the lower triangle)."""
+    n = l.shape[0]
+    x = torch.zeros_like(l)
+    for i in range(n):
+        row = -(l[i, :i] @ x[:i])
+        row[i] += 1
+        x[i] = row if unit else row / l[i, i]
+    return x
+
+
+def trtri_lower_rec(l: torch.Tensor, unit: bool = False,
+                    base: int = TRTRI_BASE) -> torch.Tensor:
+    """inv(L) by 2×2 block recursion:
+    inv([[A,0],[B,C]]) = [[iA,0],[−iC·B·iA, iC]]. Only the lower
+    triangle of ``l`` is read."""
+    n = l.shape[0]
+    if n <= base:
+        return _trtri_lower_base(l, unit)
+    h = _half(n, 8)
+    out = torch.zeros_like(l)
+    ia = trtri_lower_rec(l[:h, :h], unit, base)
+    ic = trtri_lower_rec(l[h:, h:], unit, base)
+    out[:h, :h] = ia
+    out[h:, h:] = ic
+    out[h:, :h] = -(ic @ (l[h:, :h] @ ia))
+    return out
+
+
+def _trtri_leaves(d: torch.Tensor, unit: bool) -> torch.Tensor:
+    """Inverses of a (B, s, s) stack of lower-triangular leaves: one
+    substitution loop over s rows, every leaf at once."""
+    nblk, s, _ = d.shape
+    x = torch.zeros_like(d)
+    for i in range(s):
+        row = -(d[:, i:i + 1, :i] @ x[:, :i, :])[:, 0, :]
+        row[:, i] += 1
+        x[:, i, :] = row if unit else row / d[:, i, i:i + 1]
+    return x
+
+
+def trtri_lower_batched(l: torch.Tensor, unit: bool = False,
+                        leaf: int = 64) -> torch.Tensor:
+    """inv(L) with all diagonal leaf blocks inverted together (the batch
+    dimension written out), then combined level by level with batched
+    gemms. Needs a power-of-two leaf grid; otherwise the recursion."""
+    n = l.shape[0]
+    nleaf = n // leaf if n % leaf == 0 else 0
+    if n <= leaf or nleaf == 0 or (nleaf & (nleaf - 1)) != 0:
+        return trtri_lower_rec(l, unit)
+    diags = torch.stack([l[i:i + leaf, i:i + leaf]
+                         for i in range(0, n, leaf)])
+    inv = _trtri_leaves(diags, unit)
+    s = leaf
+    while s < n:
+        nblk = inv.shape[0]
+        ia, ic = inv[0::2], inv[1::2]
+        b = torch.stack([l[i + s:i + 2 * s, i:i + s]
+                         for i in range(0, n, 2 * s)])
+        nxt = torch.zeros((nblk // 2, 2 * s, 2 * s), dtype=l.dtype,
+                          device=l.device)
+        nxt[:, :s, :s] = ia
+        nxt[:, s:, s:] = ic
+        nxt[:, s:, :s] = -(ic @ b @ ia)
+        inv = nxt
+        s *= 2
+    return inv[0]
+
+
+# ---------------------------------------------------------------------------
+# triangular solve
+# ---------------------------------------------------------------------------
+
+def _trsm_left_lower(m, b, unit, base):
+    """X with M·X = B, M lower triangular (only lower triangle read)."""
+    n = m.shape[0]
+    if n <= base:
+        return trtri_lower_batched(m, unit) @ b
+    h = _half(n, base)
+    x = torch.empty_like(b)
+    x[:h] = _trsm_left_lower(m[:h, :h], b[:h], unit, base)
+    x[h:] = _trsm_left_lower(m[h:, h:], b[h:] - m[h:, :h] @ x[:h], unit,
+                             base)
+    return x
+
+
+def _trsm_left_upper(m, b, unit, base):
+    """X with M·X = B, M upper triangular (inv(U) = inv(Uᵀ)ᵀ)."""
+    n = m.shape[0]
+    if n <= base:
+        return trtri_lower_batched(m.mT, unit).mT @ b
+    h = _half(n, base)
+    x = torch.empty_like(b)
+    x[h:] = _trsm_left_upper(m[h:, h:], b[h:], unit, base)
+    x[:h] = _trsm_left_upper(m[:h, :h], b[:h] - m[:h, h:] @ x[h:], unit,
+                             base)
+    return x
+
+
+def trsm_rec(a: torch.Tensor, b: torch.Tensor, *, left: bool = True,
+             lower: bool = True, unit: bool = False, trans_a: bool = False,
+             conj_a: bool = False, base: int = TRSM_BASE) -> torch.Tensor:
+    """Solve op(A)·X = B (left) or X·op(A) = B (right), A triangular,
+    by block recursion over inverted diagonal blocks (the bases invert
+    with ``trtri_lower_batched``). Returns a new tensor."""
+    m = a.conj() if conj_a else a
+    eff_lower = lower
+    if trans_a:
+        m = m.mT
+        eff_lower = not lower
+    if left:
+        solve = _trsm_left_lower if eff_lower else _trsm_left_upper
+        return solve(m, b, unit, base)
+    mt = m.mT
+    solve = _trsm_left_upper if eff_lower else _trsm_left_lower
+    return solve(mt, b.mT, unit, base).mT
+
+
+# ---------------------------------------------------------------------------
+# triangle-aware rank-k updates
+# ---------------------------------------------------------------------------
+
+def herk_lower_rec(c: torch.Tensor, a: torch.Tensor,
+                   b: Optional[torch.Tensor] = None, base: int = 1024
+                   ) -> torch.Tensor:
+    """C − A·Bᴴ restricted to the lower triangle (B defaults to A); the
+    strict upper of the result holds ``c``'s entries. Returns a new
+    tensor (the recursion of the reference; its opt-in Pallas route,
+    K5, is not ported yet)."""
+    if b is None:
+        b = a
+    s = c.shape[0]
+    if s <= base:
+        return c - a @ b.mH
+    h = _half(s, 8)
+    out = c.clone()
+    out[:h, :h] = herk_lower_rec(c[:h, :h], a[:h], b[:h], base)
+    out[h:, :h] = c[h:, :h] - a[h:] @ b[:h].mH
+    out[h:, h:] = herk_lower_rec(c[h:, h:], a[h:], b[h:], base)
+    return out
+
+
+def herk_trailing_inplace(a: torch.Tensor, pan: torch.Tensor, k1: int,
+                          nb: int, j_start: Optional[int] = None,
+                          j_stop: Optional[int] = None) -> torch.Tensor:
+    """A[k1:, k1:] ← A[k1:, k1:] − pan·panᴴ written IN PLACE into ``a``,
+    one nb-wide column slab at a time, over slabs [j_start, j_stop).
+    Splitting the range leaves every slab's gemm unchanged, so the
+    lookahead pipeline's split calls are bitwise one full call. Only the
+    lower trapezoid of the result is meaningful."""
+    s = a.shape[0]
+    lo = k1 if j_start is None else j_start
+    hi = s if j_stop is None else min(j_stop, s)
+    for j0 in range(lo, hi, nb):
+        jw = min(nb, s - j0)
+        rows = pan[j0 - k1:]
+        cols = pan[j0 - k1:j0 - k1 + jw]
+        a[j0:, j0:j0 + jw] -= rows @ cols.mH
+    return a
+
+
+# ---------------------------------------------------------------------------
+# Cholesky of one diagonal tile
+# ---------------------------------------------------------------------------
+
+def chol_tile_blocked(a: torch.Tensor) -> torch.Tensor:
+    """Cholesky of one diagonal tile: the K1 kernel on the card (its
+    plain version on the CPU). Strict upper zeroed; NaN on the diagonal
+    from the first non-positive pivot on."""
+    return hopper_ops.chol_tile(a.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# blocked panel LU (partial pivot)
+# ---------------------------------------------------------------------------
+
+def _compose_tail(p1: torch.Tensor, p2: torch.Tensor, h: int) -> torch.Tensor:
+    """Total gather perm for 'apply p1, then p2 on rows h:'."""
+    return torch.cat([p1[:h], p1[h:].index_select(0, p2)])
+
+
+def panel_getrf(a: torch.Tensor, ib: int = PANEL_IB
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Blocked partial-pivot LU of a tall (H × w) panel, recursing on
+    width; every base (w ≤ 128) is one ``lu_panel_base`` call — the K2
+    kernel on the card, its plain version (the reference's
+    ``_panel_getrf_base``) on the CPU. Returns (lu, perm, info) with
+    gather semantics a[perm] = L·U."""
+    hh, w = a.shape
+    if hopper_ops.lu_panel_eligible(w):
+        return hopper_ops.lu_panel_base(a.contiguous())
+    h = _round_to(w // 2, ib)
+    lu1, p1, i1 = panel_getrf(a[:, :h], ib)
+    right = a[:, h:].index_select(0, p1)
+    u_top = trsm_rec(lu1[:h, :h], right[:h], left=True, lower=True,
+                     unit=True, base=max(ib, 64))
+    schur = right[h:] - lu1[h:, :h] @ u_top
+    lu2, p2, i2 = panel_getrf(schur, ib)
+    lu = torch.empty_like(a)
+    lu[:h, :h] = lu1[:h]
+    lu[:h, h:] = u_top
+    lu[h:, :h] = lu1[h:, :h].index_select(0, p2)
+    lu[h:, h:] = lu2
+    perm = _compose_tail(p1, p2, h)
+    info = torch.where(i1 > 0, i1, torch.where(i2 > 0, i2 + h, 0))
+    return lu, perm, info.to(torch.int32)
