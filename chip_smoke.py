@@ -11,17 +11,28 @@ Phases, one JSON line each:
 3. kernel  each kernel against its plain PyTorch version on the card, at
            the main path's shapes and a few more, plus the failure
            contracts (NaN pivot for chol_tile, zero column for
-           lu_panel_base); kernel, plain and library times by CUDA events
-           (warm, median of 7);
-4. check   posv/gesv on the card at a small uneven size against float64
-           numpy;
-5. main    the serving path: a Session registers an SPD operator (chol)
-           and a general one (lu), factors each once and serves 8
-           requests from each resident factor (single right-hand sides
-           and 16-column blocks), every scaled residual checked; the
-           kernels' launch counters are zeroed just before and read just
-           after.
+           lu_panel_base, tau = 0 on a zeroed column and NaN propagation
+           for the QR panels)
+           and a float64 Q·R reconstruction of the timed QR panels;
+           kernel, plain and library times by CUDA events (warm, median
+           of 7);
+4. check   posv/gesv/gels on the card at small uneven sizes against
+           float64 numpy; gels at nb = 32 runs qr_panel_base in every
+           panel, at nb = 128 qr_panel_base_wide, and a wide operand runs
+           the minimum-norm path through gelqf;
+5. main    the serving path: a Session registers an SPD operator (chol),
+           a general one (lu) and a tall (2n × n/2) one (op "auto" must
+           infer qr), factors each once and serves 8 requests from each
+           resident factor (single right-hand sides and 16-column
+           blocks), every scaled residual checked; every served qr
+           column is held to a float64 normal-equations solve (relative
+           error ≤ QR_REL_LIMIT), and a 1 %-perturbed and a random answer
+           must fail that check. Peak memory is read before the float64
+           checks allocate.
 
+The kernels' launch counters are zeroed just before the check phase and
+just before the main phase and read just after each; the launches made
+to compare a kernel with its plain version are not counted.
 Then a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device, or
@@ -47,6 +58,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 RESIDUAL_BOUND = 30.0
+# served least-squares columns against a float64 solve, as gels_check
+QR_REL_LIMIT = 1e-3
 
 
 def emit(phase: str, **kw):
@@ -171,6 +184,86 @@ def lu_case(torch, ho, hh, w, dtype, gen, timed: bool, zero_col=None):
     return row
 
 
+def qr_reconstruction(torch, a, vr, taus):
+    """‖A − Q·R‖₁ / (H·ε·‖A‖₁) in float64 from the packed reflectors, ε of
+    the panel's type."""
+    hh, w = a.shape
+    v = torch.tril(vr.double(), -1)
+    v.diagonal().fill_(1)
+    qr = torch.zeros((hh, w), dtype=torch.float64, device=a.device)
+    qr[:w] = torch.triu(vr.double()[:w])
+    for j in range(w - 1, -1, -1):  # Q·[R; 0] = H₀·…·H_{w−1}·[R; 0]
+        qr -= taus[j].double() * torch.outer(v[:, j], v[:, j] @ qr)
+    a64 = a.double()
+    norm1 = lambda x: x.abs().sum(dim=0).max().item()  # noqa: E731
+    return norm1(a64 - qr) / (hh * torch.finfo(a.dtype).eps * norm1(a64))
+
+
+def qr_case(torch, ho, hh, w, dtype, gen, timed: bool, zero_col=None):
+    """K3 (w ≤ 32) or K4 (32 < w) against its plain version. Tolerance:
+    the two differ only in the order of their H-long sums, so R is held
+    to 4·ε·√H relative to max|R| and V (|v| ≤ 1) and the taus (in
+    [0, 2]) to 4·ε·√H absolute."""
+    wide = w > 32
+    name = "qr_panel_base_wide" if wide else "qr_panel_base"
+    kern = getattr(ho, name)
+    plain = getattr(ho, name + "_plain")
+    a = torch.randn((hh, w), generator=gen, device="cuda", dtype=dtype)
+    if zero_col is not None:
+        a[:, zero_col] = 0
+    vk, tk = kern(a)
+    vp, tp = plain(a)
+    torch.cuda.synchronize()
+    upper = torch.ones_like(vp, dtype=torch.bool).triu()
+    tol = 4 * torch.finfo(dtype).eps * math.sqrt(hh)
+    err_r = (torch.where(upper, vk - vp, 0).abs().max()
+             / vp.abs().max()).item()
+    err_v = torch.where(upper, 0, vk - vp).abs().max().item()
+    err_t = (tk - tp).abs().max().item()
+    check(tk.shape == (w,), f"{name} {(hh, w)}: taus shape {tuple(tk.shape)}")
+    check(all(math.isfinite(e) and e <= tol for e in (err_r, err_v, err_t)),
+          f"{name} {(hh, w)} {dtype}: |kernel - plain| R {err_r} V {err_v} "
+          f"tau {err_t} > {tol}")
+    if zero_col is not None:
+        check(tk[zero_col].item() == 0 and tp[zero_col].item() == 0,
+              f"{name}: tau {tk[zero_col].item()} on a zeroed column")
+    row = {"H": hh, "w": w, "dtype": str(dtype).split(".")[1],
+           "max_abs_err": max(err_v, err_t, err_r * vp.abs().max().item()),
+           "err_r_rel": err_r, "err_v": err_v, "err_tau": err_t, "tol": tol}
+    if zero_col is not None:
+        row["zero_col"], row["tau_zero_col"] = zero_col, tk[zero_col].item()
+    if timed:
+        rec = qr_reconstruction(torch, a, vk, tk)
+        check(rec <= RESIDUAL_BOUND, f"{name} {(hh, w)}: ‖A − QR‖ / "
+              f"(H·ε·‖A‖) = {rec} > {RESIDUAL_BOUND}")
+        row["reconstruction"] = rec
+        row["ms"] = cuda_ms(lambda: kern(a))
+        row["plain_ms"] = cuda_ms(lambda: plain(a), reps=5)
+        row["library_ms"] = cuda_ms(lambda: torch.geqrf(a))
+        s = a.element_size()
+        row["bound_ms"], row["bound_by"] = bound(
+            2 * hh * w * s, 2.0 * hh * w * w - 2.0 * w ** 3 / 3.0,
+            row["dtype"])
+    return row
+
+
+def qr_nan_case(torch, ho, gen):
+    """A NaN in column 5 poisons that column's tau and every later one
+    (no masking) in both QR kernels; the columns before stay finite."""
+    out = {}
+    for name, w in (("qr_panel_base", 32), ("qr_panel_base_wide", 64)):
+        a = torch.randn((1024, w), generator=gen, device="cuda")
+        a[50, 5] = math.nan
+        vr, taus = getattr(ho, name)(a)
+        check(bool(torch.isfinite(taus[:5]).all())
+              and bool(torch.isnan(taus[5:]).all())
+              and bool(torch.isfinite(vr[:, :5]).all()),
+              f"{name}: NaN contract broken")
+        out[name] = {"H": 1024, "w": w, "nan_at": [50, 5],
+                     "nan_from_col_on": True}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: factorizations and the serving path
 # ---------------------------------------------------------------------------
@@ -182,6 +275,57 @@ def scaled_residuals(torch, A, X, B):
     anorm = A.abs().sum(dim=1).max()
     r = (B - A @ X).abs().max(dim=0).values
     return (r / (n * eps * anorm * X.abs().max(dim=0).values)).tolist()
+
+
+def gels_residuals(torch, a64, eps, X, B):
+    """Per column ‖Aᵀ(A·x − b)‖₁ / (m·ε·‖A‖₁²·‖x‖₁) in float64 (the
+    reference tester's gels check); ``a64`` is A in float64, ``eps`` the
+    working type's."""
+    a, x, b = a64, X.double(), B.double()
+    anorm = a.abs().sum(dim=0).max()
+    rr = (a.T @ (a @ x - b)).abs().sum(dim=0)
+    return (rr / (a.shape[0] * eps * anorm ** 2
+                  * x.abs().sum(dim=0))).tolist()
+
+
+def gels_check(torch, stt, ho, gen):
+    """gels on the card against float64 numpy lstsq: (1500, 1000) at
+    nb = 32 (K3 in every panel) and nb = 128 (K4), and the
+    underdetermined (1000, 1500) at nb = 128 (gelqf)."""
+    import numpy as np
+    out = {}
+    for name, (m, n), nb in (("gels_nb32", (1500, 1000), 32),
+                             ("gels_nb128", (1500, 1000), 128),
+                             ("gels_wide", (1000, 1500), 128)):
+        a = torch.randn((m, n), generator=gen, device="cuda")
+        b = torch.randn((m, 2), generator=gen, device="cuda")
+        before = dict(ho.LAUNCHES)
+        X = stt.gels(stt.from_dense(a, nb, device="cuda"),
+                     stt.from_dense(b, nb, device="cuda"))
+        torch.cuda.synchronize()
+        launches = {k: ho.LAUNCHES[k] - before[k]
+                    for k in ("qr_panel_base", "qr_panel_base_wide")}
+        xs = X.to_numpy()
+        check(xs.shape == (n, 2) and np.isfinite(xs).all(),
+              f"{name}: bad output")
+        ref = np.linalg.lstsq(a.double().cpu().numpy(),
+                              b.double().cpu().numpy(), rcond=None)[0]
+        rel = float(np.abs(xs - ref).max() / np.abs(ref).max())
+        check(rel <= 1e-3, f"{name}: relative error {rel} vs float64 lstsq")
+        row = {"m": m, "n": n, "nb": nb, "rel_err": rel,
+               "launches": launches}
+        if m >= n:
+            res = max(gels_residuals(torch, a.double(),
+                                     torch.finfo(a.dtype).eps,
+                                     torch.from_numpy(xs).cuda(), b))
+            check(res <= RESIDUAL_BOUND, f"{name}: residual {res}")
+            row["scaled_residual"] = res
+        out[name] = row
+    k3 = out["gels_nb32"]["launches"]["qr_panel_base"]
+    check(k3 >= 32, f"gels nb=32 launched qr_panel_base {k3} < 32 times")
+    check(out["gels_nb128"]["launches"]["qr_panel_base_wide"] > 0,
+          "gels nb=128 did not launch qr_panel_base_wide")
+    return out
 
 
 def small_check(torch, stt, gen):
@@ -209,6 +353,21 @@ def small_check(torch, stt, gen):
     return out
 
 
+def lstsq_normal64(torch, a64, B):
+    """Least-squares solutions of the float64 ``a64`` for the columns of
+    ``B`` by the float64 normal equations (accurate to about κ(A)²·ε₆₄;
+    κ ≈ 3 for a 2:1 Gaussian)."""
+    gram = a64.T @ a64
+    chol = torch.linalg.cholesky(gram)
+    return torch.cholesky_solve(a64.T @ B.double(), chol)
+
+
+def rel_errors(torch, X, ref):
+    """Per column ‖x − x_ref‖∞ / ‖x_ref‖∞, x_ref in float64."""
+    d = (X.double() - ref).abs().max(dim=0).values
+    return (d / ref.abs().max(dim=0).values).tolist()
+
+
 def main_path(torch, stt, ho, n, nb, gen):
     dev = "cuda"
     x = torch.randn((n, n), generator=gen, device=dev)
@@ -216,57 +375,121 @@ def main_path(torch, stt, ho, n, nb, gen):
     spd.diagonal().add_(1.0)
     del x
     gen_m = torch.randn((n, n), generator=gen, device=dev)
-    rhs = [torch.randn((n, k), generator=gen, device=dev)
-           for k in (1, 16, 1, 16, 1, 16, 1, 16)]
+    # the least-squares operator: 2n × n/2, the same bytes as the others
+    m_q, n_q = 2 * n, n // 2
+    tall = torch.randn((m_q, n_q), generator=gen, device=dev)
+    widths = (1, 16, 1, 16, 1, 16, 1, 16)
+    rhs = {"chol": [torch.randn((n, k), generator=gen, device=dev)
+                    for k in widths],
+           "qr": [torch.randn((m_q, k), generator=gen, device=dev)
+                  for k in widths]}
+    rhs["lu"] = rhs["chol"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ho.reset_launches()
     sess = stt.Session(hbm_budget=8 << 30, device=dev)
-    h_chol = sess.register(stt.hermitian(spd, nb, stt.Uplo.Lower,
-                                         device=dev), op="chol")
-    h_lu = sess.register(stt.from_dense(gen_m, nb, device=dev), op="lu")
-    t0 = time.perf_counter()
-    info_chol = sess.factor_info(h_chol)
-    t_chol = time.perf_counter() - t0
-    after_chol = dict(ho.LAUNCHES)
-    t0 = time.perf_counter()
-    info_lu = sess.factor_info(h_lu)
-    t_lu = time.perf_counter() - t0
-    after_lu = dict(ho.LAUNCHES)
-    res = {"chol": [], "lu": []}
-    for name, h, A in (("chol", h_chol, spd), ("lu", h_lu, gen_m)):
-        for b in rhs:
+    ops = {"chol": sess.register(stt.hermitian(spd, nb, stt.Uplo.Lower,
+                                               device=dev), op="chol"),
+           "lu": sess.register(stt.from_dense(gen_m, nb, device=dev),
+                               op="lu"),
+           "qr": sess.register(stt.from_dense(tall, nb, device=dev),
+                               op="auto")}
+    check(sess._ops[ops["qr"]].op == "qr",
+          f"op auto inferred {sess._ops[ops['qr']].op!r} for a tall operand")
+    factor_s, info, factor_launches = {}, {}, {}
+    for name, h in ops.items():
+        before = dict(ho.LAUNCHES)
+        t0 = time.perf_counter()
+        info[name] = sess.factor_info(h)
+        torch.cuda.synchronize()
+        factor_s[name] = time.perf_counter() - t0
+        factor_launches[name] = {k: ho.LAUNCHES[k] - before[k]
+                                 for k in ho.LAUNCHES}
+    from slate_tpu_torch.runtime.metrics import Histogram
+    latency = {name: Histogram() for name in ops}
+    served = {name: [] for name in ops}
+    for name, h in ops.items():
+        for b in rhs[name]:
+            t0 = time.perf_counter()
             xs = torch.from_numpy(sess.solve(h, b)).to(dev)
-            res[name] += scaled_residuals(torch, A, xs, b)
+            latency[name].observe(time.perf_counter() - t0)
+            served[name].append(xs)
     launches = dict(ho.LAUNCHES)
+    # the serving path's peak, before the float64 checks allocate theirs
+    peak = torch.cuda.max_memory_allocated()
 
-    check(info_chol == 0 and info_lu == 0,
-          f"factor info chol={info_chol} lu={info_lu}")
+    res = {name: [] for name in ops}
+    operators = {"chol": spd, "lu": gen_m}
+    for name in ("chol", "lu"):
+        for xs, b in zip(served[name], rhs[name]):
+            res[name] += scaled_residuals(torch, operators[name], xs, b)
+    # qr: every served column against a float64 solve of the same problem
+    # (the deciding check), plus the reference tester's gels bound
+    for xs, b in zip(served["qr"], rhs["qr"]):
+        check(xs.shape == (n_q, b.shape[1]), "qr solve shape")
+    tall64 = tall.double()
+    eps = torch.finfo(tall.dtype).eps
+    b_all = torch.cat(rhs["qr"], dim=1)
+    x_all = torch.cat(served["qr"], dim=1)
+    ref = lstsq_normal64(torch, tall64, b_all)
+    qr_rel = rel_errors(torch, x_all, ref)
+    res["qr"] = gels_residuals(torch, tall64, eps, x_all, b_all)
+    # the check must fail a wrong answer: x off by 1 % of its size, and a
+    # random x of the right size
+    noise = torch.randn(x_all.shape, generator=gen, device=dev)
+    scale = x_all.abs().max(dim=0).values
+    wrong = {"perturbed_1pct": x_all + 1e-2 * scale * noise,
+             "random": scale * noise / noise.abs().max(dim=0).values}
+    wrong_rel = {k: min(rel_errors(torch, x, ref)) for k, x in wrong.items()}
+    wrong_res = {k: max(gels_residuals(torch, tall64, eps, x, b_all))
+                 for k, x in wrong.items()}
+    del tall64, ref
+
+    check(all(v == 0 for v in info.values()), f"factor info {info}")
     nt = -(-n // nb)
-    check(after_chol["chol_tile"] >= nt,
-          f"chol_tile launched {after_chol['chol_tile']} < {nt} times")
-    check(after_lu["lu_panel_base"] - after_chol["lu_panel_base"] >= nt,
+    fl = factor_launches
+    check(fl["chol"]["chol_tile"] >= nt,
+          f"chol_tile launched {fl['chol']['chol_tile']} < {nt} times")
+    check(fl["lu"]["lu_panel_base"] >= nt,
           "lu_panel_base launched fewer than once per panel")
-    worst = max(res["chol"] + res["lu"])
+    kt = -(-n_q // nb)
+    k3, k4 = fl["qr"]["qr_panel_base"], fl["qr"]["qr_panel_base_wide"]
+    check(k3 + k4 >= kt, f"qr factor launched {fl['qr']} for {kt} panels")
+    if nb == 512:  # each (H, 512) panel splits into four 128-wide K4 bases
+        check(k4 == 4 * kt and k3 == 0,
+              f"qr factor launched {fl['qr']}: expected {4 * kt} "
+              f"qr_panel_base_wide and no qr_panel_base for {kt} panels")
+    worst = max(max(v) for v in res.values())
     check(math.isfinite(worst) and worst <= RESIDUAL_BOUND,
           f"scaled residual {worst} > {RESIDUAL_BOUND}")
+    worst_rel = max(qr_rel)
+    check(math.isfinite(worst_rel) and worst_rel <= QR_REL_LIMIT,
+          f"qr solve: relative error {worst_rel} vs float64 > {QR_REL_LIMIT}")
+    check(all(v > QR_REL_LIMIT for v in wrong_rel.values()),
+          f"qr check passes a wrong answer: {wrong_rel}")
     solve_hist = sess.metrics.histogram("solve_latency")
     from slate_tpu_torch.obs import flops
     return {
-        "n": n, "nb": nb, "dtype": "float32",
-        "requests_per_operator": len(rhs),
-        "chol_factor_s": t_chol,
-        "chol_gflops": flops.potrf(n) / t_chol / 1e9,
-        "lu_factor_s": t_lu,
-        "lu_gflops": flops.getrf(n) / t_lu / 1e9,
+        "n": n, "nb": nb, "dtype": "float32", "qr_shape": [m_q, n_q],
+        "requests_per_operator": len(widths),
+        "chol_factor_s": factor_s["chol"],
+        "chol_gflops": flops.potrf(n) / factor_s["chol"] / 1e9,
+        "lu_factor_s": factor_s["lu"],
+        "lu_gflops": flops.getrf(n) / factor_s["lu"] / 1e9,
+        "qr_factor_s": factor_s["qr"],
+        "qr_gflops": flops.geqrf(m_q, n_q) / factor_s["qr"] / 1e9,
         "solve_p50_s": solve_hist["p50"], "solve_p99_s": solve_hist["p99"],
         "solves": solve_hist["count"],
-        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "solve_latency_s": {k: {"p50": h.percentile(50),
+                                "p99": h.percentile(99)}
+                            for k, h in latency.items()},
+        "max_memory_allocated": peak,
         "scaled_residual_max": {k: max(v) for k, v in res.items()},
+        "qr_rel_err_max": worst_rel, "qr_rel_err_limit": QR_REL_LIMIT,
+        "qr_wrong_answer_rel_err_min": wrong_rel,
+        "qr_wrong_answer_scaled_residual_max": wrong_res,
         "residuals_checked": {k: len(v) for k, v in res.items()},
-        "launches_chol_factor": after_chol,
-        "launches_lu_factor": {k: after_lu[k] - after_chol[k]
-                               for k in after_lu},
+        "launches_factor": factor_launches,
         "launches": launches,
         "metrics": sess.metrics.snapshot()["counters"],
     }
@@ -333,21 +556,54 @@ def main(argv=None) -> int:
         lu_rows.append(lu_case(torch, ho, 1024, 64, torch.float32, gen,
                                False, zero_col=10))
         emit("kernel", name="lu_panel_base", cases=lu_rows)
-        emit("check", **small_check(torch, stt, gen))
+        f32, f64 = torch.float32, torch.float64
+        qr_rows = [qr_case(torch, ho, hh, w, dt, gen,
+                           timed=(hh, w, dt) == (2 * args.n, 32, f32))
+                   for hh, w, dt in ((2 * args.n, 32, f32), (8192, 32, f32),
+                                     (1000, 20, f32), (256, 4, f32),
+                                     (4096, 32, f64))]
+        qr_rows.append(qr_case(torch, ho, 1024, 32, f32, gen, False,
+                               zero_col=10))
+        emit("kernel", name="qr_panel_base", cases=qr_rows)
+        wide_rows = [qr_case(torch, ho, hh, w, dt, gen,
+                             timed=(hh, w, dt) == (2 * args.n, 128, f32))
+                     for hh, w, dt in ((2 * args.n, 128, f32),
+                                       (8192, 64, f32), (1000, 96, f32),
+                                       (256, 128, f32), (4096, 128, f64))]
+        wide_rows.append(qr_case(torch, ho, 1024, 128, f32, gen, False,
+                                 zero_col=37))
+        emit("kernel", name="qr_panel_base_wide", cases=wide_rows,
+             nan_case=qr_nan_case(torch, ho, gen))
+        # counted paths: the check phase, then the main phase
+        ho.reset_launches()
+        small = small_check(torch, stt, gen)
+        gels = gels_check(torch, stt, ho, gen)
+        check_launches = dict(ho.LAUNCHES)
+        emit("check", **small, **gels, launches=check_launches)
         main = main_path(torch, stt, ho, args.n, args.nb, gen)
     emit("main", **main)
 
-    k1 = next(r for r in chol_rows if r.get("ms") is not None)
-    k2 = next(r for r in lu_rows if r.get("ms") is not None)
+    timed = {name: next(r for r in rows if r.get("ms") is not None)
+             for name, rows in (("chol_tile", chol_rows),
+                                ("lu_panel_base", lu_rows),
+                                ("qr_panel_base", qr_rows),
+                                ("qr_panel_base_wide", wide_rows))}
     kernels = []
-    for name, row, src, rep in (
-            ("chol_tile", k1, "slate_tpu_torch/csrc/chol_tile.cu",
-             "slate_tpu/ops/pallas_ops.py:342"),
-            ("lu_panel_base", k2, "slate_tpu_torch/csrc/lu_panel.cu",
-             "slate_tpu/ops/pallas_ops.py:448")):
+    for name, src, rep in (
+            ("chol_tile", "chol_tile.cu", "slate_tpu/ops/pallas_ops.py:342"),
+            ("lu_panel_base", "lu_panel.cu",
+             "slate_tpu/ops/pallas_ops.py:448"),
+            ("qr_panel_base", "qr_panel.cu",
+             "slate_tpu/ops/pallas_ops.py:688"),
+            ("qr_panel_base_wide", "qr_panel.cu",
+             "slate_tpu/ops/pallas_ops.py:670")):
+        row = timed[name]
+        launches = check_launches[name] + main["launches"][name]
+        check(launches > 0, f"{name} was not launched on a counted path")
         kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": main["launches"][name],
+            "name": name, "route": "cuda",
+            "source": f"slate_tpu_torch/csrc/{src}", "replaces": rep,
+            "launches": launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

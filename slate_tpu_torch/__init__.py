@@ -7,20 +7,26 @@ in ``csrc/`` and are built with nvcc on first use (``ops/_build.py``).
 """
 
 from .api import (chol_factor, chol_solve, chol_solve_using_factor,
-                  lu_factor, lu_solve, lu_solve_using_factor)
+                  least_squares_solve, least_squares_solve_using_factor,
+                  lu_factor, lu_solve, lu_solve_using_factor, qr_factor)
 from .core.exceptions import SlateError
 from .core.tiled_matrix import (TiledMatrix, from_dense, hermitian,
                                 resolve_device)
-from .core.types import (Diag, MatrixKind, MethodLU, Norm, Op, Options,
-                         Side, Uplo)
+from .core.types import (Diag, MatrixKind, MethodGels, MethodLU, Norm, Op,
+                         Options, Side, Uplo)
 from .linalg.cholesky import posv, potrf, potrs
 from .linalg.lu import gesv, getrf, getrs
+from .linalg.qr import (QRFactors, cholqr, gelqf, gels, gels_using_factor,
+                        geqrf, qr_multiply_explicit, tsqr, unmlq, unmqr)
 from .runtime.session import Session
 
 __all__ = [
-    "chol_factor", "chol_solve", "chol_solve_using_factor", "lu_factor",
-    "lu_solve", "lu_solve_using_factor", "SlateError", "TiledMatrix",
-    "from_dense", "hermitian", "resolve_device",
-    "Diag", "MatrixKind", "MethodLU", "Norm", "Op", "Options", "Side",
-    "Uplo", "posv", "potrf", "potrs", "gesv", "getrf", "getrs", "Session",
+    "chol_factor", "chol_solve", "chol_solve_using_factor",
+    "least_squares_solve", "least_squares_solve_using_factor", "lu_factor",
+    "lu_solve", "lu_solve_using_factor", "qr_factor", "SlateError",
+    "TiledMatrix", "from_dense", "hermitian", "resolve_device",
+    "Diag", "MatrixKind", "MethodGels", "MethodLU", "Norm", "Op", "Options",
+    "Side", "Uplo", "posv", "potrf", "potrs", "gesv", "getrf", "getrs",
+    "QRFactors", "cholqr", "gelqf", "gels", "gels_using_factor", "geqrf",
+    "qr_multiply_explicit", "tsqr", "unmlq", "unmqr", "Session",
 ]

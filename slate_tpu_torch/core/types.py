@@ -1,6 +1,6 @@
 """Enums and options of the port (trimmed copy of ``slate_tpu/core/types.py``).
 
-Only what the dense Cholesky/LU slice reads is kept. The names and
+Only what the dense Cholesky, LU and QR slices read is kept. The names and
 defaults match the reference, so an ``Options`` written for one package
 reads the same in the other.
 """
@@ -70,12 +70,18 @@ class MethodLU(enum.Enum):
     RBT = "rbt"
 
 
+class MethodGels(enum.Enum):
+    Auto = "auto"
+    QR = "qr"
+    CholQR = "cholqr"
+
+
 @dataclasses.dataclass(frozen=True)
 class Options:
-    """Per-call options bag (the fields this slice reads).
+    """Per-call options bag (the fields the ported slices read).
 
-    ``method_lu`` and ``pivot_threshold`` are read (the unported methods
-    raise). The others are accepted for parity and ignored:
+    ``method_lu``, ``pivot_threshold`` and ``method_gels`` are read (the
+    unported methods raise). The others are accepted for parity and ignored:
     ``update_precision`` because every factorization path runs its
     matmuls in full precision with TF32 off (core/precision.py);
     ``lookahead``, ``lu_pivot_fusion`` and ``factor_iter_large`` because
@@ -88,6 +94,7 @@ class Options:
     method_lu: MethodLU = MethodLU.Auto
     lu_pivot_fusion: bool = True
     factor_iter_large: bool = True
+    method_gels: MethodGels = MethodGels.Auto
 
     def replace(self, **kw) -> "Options":
         return dataclasses.replace(self, **kw)

@@ -1,8 +1,9 @@
 """Carry operators and resident factors of the JAX package into the port.
 
 Both functions take numpy arrays only (a ``slate_tpu`` TiledMatrix's
-padded ``data`` and its metadata; a resident factor payload ``(L,)`` or
-``(LU, perm)``) and never import the JAX package.
+padded ``data`` and its metadata; a resident factor payload ``(L,)``,
+``(LU, perm)`` or a ``QRFactors``' ``(vr, t)``) and never import the JAX
+package.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 from ..core.exceptions import SlateError
 from ..core.tiled_matrix import TiledMatrix, as_tensor, from_dense
 from ..core.types import MatrixKind, Uplo
+from ..linalg.qr import QRFactors
 
 
 def tiled_from_arrays(data: np.ndarray, *, nb: int,
@@ -33,7 +35,9 @@ def factor_from_arrays(op: str, arrays: Sequence[np.ndarray], *, nb: int,
                        device="cuda") -> Tuple:
     """A reference resident-factor payload as the port's payload:
     ``op="chol"``: ``(L,)`` → (triangular TiledMatrix,);
-    ``op="lu"``: ``(LU, perm)`` → (TiledMatrix, int32 perm tensor)."""
+    ``op="lu"``: ``(LU, perm)`` → (TiledMatrix, int32 perm tensor);
+    ``op="qr"``: ``(vr, t)`` → (QRFactors,) with ``logical_shape``
+    = (m, n)."""
     if op == "chol":
         (l,) = arrays
         return (tiled_from_arrays(l, nb=nb, kind=MatrixKind.Triangular,
@@ -44,4 +48,8 @@ def factor_from_arrays(op: str, arrays: Sequence[np.ndarray], *, nb: int,
         return (tiled_from_arrays(lu, nb=nb, logical_shape=logical_shape,
                                   device=device),
                 as_tensor(np.asarray(perm, dtype=np.int32), device))
+    if op == "qr":
+        vr, t = (as_tensor(np.asarray(x), device) for x in arrays)
+        m, n = logical_shape
+        return (QRFactors(vr, t, m, n, nb),)
     raise SlateError(f"factor_from_arrays: unsupported op {op!r}")

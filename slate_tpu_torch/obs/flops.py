@@ -17,12 +17,26 @@ def getrf(n: int, m=None) -> float:
     return 2.0 * n ** 3 / 3.0
 
 
+def geqrf(m: int, n: int) -> float:
+    return 2.0 * m * n * n - 2.0 * n ** 3 / 3.0
+
+
+def gelqf(m: int, n: int) -> float:
+    return 2.0 * m * m * n - 2.0 * m ** 3 / 3.0
+
+
+def gels(m: int, n: int) -> float:
+    return 2.0 * m * n * n
+
+
 def factor_flops(op: str, m: int, n: int) -> float:
     """Model flops of one dense factorization, by Session op kind."""
     if op == "lu":
         return getrf(n)
     if op == "chol":
         return potrf(n)
+    if op == "qr":
+        return geqrf(m, n)
     raise ValueError(f"factor_flops: unsupported op {op!r}")
 
 
@@ -30,4 +44,6 @@ def solve_flops(op: str, m: int, n: int, k: int) -> float:
     """Model flops of a k-column solve against a resident factor."""
     if op in ("lu", "chol"):
         return 2.0 * n * n * k
+    if op == "qr":
+        return (4.0 * m * n - 2.0 * n * n) * k
     raise ValueError(f"solve_flops: unsupported op {op!r}")

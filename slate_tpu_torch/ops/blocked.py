@@ -1,11 +1,13 @@
 """Gemm-based blocked building blocks of the factorizations.
 
 Counterpart of ``slate_tpu/ops/blocked.py`` (the parts the dense
-Cholesky/LU slice runs). The algorithms and the reference's dispatch
-decisions are kept — recursion bases (``TRTRI_BASE``, ``TRSM_BASE``),
-``PANEL_IB`` and the ``panel_getrf`` width recursion, pow2 panel-height
-buckets, ``ITER_MAX_NT`` — so the CPU tests compare the same algorithm
-step for step. The XLA workarounds are not ported (``dus_i32``,
+Cholesky, LU and QR slices run). The algorithms and the reference's
+dispatch decisions are kept — recursion bases (``TRTRI_BASE``,
+``TRSM_BASE``, ``_LARFT_BASE``), ``PANEL_IB`` and the ``panel_getrf`` /
+``panel_geqrf`` width recursions, pow2 panel-height buckets,
+``ITER_MAX_NT`` — so the CPU tests compare the same algorithm step for
+step. The panel bases themselves (and larfg) live beside their kernels
+in ``hopper_ops``. The XLA workarounds are not ported (``dus_i32``,
 ``lift_tail_perm``, ``rebalance``/``replicate_on_grid``, jit wrappers).
 
 Where the reference writes a functional update (``dynamic_update_slice``,
@@ -266,3 +268,75 @@ def panel_getrf(a: torch.Tensor, ib: int = PANEL_IB
     perm = _compose_tail(p1, p2, h)
     info = torch.where(i1 > 0, i1, torch.where(i2 > 0, i2 + h, 0))
     return lu, perm, info.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# blocked panel QR (Householder)
+# ---------------------------------------------------------------------------
+
+_LARFT_BASE = 32
+
+
+def _larft_base(v: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
+    """LAPACK's columnwise T recurrence on the Gram matrix VᴴV (the
+    small-width base of ``larft``)."""
+    return hopper_ops.larft_columnwise(v.mH @ v, taus)
+
+
+def larft(v: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
+    """Forward columnwise T factor of the compact-WY form I − V·T·Vᴴ.
+
+    Above ``_LARFT_BASE`` columns, the recurrence in closed form,
+    T = D·(I + S·D)⁻¹ with S = striu(VᴴV) and D = diag(τ): one Gram
+    gemm, one unit-triangular inverse (``trtri_lower_batched`` on the
+    transpose) and a row scaling. A column with τᵢ = 0 gives a zero
+    column of T."""
+    w = taus.shape[0]
+    if w <= _LARFT_BASE:
+        return _larft_base(v, taus)
+    s = torch.triu(v.mH @ v, 1)
+    m = torch.eye(w, dtype=v.dtype, device=v.device) + s * taus[None, :]
+    minv = trtri_lower_batched(m.mT, unit=True)
+    return taus[:, None] * minv.mT
+
+
+def _split_v(vr: torch.Tensor, w: int) -> torch.Tensor:
+    """Unit-lower-trapezoidal V from a packed V\\R panel (first w
+    columns), as a new tensor."""
+    v = torch.tril(vr[:, :w], -1)
+    v.diagonal().fill_(1)
+    return v
+
+
+def panel_geqrf(a: torch.Tensor, ib: int = PANEL_IB
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blocked Householder QR of a tall (H × w) panel → (V\\R packed,
+    taus), recursing on width. Every base is one kernel call on the card
+    (its plain version on the CPU): the K3 kernel ``qr_panel_base`` where
+    the reference stops its recursion (w ≤ ib; K3 takes w ≤ 32), the K4
+    kernel ``qr_panel_base_wide`` at 32 < w ≤ 128 with w % 32 == 0.
+    Other widths split at ~w/2 (a multiple of ib); the right half is
+    reflected by the left half's compact-WY form (larft and two gemms)."""
+    hh, w = a.shape
+    if w <= ib or _round_to(w // 2, ib) >= w:
+        return hopper_ops.qr_panel_base(a.contiguous())
+    if hopper_ops.qr_panel_wide_eligible(w):
+        return hopper_ops.qr_panel_base_wide(a.contiguous())
+    h = _round_to(w // 2, ib)
+    vr1, taus1 = panel_geqrf(a[:, :h], ib)
+    v1 = _split_v(vr1, h)
+    t1 = larft(v1, taus1)
+    right = a[:, h:] - v1 @ (t1.mH @ (v1.mH @ a[:, h:]))
+    vr2, taus2 = panel_geqrf(right[h:], ib)
+    vr = torch.empty_like(a)
+    vr[:, :h] = vr1
+    vr[:h, h:] = right[:h]
+    vr[h:, h:] = vr2
+    return vr, torch.cat([taus1, taus2])
+
+
+def panel_geqrf_with_t(a: torch.Tensor):
+    """Panel QR and its T factor: (vr_packed, taus, T (w, w))."""
+    vr, taus = panel_geqrf(a)
+    t = larft(_split_v(vr, a.shape[1]), taus)
+    return vr, taus, t

@@ -2,8 +2,9 @@
 gates and launch counters.
 
 Counterpart of ``slate_tpu/ops/pallas_ops.py``: the launchers keep the
-reference's names (``chol_tile``, ``lu_panel_base``, ``lu_panel_eligible``)
-so the call sites in ``ops/blocked.py`` map one to one. Dispatch is by the
+reference's names (``chol_tile``, ``lu_panel_base``, ``lu_panel_eligible``,
+``qr_panel_base``, ``qr_panel_base_wide``, ``qr_panel_wide_eligible``) so
+the call sites in ``ops/blocked.py`` map one to one. Dispatch is by the
 tensor's device and nothing else:
 
 - a CUDA tensor launches the CUDA kernel (``csrc/*.cu``, built by
@@ -17,8 +18,10 @@ tensor's device and nothing else:
 run can show that its main path went through the kernels.
 
 The reference's TPU gates (VMEM size, the 8-row sublane floor) do not carry
-over: every real f32/f64 potrf tile goes through ``chol_tile``, and every
-panel base of width 1..128 (any height) goes through ``lu_panel_base``.
+over: every real f32/f64 potrf tile goes through ``chol_tile``, every
+panel base of width 1..128 (any height) goes through ``lu_panel_base``,
+and every ``panel_geqrf`` base goes through ``qr_panel_base`` (w ≤ 32) or
+``qr_panel_base_wide`` (32 < w ≤ 128, w % 32 == 0), at any height.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ import torch
 from ..core.exceptions import SlateError
 from . import _build
 
-LAUNCHES: Dict[str, int] = {"chol_tile": 0, "lu_panel_base": 0}
+LAUNCHES: Dict[str, int] = {"chol_tile": 0, "lu_panel_base": 0,
+                            "qr_panel_base": 0, "qr_panel_base_wide": 0}
 
 _REAL = (torch.float32, torch.float64)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -219,3 +223,162 @@ def lu_panel_base(a: torch.Tensor):
               f"lu_panel_base (H={hh}, w={w})")
     LAUNCHES["lu_panel_base"] += 1
     return lu, perm, info
+
+
+# ---------------------------------------------------------------------------
+# K3 and K4: Householder QR of one tall panel base
+# ---------------------------------------------------------------------------
+
+QR_PANEL_MAX_W = 128
+QR_WIDE_MB = 32  # K4's micro-block width and K3's widest panel
+
+
+def qr_panel_wide_eligible(w: int) -> bool:
+    """Whether ``panel_geqrf`` hands a (non-base) panel to
+    ``qr_panel_base_wide`` whole: 32 < w ≤ 128 with w % 32 == 0, at any
+    height."""
+    return QR_WIDE_MB < w <= QR_PANEL_MAX_W and w % QR_WIDE_MB == 0
+
+
+def larfg(alpha: torch.Tensor, sig: torch.Tensor):
+    """Scalars of the Householder reflector of [alpha; x] with
+    sig = ‖x‖² (the real case of the reference's ``blocked._larfg``):
+    (beta_out, tau, scale) with v = [1; x·scale], beta = +‖·‖ if
+    alpha ≤ 0 else −‖·‖, tau = (beta − alpha)/beta,
+    scale = 1/(alpha − beta). A zero tail gives tau = 0, scale = 0 and
+    alpha kept (H = I). 0-d device tensors, no host sync; NaN
+    propagates."""
+    one, zero = torch.ones_like(alpha), torch.zeros_like(alpha)
+    anorm = torch.sqrt(alpha * alpha + sig)
+    beta = torch.where(alpha <= 0, anorm, -anorm)
+    degen = sig == 0
+    beta_safe = torch.where(degen | (beta == 0), one, beta)
+    denom_safe = torch.where(degen, one, alpha - beta)
+    tau = torch.where(degen, zero, (beta - alpha) / beta_safe)
+    scale = torch.where(degen, zero, 1.0 / denom_safe)
+    return torch.where(degen, alpha, beta), tau, scale
+
+
+def _householder_column(vr: torch.Tensor, taus: torch.Tensor, j: int,
+                        hi: int):
+    """Column j of the panel QR, IN PLACE on ``vr``: larfg of the
+    column, then the reflector applied to the lanes j < c < hi."""
+    col = vr[j:, j]
+    tail = col[1:]
+    beta, tau, scale = larfg(col[0], (tail * tail).sum())
+    v = col.clone()
+    v[1:] *= scale
+    v[0] = 1
+    if j + 1 < hi:
+        w_row = v @ vr[j:, j + 1:hi]
+        vr[j:, j + 1:hi] -= torch.outer(tau * v, w_row)
+    vr[j + 1:, j] = v[1:]
+    vr[j, j] = beta
+    taus[j] = tau
+
+
+def larft_columnwise(g: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
+    """Upper-triangular T of the compact-WY form I − V·T·Vᵀ from the Gram
+    matrix G = VᵀV and the taus, by LAPACK's forward column recurrence
+    T[:i, i] = −τᵢ·(T[:i, :i]·G[:i, i]), T[i, i] = τᵢ (the reference's
+    ``_larft_base``; K4 computes its T the same way)."""
+    w = taus.shape[0]
+    t = torch.zeros((w, w), dtype=g.dtype, device=g.device)
+    for i in range(w):
+        t[:i, i] = -taus[i] * (t[:i, :i] @ g[:i, i])
+        t[i, i] = taus[i]
+    return t
+
+
+def qr_panel_base_plain(a: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K3 (= ``blocked._panel_geqrf_base``): one larfg
+    and one rank-1 reflector update per column. Returns (vr, taus):
+    beta on the diagonal, v tails below, R above; taus (w,)."""
+    vr = a.clone()
+    w = a.shape[1]
+    taus = torch.zeros(w, dtype=a.dtype, device=a.device)
+    for j in range(w):
+        _householder_column(vr, taus, j, w)
+    return vr, taus
+
+
+def qr_panel_base_wide_plain(a: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K4, with the kernel's association: per 32-column
+    micro-block, K3's column loop confined to the micro lanes, then one
+    compact-WY update C ← C − V·(Tᵀ·(Vᵀ·C)) of the lanes to its right,
+    with T = larft_columnwise(VᵀV, taus) of the micro-block alone."""
+    vr = a.clone()
+    w = a.shape[1]
+    taus = torch.zeros(w, dtype=a.dtype, device=a.device)
+    for m0 in range(0, w, QR_WIDE_MB):
+        hi = m0 + QR_WIDE_MB
+        for j in range(m0, hi):
+            _householder_column(vr, taus, j, hi)
+        if hi < w:
+            v = torch.tril(vr[m0:, m0:hi], -1)
+            v.diagonal().fill_(1)
+            t = larft_columnwise(v.mT @ v, taus[m0:hi])
+            c = vr[m0:, hi:]
+            c -= v @ (t.mT @ (v.mT @ c))
+    return vr, taus
+
+
+def _check_qr_panel(name: str, a: torch.Tensor, ok_width):
+    if a.ndim != 2:
+        raise SlateError(f"{name}: expects a 2-D panel")
+    if a.dtype not in _REAL:
+        raise NotImplementedError(
+            f"{name}: real float32/float64 only, got {a.dtype}")
+    hh, w = a.shape
+    if w > hh or not ok_width(w):
+        raise SlateError(f"{name}: width {w} out of range for an "
+                         f"{(hh, w)} panel")
+
+
+def _qr_launch(name: str, sym: str, a: torch.Tensor):
+    _check_cuda_args(name, a)
+    hh, w = a.shape
+    vr = torch.empty_like(a)
+    taus = torch.empty(w, dtype=a.dtype, device=a.device)
+    f = _fn("qr_panel", f"{sym}_{_SUFFIX[a.dtype]}", [_P, _P, _P, _I, _I, _P])
+    with torch.cuda.device(a.device):
+        rc = f(a.data_ptr(), vr.data_ptr(), taus.data_ptr(), hh, w,
+               torch.cuda.current_stream(a.device).cuda_stream)
+    _raise_on(rc, "qr_panel", "slate_qr_error_string",
+              f"{name} (H={hh}, w={w})")
+    LAUNCHES[name] += 1
+    return vr, taus
+
+
+def qr_panel_base(a: torch.Tensor):
+    """Householder QR of one (H, w) panel base, 0 < w ≤ min(H, 32),
+    → (vr, taus) with the ``_panel_geqrf_base`` contract.
+
+    Replaces ``pallas_ops.qr_panel_base`` (pallas_ops.py:682-697). The
+    CUDA kernel (csrc/qr_panel.cu) is one block looping over the w
+    columns, the panel kept in global memory (L2); it is bound by the
+    panel's bytes re-read through one SM per column. Equal to the plain
+    version up to the order of its H-long reductions."""
+    _check_qr_panel("qr_panel_base", a, lambda w: 0 < w <= QR_WIDE_MB)
+    if a.device.type == "cpu":
+        return qr_panel_base_plain(a)
+    return _qr_launch("qr_panel_base", "slate_qr_panel", a)
+
+
+def qr_panel_base_wide(a: torch.Tensor):
+    """Householder QR of one wide (H, w) panel, 32 < w ≤ 128 and
+    w % 32 == 0, in 32-column micro-blocks with a compact-WY update
+    between them → (vr, taus), K3's contract.
+
+    Replaces ``pallas_ops.qr_panel_base_wide`` (pallas_ops.py:662-679).
+    Same CUDA source and bound as K3; the lanes right of a micro-block
+    are read once per micro-block instead of once per column. Equal to
+    ``qr_panel_base_wide_plain`` up to reduction order, and to the
+    unblocked column loop (``qr_panel_base_plain``) to tolerance
+    (reassociated trailing arithmetic)."""
+    _check_qr_panel("qr_panel_base_wide", a, qr_panel_wide_eligible)
+    if a.device.type == "cpu":
+        return qr_panel_base_wide_plain(a)
+    return _qr_launch("qr_panel_base_wide", "slate_qr_panel_wide", a)

@@ -3,8 +3,10 @@ core of ``slate_tpu/runtime/session.py``).
 
 A Session registers operators, factors each once on first use, keeps
 the factor resident under a byte budget (LRU eviction, refactor on
-miss) and serves solves from it. This slice covers dense ``TiledMatrix``
-operators under ``op`` "chol" and "lu". The reference's Batcher,
+miss) and serves solves from it. The ported slices cover dense
+``TiledMatrix`` operators under ``op`` "chol", "lu" and "qr" (tall
+least-squares operators: ``solve`` takes m-row right-hand sides and
+returns n-row solutions). The reference's Batcher,
 Executor, refinement, meshes, band and small-problem operators,
 tracing and fault injection are later slices: registering such an
 operator raises ``NotImplementedError``.
@@ -23,15 +25,15 @@ import torch
 
 from .. import api
 from ..core.exceptions import SlateError
+from ..linalg.qr import QRFactors
 from ..core.tiled_matrix import TiledMatrix, from_dense, resolve_device
 from ..core.types import MatrixKind, Options, DEFAULT_OPTIONS
 from ..obs import flops as _flops
 from .metrics import Metrics
 
-OPS = ("lu", "chol")
+OPS = ("lu", "chol", "qr")
 # op kinds of the reference Session that later slices port
-LATER_OPS = ("qr", "band_lu", "band_chol", "lu_small", "chol_small", "eig",
-             "svd")
+LATER_OPS = ("band_lu", "band_chol", "lu_small", "chol_small", "eig", "svd")
 
 
 @dataclasses.dataclass
@@ -53,8 +55,11 @@ class _Resident:
 def _payload_nbytes(payload) -> int:
     total = 0
     for p in payload:
-        t = p.data if isinstance(p, TiledMatrix) else p
-        total += t.numel() * t.element_size()
+        if isinstance(p, QRFactors):
+            tensors = (p.vr, p.t)
+        else:
+            tensors = (p.data if isinstance(p, TiledMatrix) else p,)
+        total += sum(t.numel() * t.element_size() for t in tensors)
     return total
 
 
@@ -64,10 +69,13 @@ def _make_factor_fn(op: str, opts: Options):
         def factor(A):
             LU, perm, info = api.lu_factor(A, opts)
             return (LU, perm), info
-    else:
+    elif op == "chol":
         def factor(A):
             L, info = api.chol_factor(A, opts)
             return (L,), info
+    else:
+        def factor(A):
+            return (api.qr_factor(A, opts),), 0
     return factor
 
 
@@ -77,9 +85,13 @@ def _make_solve_fn(op: str, opts: Options):
         def solve(payload, B):
             LU, perm = payload
             return api.lu_solve_using_factor(LU, perm, B, opts)
-    else:
+    elif op == "chol":
         def solve(payload, B):
             return api.chol_solve_using_factor(payload[0], B, opts)
+    else:
+        def solve(payload, B):
+            return api.least_squares_solve_using_factor(payload[0], B,
+                                                        opts)
     return solve
 
 
@@ -120,8 +132,9 @@ class Session:
                  handle: Optional[Hashable] = None,
                  opts: Optional[Options] = None) -> Hashable:
         """Register an operator; returns its handle (an int unless
-        given). ``op`` is "chol", "lu" or "auto" (Hermitian/Symmetric →
-        chol, square general → lu)."""
+        given). ``op`` is "chol", "lu", "qr" or "auto" (Hermitian/
+        Symmetric → chol, square general → lu, non-square → qr). A "qr"
+        operator must be tall (m ≥ n); chol and lu need a square one."""
         if op == "auto":
             op = self._infer_op(A)
         if op in LATER_OPS:
@@ -137,7 +150,15 @@ class Session:
             raise SlateError(f"Session.register: operand on {A.device}, "
                              f"session on {self.device}")
         m, n = A.shape
-        if m != n:
+        if op == "qr":
+            if m < n:
+                # gels_using_factor covers only the overdetermined case;
+                # the minimum-norm path needs LQ factors
+                raise SlateError(
+                    "Session.register: wide (m < n) operators are not "
+                    "servable via resident QR; use least_squares_solve "
+                    "per call")
+        elif m != n:
             raise SlateError(f"Session.register: {op} needs a square "
                              f"operand, got {(m, n)}")
         with self._lock:
@@ -220,6 +241,8 @@ class Session:
             t0 = time.perf_counter()
             payload, info = _make_factor_fn(entry.op, entry.opts)(entry.A)
             res = _Resident(payload, int(info), _payload_nbytes(payload))
+            if self.device.type == "cuda":  # the QR factor has no info sync
+                torch.cuda.synchronize(self.device)
             self.metrics.observe("factor_latency", time.perf_counter() - t0)
             self.metrics.inc("factors_total")
             fl = _flops.factor_flops(entry.op, entry.m, entry.n)
@@ -261,8 +284,9 @@ class Session:
             return X
 
     def solve(self, handle: Hashable, b) -> np.ndarray:
-        """Array in, array out: ``b`` of shape (n,) or (n, k) (numpy or
-        tensor); returns the solution as numpy with the same rank."""
+        """Array in, array out: ``b`` of shape (m,) or (m, k) (numpy or
+        tensor); returns the solution as numpy with the same rank (n
+        rows; m = n except for "qr" operators)."""
         with self._lock:
             entry = self._ops.get(handle)
             if entry is None:

@@ -8,7 +8,11 @@ themselves are held against the plain versions on the card by
 chip_smoke.py.
 
 Tolerances: values 1e-5 relative in float32 (summation order differs);
-perm and info exact.
+perm and info exact. QR panels (K3, K4) in float32: taus to 1e-6 and the
+packed V\\R to 1e-4 absolute (entries of size ≤ ~16 at these heights;
+the same bounds tests/test_pallas.py holds the Pallas kernels to against
+the fori base), K4 against the unblocked base to 2e-6 / 2e-4 (its
+compact-WY update reassociates); a zero column's tau exactly 0.
 """
 
 import os
@@ -134,13 +138,29 @@ def test_cpu_dispatch_counts_no_launch_and_rejects_complex():
     out = hopper_ops.lu_panel_base(p)
     ref = hopper_ops.lu_panel_base_plain(p)
     assert all(torch.equal(x, y) for x, y in zip(out, ref))
-    assert hopper_ops.LAUNCHES == {"chol_tile": 0, "lu_panel_base": 0}
+    for launcher, plain, w in ((hopper_ops.qr_panel_base,
+                                hopper_ops.qr_panel_base_plain, 32),
+                               (hopper_ops.qr_panel_base_wide,
+                                hopper_ops.qr_panel_base_wide_plain, 64)):
+        q = torch.from_numpy(RNG.standard_normal((96, w)))
+        assert all(torch.equal(x, y) for x, y in zip(launcher(q), plain(q)))
+    assert set(hopper_ops.LAUNCHES) == {"chol_tile", "lu_panel_base",
+                                        "qr_panel_base", "qr_panel_base_wide"}
+    assert not any(hopper_ops.LAUNCHES.values())
     with pytest.raises(NotImplementedError):
         hopper_ops.chol_tile(a.to(torch.complex128))
-    with pytest.raises(NotImplementedError):
-        hopper_ops.lu_panel_base(p.to(torch.complex128))
+    for launcher in (hopper_ops.lu_panel_base, hopper_ops.qr_panel_base,
+                     hopper_ops.qr_panel_base_wide):
+        with pytest.raises(NotImplementedError):
+            launcher(torch.zeros((64, 64), dtype=torch.complex128))
     with pytest.raises(SlateError):
         hopper_ops.lu_panel_base(p.T)   # w > H
+    with pytest.raises(SlateError):
+        hopper_ops.qr_panel_base(p.T)   # w > H
+    with pytest.raises(SlateError):
+        hopper_ops.qr_panel_base(torch.zeros((96, 64)))  # wider than K3
+    with pytest.raises(SlateError):
+        hopper_ops.qr_panel_base_wide(p[:, :6])  # not a K4 width
 
 
 def test_gates():
@@ -151,17 +171,97 @@ def test_gates():
     assert hopper_ops.lu_panel_eligible(4)
     assert not hopper_ops.lu_panel_eligible(129)
     assert not hopper_ops.lu_panel_eligible(256)
+    for w in (64, 96, 128):
+        assert hopper_ops.qr_panel_wide_eligible(w)
+    for w in (4, 32, 80, 100, 160, 256):
+        assert not hopper_ops.qr_panel_wide_eligible(w)
 
 
-@pytest.mark.parametrize("launcher,shape", [(hopper_ops.chol_tile, (8, 8)),
-                                            (hopper_ops.lu_panel_base, (64, 4))])
+@pytest.mark.parametrize("launcher,shape", [
+    (hopper_ops.chol_tile, (8, 8)), (hopper_ops.lu_panel_base, (64, 4)),
+    (hopper_ops.qr_panel_base, (64, 4)),
+    (hopper_ops.qr_panel_base_wide, (64, 64))])
 def test_non_cpu_tensor_never_runs_the_plain_version(launcher, shape):
     """Off the CPU a wrapper launches its kernel or raises: a tensor on a
     device that is neither gets an error, not the plain version."""
     hopper_ops.reset_launches()
     with pytest.raises(SlateError, match="unsupported device"):
         launcher(torch.empty(shape, device="meta"))
-    assert hopper_ops.LAUNCHES == {"chol_tile": 0, "lu_panel_base": 0}
+    assert not any(hopper_ops.LAUNCHES.values())
+
+
+def _qr_reconstruction_err(a, vr, taus):
+    """max |Q·R − A| in float64 from packed V\\R and taus."""
+    h, w = a.shape
+    v = np.tril(vr, -1)[:, :w].astype(np.float64)
+    v[np.arange(w), np.arange(w)] = 1.0
+    qr = np.triu(vr)[:w].astype(np.float64)
+    qr = np.vstack([qr, np.zeros((h - w, w))])
+    for j in range(w - 1, -1, -1):       # Q·[R; 0] = H₀·…·H_{w−1}·[R; 0]
+        qr -= float(taus[j]) * np.outer(v[:, j], v[:, j] @ qr)
+    return np.abs(qr - a).max()
+
+
+@pytest.mark.parametrize("h,w,zero_col", [(128, 32, None), (256, 16, None),
+                                          (64, 8, 3)])
+def test_qr_panel_plain_matches_pallas_interpret(h, w, zero_col):
+    """K3's plain version against the Pallas kernel in interpret mode and
+    against the reference's fori base; a column that is zero on input
+    stays zero under the earlier reflectors and gets tau = 0 exactly."""
+    a = RNG.standard_normal((h, w)).astype(np.float32)
+    if zero_col is not None:
+        a[:, zero_col] = 0.0
+    vr, taus = (x.numpy() for x in hopper_ops.qr_panel_base(
+        torch.from_numpy(a)))
+    for ref in (pallas_ops.qr_panel_base(jnp.asarray(a), interpret=True),
+                ref_blocked._panel_geqrf_base(jnp.asarray(a))):
+        vr_r, tau_r = (np.asarray(x) for x in ref)
+        assert tau_r.shape == taus.shape == (w,)
+        np.testing.assert_allclose(taus, tau_r, atol=1e-6)
+        np.testing.assert_allclose(vr, vr_r, atol=1e-4)
+    assert _qr_reconstruction_err(a, vr, taus) < 5e-4
+    if zero_col is not None:
+        assert taus[zero_col] == 0.0 and float(tau_r[zero_col]) == 0.0
+
+
+def test_qr_panel_wide_plain_matches_pallas_interpret():
+    """K4's plain version at (128, 64) against the Pallas wide kernel in
+    interpret mode (the same micro-blocked algorithm), with a zero column
+    in the second micro-block."""
+    a = RNG.standard_normal((128, 64)).astype(np.float32)
+    a[:, 37] = 0.0
+    vr, taus = (x.numpy() for x in hopper_ops.qr_panel_base_wide(
+        torch.from_numpy(a)))
+    vr_k, tau_k = (np.asarray(x) for x in pallas_ops.qr_panel_base_wide(
+        jnp.asarray(a), interpret=True))
+    np.testing.assert_allclose(taus, tau_k, atol=2e-6)
+    np.testing.assert_allclose(vr, vr_k, atol=2e-4)
+    assert taus[37] == 0.0 and tau_k[37] == 0.0
+
+
+def test_qr_panel_wide_plain_matches_unblocked_base():
+    """K4's plain version at (256, 128) — four micro-blocks, three
+    compact-WY updates — against the reference's unblocked fori base."""
+    a = RNG.standard_normal((256, 128)).astype(np.float32)
+    vr, taus = (x.numpy() for x in hopper_ops.qr_panel_base_wide(
+        torch.from_numpy(a)))
+    vr_r, tau_r = (np.asarray(x) for x in ref_blocked._panel_geqrf_base(
+        jnp.asarray(a)))
+    np.testing.assert_allclose(taus, tau_r, atol=2e-6)
+    np.testing.assert_allclose(vr, vr_r, atol=2e-4)
+    assert _qr_reconstruction_err(a, vr, taus) < 1e-3
+
+
+def test_qr_panel_nan_propagates():
+    """A NaN in a column poisons that column's tau and every later
+    column it reaches (no masking); the columns before stay finite."""
+    a = RNG.standard_normal((96, 64))
+    a[50, 5] = np.nan
+    for launcher, w in ((hopper_ops.qr_panel_base, 32),
+                        (hopper_ops.qr_panel_base_wide, 64)):
+        vr, taus = launcher(torch.from_numpy(a[:, :w]))
+        assert torch.isfinite(taus[:5]).all() and torch.isnan(taus[5:]).all()
+        assert torch.isfinite(vr[:, :5]).all()
 
 
 @pytest.mark.parametrize("name", _build.SOURCES)

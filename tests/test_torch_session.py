@@ -2,7 +2,8 @@
 
 - register/factor/solve and LRU eviction at n = 128 against the
   reference Session's ``solve`` on the same operators (X to 1e-10
-  relative in float64: summation order differs);
+  relative in float64: summation order differs), for chol, lu and a
+  tall (200 × 96) least-squares operator under "qr";
 - ``interop.reference`` carries the reference Session's resident
   factors (as numpy) into the port, whose potrs/getrs then give the
   reference's X;
@@ -103,6 +104,49 @@ def test_interop_reference_factors_give_reference_solutions():
     np.testing.assert_array_equal(A.to_numpy(), spd)
 
 
+@functools.lru_cache(maxsize=None)
+def _qr_problem():
+    rng = np.random.default_rng(123)
+    a = rng.standard_normal((200, 96))
+    b = rng.standard_normal((200, 2))
+    sess = RefSession()
+    h = sess.register(st.from_dense(a, NB))
+    x = sess.solve(h, b)
+    QR = sess.factor(h).payload[0]
+    return a, b, x, (np.asarray(QR.vr), np.asarray(QR.t))
+
+
+def test_session_serves_qr_like_reference_session():
+    """A tall operator registered with op="auto" is served as "qr":
+    m-row right-hand sides in, n-row least-squares solutions out, the
+    reference Session's X; the resident bytes are V\\R and T."""
+    a, b, x_ref, _ = _qr_problem()
+    sess = stt.Session(device="cpu")
+    h = sess.register(stt.from_dense(a, NB, device="cpu"))
+    assert sess._ops[h].op == "qr"
+    x = sess.solve(h, b)
+    assert x.shape == (96, 2)
+    assert _rel(x, x_ref) < 1e-10
+    x1 = sess.solve(h, b[:, 0])
+    assert x1.shape == (96,) and _rel(x1, x_ref[:, 0]) < 1e-10
+    QR = sess.factor(h).payload[0]
+    assert sess.cached_bytes == (QR.vr.numel() + QR.t.numel()) * 8
+    m = sess.metrics.snapshot()["counters"]
+    assert m["factors_total"] == 1 and m["solves_total"] == 3
+    assert m["factor_flops_total"] == 2 * 200 * 96 ** 2 - 2 * 96 ** 3 / 3
+    assert m["solve_flops_total"] == (4 * 200 * 96 - 2 * 96 ** 2) * 3
+
+
+def test_interop_reference_qr_factor_gives_reference_solution():
+    a, b, x_ref, arrays = _qr_problem()
+    (QR,) = factor_from_arrays("qr", arrays, nb=NB, logical_shape=(200, 96),
+                               device="cpu")
+    assert isinstance(QR, stt.QRFactors) and (QR.m, QR.n) == (200, 96)
+    X = stt.least_squares_solve_using_factor(
+        QR, stt.from_dense(b, NB, device="cpu"))
+    assert _rel(X.to_numpy(), x_ref) < 1e-10
+
+
 def test_lru_eviction_under_budget():
     factor_bytes = N * N * 8
     sess, hc, hl = _port_session(hbm_budget=factor_bytes + N * 4)
@@ -142,8 +186,14 @@ def test_register_rejects_unported_and_bad_operands():
     sess = stt.Session(device="cpu")
     with pytest.raises(NotImplementedError, match="lu_small"):
         sess.register(np.eye(4))
-    with pytest.raises(NotImplementedError, match="qr"):
-        sess.register(stt.from_dense(np.ones((8, 4)), 4, device="cpu"))
+    with pytest.raises(NotImplementedError, match="band_lu"):
+        sess.register(stt.from_dense(np.eye(4), 4, device="cpu"),
+                      op="band_lu")
+    with pytest.raises(stt.SlateError, match="wide"):
+        sess.register(stt.from_dense(np.ones((4, 8)), 4, device="cpu"))
+    with pytest.raises(stt.SlateError, match="square"):
+        sess.register(stt.from_dense(np.ones((8, 4)), 4, device="cpu"),
+                      op="lu")
     with pytest.raises(stt.SlateError, match="unknown op"):
         sess.register(stt.from_dense(np.eye(4), 4, device="cpu"), op="x")
     h = sess.register(stt.from_dense(np.eye(4), 4, device="cpu"), handle="a")
