@@ -12,23 +12,31 @@ Phases, one JSON line each:
            the main path's shapes and a few more, plus the failure
            contracts (NaN pivot for chol_tile, zero column for
            lu_panel_base, tau = 0 on a zeroed column and NaN propagation
-           for the QR panels)
+           for the QR panels, a NaN row of A for herk_lower_update, whose
+           strict upper triangle of C must also stay bitwise unchanged,
+           in place in a strided view too)
            and a float64 Q·R reconstruction of the timed QR panels;
            kernel, plain and library times by CUDA events (warm, median
-           of 7);
+           of 7), and for herk_lower_update the cuBLAS recursion too;
 4. check   posv/gesv/gels on the card at small uneven sizes against
            float64 numpy; gels at nb = 32 runs qr_panel_base in every
            panel, at nb = 128 qr_panel_base_wide, and a wide operand runs
-           the minimum-norm path through gelqf;
+           the minimum-norm path through gelqf; gels by CholQR at
+           (20000, 9000), nb = 128, whose 71-block-column Gram matrix
+           takes potrf's recursion (herk_lower_update 7 times), against a
+           float64 lstsq; tsqr; the BLAS-3 verbs and norm against float64
+           torch;
 5. main    the serving path: a Session registers an SPD operator (chol),
-           a general one (lu) and a tall (2n × n/2) one (op "auto" must
-           infer qr), factors each once and serves 8 requests from each
-           resident factor (single right-hand sides and 16-column
-           blocks), every scaled residual checked; every served qr
-           column is held to a float64 normal-equations solve (relative
-           error ≤ QR_REL_LIMIT), and a 1 %-perturbed and a random answer
-           must fail that check. Peak memory is read before the float64
-           checks allocate.
+           a general one (lu), a tall (2n × n/2) one (op "auto" must
+           infer qr) and the SPD operator again at nb = n/128 (128 block
+           columns: potrf's recursion, exactly 7 herk_lower_update and
+           128 chol_tile launches at n = 16384), factors each once and
+           serves 8 requests from each resident factor (single
+           right-hand sides and 16-column blocks), every scaled residual
+           checked; every served qr column is held to a float64
+           normal-equations solve (relative error ≤ QR_REL_LIMIT), and a
+           1 %-perturbed and a random answer must fail that check. Peak
+           memory is read before the float64 checks allocate.
 
 The kernels' launch counters are zeroed just before the check phase and
 just before the main phase and read just after each; the launches made
@@ -264,6 +272,87 @@ def qr_nan_case(torch, ho, gen):
     return out
 
 
+def herk_case(torch, ho, blocked, n, k, dtype, gen, timed: bool,
+              strided: bool = False):
+    """K5 against its plain version. Tolerance: the two differ only in
+    the order of their k-long sums, so the lower triangle is held to
+    4·ε·√k relative to max(|C| + |A|·|A|ᵀ); the strict upper triangle of
+    C must be bitwise unchanged. ``strided``: C is the view big[h:, h:]
+    and A = big[h:, :h] (h = k) of one (n + k)² tensor, as the recursive
+    potrf hands them over, and nothing of big outside C's lower triangle
+    may change."""
+    if strided:
+        big = torch.randn((n + k, n + k), generator=gen, device="cuda",
+                          dtype=dtype)
+        bk, bp = big.clone(), big.clone()
+        ck, ak, cp, ap = bk[k:, k:], bk[k:, :k], bp[k:, k:], bp[k:, :k]
+    else:
+        c = torch.randn((n, n), generator=gen, device="cuda", dtype=dtype)
+        ak = ap = torch.randn((n, k), generator=gen, device="cuda",
+                              dtype=dtype)
+        ck, cp = c.clone(), c.clone()
+    c0 = ck.clone()
+    out = ho.herk_lower_update(ck, ak)
+    ho.herk_lower_update_plain(cp, ap)
+    torch.cuda.synchronize()
+    check(out.data_ptr() == ck.data_ptr(), "herk_lower_update: not in place")
+    low = torch.ones((n, n), dtype=torch.bool, device="cuda").tril()
+    scale = (c0.abs() + ak.abs() @ ak.abs().mT).max().item()
+    err = (ck - cp)[low].abs().max().item()
+    tol = 4 * torch.finfo(dtype).eps * math.sqrt(k)
+    check(math.isfinite(err) and err <= tol * scale,
+          f"herk_lower_update {(n, k)} {dtype}: |kernel - plain| = {err} > "
+          f"{tol} * {scale}")
+    check(torch.equal(ck[~low], c0[~low]),
+          f"herk_lower_update {(n, k)}: strict upper of C changed")
+    if strided:
+        keep = torch.ones_like(bk, dtype=torch.bool)
+        keep[k:, k:] = ~low
+        check(torch.equal(bk[keep], big[keep]),
+              "herk_lower_update: wrote outside the lower triangle of the "
+              "strided view")
+    row = {"n": n, "k": k, "dtype": str(dtype).split(".")[1],
+           "strided": strided, "max_abs_err": err, "rel_err": err / scale,
+           "tol": tol, "upper_unchanged": True}
+    if timed or n == k:  # the kernel at each square shape of the path
+        work = c0.clone()
+        row["ms"] = cuda_ms(lambda: ho.herk_lower_update(work, ak))
+    if timed:
+        c, a = c0, ak
+        row["plain_ms"] = cuda_ms(lambda: ho.herk_lower_update_plain(work, a),
+                                  reps=5)
+        row["recursion_ms"] = cuda_ms(lambda: blocked.herk_lower_rec(c, a, a))
+        # the full product: twice the flops of the lower-triangle update
+        row["library_ms"] = cuda_ms(lambda: torch.addmm(c, a, a.mT, alpha=-1))
+        s = a.element_size()
+        row["bound_ms"], row["bound_by"] = bound(
+            n * (n + 1) * s + n * k * s, float(n) * (n + 1) * k,
+            row["dtype"])
+    return row
+
+
+def herk_nan_case(torch, ho, gen):
+    """A NaN in row r of A makes row r and column r of the lower result
+    NaN and leaves every other lower entry finite, in the kernel and in
+    its plain version."""
+    n, k, r = 1000, 300, 377
+    c = torch.randn((n, n), generator=gen, device="cuda")
+    a = torch.randn((n, k), generator=gen, device="cuda")
+    a[r, 5] = math.nan
+    low = torch.ones((n, n), dtype=torch.bool, device="cuda").tril()
+    hit = torch.zeros_like(low)
+    hit[r, :] = True
+    hit[:, r] = True
+    for name, fn in (("kernel", ho.herk_lower_update),
+                     ("plain", ho.herk_lower_update_plain)):
+        out = fn(c.clone(), a)
+        check(bool(torch.isnan(out[low & hit]).all())
+              and bool(torch.isfinite(out[low & ~hit]).all())
+              and torch.equal(out[~low], c[~low]),
+              f"herk_lower_update {name}: NaN contract broken at row {r}")
+    return {"n": n, "k": k, "nan_row": r, "row_and_col_nan": True}
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: factorizations and the serving path
 # ---------------------------------------------------------------------------
@@ -328,6 +417,124 @@ def gels_check(torch, stt, ho, gen):
     return out
 
 
+# (herk_lower_update, chol_tile) launches of the recursive potrf at
+# nb = n/128, by n: one K5 per split (16384 → 8192 → 4096 → 2048, and
+# 2048 → 1024 in the --n 2048 rehearsal), 128 K1 at the leaves
+REC_POTRF_LAUNCHES = {16384: (7, 128), 2048: (1, 128)}
+
+
+def cholqr_gels_check(torch, stt, ho, gen):
+    """gels by CholQR at (20000, 9000), nb = 128, float32, against a
+    float64 lstsq on the card: the Gram matrix has 71 block columns, so
+    its potrf is the recursion and launches herk_lower_update 7 times."""
+    m, n, nb = 20000, 9000, 128
+    a = torch.randn((m, n), generator=gen, device="cuda")
+    b = torch.randn((m, 2), generator=gen, device="cuda")
+    before = dict(ho.LAUNCHES)
+    t0 = time.perf_counter()
+    X = stt.gels(stt.from_dense(a, nb, device="cuda"),
+                 stt.from_dense(b, nb, device="cuda"),
+                 stt.Options(method_gels=stt.MethodGels.CholQR))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: ho.LAUNCHES[k] - before[k] for k in ho.LAUNCHES}
+    x = X.dense()[:n, :2]
+    ref = torch.linalg.lstsq(a.double(), b.double(), driver="gels").solution
+    rel = ((x.double() - ref).abs().max() / ref.abs().max()).item()
+    check(X.shape == (n, 2) and bool(torch.isfinite(x).all()),
+          "gels CholQR: bad output")
+    check(rel <= 1e-3, f"gels CholQR: relative error {rel} vs float64 lstsq")
+    check(launches["herk_lower_update"] == 7 and launches["chol_tile"] == 71,
+          f"gels CholQR launched {launches}, expected (K5, K1) = (7, 71)")
+    return {"m": m, "n": n, "nb": nb, "rel_err": rel, "seconds": seconds,
+            "launches": launches}
+
+
+def tsqr_check(torch, stt, gen):
+    """tsqr at (4000, 300), nb = 64, float32: ‖Q·R − A‖ / ‖A‖ and
+    ‖QᵀQ − I‖ (max entries) in float64, each ≤ 1e-4 (CholeskyQR2 leaves
+    Q orthogonal to a small multiple of ε)."""
+    m, n = 4000, 300
+    a = torch.randn((m, n), generator=gen, device="cuda")
+    Q, R = stt.tsqr(stt.from_dense(a, 64, device="cuda"))
+    q, r = Q.dense()[:m, :n].double(), R.dense()[:n, :n].double()
+    rec = ((q @ r - a.double()).abs().max() / a.abs().max()).item()
+    orth = (q.T @ q - torch.eye(n, device="cuda",
+                                dtype=torch.float64)).abs().max().item()
+    check(rec <= 1e-4 and orth <= 1e-4,
+          f"tsqr: reconstruction {rec}, orthogonality {orth}")
+    return {"m": m, "n": n, "reconstruction": rec, "orthogonality": orth}
+
+
+def blas3_check(torch, stt, gen):
+    """The BLAS-3 verbs and norm on the card at small uneven sizes, float32,
+    against float64 torch on the same inputs: relative error (to the
+    largest entry of the float64 result) ≤ 1e-4. Symmetric/Hermitian/
+    Triangular operands carry 1e6 junk in the triangle they do not store."""
+    m, n, k, nb = 300, 200, 150, 64
+    dev = "cuda"
+    f64 = torch.float64
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def fd(x, **kw):
+        return stt.from_dense(x, nb, device=dev, **kw)
+
+    def logical(T):
+        return T.dense()[: T.shape[0], : T.shape[1]].double()
+
+    a, b, c = rnd(m, k), rnd(k, n), rnd(m, n)
+    s_m, s_n = rnd(m, m), rnd(n, n)
+    sym, herm = s_m + s_m.T, s_n + s_n.T
+    junk_m, junk_n = 1e6 * torch.triu(rnd(m, m), 1), 1e6 * torch.tril(
+        rnd(n, n), -1)
+    tri = torch.tril(rnd(m, m)) + 4 * math.sqrt(m) * torch.eye(m, device=dev)
+    csym = rnd(n, n)
+    csym = csym + csym.T
+    an, bn = rnd(n, k), rnd(n, k)
+    A, B, C = a.double(), b.double(), c.double()
+    rows = {}
+
+    def rel(name, got, want):
+        rows[name] = ((got - want).abs().max() / want.abs().max()).item()
+
+    rel("gemm", logical(stt.multiply(1.5, fd(a), fd(b), -0.5, fd(c))),
+        1.5 * A @ B - 0.5 * C)
+    rel("symm", logical(stt.multiply(
+        1.0, fd(torch.tril(sym) + junk_m, kind=stt.MatrixKind.Symmetric,
+                uplo=stt.Uplo.Lower), fd(c), 0.5, fd(c))),
+        sym.double() @ C + 0.5 * C)
+    rel("hemm", logical(stt.multiply(
+        1.0, fd(c), fd(torch.triu(herm) + junk_n,
+                       kind=stt.MatrixKind.Hermitian, uplo=stt.Uplo.Upper),
+        0.0, fd(c))), C @ herm.double())
+    low = torch.ones((n, n), dtype=torch.bool, device=dev).tril()
+    Cs = fd(csym, kind=stt.MatrixKind.Symmetric, uplo=stt.Uplo.Lower)
+    AN, BN, CS = an.double(), bn.double(), csym.double()
+    rel("syrk", logical(stt.rank_k_update(-1.0, fd(an), 1.0, Cs))[low],
+        (CS - AN @ AN.T)[low])
+    rel("syr2k", logical(stt.rank_2k_update(0.5, fd(an), fd(bn), 1.0,
+                                            Cs))[low],
+        (CS + 0.5 * (AN @ BN.T + BN @ AN.T))[low])
+    T = fd(tri + junk_m, kind=stt.MatrixKind.Triangular, uplo=stt.Uplo.Lower)
+    TR = tri.double()
+    rel("trmm", logical(stt.triangular_multiply(2.0, T, fd(c))), 2.0 * TR @ C)
+    rel("trsm", logical(stt.triangular_solve(2.0, T, fd(c))),
+        torch.linalg.solve_triangular(TR, 2.0 * C, upper=False))
+    Aa = fd(a)
+    for kind, want in ((stt.Norm.One, A.abs().sum(0).max()),
+                       (stt.Norm.Inf, A.abs().sum(1).max()),
+                       (stt.Norm.Max, A.abs().max()),
+                       (stt.Norm.Fro, torch.linalg.norm(A))):
+        rows[f"norm_{kind.name}"] = abs(stt.norm(Aa, kind).double().item()
+                                        - want.item()) / want.item()
+    worst = max(rows.values())
+    check(math.isfinite(worst) and worst <= 1e-4,
+          f"BLAS-3 verbs against float64: {rows}")
+    return rows
+
+
 def small_check(torch, stt, gen):
     import numpy as np
     n, nb = 1000, 128
@@ -383,7 +590,9 @@ def main_path(torch, stt, ho, n, nb, gen):
                     for k in widths],
            "qr": [torch.randn((m_q, k), generator=gen, device=dev)
                   for k in widths]}
-    rhs["lu"] = rhs["chol"]
+    rhs["lu"] = rhs["chol_nb128"] = rhs["chol"]
+    # the SPD operator again at 128 block columns: potrf's 2×2 recursion
+    nb_rec = n // 128
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ho.reset_launches()
@@ -393,7 +602,11 @@ def main_path(torch, stt, ho, n, nb, gen):
            "lu": sess.register(stt.from_dense(gen_m, nb, device=dev),
                                op="lu"),
            "qr": sess.register(stt.from_dense(tall, nb, device=dev),
-                               op="auto")}
+                               op="auto"),
+           "chol_nb128": sess.register(stt.hermitian(
+               spd, nb_rec, stt.Uplo.Lower, device=dev), op="chol")}
+    check(sess._ops[ops["chol_nb128"]].A.data.data_ptr() == spd.data_ptr(),
+          "the nb = n/128 operator was registered with a copy")
     check(sess._ops[ops["qr"]].op == "qr",
           f"op auto inferred {sess._ops[ops['qr']].op!r} for a tall operand")
     factor_s, info, factor_launches = {}, {}, {}
@@ -419,8 +632,8 @@ def main_path(torch, stt, ho, n, nb, gen):
     peak = torch.cuda.max_memory_allocated()
 
     res = {name: [] for name in ops}
-    operators = {"chol": spd, "lu": gen_m}
-    for name in ("chol", "lu"):
+    operators = {"chol": spd, "lu": gen_m, "chol_nb128": spd}
+    for name in ("chol", "lu", "chol_nb128"):
         for xs, b in zip(served[name], rhs[name]):
             res[name] += scaled_residuals(torch, operators[name], xs, b)
     # qr: every served column against a float64 solve of the same problem
@@ -459,6 +672,16 @@ def main_path(torch, stt, ho, n, nb, gen):
         check(k4 == 4 * kt and k3 == 0,
               f"qr factor launched {fl['qr']}: expected {4 * kt} "
               f"qr_panel_base_wide and no qr_panel_base for {kt} panels")
+    # the recursion's exact launches where they are known, else at least
+    # one K5 and one K1
+    k5_k1 = REC_POTRF_LAUNCHES.get(n)
+    rec_fl = fl["chol_nb128"]
+    got = (rec_fl["herk_lower_update"], rec_fl["chol_tile"])
+    check((got == k5_k1 if k5_k1 else min(got) > 0)
+          and rec_fl["lu_panel_base"] == rec_fl["qr_panel_base"]
+          == rec_fl["qr_panel_base_wide"] == 0,
+          f"nb = {nb_rec} chol factor launched {rec_fl}, expected "
+          f"(herk_lower_update, chol_tile) = {k5_k1} and nothing else")
     worst = max(max(v) for v in res.values())
     check(math.isfinite(worst) and worst <= RESIDUAL_BOUND,
           f"scaled residual {worst} > {RESIDUAL_BOUND}")
@@ -478,6 +701,11 @@ def main_path(torch, stt, ho, n, nb, gen):
         "lu_gflops": flops.getrf(n) / factor_s["lu"] / 1e9,
         "qr_factor_s": factor_s["qr"],
         "qr_gflops": flops.geqrf(m_q, n_q) / factor_s["qr"] / 1e9,
+        "chol_nb128_nb": nb_rec,
+        "chol_nb128_factor_s": factor_s["chol_nb128"],
+        "chol_nb128_gflops": flops.potrf(n) / factor_s["chol_nb128"] / 1e9,
+        "chol_nb128_expected_launches": k5_k1 and {
+            "herk_lower_update": k5_k1[0], "chol_tile": k5_k1[1]},
         "solve_p50_s": solve_hist["p50"], "solve_p99_s": solve_hist["p99"],
         "solves": solve_hist["count"],
         "solve_latency_s": {k: {"p50": h.percentile(50),
@@ -513,7 +741,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, HERE)
     import slate_tpu_torch as stt
     from slate_tpu_torch.core.precision import full_precision
-    from slate_tpu_torch.ops import _build, hopper_ops as ho
+    from slate_tpu_torch.ops import _build, blocked, hopper_ops as ho
 
     smi = nvidia_smi_line()
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
@@ -574,12 +802,32 @@ def main(argv=None) -> int:
                                  zero_col=37))
         emit("kernel", name="qr_panel_base_wide", cases=wide_rows,
              nan_case=qr_nan_case(torch, ho, gen))
+        # the widest herk_lower_update of the main path: n/2 at k = n/2
+        herk_shapes = [(args.n // 2, args.n // 2, f32)] + [
+            x for x in ((8192, 8192, f32), (4096, 4096, f32),
+                        (2048, 2048, f32), (1000, 300, f32),
+                        (300, 1000, f32), (2048, 1024, f64),
+                        (2048, 2048, f64))
+            if x[:2] != (args.n // 2, args.n // 2)]
+        # timed in full: the widest f32 case and the square f64 one
+        herk_rows = [herk_case(torch, ho, blocked, hn, hk, dt, gen,
+                               timed=(i == 0 or (hn, hk, dt) ==
+                                      (2048, 2048, f64)))
+                     for i, (hn, hk, dt) in enumerate(herk_shapes)]
+        herk_rows.append(herk_case(torch, ho, blocked, 2000, 700, f32, gen,
+                                   False, strided=True))
+        emit("kernel", name="herk_lower_update", cases=herk_rows,
+             nan_case=herk_nan_case(torch, ho, gen))
         # counted paths: the check phase, then the main phase
         ho.reset_launches()
         small = small_check(torch, stt, gen)
         gels = gels_check(torch, stt, ho, gen)
+        gels_cholqr = cholqr_gels_check(torch, stt, ho, gen)
+        tsqr = tsqr_check(torch, stt, gen)
+        blas3 = blas3_check(torch, stt, gen)
         check_launches = dict(ho.LAUNCHES)
-        emit("check", **small, **gels, launches=check_launches)
+        emit("check", **small, **gels, gels_cholqr=gels_cholqr, tsqr=tsqr,
+             blas3=blas3, launches=check_launches)
         main = main_path(torch, stt, ho, args.n, args.nb, gen)
     emit("main", **main)
 
@@ -587,7 +835,8 @@ def main(argv=None) -> int:
              for name, rows in (("chol_tile", chol_rows),
                                 ("lu_panel_base", lu_rows),
                                 ("qr_panel_base", qr_rows),
-                                ("qr_panel_base_wide", wide_rows))}
+                                ("qr_panel_base_wide", wide_rows),
+                                ("herk_lower_update", herk_rows))}
     kernels = []
     for name, src, rep in (
             ("chol_tile", "chol_tile.cu", "slate_tpu/ops/pallas_ops.py:342"),
@@ -596,7 +845,9 @@ def main(argv=None) -> int:
             ("qr_panel_base", "qr_panel.cu",
              "slate_tpu/ops/pallas_ops.py:688"),
             ("qr_panel_base_wide", "qr_panel.cu",
-             "slate_tpu/ops/pallas_ops.py:670")):
+             "slate_tpu/ops/pallas_ops.py:670"),
+            ("herk_lower_update", "herk_lower.cu",
+             "slate_tpu/ops/pallas_ops.py:127")):
         row = timed[name]
         launches = check_launches[name] + main["launches"][name]
         check(launches > 0, f"{name} was not launched on a counted path")

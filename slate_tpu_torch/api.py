@@ -1,11 +1,57 @@
 """Simplified API verbs of the ported slices (counterpart of
-``slate_tpu/api.py:119-289``, dense operands only, no tracing spans)."""
+``slate_tpu/api.py:38-105`` and ``119-289``, dense operands only, no
+tracing spans): the BLAS-3 verbs dispatch on the matrix kinds as the
+reference does."""
 
 from __future__ import annotations
 
 from .core.tiled_matrix import TiledMatrix
-from .core.types import Options, DEFAULT_OPTIONS
-from .linalg import cholesky, lu as lu_mod, qr as qr_mod
+from .core.types import MatrixKind, Options, Side, DEFAULT_OPTIONS
+from .linalg import blas3, cholesky, lu as lu_mod, qr as qr_mod
+
+
+def multiply(alpha, A: TiledMatrix, B: TiledMatrix, beta, C: TiledMatrix,
+             opts: Options = DEFAULT_OPTIONS) -> TiledMatrix:
+    """C = α·A·B + β·C: hemm or symm when A (or B) is Hermitian or
+    Symmetric, else gemm."""
+    if A.kind is MatrixKind.Hermitian:
+        return blas3.hemm(Side.Left, alpha, A, B, beta, C, opts)
+    if B.kind is MatrixKind.Hermitian:
+        return blas3.hemm(Side.Right, alpha, B, A, beta, C, opts)
+    if A.kind is MatrixKind.Symmetric:
+        return blas3.symm(Side.Left, alpha, A, B, beta, C, opts)
+    if B.kind is MatrixKind.Symmetric:
+        return blas3.symm(Side.Right, alpha, B, A, beta, C, opts)
+    return blas3.gemm(alpha, A, B, beta, C, opts)
+
+
+def rank_k_update(alpha, A: TiledMatrix, beta, C: TiledMatrix,
+                  opts: Options = DEFAULT_OPTIONS) -> TiledMatrix:
+    """herk for a Hermitian C, else syrk."""
+    if C.kind is MatrixKind.Hermitian:
+        return blas3.herk(alpha, A, beta, C, opts)
+    return blas3.syrk(alpha, A, beta, C, opts)
+
+
+def rank_2k_update(alpha, A: TiledMatrix, B: TiledMatrix, beta,
+                   C: TiledMatrix, opts: Options = DEFAULT_OPTIONS
+                   ) -> TiledMatrix:
+    """her2k for a Hermitian C, else syr2k."""
+    if C.kind is MatrixKind.Hermitian:
+        return blas3.her2k(alpha, A, B, beta, C, opts)
+    return blas3.syr2k(alpha, A, B, beta, C, opts)
+
+
+def triangular_multiply(alpha, A: TiledMatrix, B: TiledMatrix,
+                        side: Side = Side.Left,
+                        opts: Options = DEFAULT_OPTIONS) -> TiledMatrix:
+    return blas3.trmm(side, alpha, A, B, opts)
+
+
+def triangular_solve(alpha, A: TiledMatrix, B: TiledMatrix,
+                     side: Side = Side.Left,
+                     opts: Options = DEFAULT_OPTIONS) -> TiledMatrix:
+    return blas3.trsm(side, alpha, A, B, opts)
 
 
 def lu_factor(A: TiledMatrix, opts: Options = DEFAULT_OPTIONS):

@@ -92,6 +92,19 @@ class TiledMatrix:
         return self.data.device
 
     # -- views (metadata flips, like the reference) ------------------------
+    def transpose(self) -> "TiledMatrix":
+        """Aᵀ as a view: the op flag and the stored triangle flip."""
+        if self.op is Op.ConjTrans:  # (Aᴴ)ᵀ = conj(A)
+            return dataclasses.replace(
+                self, data=self.data.conj().resolve_conj(), op=Op.NoTrans,
+                uplo=self.uplo.flipped())
+        new_op = Op.NoTrans if self.op is Op.Trans else Op.Trans
+        return dataclasses.replace(self, op=new_op, uplo=self.uplo.flipped())
+
+    @property
+    def T(self) -> "TiledMatrix":
+        return self.transpose()
+
     def conj_transpose(self) -> "TiledMatrix":
         """Aᴴ as a view: the op flag and the stored triangle flip."""
         new_op = Op.NoTrans if self.op is Op.ConjTrans else Op.ConjTrans
@@ -122,6 +135,41 @@ class TiledMatrix:
             raise SlateError(f"TiledMatrix storage {tuple(a.shape)} is not "
                              f"the canonical {(rows, cols)}")
         return a
+
+    def full_dense(self) -> torch.Tensor:
+        """The canonical-size matrix with its implicit structure made
+        explicit, as a new tensor: Symmetric/Hermitian mirror the stored
+        triangle (a Hermitian diagonal is taken as real),
+        Triangular/Trapezoid zero the other triangle and put 1 on the
+        whole diagonal when ``Diag.Unit``. A General matrix has no
+        implicit structure: its padded view is returned, not a copy.
+        Band kinds are a later slice."""
+        if self.kind in (MatrixKind.Band, MatrixKind.TriangularBand,
+                         MatrixKind.HermitianBand):
+            raise NotImplementedError(
+                "full_dense: band kinds are not ported yet (ROADMAP Queue 1 "
+                "item 9)")
+        a = self.dense_canonical()
+        lower = self.uplo is Uplo.Lower
+        if self.kind in (MatrixKind.Symmetric, MatrixKind.Hermitian):
+            tri = torch.tril(a) if lower else torch.triu(a)
+            strict = torch.tril(a, -1) if lower else torch.triu(a, 1)
+            if self.kind is MatrixKind.Hermitian:
+                out = tri + strict.mH
+                if out.is_complex():
+                    out.diagonal().imag.zero_()
+                return out
+            return tri + strict.mT
+        if self.kind in (MatrixKind.Triangular, MatrixKind.Trapezoid):
+            out = torch.tril(a) if lower else torch.triu(a)
+            if self.diag is Diag.Unit:
+                out.diagonal().fill_(1)
+            return out
+        return a
+
+    def full_dense_canonical(self) -> torch.Tensor:
+        """``full_dense`` (always at the canonical padded size here)."""
+        return self.full_dense()
 
     def to_numpy(self) -> np.ndarray:
         """Crop padding and return the logical (view-shaped) matrix."""
@@ -162,6 +210,34 @@ def from_dense(a, nb: int, *, kind: MatrixKind = MatrixKind.General,
 def hermitian(a, nb: int, uplo: Uplo, *, device="cuda") -> TiledMatrix:
     return from_dense(a, nb, kind=MatrixKind.Hermitian, uplo=uplo,
                       device=device)
+
+
+def symmetric(a, nb: int, uplo: Uplo, *, device="cuda") -> TiledMatrix:
+    return from_dense(a, nb, kind=MatrixKind.Symmetric, uplo=uplo,
+                      device=device)
+
+
+def triangular(a, nb: int, uplo: Uplo, diag: Diag = Diag.NonUnit, *,
+               device="cuda") -> TiledMatrix:
+    return from_dense(a, nb, kind=MatrixKind.Triangular, uplo=uplo,
+                      diag=diag, device=device)
+
+
+def zeros(m: int, n: int, nb: int, dtype=torch.float32, *, device="cuda",
+          **kw) -> TiledMatrix:
+    """An (m × n) zero matrix; ``kw`` sets kind, uplo and diag."""
+    data = torch.zeros((num_tiles(m, nb) * nb, num_tiles(n, nb) * nb),
+                       dtype=dtype, device=resolve_device(device))
+    return TiledMatrix(data, m, n, nb, **kw)
+
+
+def pad_mask(t: TiledMatrix) -> torch.Tensor:
+    """Boolean mask of the logical (non-padding) entries at the canonical
+    padded size (matches ``full_dense``)."""
+    mm, nn = t.shape
+    r = torch.arange(t.mt * t.nb, device=t.device)[:, None] < mm
+    c = torch.arange(t.nt * t.nb, device=t.device)[None, :] < nn
+    return r & c
 
 
 def unit_pad_diag(a: torch.Tensor, m_log: int, n_log: int) -> torch.Tensor:

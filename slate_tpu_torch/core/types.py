@@ -1,8 +1,8 @@
 """Enums and options of the port (trimmed copy of ``slate_tpu/core/types.py``).
 
-Only what the dense Cholesky, LU and QR slices read is kept. The names and
-defaults match the reference, so an ``Options`` written for one package
-reads the same in the other.
+Only what the ported slices (dense Cholesky, LU, QR, the BLAS-3 verbs and
+norms) read is kept. The names and defaults match the reference, so an
+``Options`` written for one package reads the same in the other.
 """
 
 from __future__ import annotations
@@ -51,6 +51,12 @@ class Norm(enum.Enum):
     Max = "m"
 
 
+class NormScope(enum.Enum):
+    Matrix = "m"
+    Columns = "c"
+    Rows = "r"
+
+
 class MatrixKind(enum.Enum):
     General = "ge"
     Trapezoid = "tz"
@@ -60,6 +66,25 @@ class MatrixKind(enum.Enum):
     Band = "gb"
     TriangularBand = "tb"
     HermitianBand = "hb"
+
+
+class MethodGemm(enum.Enum):
+    Auto = "auto"
+    A = "A"
+    C = "C"
+    SUMMA = "summa"
+
+
+class MethodTrsm(enum.Enum):
+    Auto = "auto"
+    A = "A"
+    B = "B"
+
+
+class MethodHemm(enum.Enum):
+    Auto = "auto"
+    A = "A"
+    C = "C"
 
 
 class MethodLU(enum.Enum):
@@ -80,8 +105,12 @@ class MethodGels(enum.Enum):
 class Options:
     """Per-call options bag (the fields the ported slices read).
 
-    ``method_lu``, ``pivot_threshold`` and ``method_gels`` are read (the
-    unported methods raise). The others are accepted for parity and ignored:
+    ``method_lu``, ``pivot_threshold`` and ``method_gels`` are read, and
+    ``method_gemm`` for SUMMA (the unported methods raise). The others are
+    accepted for parity and ignored: ``method_hemm`` and ``method_gemm``'s
+    A and C because they pick the reference's data placement on a grid,
+    which one device does not have; ``method_trsm`` because trsm runs one
+    path, the gemm-based block recursion;
     ``update_precision`` because every factorization path runs its
     matmuls in full precision with TF32 off (core/precision.py);
     ``lookahead``, ``lu_pivot_fusion`` and ``factor_iter_large`` because
@@ -91,6 +120,9 @@ class Options:
     lookahead: int = 1
     pivot_threshold: float = 1.0
     update_precision: str = "high"
+    method_gemm: MethodGemm = MethodGemm.Auto
+    method_trsm: MethodTrsm = MethodTrsm.Auto
+    method_hemm: MethodHemm = MethodHemm.Auto
     method_lu: MethodLU = MethodLU.Auto
     lu_pivot_fusion: bool = True
     factor_iter_large: bool = True

@@ -14,19 +14,20 @@ import numpy as np
 
 from ..core.exceptions import SlateError
 from ..core.tiled_matrix import TiledMatrix, as_tensor, from_dense
-from ..core.types import MatrixKind, Uplo
+from ..core.types import Diag, MatrixKind, Uplo
 from ..linalg.qr import QRFactors
 
 
 def tiled_from_arrays(data: np.ndarray, *, nb: int,
                       kind: MatrixKind = MatrixKind.General,
-                      uplo: Uplo = Uplo.General, logical_shape=None,
-                      device="cuda") -> TiledMatrix:
-    """A port TiledMatrix from a reference matrix's padded storage."""
+                      uplo: Uplo = Uplo.General, diag: Diag = Diag.NonUnit,
+                      logical_shape=None, device="cuda") -> TiledMatrix:
+    """A port TiledMatrix from a reference matrix's padded storage and
+    metadata (kind, uplo, diag, logical shape)."""
     data = np.asarray(data)
     if data.ndim != 2:
         raise SlateError("tiled_from_arrays: data must be 2-D")
-    return from_dense(data, nb, kind=kind, uplo=uplo,
+    return from_dense(data, nb, kind=kind, uplo=uplo, diag=diag,
                       logical_shape=logical_shape, device=device)
 
 

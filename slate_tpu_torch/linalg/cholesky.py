@@ -126,12 +126,14 @@ def _potrf_rec(a: torch.Tensor, nb: int):
         return _potrf_iter(a, nb)
     h = blocked._half(s, nb)
     _, flags = _potrf_rec(a[:h, :h], nb)
-    l21 = blocked.trsm_rec(a[:h, :h], a[h:, :h], left=False, lower=True,
-                           conj_a=True, trans_a=True, base=nb)
-    a[h:, :h] = l21
-    a22 = blocked.herk_lower_rec(a[h:, h:], l21)
+    a[h:, :h] = blocked.trsm_rec(a[:h, :h], a[h:, :h], left=False,
+                                 lower=True, conj_a=True, trans_a=True,
+                                 base=nb)
+    # real dtypes: K5 updates the view a[h:, h:] in place and returns it
+    a22 = blocked.herk_lower_rec(a[h:, h:], a[h:, :h])
     _, f2 = _potrf_rec(a22, nb)
-    a[h:, h:] = a22
+    if a22.data_ptr() != a[h:, h:].data_ptr():  # the complex recursion's copy
+        a[h:, h:] = a22
     flags.extend(f2, h)
     return a, flags
 

@@ -1,5 +1,5 @@
-"""QR/LQ/least-squares family: geqrf, unmqr, gelqf, unmlq, gels
-(counterpart of ``slate_tpu/linalg/qr.py``).
+"""QR/LQ/least-squares family: geqrf, unmqr, gelqf, unmlq, cholqr, tsqr,
+gels (counterpart of ``slate_tpu/linalg/qr.py``).
 
 Panels are factored by ``blocked.panel_geqrf_with_t`` at their pow2
 height bucket (zero rows below a panel are inert for Householder QR),
@@ -11,23 +11,26 @@ columns are reflected. ``Options.lookahead`` is accepted and ignored.
 Each call clones the operand ONCE into a working copy; the reference's
 functional updates are in-place slice writes on it.
 
-``cholqr``, ``tsqr`` and ``MethodGels.CholQR`` need ``syrk``/``herk``
-and are not ported yet (ROADMAP Queue 1 item 3): they raise.
+``cholqr`` (and so ``MethodGels.CholQR`` and ``tsqr``'s second pass) is
+syrk/herk, potrf and trsm: a Gram matrix with more than 64 block columns
+takes potrf's 2×2 recursion, whose trailing updates are the K5 kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import torch
 
 from ..core.exceptions import SlateError
 from ..core.precision import accurate_matmuls
-from ..core.tiled_matrix import TiledMatrix, from_dense, unit_pad_diag
+from ..core.tiled_matrix import TiledMatrix, from_dense, unit_pad_diag, zeros
 from ..core.types import MatrixKind, MethodGels, Options, Side, Uplo, \
     DEFAULT_OPTIONS
 from ..ops import blocked
 from . import blas3
+from .cholesky import potrf
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,18 +178,62 @@ def unmlq(side: Side, LQ: QRFactors, C: TiledMatrix, trans: bool = False,
 
 # -- CholQR / TSQR ---------------------------------------------------------
 
-def _cholqr_not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} needs syrk/herk, which are not ported yet (ROADMAP Queue "
-        "1 item 3)")
+@accurate_matmuls
+def cholqr(A: TiledMatrix, opts: Options = DEFAULT_OPTIONS
+           ) -> Tuple[TiledMatrix, TiledMatrix]:
+    """Cholesky QR: the Gram matrix G = Aᴴ·A on its upper triangle
+    (syrk, herk for complex A), R = the upper Cholesky factor of G
+    (potrf), Q = A·R⁻¹ (trsm). Returns (Q, R); m ≥ n."""
+    m, n = A.shape
+    if m < n:
+        raise SlateError("cholqr needs m >= n")
+    cplx = A.dtype.is_complex
+    C = zeros(n, n, A.nb, A.dtype, device=A.device, uplo=Uplo.Upper,
+              kind=MatrixKind.Hermitian if cplx else MatrixKind.Symmetric)
+    G = (blas3.herk if cplx else blas3.syrk)(1.0, A.H, 0.0, C, opts)
+    R, _ = potrf(TiledMatrix(G.data, n, n, A.nb, kind=MatrixKind.Hermitian,
+                             uplo=Uplo.Upper), opts)
+    return blas3.trsm(Side.Right, 1.0, R, A, opts), R
 
 
-def cholqr(A: TiledMatrix, opts: Options = DEFAULT_OPTIONS):
-    _cholqr_not_ported("cholqr")
+def _qr_r(blocks: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.qr(blocks, mode="r").R
 
 
-def tsqr(A: TiledMatrix, opts: Options = DEFAULT_OPTIONS):
-    _cholqr_not_ported("tsqr")
+@accurate_matmuls
+def tsqr(A: TiledMatrix, opts: Options = DEFAULT_OPTIONS
+         ) -> Tuple[TiledMatrix, TiledMatrix]:
+    """Tall-skinny QR by a binary tree: row chunks of max(npad, nb) rows
+    are QR'd together (one batched ``torch.linalg.qr``, where the
+    reference vmaps ``jnp.linalg.qr``), then the R factors combine
+    pairwise up the tree. R's diagonal is made non-negative, Q = A·R⁻¹,
+    and one CholQR pass restores orthogonality (CholeskyQR2). Returns
+    (Q, R); m ≥ n."""
+    m, n = A.shape
+    if m < n:
+        raise SlateError("tsqr needs m >= n")
+    a = unit_pad_diag(
+        A.dense_canonical().clone(memory_format=torch.contiguous_format),
+        m, n)
+    mpad, npad = a.shape
+    chunk = max(npad, A.nb)
+    nchunks = -(-mpad // chunk)
+    a_p = a.new_zeros((nchunks * chunk, npad))
+    a_p[:mpad] = a
+    rs = _qr_r(a_p.reshape(nchunks, chunk, npad))
+    while rs.shape[0] > 1:
+        if rs.shape[0] % 2 == 1:
+            rs = torch.cat([rs, rs.new_zeros((1, npad, npad))])
+        rs = _qr_r(rs.reshape(rs.shape[0] // 2, 2 * npad, npad))
+    r = rs[0]
+    r = r * torch.where(r.diagonal().real < 0, -1.0, 1.0).to(r.dtype)[:, None]
+    Rm = from_dense(r, A.nb, kind=MatrixKind.Triangular, uplo=Uplo.Upper,
+                    logical_shape=(n, n), device=r.device)
+    Q2, R2 = cholqr(blas3.trsm(Side.Right, 1.0, Rm, A, opts), opts)
+    Rf = from_dense(R2.dense_canonical() @ r, A.nb,
+                    kind=MatrixKind.Triangular, uplo=Uplo.Upper,
+                    logical_shape=(n, n), device=r.device)
+    return Q2, Rf
 
 
 # -- least squares ---------------------------------------------------------
@@ -206,12 +253,17 @@ def gels_using_factor(QR: QRFactors, B: TiledMatrix,
 @accurate_matmuls
 def gels(A: TiledMatrix, B: TiledMatrix, opts: Options = DEFAULT_OPTIONS
          ) -> TiledMatrix:
-    """Least squares min‖A·X − B‖ (m ≥ n, by QR) or the minimum-norm
-    solution (m < n, by LQ: A = L·Q, X = Qᴴ·L⁻¹·B)."""
+    """Least squares min‖A·X − B‖ (m ≥ n, by QR, or by CholQR with
+    ``MethodGels.CholQR``: X = R⁻¹·(Qᴴ·B)) or the minimum-norm solution
+    (m < n, by LQ: A = L·Q, X = Qᴴ·L⁻¹·B)."""
     m, n = A.shape
     if m >= n:
         if opts.method_gels is MethodGels.CholQR:
-            _cholqr_not_ported("gels with MethodGels.CholQR")
+            Q, R = cholqr(A, opts)
+            qtb = Q.dense_canonical().mH @ B.dense_canonical()
+            QtB = from_dense(qtb, A.nb, logical_shape=(n, B.shape[1]),
+                             device=qtb.device)
+            return blas3.trsm(Side.Left, 1.0, R, QtB, opts)
         return gels_using_factor(geqrf(A, opts), B, opts)
     LQ = gelqf(A, opts)
     Y = blas3.trsm(Side.Left, 1.0, LQ.r_matrix.H, B, opts)

@@ -9,6 +9,22 @@ def gemm(m: int, n: int, k: int) -> float:
     return 2.0 * m * n * k
 
 
+def rank_k(n: int, k: int) -> float:
+    """n×n rank-k update (syrk/herk actual count)."""
+    return float(n) * n * k
+
+
+def rank_2k(n: int, k: int) -> float:
+    return 2.0 * n * n * k
+
+
+def tri_mm(n: int, k: int) -> float:
+    """n×n triangular times n×k (trmm/trsm actual count). For
+    Side.Right pass k = the OTHER operand's row count — the model is
+    n²·k either way with n the triangular dimension."""
+    return float(n) * n * k
+
+
 def potrf(n: int) -> float:
     return n ** 3 / 3.0
 

@@ -188,10 +188,19 @@ def herk_lower_rec(c: torch.Tensor, a: torch.Tensor,
                    b: Optional[torch.Tensor] = None, base: int = 1024
                    ) -> torch.Tensor:
     """C − A·Bᴴ restricted to the lower triangle (B defaults to A); the
-    strict upper of the result holds ``c``'s entries. Returns a new
-    tensor (the recursion of the reference; its opt-in Pallas route,
-    K5, is not ported yet)."""
+    strict upper of the result holds ``c``'s entries.
+
+    ``c`` may be overwritten. Without ``b`` and for a real dtype (the
+    reference's gate) the update is one K5 call,
+    ``hopper_ops.herk_lower_update`` — the CUDA kernel on the card, its
+    plain version on the CPU — which writes ``c`` IN PLACE (through its
+    row stride, so ``c`` may be a view; on the card ``c`` and ``a`` need
+    a unit column stride) and returns it. With ``b`` given,
+    or a complex dtype, the reference's 2×2 recursion (cuBLAS gemms)
+    returns a new tensor."""
     if b is None:
+        if not c.is_complex():
+            return hopper_ops.herk_lower_update(c, a)
         b = a
     s = c.shape[0]
     if s <= base:

@@ -3,9 +3,9 @@ gates and launch counters.
 
 Counterpart of ``slate_tpu/ops/pallas_ops.py``: the launchers keep the
 reference's names (``chol_tile``, ``lu_panel_base``, ``lu_panel_eligible``,
-``qr_panel_base``, ``qr_panel_base_wide``, ``qr_panel_wide_eligible``) so
-the call sites in ``ops/blocked.py`` map one to one. Dispatch is by the
-tensor's device and nothing else:
+``qr_panel_base``, ``qr_panel_base_wide``, ``qr_panel_wide_eligible``,
+``herk_lower_update``) so the call sites in ``ops/blocked.py`` map one to
+one. Dispatch is by the tensor's device and nothing else:
 
 - a CUDA tensor launches the CUDA kernel (``csrc/*.cu``, built by
   ``ops/_build.py``) or the wrapper raises — there is no environment
@@ -20,8 +20,12 @@ run can show that its main path went through the kernels.
 The reference's TPU gates (VMEM size, the 8-row sublane floor) do not carry
 over: every real f32/f64 potrf tile goes through ``chol_tile``, every
 panel base of width 1..128 (any height) goes through ``lu_panel_base``,
-and every ``panel_geqrf`` base goes through ``qr_panel_base`` (w ≤ 32) or
-``qr_panel_base_wide`` (32 < w ≤ 128, w % 32 == 0), at any height.
+every ``panel_geqrf`` base goes through ``qr_panel_base`` (w ≤ 32) or
+``qr_panel_base_wide`` (32 < w ≤ 128, w % 32 == 0), at any height, and
+every real f32/f64 ``herk_lower_rec(c, a)`` without ``b`` goes through
+``herk_lower_update`` at any n ≥ 1 and k ≥ 1, in one launch (the
+reference's divisibility gates and its k-chunking at 1024 are TPU
+limits).
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ from ..core.exceptions import SlateError
 from . import _build
 
 LAUNCHES: Dict[str, int] = {"chol_tile": 0, "lu_panel_base": 0,
-                            "qr_panel_base": 0, "qr_panel_base_wide": 0}
+                            "qr_panel_base": 0, "qr_panel_base_wide": 0,
+                            "herk_lower_update": 0}
 
 _REAL = (torch.float32, torch.float64)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -48,13 +53,13 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def _fn(lib: str, sym: str, argtypes, restype=ctypes.c_int):
     """A C entry point with argtypes declared: pointers and the stream
     as c_void_p (a plain int argument would cut a 64-bit pointer), sizes
-    as c_int. Launchers return a cudaError_t."""
+    as c_int, row strides as c_longlong. Launchers return a cudaError_t."""
     f = _fns.get(sym)
     if f is None:
         f = getattr(_build.load(lib), sym)
@@ -382,3 +387,79 @@ def qr_panel_base_wide(a: torch.Tensor):
     if a.device.type == "cpu":
         return qr_panel_base_wide_plain(a)
     return _qr_launch("qr_panel_base_wide", "slate_qr_panel_wide", a)
+
+
+# ---------------------------------------------------------------------------
+# K5: lower-triangle rank-k update
+# ---------------------------------------------------------------------------
+
+HERK_TILE = 128  # the kernel's output tile edge
+
+
+def herk_lower_update_plain(c: torch.Tensor, a: torch.Tensor,
+                            tile: int = HERK_TILE) -> torch.Tensor:
+    """Plain version of K5, the Pallas kernel's step per lower tile pair
+    (i ≥ j): C[i, j] −= Aᵢ·Aⱼᵀ, IN PLACE on ``c`` (any strides), with the
+    diagonal tiles masked to row ≥ col so the strict upper triangle of
+    ``c`` is left bitwise unchanged. Returns ``c``."""
+    n = c.shape[0]
+    for i0 in range(0, n, tile):
+        ai = a[i0:i0 + tile]
+        for j0 in range(0, i0 + 1, tile):
+            ct = c[i0:i0 + tile, j0:j0 + tile]
+            upd = ai @ a[j0:j0 + tile].mT
+            if i0 == j0:
+                lower = torch.ones_like(ct, dtype=torch.bool).tril()
+                ct.copy_(torch.where(lower, ct - upd, ct))
+            else:
+                ct.sub_(upd)
+    return c
+
+
+def _row_stride(x: torch.Tensor) -> int:
+    return x.stride(0) if x.shape[0] > 1 else max(x.shape[1], 1)
+
+
+def herk_lower_update(c: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """C ← C − A·Aᵀ on the lower triangle of the (n, n) ``c``, IN PLACE,
+    for an (n, k) ``a``; returns ``c``. The strict upper triangle of
+    ``c`` is left bitwise unchanged. ``c`` and ``a`` must not overlap.
+
+    Replaces ``pallas_ops.herk_lower_update`` (pallas_ops.py:136-170, the
+    call at 127). The CUDA kernel (csrc/herk_lower.cu) runs one block per
+    lower 128 × 128 tile pair and streams the whole k in one launch; it
+    is bound by operations (n(n+1)·k flops). On the card both tensors
+    need a unit column stride; the row strides are passed, so ``c`` may
+    be a view of a larger matrix. Equal to the plain version up to the
+    order of its k-long sums."""
+    if c.dtype not in _REAL:
+        raise NotImplementedError(
+            f"herk_lower_update: real float32/float64 only, got {c.dtype}")
+    if a.dtype != c.dtype:
+        raise SlateError(f"herk_lower_update: dtypes differ ({c.dtype}, "
+                         f"{a.dtype})")
+    if (c.ndim != 2 or a.ndim != 2 or c.shape[0] != c.shape[1]
+            or a.shape[0] != c.shape[0]):
+        raise SlateError(f"herk_lower_update: needs C (n, n) and A (n, k), "
+                         f"got {tuple(c.shape)} and {tuple(a.shape)}")
+    if c.device.type == "cpu" and a.device.type == "cpu":
+        return herk_lower_update_plain(c, a)
+    for name, x in (("C", c), ("A", a)):
+        if x.device.type != "cuda" or x.device != c.device:
+            raise SlateError(f"herk_lower_update: unsupported device "
+                             f"{x.device} for {name}")
+        if x.shape[1] > 1 and x.stride(1) != 1:
+            raise SlateError(f"herk_lower_update: {name} needs a unit "
+                             "column stride")
+    n, k = a.shape
+    if n == 0 or k == 0:
+        return c
+    f = _fn("herk_lower", f"slate_herk_lower_{_SUFFIX[c.dtype]}",
+            [_P, _P, _I, _I, _L, _L, _P])
+    with torch.cuda.device(c.device):
+        rc = f(c.data_ptr(), a.data_ptr(), n, k, _row_stride(c),
+               _row_stride(a), torch.cuda.current_stream(c.device).cuda_stream)
+    _raise_on(rc, "herk_lower", "slate_herk_error_string",
+              f"herk_lower_update (n={n}, k={k})")
+    LAUNCHES["herk_lower_update"] += 1
+    return c

@@ -8,6 +8,12 @@ Tolerances: factor and X agree to 1e-4 (float32) / 1e-10 (float64)
 relative to their max entry (reason: summation order differs between
 the packages); scaled residual ‖b − A·x‖∞ / (n·ε·‖A‖∞·‖x‖∞) ≤ 30 (the
 reference tester's bound); info exact.
+
+The 2×2 recursion (more than ITER_MAX_NT = 64 block columns) is held to
+the reference with ITER_MAX_NT lowered by monkeypatch: the reference's
+potrf at a natural nt > 64 (n = 530, nb = 8) takes about a minute on the
+CPU. At that natural size the port alone is held to float64 numpy's
+Cholesky (1e-12 relative).
 """
 
 import functools
@@ -20,6 +26,7 @@ import slate_tpu as st
 from slate_tpu.core.types import Uplo as RUplo
 import slate_tpu_torch as stt
 from slate_tpu_torch.linalg import cholesky as port_chol
+from slate_tpu_torch.ops import hopper_ops
 
 torch.set_num_threads(2)
 
@@ -136,6 +143,52 @@ def test_potrf_recursion_path(monkeypatch):
     assert calls[:3] == [224, 128, 64]
     assert int(info) == 0
     assert _rel(L.to_numpy(), l_ref) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_potrf_recursion_runs_k5_once_per_split(dtype, monkeypatch):
+    """Every split of the recursion hands its trailing update to K5
+    (``hopper_ops.herk_lower_update``) once, as the view a[h:, h:] of the
+    working copy with A = a[h:, :h], and the factor still agrees with the
+    reference (ITER_MAX_NT lowered to 2 at n = 200, nb = 32: three
+    splits, 224 → 128 + 96, 128 → 64 + 64, 96 → 64 + 32)."""
+    a, _ = _problem(200, dtype)
+    l_ref, _, _ = _reference(200, dtype)
+    monkeypatch.setattr(port_chol, "_ITER_MAX_NT", 2)
+    seen = []
+    k5 = hopper_ops.herk_lower_update
+
+    def spy(c, x):
+        seen.append((tuple(c.shape), x.shape[1], c.stride(0), x.stride(0)))
+        out = k5(c, x)
+        assert out is c
+        return out
+    monkeypatch.setattr(hopper_ops, "herk_lower_update", spy)
+    L, info = _port(a)
+    assert int(info) == 0
+    # depth first: the 128 block's split, the top split, the 96 block's
+    assert [s[:2] for s in seen] == [((64, 64), 64), ((96, 96), 128),
+                                     ((32, 32), 64)]
+    assert all(s[2] == s[3] == 224 for s in seen)  # views of the one copy
+    assert _rel(L.to_numpy(), l_ref) < TOL[dtype]
+
+
+def test_potrf_natural_recursion_above_64_block_columns(monkeypatch):
+    """n = 530 at nb = 8 has 67 block columns, so the recursion owns the
+    factor with no monkeypatch: one split (536 → 272 + 264), one K5
+    call, two iterative leaves; L·Lᵀ = A to float64 rounding."""
+    n = 530
+    rng = np.random.default_rng(530)
+    x = rng.standard_normal((n, n))
+    a = x @ x.T / n + 0.5 * np.eye(n)
+    seen = []
+    k5 = hopper_ops.herk_lower_update
+    monkeypatch.setattr(hopper_ops, "herk_lower_update",
+                        lambda c, x: seen.append(tuple(c.shape)) or k5(c, x))
+    L, info = stt.potrf(stt.hermitian(a, 8, stt.Uplo.Lower, device="cpu"))
+    assert int(info) == 0 and seen == [(264, 264)]
+    ref = np.linalg.cholesky(a)
+    assert _rel(L.to_numpy(), ref) < 1e-12
 
 
 def test_single_tile_potrf_matches_reference():

@@ -144,11 +144,20 @@ def test_cpu_dispatch_counts_no_launch_and_rejects_complex():
                                 hopper_ops.qr_panel_base_wide_plain, 64)):
         q = torch.from_numpy(RNG.standard_normal((96, w)))
         assert all(torch.equal(x, y) for x, y in zip(launcher(q), plain(q)))
+    c, h = (torch.from_numpy(np.random.default_rng(5).standard_normal(s))
+            for s in ((96, 96), (96, 8)))
+    torch.testing.assert_close(
+        hopper_ops.herk_lower_update(c.clone(), h),
+        hopper_ops.herk_lower_update_plain(c.clone(), h), rtol=0, atol=0)
     assert set(hopper_ops.LAUNCHES) == {"chol_tile", "lu_panel_base",
-                                        "qr_panel_base", "qr_panel_base_wide"}
+                                        "qr_panel_base", "qr_panel_base_wide",
+                                        "herk_lower_update"}
     assert not any(hopper_ops.LAUNCHES.values())
     with pytest.raises(NotImplementedError):
         hopper_ops.chol_tile(a.to(torch.complex128))
+    with pytest.raises(NotImplementedError):
+        hopper_ops.herk_lower_update(c.to(torch.complex128),
+                                     h.to(torch.complex128))
     for launcher in (hopper_ops.lu_panel_base, hopper_ops.qr_panel_base,
                      hopper_ops.qr_panel_base_wide):
         with pytest.raises(NotImplementedError):

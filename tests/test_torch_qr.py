@@ -161,16 +161,84 @@ def test_lookahead_option_is_accepted_and_ignored():
     np.testing.assert_array_equal(other.vr.numpy(), base.vr.numpy())
 
 
+def _qr_product(QR):
+    Q, R = QR
+    return Q.to_numpy() @ R.to_numpy()
+
+
 @pytest.mark.parametrize("call", [
-    lambda A, B: stt.cholqr(A),
-    lambda A, B: stt.tsqr(A),
-    lambda A, B: stt.gels(A, B, stt.Options(
-        method_gels=stt.MethodGels.CholQR))])
+    lambda A, B: (_qr_product(stt.cholqr(A)), np.eye(8, 4)),
+    lambda A, B: (_qr_product(stt.tsqr(A)), np.eye(8, 4)),
+    lambda A, B: (stt.gels(A, B, stt.Options(
+        method_gels=stt.MethodGels.CholQR)).to_numpy(), np.ones((4, 1)))])
 def test_cholqr_paths_raise_not_ported(call):
+    """The CholQR paths, which raised NotImplementedError until syrk/herk
+    were ported, now run: on A = I (8 × 4) Q·R = A and the CholQR least
+    squares X of B = 1 is 1. (The name dates from when these paths
+    raised.)"""
     A = _cpu(np.eye(8, 4), 4)
     B = _cpu(np.ones((8, 1)), 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        call(A, B)
+    got, expected = call(A, B)
+    np.testing.assert_allclose(got, expected, atol=1e-14)
+
+
+@functools.lru_cache(maxsize=None)
+def _cholqr_reference(m, n, nb):
+    a, b, _ = _problem(m, n)
+    A = st.from_dense(a, nb)
+    Q, R = ref_qr.cholqr(A)
+    Qt, Rt = ref_qr.tsqr(A)
+    X = ref_qr.gels(A, st.from_dense(b, nb),
+                    st.Options(method_gels=st.MethodGels.CholQR))
+    return {"q": Q.to_numpy(), "r": R.to_numpy(), "qt": Qt.to_numpy(),
+            "rt": Rt.to_numpy(), "x": X.to_numpy()}
+
+
+# CholQR squares the condition number (κ(A) ≈ 9 at 150 × 97, so
+# κ(AᵀA) ≈ 85): float32 is held to 1e-3 here, float64 to 1e-10
+CHOLQR_TOL = {np.float32: 1e-3, np.float64: 1e-10}
+
+
+@pytest.mark.parametrize("m,n,nb,dtype", [(150, 97, 32, np.float32),
+                                          (150, 97, 32, np.float64),
+                                          (200, 130, 64, np.float64)])
+def test_cholqr_tsqr_gels_cholqr_match_reference(m, n, nb, dtype):
+    """cholqr's Q and R, tsqr's Q and R (signs fixed: R's diagonal ≥ 0)
+    and gels with MethodGels.CholQR against the reference."""
+    a, b, _ = _problem(m, n, dtype)
+    ref = _cholqr_reference(m, n, nb)
+    tol = CHOLQR_TOL[dtype]
+    Q, R = stt.cholqr(_cpu(a, nb))
+    assert Q.shape == (m, n) and R.shape == (n, n)
+    assert R.kind is stt.MatrixKind.Triangular and R.uplo is stt.Uplo.Upper
+    assert _rel(Q.to_numpy(), ref["q"]) < tol
+    assert _rel(R.to_numpy(), ref["r"]) < tol
+    Qt, Rt = stt.tsqr(_cpu(a, nb))
+    assert _rel(Qt.to_numpy(), ref["qt"]) < tol
+    assert _rel(Rt.to_numpy(), ref["rt"]) < tol
+    q = Qt.to_numpy().astype(np.float64)
+    np.testing.assert_allclose(q.T @ q, np.eye(n), atol=10 * tol)
+    X = stt.gels(_cpu(a, nb), _cpu(b, nb),
+                 stt.Options(method_gels=stt.MethodGels.CholQR))
+    assert X.shape == (n, 3)
+    assert _rel(X.to_numpy(), ref["x"]) < tol
+
+
+def test_cholqr_gram_above_64_block_columns_runs_k5(monkeypatch):
+    """A Gram matrix of 68 block columns (n = 270 at nb = 4) takes
+    potrf's recursion, whose trailing update is K5; Q·R = A and QᵀQ = I
+    to float64 rounding."""
+    rng = np.random.default_rng(270)
+    a = rng.standard_normal((300, 270))
+    seen = []
+    k5 = hopper_ops.herk_lower_update
+    monkeypatch.setattr(hopper_ops, "herk_lower_update",
+                        lambda c, x: seen.append(tuple(c.shape)) or k5(c, x))
+    Q, R = stt.cholqr(_cpu(a, 4))
+    assert seen == [(136, 136)]  # 272 → 136 + 136
+    q, r = Q.to_numpy(), R.to_numpy()
+    np.testing.assert_allclose(q @ r, a, atol=1e-10)
+    np.testing.assert_allclose(q.T @ q, np.eye(270), atol=1e-8)
 
 
 def test_geqrf_complex_reaches_the_kernel_wrapper_and_raises():

@@ -7,6 +7,11 @@
 - ``interop.reference`` carries the reference Session's resident
   factors (as numpy) into the port, whose potrs/getrs then give the
   reference's X;
+- a "chol" operator with more than 64 block columns (n = 260 at nb = 4)
+  is factored by potrf's 2×2 recursion, whose trailing update is K5, and
+  serves the reference posv's X (at nb = 32, whose iterative loop
+  compiles in seconds; the reference's recursion at nt > 64 takes about
+  a minute on the CPU) to 1e-10 relative in float64;
 - no module of the port, and not chip_smoke.py, imports jax or slate_tpu;
 - entry points without ``device=`` raise when no CUDA device is present.
 """
@@ -25,6 +30,7 @@ from slate_tpu.runtime.session import Session as RefSession
 import slate_tpu_torch as stt
 from slate_tpu_torch.interop.reference import (factor_from_arrays,
                                                tiled_from_arrays)
+from slate_tpu_torch.ops import hopper_ops
 
 torch.set_num_threads(2)
 
@@ -145,6 +151,27 @@ def test_interop_reference_qr_factor_gives_reference_solution():
     X = stt.least_squares_solve_using_factor(
         QR, stt.from_dense(b, NB, device="cpu"))
     assert _rel(X.to_numpy(), x_ref) < 1e-10
+
+
+def test_session_chol_above_64_block_columns_serves_through_k5(monkeypatch):
+    n = 260
+    rng = np.random.default_rng(260)
+    x = rng.standard_normal((n, n))
+    spd = x @ x.T / n + np.eye(n)
+    b = rng.standard_normal((n, 2))
+    X_ref, _ = st.posv(st.hermitian(spd, 32, RUplo.Lower),
+                       st.from_dense(b, 32))
+    seen = []
+    k5 = hopper_ops.herk_lower_update
+    monkeypatch.setattr(hopper_ops, "herk_lower_update",
+                        lambda c, a: seen.append(tuple(c.shape)) or k5(c, a))
+    sess = stt.Session(device="cpu")
+    h = sess.register(stt.hermitian(spd, 4, stt.Uplo.Lower, device="cpu"),
+                      op="chol")
+    x = sess.solve(h, b)
+    assert seen == [(128, 128)]  # one split, 260 → 132 + 128
+    assert x.shape == (n, 2) and _rel(x, X_ref.to_numpy()) < 1e-10
+    assert sess.factor_info(h) == 0
 
 
 def test_lru_eviction_under_budget():
