@@ -11,11 +11,18 @@ Phases, one JSON line each:
 3. kernel  each kernel against its plain PyTorch version on the card, at
            the main path's shapes and a few more, plus the failure
            contracts (NaN pivot for chol_tile, zero column for
-           lu_panel_base, tau = 0 on a zeroed column and NaN propagation
+           lu_panel_base, whose lu, perm and info must be bitwise the
+           plain version's, also where a pivot tie or a NaN lies in
+           another row slab; tau = 0 on a zeroed column and NaN propagation
            for the QR panels, a NaN row of A for herk_lower_update, whose
            strict upper triangle of C must also stay bitwise unchanged,
            in place in a strided view too)
            and a float64 Q·R reconstruction of the timed QR panels;
+           lu_panel_base and qr_panel_base_wide run as one cooperative
+           launch over the SMs, with cases in both plan modes (row slabs
+           resident in shared memory, and streamed: (65536, 128) f32 and
+           (32768, 128) f64) and ragged slabs of a few rows; each row
+           prints its plan (blocks, rows, mode);
            kernel, plain and library times by CUDA events (warm, median
            of 7), and for herk_lower_update the cuBLAS recursion too;
 4. check   posv/gesv/gels on the card at small uneven sizes against
@@ -41,7 +48,10 @@ Phases, one JSON line each:
 The kernels' launch counters are zeroed just before the check phase and
 just before the main phase and read just after each; the launches made
 to compare a kernel with its plain version are not counted.
-Then a {"kernels": [...]} line, the nvidia-smi line, and last
+Then a {"kernels": [...]} line (for lu_panel_base and
+qr_panel_base_wide also the grid plan, which is derived from the shape
+and the SM count the run queried, not measured), the nvidia-smi line,
+and last
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device, or
 without the slate_tpu_torch package beside this file, it exits 2 at once.
@@ -162,7 +172,16 @@ def chol_nan_case(torch, ho, gen):
     return {"b": b, "bad_pivot": bad, "nan_from_pivot_on": True}
 
 
+def plan_row(ho, a):
+    """The grid plan K2/K4 launch with for ``a``, and the rows of the
+    ragged last slab."""
+    plan = ho.panel_plan_for(a)
+    return {"blocks": plan.blocks, "rows": plan.rows, "mode": plan.mode,
+            "last_rows": a.shape[0] - (plan.blocks - 1) * plan.rows}
+
+
 def lu_case(torch, ho, hh, w, dtype, gen, timed: bool, zero_col=None):
+    """K2 against its plain version: lu, perm and info bitwise equal."""
     a = torch.randn((hh, w), generator=gen, device="cuda", dtype=dtype)
     if zero_col is not None:
         a[:, zero_col] = 0
@@ -176,11 +195,11 @@ def lu_case(torch, ho, hh, w, dtype, gen, timed: bool, zero_col=None):
         check(int(ik) == zero_col + 1, f"lu_panel_base: info {int(ik)} for "
               f"a zero column {zero_col}")
     err = (lk - lp).abs().max().item()
-    tol = (1e-5 if dtype == torch.float32 else 1e-12) * lp.abs().max().item()
-    check(err <= tol, f"lu_panel_base {(hh, w)}: |kernel - plain| = {err}")
+    check(torch.equal(lk, lp), f"lu_panel_base {(hh, w)} {dtype}: lu not "
+          f"bitwise equal to the plain version (max |diff| {err})")
     row = {"H": hh, "w": w, "dtype": str(dtype).split(".")[1],
-           "max_abs_err": err, "tol": tol, "perm_equal": True,
-           "info": int(ik)}
+           "plan": plan_row(ho, a),
+           "max_abs_err": err, "bitwise_equal": True, "info": int(ik)}
     if timed:
         row["ms"] = cuda_ms(lambda: ho.lu_panel_base(a))
         row["plain_ms"] = cuda_ms(lambda: ho.lu_panel_base_plain(a), reps=5)
@@ -190,6 +209,44 @@ def lu_case(torch, ho, hh, w, dtype, gen, timed: bool, zero_col=None):
             2 * hh * w * s + 4 * hh + 4, hh * w * w - w ** 3 / 3.0,
             row["dtype"])
     return row
+
+
+def check_plan_modes(name, rows):
+    """The kernel phase must run a kernel in both plan modes, on a grid
+    of more than one block, and with a ragged slab of a few rows."""
+    plans = [r["plan"] for r in rows]
+    check({p["mode"] for p in plans} == {"resident", "streaming"},
+          f"{name}: the cases did not cover both plan modes: {plans}")
+    check(plans[0]["blocks"] > 1, f"{name}: the main shape ran one block")
+    check(min(p["last_rows"] for p in plans) < 16,
+          f"{name}: no case has a slab of a few rows: {plans}")
+
+
+def lu_edge_case(torch, ho, gen):
+    """K2 where the pivot search crosses slabs: in column 0 the largest
+    |a| ties between rows 33 and 70 (two slabs other than row 0's), so
+    row 33 must win; a NaN at row 600 of column 5 (another slab than row
+    5's) must win column 5 and set info = 6. lu, perm and info equal the
+    plain version's (NaN where it has NaN, bitwise elsewhere)."""
+    hh, w = 1000, 64
+    a = torch.randn((hh, w), generator=gen, device="cuda")
+    a[:, 0] = a[:, 0].clamp(-1, 1)
+    a[33, 0], a[70, 0] = -3.0, 3.0
+    a[600, 5] = math.nan
+    lk, pk, ik = ho.lu_panel_base(a)
+    lp, pp, ip = ho.lu_panel_base_plain(a)
+    torch.cuda.synchronize()
+    nan_k, nan_p = torch.isnan(lk), torch.isnan(lp)
+    check(torch.equal(pk, pp) and int(pk[0]) == 33 and int(pk[5]) == 600,
+          f"lu_panel_base edge case: perm {pk[:6].tolist()} (plain "
+          f"{pp[:6].tolist()})")
+    check(int(ik) == int(ip) == 6, f"lu_panel_base edge case: info "
+          f"{int(ik)}, plain {int(ip)}, expected 6")
+    check(torch.equal(nan_k, nan_p) and torch.equal(lk[~nan_k], lp[~nan_p]),
+          "lu_panel_base edge case: lu differs from the plain version")
+    return {"H": hh, "w": w, "plan": plan_row(ho, a), "tie_rows": [33, 70],
+            "pivot_0": int(pk[0]), "nan_at": [600, 5], "info": int(ik),
+            "bitwise_equal_off_nan": True}
 
 
 def qr_reconstruction(torch, a, vr, taus):
@@ -238,6 +295,8 @@ def qr_case(torch, ho, hh, w, dtype, gen, timed: bool, zero_col=None):
     row = {"H": hh, "w": w, "dtype": str(dtype).split(".")[1],
            "max_abs_err": max(err_v, err_t, err_r * vp.abs().max().item()),
            "err_r_rel": err_r, "err_v": err_v, "err_tau": err_t, "tol": tol}
+    if wide:
+        row["plan"] = plan_row(ho, a)
     if zero_col is not None:
         row["zero_col"], row["tau_zero_col"] = zero_col, tk[zero_col].item()
     if timed:
@@ -663,8 +722,11 @@ def main_path(torch, stt, ho, n, nb, gen):
     fl = factor_launches
     check(fl["chol"]["chol_tile"] >= nt,
           f"chol_tile launched {fl['chol']['chol_tile']} < {nt} times")
-    check(fl["lu"]["lu_panel_base"] >= nt,
-          "lu_panel_base launched fewer than once per panel")
+    k2 = fl["lu"]["lu_panel_base"]
+    check(k2 >= nt, "lu_panel_base launched fewer than once per panel")
+    if nb == 512:  # each (H, 512) panel splits into four 128-wide K2 bases
+        check(k2 == 4 * nt, f"lu factor launched lu_panel_base {k2} times, "
+              f"expected {4 * nt} for {nt} panels")
     kt = -(-n_q // nb)
     k3, k4 = fl["qr"]["qr_panel_base"], fl["qr"]["qr_panel_base_wide"]
     check(k3 + k4 >= kt, f"qr factor launched {fl['qr']} for {kt} panels")
@@ -773,9 +835,12 @@ def main(argv=None) -> int:
                                    (1024, torch.float64))]
         emit("kernel", name="chol_tile", cases=chol_rows,
              nan_case=chol_nan_case(torch, ho, gen))
+        # the main path's tallest base first (timed), a streaming-mode
+        # panel (timed), and slabs of a few rows at the ragged end
         lu_rows = [lu_case(torch, ho, hh, w, dt, gen,
-                           timed=(hh, w) == (args.n, 128))
+                           timed=(hh, w) in ((args.n, 128), (65536, 128)))
                    for hh, w, dt in ((args.n, 128, torch.float32),
+                                     (65536, 128, torch.float32),
                                      (8192, 32, torch.float32),
                                      (512, 64, torch.float32),
                                      (1000, 100, torch.float32),
@@ -783,7 +848,9 @@ def main(argv=None) -> int:
                                      (4096, 128, torch.float64))]
         lu_rows.append(lu_case(torch, ho, 1024, 64, torch.float32, gen,
                                False, zero_col=10))
-        emit("kernel", name="lu_panel_base", cases=lu_rows)
+        check_plan_modes("lu_panel_base", lu_rows)
+        emit("kernel", name="lu_panel_base", cases=lu_rows,
+             edge_case=lu_edge_case(torch, ho, gen))
         f32, f64 = torch.float32, torch.float64
         qr_rows = [qr_case(torch, ho, hh, w, dt, gen,
                            timed=(hh, w, dt) == (2 * args.n, 32, f32))
@@ -794,12 +861,15 @@ def main(argv=None) -> int:
                                zero_col=10))
         emit("kernel", name="qr_panel_base", cases=qr_rows)
         wide_rows = [qr_case(torch, ho, hh, w, dt, gen,
-                             timed=(hh, w, dt) == (2 * args.n, 128, f32))
+                             timed=(hh, w) == (2 * args.n, 128)
+                             or (hh, w, dt) == (32768, 128, f64))
                      for hh, w, dt in ((2 * args.n, 128, f32),
+                                       (32768, 128, f64),
                                        (8192, 64, f32), (1000, 96, f32),
                                        (256, 128, f32), (4096, 128, f64))]
         wide_rows.append(qr_case(torch, ho, 1024, 128, f32, gen, False,
                                  zero_col=37))
+        check_plan_modes("qr_panel_base_wide", wide_rows)
         emit("kernel", name="qr_panel_base_wide", cases=wide_rows,
              nan_case=qr_nan_case(torch, ho, gen))
         # the widest herk_lower_update of the main path: n/2 at k = n/2
@@ -857,7 +927,8 @@ def main(argv=None) -> int:
             "launches": launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            **({"plan": row["plan"]} if "plan" in row else {})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

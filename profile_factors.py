@@ -1,0 +1,117 @@
+#!/usr/bin/env python3
+"""Where the port's LU and QR factors spend their time, on one NVIDIA GPU.
+
+    python3 profile_factors.py            # n=16384, nb=512, float32
+    python3 profile_factors.py --n 2048   # a shorter run
+
+Factors the general (n × n, op "lu") and the tall (2n × n/2, op "qr")
+operators of chip_smoke.py's main phase once each, through a Session
+that has factored both kinds once at n = 1024 (so that one-time set-up
+of libraries and kernels is not in the profile), under torch.profiler (CPU and CUDA activity), and prints one JSON line
+per factor: the wall time under the profiler (the profiler slows the
+host, so this is not the factor time), the summed time of its device
+events (kernels, copies, sets; no host op is counted, so nothing twice)
+and its share of that wall, the count of device events, and the top
+twelve device events by device time and host ops by self CPU time. The
+last line is the card's nvidia-smi name and power limit. Exits 2
+without a CUDA device. Imports nothing of JAX and nothing of slate_tpu.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def register(torch, stt, sess, shape, op, nb, gen):
+    a = torch.randn(shape, generator=gen, device="cuda")
+    return sess.register(stt.from_dense(a, nb, device="cuda"), op=op)
+
+
+def profile_factor(torch, stt, sess, shape, op, nb, gen, top=12):
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        for k in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, k):
+                return getattr(e, k)
+        return 0.0
+
+    def on_device(e):  # a kernel, copy or set on the card, not a host op
+        return str(e.device_type).endswith("CUDA")
+
+    h = register(torch, stt, sess, shape, op, nb, gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        info = sess.factor_info(h)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if info != 0:
+        raise AssertionError(f"{op} factor: info {info}")
+    sess.unregister(h)
+    events = prof.key_averages()
+    dev = [e for e in events if on_device(e)]
+    host = [e for e in events if not on_device(e)]
+    busy_us = sum(dev_us(e) for e in dev)
+    return {
+        "op": op, "shape": list(shape), "nb": nb, "wall_s": wall,
+        "device_busy_s": busy_us / 1e6,
+        "device_busy_share": busy_us / 1e6 / wall,
+        "device_events": sum(e.count for e in dev),
+        "top_device": [{"name": e.key[:80], "count": e.count,
+                        "device_ms": dev_us(e) / 1e3}
+                       for e in sorted(dev, key=lambda e: -dev_us(e))[:top]],
+        "top_host": [{"name": e.key[:80], "count": e.count,
+                      "self_cpu_ms": e.self_cpu_time_total / 1e3}
+                     for e in sorted(host,
+                                     key=lambda e: -e.self_cpu_time_total)
+                     [:top]]}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--n", type=int, default=16384)
+    ap.add_argument("--nb", type=int, default=512)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_factors: no CUDA device is visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import slate_tpu_torch as stt
+    from slate_tpu_torch.core.precision import full_precision
+    from slate_tpu_torch.ops import _build
+
+    _build.build_all()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed)
+    ops = lambda n: (((n, n), "lu"), ((2 * n, n // 2), "qr"))  # noqa: E731
+    sess = stt.Session(hbm_budget=8 << 30, device="cuda")
+    with full_precision():
+        for shape, op in ops(1024):
+            h = register(torch, stt, sess, shape, op, min(args.nb, 256), gen)
+            if sess.factor_info(h) != 0:
+                raise AssertionError(f"warm-up {op} factor failed")
+            sess.unregister(h)
+        for shape, op in ops(args.n):
+            print(json.dumps(profile_factor(torch, stt, sess, shape, op,
+                                            args.nb, gen)), flush=True)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,6 @@
-// Householder QR of one tall (H × w) row-major panel, one thread block:
-// K3 qr_panel_base (1 <= w <= 32) and K4 qr_panel_base_wide
-// (32 < w <= 128, w % 32 == 0).
+// Householder QR of one tall (H × w) row-major panel: K3 qr_panel_base
+// (1 <= w <= 32, one thread block) and K4 qr_panel_base_wide
+// (32 < w <= 128, w % 32 == 0, one cooperative launch of G blocks).
 //
 // Replaces the TPU kernels slate_tpu/ops/pallas_ops.py::qr_panel_base
 // (body _qr_panel_kernel) and ::qr_panel_base_wide (bodies
@@ -24,25 +24,45 @@
 //      then w_row[c] = a[j,c] + scale·p[c] (= vᵀ·A[:, c] with v_j = 1);
 //  (C) one pass over the rows i >= j: v_i = a[i,j]·scale (v_j = 1),
 //      a[i,c] −= (tau·v_i)·w_row[c], column j ← v (beta on the diagonal).
-// K4 then updates the lanes right of each micro-block at once by compact
-// WY, C ← C − V·(Tᵀ·(Vᵀ·C)): G = VᵀV and Y = VᵀC in one pass over row
-// chunks of 32 staged in shared memory; T from LAPACK's forward
-// column recurrence T[:i,i] = −tau_i·(T[:i,:i]·G[:i,i]), T[i,i] = tau_i
-// (the reference's _larft_base; the TPU kernel reaches the same T by a
-// nilpotent fixed point); Z = TᵀY; C −= V·Z, one warp per row. T sees only
-// the micro-block's own columns.
 //
-// What bounds it: the panel's bytes through one SM. The panel (16 MiB at
-// 32768×128 f32) cannot live in one SM's shared memory, so it stays in
-// global memory (L2-resident) and the trailing lanes are read twice and
-// written once per column. Each warp keeps a few rows' loads in flight to
-// hide L2 latency. A multi-block version with a grid-wide barrier per
-// column, and tensor cores for the compact-WY products, are later work.
+// K3 runs this in one block of 1024 threads with the panel in global
+// memory (L2): it is bound by the panel's bytes re-read through one SM,
+// twice per column.
+//
+// K4 spreads the panel over the SMs (grid_panel.cuh): block b owns a row
+// slab, held in shared memory (resident mode) or, when it does not fit,
+// read in place through L1/L2 (streaming mode). In (A) each block sums its
+// own rows and publishes 32 partials (lane 0 is sigma), the owner of row j
+// publishes row j's micro lanes, and one grid barrier follows; in (B)
+// every block sums the G partials in the same fixed order, with no float
+// atomics, so every block takes bitwise the same scalars and w_row; (C)
+// runs on each block's own rows. After each micro-block but the last,
+// the lanes to its right get the compact-WY update C ← C − V·(Tᵀ·(Vᵀ·C)):
+// each block's partial E = Vᵀ·[V | C] over its rows (32 × 128), a barrier,
+// block b sums a slice of E's entries over the G partials in a fixed
+// order, a second barrier; then every block reads G = VᵀV and Y = VᵀC,
+// takes T by LAPACK's forward column recurrence
+// T[:i,i] = −tau_i·(T[:i,:i]·G[:i,i]), T[i,i] = tau_i (the reference's
+// _larft_base; the TPU kernel reaches the same T by a nilpotent fixed
+// point) and Z = TᵀY, and applies C −= V·Z to its own rows. T sees only
+// the micro-block's own columns, as in hopper_ops.qr_panel_base_wide_plain.
+//
+// What bounds K4: the w serial column steps (a grid barrier and a few
+// block barriers each) and the 2·(w/32 − 1) barriers of the updates; the
+// panel crosses HBM once each way (16 MiB at 32768 × 128 f32), and its
+// 2·H·w² flops at 67 TFLOP/s set a 16.0 µs bound. Measured by
+// chip_smoke.py on an H100 80GB HBM3 at 700 W: about 1 ms at
+// 32768 × 128 f32 (132 resident slabs of 249 rows), against 62.5 ms for
+// the one-block version before it; about 1.7–1.8 ms at 32768 × 128 f64
+// (streaming). PERF.md keeps the times of each run. FMA loops in the element type;
+// tensor cores come later.
 //
 // Built with nvcc for sm_90a WITHOUT --use_fast_math (IEEE sqrt, division
 // and NaN propagation are part of the contract).
 
 #include <cuda_runtime.h>
+
+#include "grid_panel.cuh"
 
 namespace {
 
@@ -66,14 +86,12 @@ __device__ __forceinline__ double div_rn(double x, double y) { return __ddiv_rn(
 template <typename T>
 __host__ __device__ constexpr int row_batch() { return sizeof(T) == 4 ? 8 : 4; }
 
-// shared memory of one block, in elements of T
-template <bool kWide>
+// shared memory of one K3 block, in elements of T
 constexpr int smem_elems() {
-  return kWarps * kMaxW      // per-warp partial sums / K4's 32-row tile
+  return kWarps * kMaxW      // per-warp partial sums
          + kMB               // w_row
          + kWarps            // per-warp sigma
-         + 4                 // tau, scale, beta_out
-         + (kWide ? kMB * kMB + kMB * kTS + 2 * kMB * kMaxTrail : 0);
+         + 4;                // tau, scale, beta_out
 }
 
 template <typename T>
@@ -82,19 +100,11 @@ struct Smem {
   T* wrow;
   T* sig;
   T* scal;
-  T* g;
-  T* tm;
-  T* y;
-  T* z;
   __device__ explicit Smem(T* base) {
     buf = base;
     wrow = buf + kWarps * kMaxW;
     sig = wrow + kMB;
     scal = sig + kWarps;
-    g = scal + 4;
-    tm = g + kMB * kMB;
-    y = tm + kMB * kTS;
-    z = y + kMB * kMaxTrail;
   }
 };
 
@@ -183,99 +193,6 @@ __device__ void householder_column(T* __restrict__ vr, T* __restrict__ taus,
   __syncthreads();
 }
 
-// K4: C ← C − V·(Tᵀ·(Vᵀ·C)) for the lanes right of the micro-block m0.
-template <typename T>
-__device__ void reflect_trailing(T* __restrict__ vr, const T* __restrict__ taus,
-                                 int H, int w, int m0, const Smem<T>& s) {
-  constexpr int U = row_batch<T>() / 2;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int hi = m0 + kMB, nc = w - hi, wm = w - m0;
-  constexpr int kYPer = kMB * kMaxTrail / kThreads;  // Y entries per thread
-
-  // G = VᵀV (one entry per thread) and Y = VᵀC over 32-row chunks
-  const int g1 = tid >> 5, g2 = tid & 31;
-  T gacc = T(0), yacc[kYPer];
-#pragma unroll
-  for (int q = 0; q < kYPer; ++q) yacc[q] = T(0);
-  T* tile = s.buf;  // [32][kMaxW]: 32 unit-lower V columns, then C
-  for (int r0 = m0; r0 < H; r0 += 32) {
-    for (int e = tid; e < 32 * wm; e += kThreads) {
-      const int rr = e / wm, cc = e - rr * wm, i = r0 + rr;
-      T val = T(0);
-      if (i < H) {
-        val = vr[(size_t)i * w + m0 + cc];
-        if (cc < kMB) val = i > m0 + cc ? val : (i == m0 + cc ? T(1) : T(0));
-      }
-      tile[rr * kMaxW + cc] = val;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int rr = 0; rr < 32; ++rr)
-      gacc += tile[rr * kMaxW + g1] * tile[rr * kMaxW + g2];
-#pragma unroll
-    for (int q = 0; q < kYPer; ++q) {
-      const int e = tid + q * kThreads;
-      if (e < kMB * nc) {
-        const int k = e / nc, c = e - k * nc;
-#pragma unroll 8
-        for (int rr = 0; rr < 32; ++rr)
-          yacc[q] += tile[rr * kMaxW + k] * tile[rr * kMaxW + kMB + c];
-      }
-    }
-    __syncthreads();
-  }
-  s.g[g1 * kMB + g2] = gacc;
-#pragma unroll
-  for (int q = 0; q < kYPer; ++q) {
-    const int e = tid + q * kThreads;
-    if (e < kMB * nc) s.y[e] = yacc[q];
-  }
-  for (int e = tid; e < kMB * kTS; e += kThreads) s.tm[e] = T(0);
-  __syncthreads();
-
-  // T by LAPACK's forward column recurrence (larft)
-  for (int i = 0; i < kMB; ++i) {
-    const T ti = taus[m0 + i];
-    if (tid < i) {
-      T d = T(0);
-      for (int l = 0; l < i; ++l) d += s.tm[tid * kTS + l] * s.g[l * kMB + i];
-      s.tm[tid * kTS + i] = -ti * d;
-    } else if (tid == i) {
-      s.tm[i * kTS + i] = ti;
-    }
-    __syncthreads();
-  }
-
-  // Z = TᵀY
-  for (int e = tid; e < kMB * nc; e += kThreads) {
-    const int k = e / nc, c = e - k * nc;
-    T d = T(0);
-    for (int l = 0; l < kMB; ++l) d += s.tm[l * kTS + k] * s.y[l * nc + c];
-    s.z[e] = d;
-  }
-  __syncthreads();
-
-  // C −= V·Z over the rows >= m0, one warp per row, lane k holds V[i, k]
-  for (int i0 = m0 + warp; i0 < H; i0 += kWarps * U) {
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int i = i0 + u * kWarps;
-      if (i >= H) break;
-      T* row = vr + (size_t)i * w;
-      const int kc = m0 + lane;
-      const T vk = i > kc ? row[kc] : (i == kc ? T(1) : T(0));
-      for (int c = lane; c < nc; c += 32) {
-        T d = T(0);
-#pragma unroll
-        for (int k = 0; k < kMB; ++k)
-          d += __shfl_sync(0xffffffffu, vk, k) * s.z[k * nc + c];
-        row[hi + c] = sub_rn(row[hi + c], d);
-      }
-    }
-  }
-  __syncthreads();
-}
-
 template <typename T>
 __device__ void copy_panel(const T* __restrict__ a, T* __restrict__ vr,
                            int H, int w) {
@@ -294,31 +211,255 @@ qr_panel_kernel(const T* __restrict__ a, T* __restrict__ vr,
   for (int j = 0; j < w; ++j) householder_column(vr, taus, H, w, j, w, s);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-qr_panel_wide_kernel(const T* __restrict__ a, T* __restrict__ vr,
-                     T* __restrict__ taus, int H, int w) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem<T> s(reinterpret_cast<T*>(smem_raw));
-  copy_panel(a, vr, H, w);
-  for (int m0 = 0; m0 < w; m0 += kMB) {
-    const int hi = m0 + kMB;
-    for (int j = m0; j < hi; ++j) householder_column(vr, taus, H, w, j, hi, s);
-    if (hi < w) reflect_trailing(vr, taus, H, w, m0, s);
-  }
+// ---------------------------------------------------------------------------
+// K4: one cooperative launch of G blocks (grid_panel.cuh), 512 threads each
+// ---------------------------------------------------------------------------
+
+constexpr int kGThreads = grid_panel::kThreads;
+constexpr int kGWarps = grid_panel::kWarps;
+constexpr int kE = kMB * kMaxW;  // one block's partial E = Vᵀ·[V | C], 32 × 128
+constexpr int kZPer = kMB * kMaxTrail / kGThreads;  // Z entries per thread
+static_assert(kGThreads == 4 * kMaxW, "E's thread map: 4 groups of 8 k");
+
+// K4's shared memory beside the slab, in elements of T
+constexpr int kWideFixed = kMB             // w_row
+                           + kMB           // the micro-block's taus
+                           + kGWarps * kMB // per-warp partial sums
+                           + 8             // tau, scale, beta_out
+                           + kMB * kMB     // G = VᵀV
+                           + kMB * kTS     // T
+                           + kMB * kMaxTrail;  // Y, then Z
+
+// the global scratch, in elements of T: two parities of G + 1 column
+// slots of 32 (block partials, then row j's micro lanes), G partial E's
+// and the reduced E
+__host__ __device__ inline size_t wide_scratch_elems(int G) {
+  return 2 * (size_t)(G + 1) * kMB + (size_t)(G + 1) * kE;
 }
 
-template <typename T, bool kWide>
-int qr_panel(const void* a, void* vr, void* taus, int H, int w, void* stream) {
-  if (w <= 0 || H < w) return (int)cudaErrorInvalidValue;
-  if (kWide ? (w <= kMB || w > kMaxW || w % kMB != 0) : w > kMB)
+// V[i, m0 + k] of the unit-lower micro-block from the packed row value x
+template <typename T>
+__device__ __forceinline__ T vmask(T x, int i, int col) {
+  return i > col ? x : (i == col ? T(1) : T(0));
+}
+
+template <typename T, bool kResident>
+__global__ void __launch_bounds__(kGThreads, 1)
+qr_wide_kernel(const T* __restrict__ a, T* vr, T* taus, int H, int w, int R,
+               T* scratch, unsigned int* bar) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int G = gridDim.x, b = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r0 = b * R, r1 = min(H, r0 + R);
+  T* wrow = reinterpret_cast<T*>(smem_raw);
+  T* mtau = wrow + kMB;
+  T* red = mtau + kMB;
+  T* scal = red + kGWarps * kMB;
+  T* gm = scal + 8;
+  T* tm = gm + kMB * kMB;
+  T* yz = tm + kMB * kTS;
+  T* slab = kResident ? yz + kMB * kMaxTrail : vr + (size_t)r0 * w;
+  T* part = scratch + 2 * (size_t)(G + 1) * kMB;
+  T* redE = part + (size_t)G * kE;
+  unsigned int n_bar = 0;
+
+  const size_t cells = (size_t)(r1 - r0) * w;
+  for (size_t k = tid; k < cells; k += kGThreads) slab[k] = a[(size_t)r0 * w + k];
+  __syncthreads();
+
+  for (int m0 = 0; m0 < w; m0 += kMB) {
+    const int hi = m0 + kMB;
+    for (int j = m0; j < hi; ++j) {
+      T* cp = scratch + (size_t)(j & 1) * (G + 1) * kMB;
+      const int c = j + lane;  // this lane's column
+      const bool in = c < hi;
+      // (A) this block's sigma (lane 0) and p[c] over its rows i > j
+      T acc = T(0);
+#pragma unroll 4
+      for (int i = max(j + 1, r0) + warp; i < r1; i += kGWarps) {
+        const T r = in ? slab[(size_t)(i - r0) * w + c] : T(0);
+        acc += __shfl_sync(0xffffffffu, r, 0) * r;
+      }
+      red[warp * kMB + lane] = acc;
+      __syncthreads();
+      if (warp == 0) {
+        T s = T(0);
+        for (int k = 0; k < kGWarps; ++k) s += red[k * kMB + lane];
+        cp[b * kMB + lane] = s;
+      } else if (warp == 1 && r0 <= j && j < r1) {
+        cp[G * kMB + lane] = in ? slab[(size_t)(j - r0) * w + c] : T(0);
+      }
+      grid_panel::grid_barrier(bar, ++n_bar * G);
+      // (B) every block sums the G partials in the same order and takes
+      // the same larfg scalars and w_row
+      {
+        T s = T(0);
+        for (int g = warp; g < G; g += kGWarps) s += __ldcg(cp + g * kMB + lane);
+        red[warp * kMB + lane] = s;
+      }
+      __syncthreads();
+      if (warp == 0) {
+        T t = T(0);
+        for (int k = 0; k < kGWarps; ++k) t += red[k * kMB + lane];
+        const T arow = __ldcg(cp + G * kMB + lane);  // a[j, c]
+        T scale = T(0);
+        if (lane == 0) {
+          const T alpha = arow;
+          const T anorm = sqrt(add_rn(mul_rn(alpha, alpha), t));
+          const T beta = alpha <= T(0) ? anorm : -anorm;
+          const bool degen = t == T(0);
+          const T beta_safe = (degen || beta == T(0)) ? T(1) : beta;
+          const T denom_safe = degen ? T(1) : sub_rn(alpha, beta);
+          const T tau = degen ? T(0) : div_rn(sub_rn(beta, alpha), beta_safe);
+          scale = degen ? T(0) : div_rn(T(1), denom_safe);
+          scal[0] = tau;
+          scal[1] = scale;
+          scal[2] = degen ? alpha : beta;
+          mtau[j - m0] = tau;
+        }
+        scale = __shfl_sync(0xffffffffu, scale, 0);
+        if (lane > 0 && in) wrow[lane] = arow + scale * t;
+      }
+      __syncthreads();
+      const T tau = scal[0], scale = scal[1], beta_out = scal[2];
+      // (C) the reflector on this block's rows i >= j, v into column j
+      for (int i = max(j, r0) + warp; i < r1; i += kGWarps) {
+        T* row = slab + (size_t)(i - r0) * w;
+        const T r = in ? row[c] : T(0);
+        const T x = __shfl_sync(0xffffffffu, r, 0);
+        const T v = i == j ? T(1) : mul_rn(x, scale);
+        const T tv = mul_rn(tau, v);
+        if (lane > 0 && in)
+          row[c] = sub_rn(r, mul_rn(tv, wrow[lane]));
+        else if (lane == 0)
+          row[j] = i == j ? beta_out : v;
+      }
+      if (b == 0 && tid == 0) taus[j] = tau;
+      __syncthreads();
+    }
+    if (hi >= w) break;
+
+    // compact-WY update of the lanes right of the micro-block:
+    // C ← C − V·(Tᵀ·(Vᵀ·C)) on the rows >= m0
+    const int wm = w - m0, nc = w - hi;
+    {  // this block's partial E[k][cc] = Σ V[i, k]·[V | C][i, cc]
+      const int cc = tid % kMaxW, k0 = (tid / kMaxW) * 8;
+      T acc[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc[q] = T(0);
+      for (int i = max(m0, r0); i < r1; ++i) {
+        const T* row = slab + (size_t)(i - r0) * w + m0;
+        const T x = cc < kMB ? vmask(row[cc], i, m0 + cc)
+                             : (cc < wm ? row[cc] : T(0));
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          acc[q] += vmask(row[k0 + q], i, m0 + k0 + q) * x;
+      }
+      if (cc < wm) {
+        T* mine = part + (size_t)b * kE;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) mine[(k0 + q) * kMaxW + cc] = acc[q];
+      }
+    }
+    grid_panel::grid_barrier(bar, ++n_bar * G);
+    {  // block b sums its slice of the 32·wm entries over the G partials
+      const int n_e = kMB * wm, per = (n_e + G - 1) / G;
+      const int e_lo = min(n_e, b * per), e_hi = min(n_e, e_lo + per);
+      for (int e0 = e_lo; e0 < e_hi; e0 += 32) {
+        const int e = e0 + lane;
+        const int off = e < e_hi ? (e / wm) * kMaxW + e % wm : 0;
+        T s = T(0);
+        if (e < e_hi)
+          for (int g = warp; g < G; g += kGWarps) s += __ldcg(part + (size_t)g * kE + off);
+        red[warp * kMB + lane] = s;
+        __syncthreads();
+        if (warp == 0 && e < e_hi) {
+          T t = T(0);
+          for (int k = 0; k < kGWarps; ++k) t += red[k * kMB + lane];
+          redE[off] = t;
+        }
+        __syncthreads();
+      }
+    }
+    grid_panel::grid_barrier(bar, ++n_bar * G);
+    for (int e = tid; e < kMB * kMB; e += kGThreads)
+      gm[e] = __ldcg(redE + (e / kMB) * kMaxW + e % kMB);
+    for (int e = tid; e < kMB * nc; e += kGThreads)
+      yz[e] = __ldcg(redE + (e / nc) * kMaxW + kMB + e % nc);
+    for (int e = tid; e < kMB * kTS; e += kGThreads) tm[e] = T(0);
+    __syncthreads();
+    // T by LAPACK's forward column recurrence (larft)
+    for (int i = 0; i < kMB; ++i) {
+      const T ti = mtau[i];
+      if (tid < i) {
+        T d = T(0);
+        for (int l = 0; l < i; ++l) d += tm[tid * kTS + l] * gm[l * kMB + i];
+        tm[tid * kTS + i] = -ti * d;
+      } else if (tid == i) {
+        tm[i * kTS + i] = ti;
+      }
+      __syncthreads();
+    }
+    {  // Z = TᵀY, in place of Y
+      T z[kZPer];
+#pragma unroll
+      for (int q = 0; q < kZPer; ++q) {
+        const int e = tid + q * kGThreads;
+        z[q] = T(0);
+        if (e < kMB * nc) {
+          const int k = e / nc, cz = e - k * nc;
+          for (int l = 0; l < kMB; ++l) z[q] += tm[l * kTS + k] * yz[l * nc + cz];
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < kZPer; ++q) {
+        const int e = tid + q * kGThreads;
+        if (e < kMB * nc) yz[e] = z[q];
+      }
+      __syncthreads();
+    }
+    // C −= V·Z on this block's rows >= m0, one warp per row, lane k holds V[i, k]
+    for (int i = max(m0, r0) + warp; i < r1; i += kGWarps) {
+      T* row = slab + (size_t)(i - r0) * w;
+      const T vk = vmask(row[m0 + lane], i, m0 + lane);
+      for (int cz = lane; cz < nc; cz += 32) {
+        T d = T(0);
+#pragma unroll
+        for (int k = 0; k < kMB; ++k) d += __shfl_sync(0xffffffffu, vk, k) * yz[k * nc + cz];
+        row[hi + cz] = sub_rn(row[hi + cz], d);
+      }
+    }
+    __syncthreads();
+  }
+  if (kResident)
+    for (size_t k = tid; k < cells; k += kGThreads) vr[(size_t)r0 * w + k] = slab[k];
+}
+
+template <typename T>
+int qr_panel_wide(const void* a, void* vr, void* taus, int H, int w, int G,
+                  int R, int resident, void* scratch, void* bar, void* stream) {
+  if (H < w || w <= kMB || w > kMaxW || w % kMB != 0 ||
+      !grid_panel::plan_covers(H, G, R))
     return (int)cudaErrorInvalidValue;
-  auto kernel = kWide ? qr_panel_wide_kernel<T> : qr_panel_kernel<T>;
-  const int smem = smem_elems<kWide>() * (int)sizeof(T);
+  const size_t smem =
+      (kWideFixed + (resident ? (size_t)R * w : 0)) * sizeof(T);
+  void* args[] = {&a, &vr, &taus, &H, &w, &R, &scratch, &bar};
+  return resident
+             ? grid_panel::launch_cooperative(qr_wide_kernel<T, true>, G, smem,
+                                              args, stream)
+             : grid_panel::launch_cooperative(qr_wide_kernel<T, false>, G,
+                                              smem, args, stream);
+}
+
+template <typename T>
+int qr_panel(const void* a, void* vr, void* taus, int H, int w, void* stream) {
+  if (w <= 0 || H < w || w > kMB) return (int)cudaErrorInvalidValue;
+  const int smem = smem_elems() * (int)sizeof(T);
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      qr_panel_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  qr_panel_kernel<T><<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(a), static_cast<T*>(vr), static_cast<T*>(taus),
       H, w);
   return (int)cudaGetLastError();
@@ -330,22 +471,31 @@ extern "C" {
 
 int slate_qr_panel_f32(const void* a, void* vr, void* taus, int H, int w,
                        void* stream) {
-  return qr_panel<float, false>(a, vr, taus, H, w, stream);
+  return qr_panel<float>(a, vr, taus, H, w, stream);
 }
 
 int slate_qr_panel_f64(const void* a, void* vr, void* taus, int H, int w,
                        void* stream) {
-  return qr_panel<double, false>(a, vr, taus, H, w, stream);
+  return qr_panel<double>(a, vr, taus, H, w, stream);
+}
+
+// bytes of global scratch one K4 launch of G blocks needs
+long long slate_qr_panel_wide_scratch_bytes(int G, int itemsize) {
+  return (long long)(wide_scratch_elems(G) * (size_t)itemsize);
 }
 
 int slate_qr_panel_wide_f32(const void* a, void* vr, void* taus, int H, int w,
-                            void* stream) {
-  return qr_panel<float, true>(a, vr, taus, H, w, stream);
+                            int G, int R, int resident, void* scratch,
+                            void* bar, void* stream) {
+  return qr_panel_wide<float>(a, vr, taus, H, w, G, R, resident, scratch, bar,
+                              stream);
 }
 
 int slate_qr_panel_wide_f64(const void* a, void* vr, void* taus, int H, int w,
-                            void* stream) {
-  return qr_panel<double, true>(a, vr, taus, H, w, stream);
+                            int G, int R, int resident, void* scratch,
+                            void* bar, void* stream) {
+  return qr_panel_wide<double>(a, vr, taus, H, w, G, R, resident, scratch, bar,
+                               stream);
 }
 
 const char* slate_qr_error_string(int e) {

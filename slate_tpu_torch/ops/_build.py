@@ -7,8 +7,9 @@ its own shared library with a plain C interface::
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so <name>.cu
 
 into ``slate_tpu_torch/_build/`` (listed in ``.gitignore``). The file name
-carries a hash of the source, so an edited source is rebuilt and a
-stale library is never loaded. Only the sources in the repository are
+carries a hash of the source, of every header (``*.cuh``) in ``csrc/``
+and of the flags, so an edited source or header is rebuilt and a stale
+library is never loaded. Only the sources in the repository are
 used, ``--use_fast_math`` is never passed (the kernels' NaN contracts
 need IEEE arithmetic), and a failed build raises.
 """
@@ -51,9 +52,11 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -31,8 +31,9 @@ limits).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -80,6 +81,71 @@ def _raise_on(rc: int, lib: str, err_sym: str, what: str):
     if rc:
         msg = _fn(lib, err_sym, [_I], ctypes.c_char_p)(rc).decode()
         raise SlateError(f"{what}: CUDA launch failed ({rc}: {msg})")
+
+
+# ---------------------------------------------------------------------------
+# The grid plan of the multi-block panel kernels (K2, K4)
+# ---------------------------------------------------------------------------
+
+PANEL_MIN_ROWS = 32          # the fewest rows a block of a tall panel gets
+PANEL_SMEM_LIMIT = 232_448   # 227 KB: the most shared memory a block can have
+PANEL_SMEM_RESERVE = 49_152  # the kernels' own shared memory beside the slab
+
+
+class PanelPlan(NamedTuple):
+    """G blocks of ``rows`` rows each (the last one ragged); ``resident``:
+    each block holds its slab in shared memory, else it streams its rows
+    from global memory."""
+    blocks: int
+    rows: int
+    resident: bool
+
+    @property
+    def mode(self) -> str:
+        return "resident" if self.resident else "streaming"
+
+
+def panel_grid_plan(hh: int, w: int, itemsize: int, n_sm: int) -> PanelPlan:
+    """The grid of K2 and K4 for an (hh, w) panel of ``itemsize``-byte
+    elements on a card with ``n_sm`` SMs: at most one block per SM, each
+    owning a contiguous slab of at least PANEL_MIN_ROWS rows (fewer only
+    when the whole panel is shorter), so a small panel takes few blocks.
+    A slab that fits PANEL_SMEM_LIMIT with PANEL_SMEM_RESERVE beside it is
+    resident. Pure: the C launchers check it, the CPU tests hold it."""
+    if hh < 1 or w < 1 or n_sm < 1:
+        raise SlateError(f"panel_grid_plan: bad shape {(hh, w)} or SM count "
+                         f"{n_sm}")
+    rows = min(hh, max(PANEL_MIN_ROWS, -(-hh // n_sm)))
+    blocks = -(-hh // rows)
+    resident = rows * w * itemsize + PANEL_SMEM_RESERVE <= PANEL_SMEM_LIMIT
+    return PanelPlan(blocks, rows, resident)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def panel_plan_for(a: torch.Tensor) -> PanelPlan:
+    """The plan K2 or K4 launches with for the CUDA tensor ``a``."""
+    hh, w = a.shape
+    return panel_grid_plan(hh, w, a.element_size(), _sm_count(a.device.index))
+
+
+def _grid_launch(lib: str, sym: str, err_sym: str, scratch_bytes: int,
+                 a: torch.Tensor, outs, plan: PanelPlan, what: str):
+    """One cooperative launch of a panel kernel: the scratch and the zeroed
+    grid-barrier counter are allocated here (the kernel allocates
+    nothing); a refused launch raises."""
+    hh, w = a.shape
+    scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=a.device)
+    bar = torch.zeros(1, dtype=torch.int32, device=a.device)
+    f = _fn(lib, sym, [_P] * (1 + len(outs)) + [_I] * 5 + [_P, _P, _P])
+    with torch.cuda.device(a.device):
+        rc = f(a.data_ptr(), *(x.data_ptr() for x in outs), hh, w,
+               plan.blocks, plan.rows, int(plan.resident), scratch.data_ptr(),
+               bar.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream)
+    _raise_on(rc, lib, err_sym, f"{what} (H={hh}, w={w}, plan {plan})")
 
 
 # ---------------------------------------------------------------------------
@@ -200,10 +266,12 @@ def lu_panel_base(a: torch.Tensor):
     ``_panel_getrf_base`` contract.
 
     Replaces ``pallas_ops.lu_panel_base`` (pallas_ops.py:442-459). The
-    CUDA kernel (csrc/lu_panel.cu) is one block looping over the w
-    columns; it is bound by the panel's bytes, re-read from L2 once per
-    column, and by the w serial argmax steps. Bitwise equal to the plain
-    version on the same input."""
+    CUDA kernel (csrc/lu_panel.cu) is one cooperative launch of G blocks
+    (``panel_grid_plan``), each owning a row slab held in shared memory
+    or streamed, with one grid barrier per column: it is bound by those
+    w serial steps, not by the panel's bytes, which cross HBM once each
+    way (PERF.md has its times beside the one-block design's). Bitwise
+    equal to the plain version on the same input: lu, perm and info."""
     if a.ndim != 2:
         raise SlateError("lu_panel_base: expects a 2-D panel")
     if a.dtype not in _REAL:
@@ -215,17 +283,15 @@ def lu_panel_base(a: torch.Tensor):
     if a.device.type == "cpu":
         return lu_panel_base_plain(a)
     _check_cuda_args("lu_panel_base", a)
+    plan = panel_plan_for(a)
     lu = torch.empty_like(a)
     perm = torch.empty(hh, dtype=torch.int32, device=a.device)
     info = torch.empty((), dtype=torch.int32, device=a.device)
-    f = _fn("lu_panel", f"slate_lu_panel_{_SUFFIX[a.dtype]}",
-            [_P, _P, _P, _P, _I, _I, _P])
-    with torch.cuda.device(a.device):
-        rc = f(a.data_ptr(), lu.data_ptr(), perm.data_ptr(),
-               info.data_ptr(), hh, w,
-               torch.cuda.current_stream(a.device).cuda_stream)
-    _raise_on(rc, "lu_panel", "slate_lu_error_string",
-              f"lu_panel_base (H={hh}, w={w})")
+    nbytes = _fn("lu_panel", "slate_lu_panel_scratch_bytes", [_I, _I, _I],
+                 ctypes.c_longlong)(plan.blocks, w, a.element_size())
+    _grid_launch("lu_panel", f"slate_lu_panel_{_SUFFIX[a.dtype]}",
+                 "slate_lu_error_string", nbytes, a, (lu, perm, info), plan,
+                 "lu_panel_base")
     LAUNCHES["lu_panel_base"] += 1
     return lu, perm, info
 
@@ -342,21 +408,6 @@ def _check_qr_panel(name: str, a: torch.Tensor, ok_width):
                          f"{(hh, w)} panel")
 
 
-def _qr_launch(name: str, sym: str, a: torch.Tensor):
-    _check_cuda_args(name, a)
-    hh, w = a.shape
-    vr = torch.empty_like(a)
-    taus = torch.empty(w, dtype=a.dtype, device=a.device)
-    f = _fn("qr_panel", f"{sym}_{_SUFFIX[a.dtype]}", [_P, _P, _P, _I, _I, _P])
-    with torch.cuda.device(a.device):
-        rc = f(a.data_ptr(), vr.data_ptr(), taus.data_ptr(), hh, w,
-               torch.cuda.current_stream(a.device).cuda_stream)
-    _raise_on(rc, "qr_panel", "slate_qr_error_string",
-              f"{name} (H={hh}, w={w})")
-    LAUNCHES[name] += 1
-    return vr, taus
-
-
 def qr_panel_base(a: torch.Tensor):
     """Householder QR of one (H, w) panel base, 0 < w ≤ min(H, 32),
     → (vr, taus) with the ``_panel_geqrf_base`` contract.
@@ -369,7 +420,19 @@ def qr_panel_base(a: torch.Tensor):
     _check_qr_panel("qr_panel_base", a, lambda w: 0 < w <= QR_WIDE_MB)
     if a.device.type == "cpu":
         return qr_panel_base_plain(a)
-    return _qr_launch("qr_panel_base", "slate_qr_panel", a)
+    _check_cuda_args("qr_panel_base", a)
+    hh, w = a.shape
+    vr = torch.empty_like(a)
+    taus = torch.empty(w, dtype=a.dtype, device=a.device)
+    f = _fn("qr_panel", f"slate_qr_panel_{_SUFFIX[a.dtype]}",
+            [_P, _P, _P, _I, _I, _P])
+    with torch.cuda.device(a.device):
+        rc = f(a.data_ptr(), vr.data_ptr(), taus.data_ptr(), hh, w,
+               torch.cuda.current_stream(a.device).cuda_stream)
+    _raise_on(rc, "qr_panel", "slate_qr_error_string",
+              f"qr_panel_base (H={hh}, w={w})")
+    LAUNCHES["qr_panel_base"] += 1
+    return vr, taus
 
 
 def qr_panel_base_wide(a: torch.Tensor):
@@ -378,15 +441,29 @@ def qr_panel_base_wide(a: torch.Tensor):
     between them → (vr, taus), K3's contract.
 
     Replaces ``pallas_ops.qr_panel_base_wide`` (pallas_ops.py:662-679).
-    Same CUDA source and bound as K3; the lanes right of a micro-block
-    are read once per micro-block instead of once per column. Equal to
-    ``qr_panel_base_wide_plain`` up to reduction order, and to the
-    unblocked column loop (``qr_panel_base_plain``) to tolerance
+    The CUDA kernel (csrc/qr_panel.cu) is one cooperative launch of G
+    blocks with K2's plan, each owning a row slab: one grid barrier per
+    column (the G blocks' partial sums reduced in one fixed order, so
+    every block takes the same reflector) and two per compact-WY update.
+    It is bound by those serial steps; the panel crosses HBM once each
+    way (PERF.md has its times beside the one-block design's). Equal to
+    ``qr_panel_base_wide_plain`` up to the order of its H-long sums, and
+    to the unblocked column loop (``qr_panel_base_plain``) to tolerance
     (reassociated trailing arithmetic)."""
     _check_qr_panel("qr_panel_base_wide", a, qr_panel_wide_eligible)
     if a.device.type == "cpu":
         return qr_panel_base_wide_plain(a)
-    return _qr_launch("qr_panel_base_wide", "slate_qr_panel_wide", a)
+    _check_cuda_args("qr_panel_base_wide", a)
+    plan = panel_plan_for(a)
+    vr = torch.empty_like(a)
+    taus = torch.empty(a.shape[1], dtype=a.dtype, device=a.device)
+    nbytes = _fn("qr_panel", "slate_qr_panel_wide_scratch_bytes", [_I, _I],
+                 ctypes.c_longlong)(plan.blocks, a.element_size())
+    _grid_launch("qr_panel", f"slate_qr_panel_wide_{_SUFFIX[a.dtype]}",
+                 "slate_qr_error_string", nbytes, a, (vr, taus), plan,
+                 "qr_panel_base_wide")
+    LAUNCHES["qr_panel_base_wide"] += 1
+    return vr, taus
 
 
 # ---------------------------------------------------------------------------
