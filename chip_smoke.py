@@ -10,7 +10,9 @@ Phases, one JSON line each:
 2. build   nvcc builds every kernel source of slate_tpu_torch/csrc;
 3. kernel  each kernel against its plain PyTorch version on the card, at
            the main path's shapes and a few more, plus the failure
-           contracts (NaN pivot for chol_tile, zero column for
+           contracts (NaN pivot for chol_tile at pivots 0, 300 and in
+           the last CTA's last row block of b = 512, and in each of the
+           other plan modes at b = 128 and 1024, zero column for
            lu_panel_base, whose lu, perm and info must be bitwise the
            plain version's, also where a pivot tie or a NaN lies in
            another row slab; tau = 0 on a zeroed column and NaN propagation
@@ -18,13 +20,22 @@ Phases, one JSON line each:
            strict upper triangle of C must also stay bitwise unchanged,
            in place in a strided view too)
            and a float64 Q·R reconstruction of the timed QR panels;
-           lu_panel_base and qr_panel_base_wide run as one cooperative
-           launch over the SMs, with cases in both plan modes (row slabs
-           resident in shared memory, and streamed: (65536, 128) f32 and
-           (32768, 128) f64) and ragged slabs of a few rows; each row
-           prints its plan (blocks, rows, mode);
+           lu_panel_base, qr_panel_base and qr_panel_base_wide run as one
+           cooperative launch over the SMs, with cases in both plan modes
+           (row slabs resident in shared memory, and streamed: (65536,
+           128) f32, (131072, 32) and (32768, 128) f64) and ragged slabs
+           of a few rows; each row prints its plan (blocks, rows, mode);
+           chol_tile runs as one thread-block cluster, with cases in each
+           of its plan modes (one CTA holding the whole tile: b = 1, 33,
+           128, 200 f32; 8 CTAs holding their row blocks: 512 f32; 8
+           CTAs streaming: 1024 f32, 512 and 1024 f64); each row prints
+           its plan (ctas, block_rows, mode, and the shared memory per
+           CTA, which must equal the C launcher's);
            kernel, plain and library times by CUDA events (warm, median
-           of 7), and for herk_lower_update the cuBLAS recursion too;
+           of 7; chol_tile at b = nb and 128 f32 and streaming at 1024
+           f32 and 512 f64, qr_panel_base resident at (2n, 32) f32 and
+           streaming at (131072, 32) f64), and for
+           herk_lower_update the cuBLAS recursion too;
 4. check   posv/gesv/gels on the card at small uneven sizes against
            float64 numpy; gels at nb = 32 runs qr_panel_base in every
            panel, at nb = 128 qr_panel_base_wide, and a wide operand runs
@@ -48,9 +59,10 @@ Phases, one JSON line each:
 The kernels' launch counters are zeroed just before the check phase and
 just before the main phase and read just after each; the launches made
 to compare a kernel with its plain version are not counted.
-Then a {"kernels": [...]} line (for lu_panel_base and
-qr_panel_base_wide also the grid plan, which is derived from the shape
-and the SM count the run queried, not measured), the nvidia-smi line,
+Then a {"kernels": [...]} line (for each kernel but herk_lower_update
+also its plan, which is derived from the shape, the type and the SM
+count the run queried, not measured; for chol_tile also its numbers at
+b = 128 under "at_b128"), the nvidia-smi line,
 and last
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device, or
@@ -148,28 +160,65 @@ def chol_case(torch, ho, b, dtype, gen, timed: bool):
           f"chol_tile b={b} {dtype}: |kernel - plain| = {err} > {tol}")
     check(torch.count_nonzero(torch.triu(lk, 1)).item() == 0,
           f"chol_tile b={b}: nonzero above the diagonal")
-    row = {"b": b, "dtype": str(dtype).split(".")[1], "max_abs_err": err,
-           "tol": tol}
+    row = {"b": b, "dtype": str(dtype).split(".")[1],
+           "plan": chol_plan_row(ho, a), "max_abs_err": err, "tol": tol}
     if timed:
         row["ms"] = cuda_ms(lambda: ho.chol_tile(a))
         row["plain_ms"] = cuda_ms(lambda: ho.chol_tile_plain(a), reps=5)
         row["library_ms"] = cuda_ms(lambda: torch.linalg.cholesky(a))
         s = a.element_size()
+        # reads the lower triangle, writes the whole tile
         row["bound_ms"], row["bound_by"] = bound(
-            2 * b * b * s, b ** 3 / 3.0, row["dtype"])
+            (b * (b + 1) // 2 + b * b) * s, b ** 3 / 3.0, row["dtype"])
     return row
 
 
+def chol_plan_row(ho, a):
+    """The cluster plan K1 launches with for ``a``; the plan's shared
+    memory per CTA must be the launcher's."""
+    b, s = a.shape[0], a.element_size()
+    plan = ho.chol_tile_plan(b, s)
+    smem = ho.chol_tile_smem_bytes(b, s, plan.ctas, plan.resident)
+    launch_smem = ho.chol_tile_launch_smem(b, s, plan)
+    check(smem == launch_smem, f"chol_tile b={b}: the plan counts {smem} "
+          f"bytes of shared memory, the launcher {launch_smem}")
+    return {"ctas": plan.ctas, "block_rows": plan.block_rows,
+            "mode": plan.mode, "smem_bytes": smem}
+
+
+def check_chol_modes(rows):
+    """The kernel phase must run K1 as one CTA holding the whole tile, as
+    a cluster holding its row blocks, and as a streaming cluster."""
+    modes = {(r["plan"]["ctas"] > 1, r["plan"]["mode"]) for r in rows}
+    check(modes == {(False, "resident"), (True, "resident"),
+                    (True, "streaming")},
+          f"chol_tile: the cases did not cover every plan mode: {modes}")
+
+
 def chol_nan_case(torch, ho, gen):
-    b, bad = 512, 300
-    a = spd_tile(torch, b, torch.float32, gen)
-    a[bad, bad] = -a.abs().sum()
-    for name, fn in (("kernel", ho.chol_tile), ("plain", ho.chol_tile_plain)):
-        d = fn(a).diagonal()
-        check(bool(torch.isfinite(d[:bad]).all()) and
-              bool(torch.isnan(d[bad:]).all()),
-              f"chol_tile {name}: NaN contract broken at pivot {bad}")
-    return {"b": b, "bad_pivot": bad, "nan_from_pivot_on": True}
+    """A negative pivot makes that diagonal entry NaN and every one after
+    it, and leaves those before it finite: at b = 512 f32 (8 CTAs,
+    resident) at pivots 0, 300 and in the last CTA's last row block; at
+    b = 128 (one CTA) and b = 1024 (streaming) in a middle row block."""
+    plan = ho.chol_tile_plan(512, 4)
+    last_lo = plan.row_blocks(plan.ctas - 1, 512)[-1][0]
+    cases = [(512, 0), (512, 300), (512, last_lo + 20), (128, 70),
+             (1024, 700)]
+    for b, bad in cases:
+        a = spd_tile(torch, b, torch.float32, gen)
+        a[bad, bad] = -a.abs().sum()
+        for name, fn in (("kernel", ho.chol_tile),
+                         ("plain", ho.chol_tile_plain)):
+            d = fn(a).diagonal()
+            check(bool(torch.isfinite(d[:bad]).all()) and
+                  bool(torch.isnan(d[bad:]).all()),
+                  f"chol_tile {name}: NaN contract broken at b = {b}, "
+                  f"pivot {bad}")
+    return {"bad_pivots": [{"b": b, "pivot": bad, "ctas": p.ctas,
+                            "mode": p.mode}
+                           for b, bad in cases
+                           for p in [ho.chol_tile_plan(b, 4)]],
+            "nan_from_pivot_on": True}
 
 
 def plan_row(ho, a):
@@ -295,8 +344,7 @@ def qr_case(torch, ho, hh, w, dtype, gen, timed: bool, zero_col=None):
     row = {"H": hh, "w": w, "dtype": str(dtype).split(".")[1],
            "max_abs_err": max(err_v, err_t, err_r * vp.abs().max().item()),
            "err_r_rel": err_r, "err_v": err_v, "err_tau": err_t, "tol": tol}
-    if wide:
-        row["plan"] = plan_row(ho, a)
+    row["plan"] = plan_row(ho, a)
     if zero_col is not None:
         row["zero_col"], row["tau_zero_col"] = zero_col, tk[zero_col].item()
     if timed:
@@ -823,16 +871,21 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     with full_precision():
-        # b = 200 ends in a ragged panel; float64 at b = 1024 takes the
-        # 16-wide panel instance of the kernel
+        # every plan mode; b = 33 and 200 end in a ragged row block;
+        # timed at b = nb and 128 f32, and streaming at 1024 f32 and
+        # 512 f64 (the tile of an f64 potrf at nb = 512)
+        chol_timed = {(args.nb, torch.float32), (128, torch.float32),
+                      (1024, torch.float32), (512, torch.float64)}
         chol_rows = [chol_case(torch, ho, b, dt, gen,
-                               timed=(b, dt) == (args.nb, torch.float32))
-                     for b, dt in ((128, torch.float32),
+                               timed=(b, dt) in chol_timed)
+                     for b, dt in ((1, torch.float32), (33, torch.float32),
+                                   (128, torch.float32),
                                    (200, torch.float32),
                                    (512, torch.float32),
                                    (1024, torch.float32),
                                    (512, torch.float64),
                                    (1024, torch.float64))]
+        check_chol_modes(chol_rows)
         emit("kernel", name="chol_tile", cases=chol_rows,
              nan_case=chol_nan_case(torch, ho, gen))
         # the main path's tallest base first (timed), a streaming-mode
@@ -853,12 +906,14 @@ def main(argv=None) -> int:
              edge_case=lu_edge_case(torch, ho, gen))
         f32, f64 = torch.float32, torch.float64
         qr_rows = [qr_case(torch, ho, hh, w, dt, gen,
-                           timed=(hh, w, dt) == (2 * args.n, 32, f32))
+                           timed=(hh, w, dt) in ((2 * args.n, 32, f32),
+                                                 (131072, 32, f64)))
                    for hh, w, dt in ((2 * args.n, 32, f32), (8192, 32, f32),
-                                     (1000, 20, f32), (256, 4, f32),
-                                     (4096, 32, f64))]
+                                     (131072, 32, f64), (1000, 20, f32),
+                                     (256, 4, f32), (4096, 32, f64))]
         qr_rows.append(qr_case(torch, ho, 1024, 32, f32, gen, False,
                                zero_col=10))
+        check_plan_modes("qr_panel_base", qr_rows)
         emit("kernel", name="qr_panel_base", cases=qr_rows)
         wide_rows = [qr_case(torch, ho, hh, w, dt, gen,
                              timed=(hh, w) == (2 * args.n, 128)
@@ -901,7 +956,12 @@ def main(argv=None) -> int:
         main = main_path(torch, stt, ho, args.n, args.nb, gen)
     emit("main", **main)
 
-    timed = {name: next(r for r in rows if r.get("ms") is not None)
+    # each kernel's first timed f32 row (K1 at b = nb, the nb = 512
+    # factor's tile), and K1 at b = 128 beside it
+    k1_128 = next(r for r in chol_rows if r["b"] == 128)
+    timed = {name: next(r for r in rows if r.get("ms") is not None
+                        and r.get("b", args.nb) == args.nb
+                        and r["dtype"] == "float32")
              for name, rows in (("chol_tile", chol_rows),
                                 ("lu_panel_base", lu_rows),
                                 ("qr_panel_base", qr_rows),
@@ -929,6 +989,9 @@ def main(argv=None) -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             **({"plan": row["plan"]} if "plan" in row else {})})
+    kernels[0]["at_b128"] = {k: k1_128[k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "plan")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

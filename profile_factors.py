@@ -1,20 +1,32 @@
 #!/usr/bin/env python3
-"""Where the port's LU and QR factors spend their time, on one NVIDIA GPU.
+"""Where the port's Cholesky, LU and QR factors spend their time, on one
+NVIDIA GPU.
 
     python3 profile_factors.py            # n=16384, nb=512, float32
     python3 profile_factors.py --n 2048   # a shorter run
+    python3 profile_factors.py --factors chol,chol_f64   # only these
 
-Factors the general (n × n, op "lu") and the tall (2n × n/2, op "qr")
-operators of chip_smoke.py's main phase once each, through a Session
-that has factored both kinds once at n = 1024 (so that one-time set-up
-of libraries and kernels is not in the profile), under torch.profiler (CPU and CUDA activity), and prints one JSON line
-per factor: the wall time under the profiler (the profiler slows the
-host, so this is not the factor time), the summed time of its device
-events (kernels, copies, sets; no host op is counted, so nothing twice)
-and its share of that wall, the count of device events, and the top
-twelve device events by device time and host ops by self CPU time. The
-last line is the card's nvidia-smi name and power limit. Exits 2
-without a CUDA device. Imports nothing of JAX and nothing of slate_tpu.
+By default factors the SPD (n × n, op "chol", at nb and at nb = n/128,
+where potrf takes its recursion and K1 runs at b = n/128), the general
+(n × n, op "lu") and the tall (2n × n/2, op "qr") operators of
+chip_smoke.py's main phase once each. ``--factors`` picks some of
+those, or of three that run a kernel in another plan mode: "chol_f64"
+(the SPD operator in float64 at nb, K1 at b = nb f64), "chol_nb1024"
+(in float32 at nb = 1024, K1 at b = 1024) and "qr_f64_nb32" (an
+8n × 64 float64 operator at nb = 32, K3 at (8n, 32) f64). Each runs
+through a Session that has factored every kind and type it profiles
+once at n = 1024 (so that one-time set-up of libraries and kernels is
+not in the profile), under torch.profiler (CPU and CUDA activity), and
+prints one
+JSON line per factor: the wall time under the profiler (the profiler
+slows the host, so this is not the factor time), the summed time of its
+device events (kernels, copies, sets; no host op is counted, so nothing
+twice) and its share of that wall, the count of device events, the
+device time and launches of each of the port's own kernels (by kernel
+name; "qr_panel" is K3 and K4, which share one kernel body), and the top twelve device events by device time and host
+ops by self CPU time. The last line is the card's nvidia-smi name and
+power limit. Exits 2 without a CUDA device. Imports nothing of JAX and
+nothing of slate_tpu.
 """
 
 from __future__ import annotations
@@ -27,14 +39,24 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# the port's kernels by the names of their __global__ functions in csrc/
+KERNEL_FUNCS = {"chol_tile": "chol_tile_kernel",
+                "lu_panel_base": "lu_panel_kernel",
+                "qr_panel": "qr_panel_kernel",
+                "herk_lower_update": "herk_lower_kernel"}
 
 
-def register(torch, stt, sess, shape, op, nb, gen):
-    a = torch.randn(shape, generator=gen, device="cuda")
+def register(torch, stt, sess, shape, op, nb, gen, dtype):
+    a = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+    if op == "chol":  # SPD, as chip_smoke.py's main phase makes it
+        a = a @ a.T / shape[0]
+        a.diagonal().add_(1.0)
+        return sess.register(stt.hermitian(a, nb, stt.Uplo.Lower,
+                                           device="cuda"), op=op)
     return sess.register(stt.from_dense(a, nb, device="cuda"), op=op)
 
 
-def profile_factor(torch, stt, sess, shape, op, nb, gen, top=12):
+def profile_factor(torch, stt, sess, shape, op, nb, dtype, gen, top=12):
     from torch.profiler import ProfilerActivity, profile
 
     def dev_us(e):
@@ -46,7 +68,7 @@ def profile_factor(torch, stt, sess, shape, op, nb, gen, top=12):
     def on_device(e):  # a kernel, copy or set on the card, not a host op
         return str(e.device_type).endswith("CUDA")
 
-    h = register(torch, stt, sess, shape, op, nb, gen)
+    h = register(torch, stt, sess, shape, op, nb, gen, dtype)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -62,10 +84,16 @@ def profile_factor(torch, stt, sess, shape, op, nb, gen, top=12):
     host = [e for e in events if not on_device(e)]
     busy_us = sum(dev_us(e) for e in dev)
     return {
-        "op": op, "shape": list(shape), "nb": nb, "wall_s": wall,
+        "op": op, "shape": list(shape), "nb": nb,
+        "dtype": str(dtype).split(".")[1], "wall_s": wall,
         "device_busy_s": busy_us / 1e6,
         "device_busy_share": busy_us / 1e6 / wall,
         "device_events": sum(e.count for e in dev),
+        "port_kernels": {
+            k: {"device_ms": sum(dev_us(e) for e in mine) / 1e3,
+                "count": sum(e.count for e in mine)}
+            for k, func in KERNEL_FUNCS.items()
+            for mine in [[e for e in dev if func in e.key]]},
         "top_device": [{"name": e.key[:80], "count": e.count,
                         "device_ms": dev_us(e) / 1e3}
                        for e in sorted(dev, key=lambda e: -dev_us(e))[:top]],
@@ -81,6 +109,9 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=16384)
     ap.add_argument("--nb", type=int, default=512)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--factors", default="chol,lu,qr,chol_nb128",
+                    help="which factors to profile, comma-separated (also "
+                    "chol_f64, chol_nb1024, qr_f64_nb32)")
     args = ap.parse_args(argv)
 
     import torch
@@ -95,17 +126,31 @@ def main(argv=None) -> int:
     _build.build_all()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
-    ops = lambda n: (((n, n), "lu"), ((2 * n, n // 2), "qr"))  # noqa: E731
+    n, f32, f64 = args.n, torch.float32, torch.float64
+    factors = {"chol": ((n, n), "chol", args.nb, f32),
+               "lu": ((n, n), "lu", args.nb, f32),
+               "qr": ((2 * n, n // 2), "qr", args.nb, f32),
+               "chol_nb128": ((n, n), "chol", n // 128, f32),
+               "chol_f64": ((n, n), "chol", args.nb, f64),
+               "chol_nb1024": ((n, n), "chol", 1024, f32),
+               "qr_f64_nb32": ((8 * n, 64), "qr", 32, f64)}
+    chosen = args.factors.split(",")
+    if not set(chosen) <= set(factors):
+        ap.error(f"--factors: choose from {sorted(factors)}")
+    warm = {((1024, 1024) if op != "qr" else (2048, 512), op, dt)
+            for _, op, _, dt in (factors[c] for c in chosen)}
     sess = stt.Session(hbm_budget=8 << 30, device="cuda")
     with full_precision():
-        for shape, op in ops(1024):
-            h = register(torch, stt, sess, shape, op, min(args.nb, 256), gen)
+        for shape, op, dt in sorted(warm, key=str):
+            h = register(torch, stt, sess, shape, op, min(args.nb, 256), gen,
+                         dt)
             if sess.factor_info(h) != 0:
-                raise AssertionError(f"warm-up {op} factor failed")
+                raise AssertionError(f"warm-up {op} {dt} factor failed")
             sess.unregister(h)
-        for shape, op in ops(args.n):
-            print(json.dumps(profile_factor(torch, stt, sess, shape, op,
-                                            args.nb, gen)), flush=True)
+        for name in chosen:
+            shape, op, nb, dt = factors[name]
+            print(json.dumps({"factor": name, **profile_factor(
+                torch, stt, sess, shape, op, nb, dt, gen)}), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,

@@ -1,6 +1,6 @@
-// Householder QR of one tall (H × w) row-major panel: K3 qr_panel_base
-// (1 <= w <= 32, one thread block) and K4 qr_panel_base_wide
-// (32 < w <= 128, w % 32 == 0, one cooperative launch of G blocks).
+// Householder QR of one tall (H × w) row-major panel, one kernel body for
+// K3 qr_panel_base (1 <= w <= 32) and K4 qr_panel_base_wide
+// (32 < w <= 128, w % 32 == 0): one cooperative launch of G blocks.
 //
 // Replaces the TPU kernels slate_tpu/ops/pallas_ops.py::qr_panel_base
 // (body _qr_panel_kernel) and ::qr_panel_base_wide (bodies
@@ -9,53 +9,50 @@
 // the diagonal, beta on it, the Householder tails v below) and the w
 // LAPACK taus, H_j = I − tau_j·v_j·v_jᵀ, Q = H_0·H_1·…
 //
-// Per column j (both kernels), with the update confined to the lanes
-// j < c < hi (hi = w for K3, the end of the 32-column micro-block for K4):
-//  (A) one pass over the rows i > j, one warp per row so that each row is
-//      read coalesced (lane l holds a[i, j + l]; x = a[i, j] is lane 0's
-//      and reaches the others by a shuffle): sigma = Σ x² and
-//      p[c] = Σ x·a[i,c]; per-warp partial sums reduced across warps in a
-//      fixed order;
-//  (B) the larfg scalars in one thread, IEEE sqrt and division with each
-//      product and sum rounded on its own (no FMA contraction):
-//      beta = +‖x‖ if alpha <= 0 else −‖x‖, tau = (beta − alpha)/beta,
+// The panel is spread over the SMs (grid_panel.cuh): block b owns a row
+// slab, held in shared memory (resident mode) or, when it does not fit,
+// read in place through L1/L2 (streaming mode). The columns go in
+// micro-blocks of 32 (one micro-block for K3). Per column j, with the
+// update confined to the lanes j < c < hi (hi = the end of j's
+// micro-block, at most w):
+//  (A) one pass over each block's rows i > j, one warp per row so that
+//      each row is read coalesced (lane l holds a[i, j + l]; x = a[i, j]
+//      is lane 0's and reaches the others by a shuffle): the block's
+//      sigma = Σ x² (lane 0) and p[c] = Σ x·a[i,c], per-warp partials
+//      summed in a fixed order; each block publishes its 32 partials, the
+//      owner of row j publishes row j's micro lanes, one grid barrier;
+//  (B) every block sums the G partials in the same fixed order, with no
+//      float atomics, so every block takes bitwise the same larfg scalars
+//      and w_row: IEEE sqrt and division with each product and sum
+//      rounded on its own (no FMA contraction), beta = +‖x‖ if
+//      alpha <= 0 else −‖x‖, tau = (beta − alpha)/beta,
 //      scale = 1/(alpha − beta); a zero tail (sigma == 0) gives tau = 0,
 //      scale = 0 and alpha kept on the diagonal; NaN propagates;
-//      then w_row[c] = a[j,c] + scale·p[c] (= vᵀ·A[:, c] with v_j = 1);
-//  (C) one pass over the rows i >= j: v_i = a[i,j]·scale (v_j = 1),
+//      w_row[c] = a[j,c] + scale·p[c] (= vᵀ·A[:, c] with v_j = 1);
+//  (C) on each block's own rows i >= j: v_i = a[i,j]·scale (v_j = 1),
 //      a[i,c] −= (tau·v_i)·w_row[c], column j ← v (beta on the diagonal).
+// A panel of w <= 32 (K3) ends there. After each micro-block of a wider
+// one (K4) but the last, the lanes to its right get the compact-WY update
+// C ← C − V·(Tᵀ·(Vᵀ·C)): each block's partial E = Vᵀ·[V | C] over its
+// rows (32 × 128), a barrier, block b sums a slice of E's entries over
+// the G partials in a fixed order, a second barrier; then every block
+// reads G = VᵀV and Y = VᵀC, takes T by LAPACK's forward column
+// recurrence T[:i,i] = −tau_i·(T[:i,:i]·G[:i,i]), T[i,i] = tau_i (the
+// reference's _larft_base; the TPU kernel reaches the same T by a
+// nilpotent fixed point) and Z = TᵀY, and applies C −= V·Z to its own
+// rows. T sees only the micro-block's own columns, as in
+// hopper_ops.qr_panel_base_wide_plain.
 //
-// K3 runs this in one block of 1024 threads with the panel in global
-// memory (L2): it is bound by the panel's bytes re-read through one SM,
-// twice per column.
-//
-// K4 spreads the panel over the SMs (grid_panel.cuh): block b owns a row
-// slab, held in shared memory (resident mode) or, when it does not fit,
-// read in place through L1/L2 (streaming mode). In (A) each block sums its
-// own rows and publishes 32 partials (lane 0 is sigma), the owner of row j
-// publishes row j's micro lanes, and one grid barrier follows; in (B)
-// every block sums the G partials in the same fixed order, with no float
-// atomics, so every block takes bitwise the same scalars and w_row; (C)
-// runs on each block's own rows. After each micro-block but the last,
-// the lanes to its right get the compact-WY update C ← C − V·(Tᵀ·(Vᵀ·C)):
-// each block's partial E = Vᵀ·[V | C] over its rows (32 × 128), a barrier,
-// block b sums a slice of E's entries over the G partials in a fixed
-// order, a second barrier; then every block reads G = VᵀV and Y = VᵀC,
-// takes T by LAPACK's forward column recurrence
-// T[:i,i] = −tau_i·(T[:i,:i]·G[:i,i]), T[i,i] = tau_i (the reference's
-// _larft_base; the TPU kernel reaches the same T by a nilpotent fixed
-// point) and Z = TᵀY, and applies C −= V·Z to its own rows. T sees only
-// the micro-block's own columns, as in hopper_ops.qr_panel_base_wide_plain.
-//
-// What bounds K4: the w serial column steps (a grid barrier and a few
-// block barriers each) and the 2·(w/32 − 1) barriers of the updates; the
-// panel crosses HBM once each way (16 MiB at 32768 × 128 f32), and its
-// 2·H·w² flops at 67 TFLOP/s set a 16.0 µs bound. Measured by
-// chip_smoke.py on an H100 80GB HBM3 at 700 W: about 1 ms at
-// 32768 × 128 f32 (132 resident slabs of 249 rows), against 62.5 ms for
-// the one-block version before it; about 1.7–1.8 ms at 32768 × 128 f64
-// (streaming). PERF.md keeps the times of each run. FMA loops in the element type;
-// tensor cores come later.
+// What bounds it: the w serial column steps (a grid barrier and a few
+// block barriers each) and, for K4, the 2·(w/32 − 1) barriers of the
+// updates; the panel crosses HBM once each way (16 MiB at 32768 × 128
+// f32, 4 MiB at 32768 × 32), and its 2·H·w² flops at 67 TFLOP/s set
+// 16.0 µs at 32768 × 128 f32. Measured by chip_smoke.py on an H100 80GB
+// HBM3 at 700 W: K4 about 1 ms at 32768 × 128 f32 (132 resident slabs of
+// 249 rows), against 62.5 ms for the one-block version before it; K3 at
+// 32768 × 32 f32 took 13.1 ms as one block re-reading the panel through
+// one SM twice per column. PERF.md keeps the times of each run. FMA loops
+// in the element type; tensor cores come later.
 //
 // Built with nvcc for sm_90a WITHOUT --use_fast_math (IEEE sqrt, division
 // and NaN propagation are part of the contract).
@@ -66,8 +63,6 @@
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxW = 128;              // widest (K4) panel
 constexpr int kMB = 32;                 // K3's widest panel, K4's micro-block
 constexpr int kMaxTrail = kMaxW - kMB;  // lanes right of a micro-block
@@ -82,159 +77,26 @@ __device__ __forceinline__ double sub_rn(double x, double y) { return __dsub_rn(
 __device__ __forceinline__ float div_rn(float x, float y) { return __fdiv_rn(x, y); }
 __device__ __forceinline__ double div_rn(double x, double y) { return __ddiv_rn(x, y); }
 
-// rows a warp keeps in flight per loop step
-template <typename T>
-__host__ __device__ constexpr int row_batch() { return sizeof(T) == 4 ? 8 : 4; }
-
-// shared memory of one K3 block, in elements of T
-constexpr int smem_elems() {
-  return kWarps * kMaxW      // per-warp partial sums
-         + kMB               // w_row
-         + kWarps            // per-warp sigma
-         + 4;                // tau, scale, beta_out
-}
-
-template <typename T>
-struct Smem {
-  T* buf;
-  T* wrow;
-  T* sig;
-  T* scal;
-  __device__ explicit Smem(T* base) {
-    buf = base;
-    wrow = buf + kWarps * kMaxW;
-    sig = wrow + kMB;
-    scal = sig + kWarps;
-  }
-};
-
-// One Householder column j; the update reaches the lanes j < c < hi
-// (hi − j <= 32). Lane l of a warp holds the row's entry c = j + l.
-template <typename T>
-__device__ void householder_column(T* __restrict__ vr, T* __restrict__ taus,
-                                   int H, int w, int j, int hi,
-                                   const Smem<T>& s) {
-  constexpr int U = row_batch<T>();
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  const int c = j + lane;  // this lane's column
-  const bool in = c < hi;
-
-  // (A) sigma and p[c] over the rows below j
-  T acc = T(0), sig = T(0);
-  for (int i0 = j + 1 + warp; i0 < H; i0 += kWarps * U) {
-    T r[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int i = i0 + u * kWarps;
-      r[u] = (i < H && in) ? vr[(size_t)i * w + c] : T(0);
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const T x = __shfl_sync(0xffffffffu, r[u], 0);
-      sig += x * x;
-      acc += x * r[u];
-    }
-  }
-  s.buf[warp * kMB + lane] = acc;
-  if (lane == 0) s.sig[warp] = sig;
-  __syncthreads();
-
-  // (B) larfg scalars (one thread) and the cross-warp sums of p
-  if (warp == 0) {
-    T t = s.sig[lane];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) t += __shfl_down_sync(0xffffffffu, t, off);
-    if (lane == 0) {
-      const T alpha = vr[(size_t)j * w + j];
-      const T anorm = sqrt(add_rn(mul_rn(alpha, alpha), t));
-      const T beta = alpha <= T(0) ? anorm : -anorm;
-      const bool degen = t == T(0);
-      const T beta_safe = (degen || beta == T(0)) ? T(1) : beta;
-      const T denom_safe = degen ? T(1) : sub_rn(alpha, beta);
-      s.scal[0] = degen ? T(0) : div_rn(sub_rn(beta, alpha), beta_safe);
-      s.scal[1] = degen ? T(0) : div_rn(T(1), denom_safe);
-      s.scal[2] = degen ? alpha : beta;
-    }
-  }
-  const bool owns = tid > 0 && tid < kMB && j + tid < hi;  // lane c = j + tid
-  if (owns) {
-    T p = T(0);
-    for (int wp = 0; wp < kWarps; ++wp) p += s.buf[wp * kMB + tid];
-    s.wrow[tid] = p;
-  }
-  __syncthreads();
-  const T tau = s.scal[0], scale = s.scal[1], beta_out = s.scal[2];
-  if (owns) s.wrow[tid] = vr[(size_t)j * w + j + tid] + scale * s.wrow[tid];
-  __syncthreads();
-
-  // (C) scale the tail and apply the reflector to the lanes j < c < hi
-  for (int i0 = j + warp; i0 < H; i0 += kWarps * U) {
-    T r[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int i = i0 + u * kWarps;
-      r[u] = (i < H && in) ? vr[(size_t)i * w + c] : T(0);
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int i = i0 + u * kWarps;
-      const T x = __shfl_sync(0xffffffffu, r[u], 0);
-      if (i >= H) break;
-      const T v = i == j ? T(1) : mul_rn(x, scale);
-      const T tv = mul_rn(tau, v);
-      if (lane > 0 && in)
-        vr[(size_t)i * w + c] = sub_rn(r[u], mul_rn(tv, s.wrow[lane]));
-      else if (lane == 0)
-        vr[(size_t)i * w + j] = i == j ? beta_out : v;
-    }
-  }
-  if (tid == 0) taus[j] = tau;
-  __syncthreads();
-}
-
-template <typename T>
-__device__ void copy_panel(const T* __restrict__ a, T* __restrict__ vr,
-                           int H, int w) {
-  const size_t cells = (size_t)H * w;
-  for (size_t k = threadIdx.x; k < cells; k += kThreads) vr[k] = a[k];
-  __syncthreads();
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-qr_panel_kernel(const T* __restrict__ a, T* __restrict__ vr,
-                T* __restrict__ taus, int H, int w) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem<T> s(reinterpret_cast<T*>(smem_raw));
-  copy_panel(a, vr, H, w);
-  for (int j = 0; j < w; ++j) householder_column(vr, taus, H, w, j, w, s);
-}
-
-// ---------------------------------------------------------------------------
-// K4: one cooperative launch of G blocks (grid_panel.cuh), 512 threads each
-// ---------------------------------------------------------------------------
-
-constexpr int kGThreads = grid_panel::kThreads;
-constexpr int kGWarps = grid_panel::kWarps;
+constexpr int kThreads = grid_panel::kThreads;
+constexpr int kWarps = grid_panel::kWarps;
 constexpr int kE = kMB * kMaxW;  // one block's partial E = Vᵀ·[V | C], 32 × 128
-constexpr int kZPer = kMB * kMaxTrail / kGThreads;  // Z entries per thread
-static_assert(kGThreads == 4 * kMaxW, "E's thread map: 4 groups of 8 k");
+constexpr int kZPer = kMB * kMaxTrail / kThreads;  // Z entries per thread
+static_assert(kThreads == 4 * kMaxW, "E's thread map: 4 groups of 8 k");
 
-// K4's shared memory beside the slab, in elements of T
-constexpr int kWideFixed = kMB             // w_row
-                           + kMB           // the micro-block's taus
-                           + kGWarps * kMB // per-warp partial sums
-                           + 8             // tau, scale, beta_out
-                           + kMB * kMB     // G = VᵀV
-                           + kMB * kTS     // T
-                           + kMB * kMaxTrail;  // Y, then Z
+// shared memory beside the slab, in elements of T
+constexpr int kFixed = kMB                // w_row
+                       + kMB              // the micro-block's taus
+                       + kWarps * kMB     // per-warp partial sums
+                       + 8                // tau, scale, beta_out
+                       + kMB * kMB        // G = VᵀV
+                       + kMB * kTS        // T
+                       + kMB * kMaxTrail; // Y, then Z
 
 // the global scratch, in elements of T: two parities of G + 1 column
-// slots of 32 (block partials, then row j's micro lanes), G partial E's
-// and the reduced E
-__host__ __device__ inline size_t wide_scratch_elems(int G) {
-  return 2 * (size_t)(G + 1) * kMB + (size_t)(G + 1) * kE;
+// slots of 32 (block partials, then row j's micro lanes), then, for a
+// panel wider than one micro-block, G partial E's and the reduced E
+__host__ __device__ inline size_t scratch_elems(int G, int w) {
+  return 2 * (size_t)(G + 1) * kMB + (w > kMB ? (size_t)(G + 1) * kE : 0);
 }
 
 // V[i, m0 + k] of the unit-lower micro-block from the packed row value x
@@ -244,9 +106,9 @@ __device__ __forceinline__ T vmask(T x, int i, int col) {
 }
 
 template <typename T, bool kResident>
-__global__ void __launch_bounds__(kGThreads, 1)
-qr_wide_kernel(const T* __restrict__ a, T* vr, T* taus, int H, int w, int R,
-               T* scratch, unsigned int* bar) {
+__global__ void __launch_bounds__(kThreads, 1)
+qr_panel_kernel(const T* __restrict__ a, T* vr, T* taus, int H, int w, int R,
+                T* scratch, unsigned int* bar) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int G = gridDim.x, b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -254,7 +116,7 @@ qr_wide_kernel(const T* __restrict__ a, T* vr, T* taus, int H, int w, int R,
   T* wrow = reinterpret_cast<T*>(smem_raw);
   T* mtau = wrow + kMB;
   T* red = mtau + kMB;
-  T* scal = red + kGWarps * kMB;
+  T* scal = red + kWarps * kMB;
   T* gm = scal + 8;
   T* tm = gm + kMB * kMB;
   T* yz = tm + kMB * kTS;
@@ -264,11 +126,11 @@ qr_wide_kernel(const T* __restrict__ a, T* vr, T* taus, int H, int w, int R,
   unsigned int n_bar = 0;
 
   const size_t cells = (size_t)(r1 - r0) * w;
-  for (size_t k = tid; k < cells; k += kGThreads) slab[k] = a[(size_t)r0 * w + k];
+  for (size_t k = tid; k < cells; k += kThreads) slab[k] = a[(size_t)r0 * w + k];
   __syncthreads();
 
   for (int m0 = 0; m0 < w; m0 += kMB) {
-    const int hi = m0 + kMB;
+    const int hi = min(m0 + kMB, w);
     for (int j = m0; j < hi; ++j) {
       T* cp = scratch + (size_t)(j & 1) * (G + 1) * kMB;
       const int c = j + lane;  // this lane's column
@@ -276,7 +138,7 @@ qr_wide_kernel(const T* __restrict__ a, T* vr, T* taus, int H, int w, int R,
       // (A) this block's sigma (lane 0) and p[c] over its rows i > j
       T acc = T(0);
 #pragma unroll 4
-      for (int i = max(j + 1, r0) + warp; i < r1; i += kGWarps) {
+      for (int i = max(j + 1, r0) + warp; i < r1; i += kWarps) {
         const T r = in ? slab[(size_t)(i - r0) * w + c] : T(0);
         acc += __shfl_sync(0xffffffffu, r, 0) * r;
       }
@@ -284,7 +146,7 @@ qr_wide_kernel(const T* __restrict__ a, T* vr, T* taus, int H, int w, int R,
       __syncthreads();
       if (warp == 0) {
         T s = T(0);
-        for (int k = 0; k < kGWarps; ++k) s += red[k * kMB + lane];
+        for (int k = 0; k < kWarps; ++k) s += red[k * kMB + lane];
         cp[b * kMB + lane] = s;
       } else if (warp == 1 && r0 <= j && j < r1) {
         cp[G * kMB + lane] = in ? slab[(size_t)(j - r0) * w + c] : T(0);
@@ -294,13 +156,13 @@ qr_wide_kernel(const T* __restrict__ a, T* vr, T* taus, int H, int w, int R,
       // the same larfg scalars and w_row
       {
         T s = T(0);
-        for (int g = warp; g < G; g += kGWarps) s += __ldcg(cp + g * kMB + lane);
+        for (int g = warp; g < G; g += kWarps) s += __ldcg(cp + g * kMB + lane);
         red[warp * kMB + lane] = s;
       }
       __syncthreads();
       if (warp == 0) {
         T t = T(0);
-        for (int k = 0; k < kGWarps; ++k) t += red[k * kMB + lane];
+        for (int k = 0; k < kWarps; ++k) t += red[k * kMB + lane];
         const T arow = __ldcg(cp + G * kMB + lane);  // a[j, c]
         T scale = T(0);
         if (lane == 0) {
@@ -323,7 +185,7 @@ qr_wide_kernel(const T* __restrict__ a, T* vr, T* taus, int H, int w, int R,
       __syncthreads();
       const T tau = scal[0], scale = scal[1], beta_out = scal[2];
       // (C) the reflector on this block's rows i >= j, v into column j
-      for (int i = max(j, r0) + warp; i < r1; i += kGWarps) {
+      for (int i = max(j, r0) + warp; i < r1; i += kWarps) {
         T* row = slab + (size_t)(i - r0) * w;
         const T r = in ? row[c] : T(0);
         const T x = __shfl_sync(0xffffffffu, r, 0);
@@ -370,23 +232,23 @@ qr_wide_kernel(const T* __restrict__ a, T* vr, T* taus, int H, int w, int R,
         const int off = e < e_hi ? (e / wm) * kMaxW + e % wm : 0;
         T s = T(0);
         if (e < e_hi)
-          for (int g = warp; g < G; g += kGWarps) s += __ldcg(part + (size_t)g * kE + off);
+          for (int g = warp; g < G; g += kWarps) s += __ldcg(part + (size_t)g * kE + off);
         red[warp * kMB + lane] = s;
         __syncthreads();
         if (warp == 0 && e < e_hi) {
           T t = T(0);
-          for (int k = 0; k < kGWarps; ++k) t += red[k * kMB + lane];
+          for (int k = 0; k < kWarps; ++k) t += red[k * kMB + lane];
           redE[off] = t;
         }
         __syncthreads();
       }
     }
     grid_panel::grid_barrier(bar, ++n_bar * G);
-    for (int e = tid; e < kMB * kMB; e += kGThreads)
+    for (int e = tid; e < kMB * kMB; e += kThreads)
       gm[e] = __ldcg(redE + (e / kMB) * kMaxW + e % kMB);
-    for (int e = tid; e < kMB * nc; e += kGThreads)
+    for (int e = tid; e < kMB * nc; e += kThreads)
       yz[e] = __ldcg(redE + (e / nc) * kMaxW + kMB + e % nc);
-    for (int e = tid; e < kMB * kTS; e += kGThreads) tm[e] = T(0);
+    for (int e = tid; e < kMB * kTS; e += kThreads) tm[e] = T(0);
     __syncthreads();
     // T by LAPACK's forward column recurrence (larft)
     for (int i = 0; i < kMB; ++i) {
@@ -404,7 +266,7 @@ qr_wide_kernel(const T* __restrict__ a, T* vr, T* taus, int H, int w, int R,
       T z[kZPer];
 #pragma unroll
       for (int q = 0; q < kZPer; ++q) {
-        const int e = tid + q * kGThreads;
+        const int e = tid + q * kThreads;
         z[q] = T(0);
         if (e < kMB * nc) {
           const int k = e / nc, cz = e - k * nc;
@@ -414,13 +276,13 @@ qr_wide_kernel(const T* __restrict__ a, T* vr, T* taus, int H, int w, int R,
       __syncthreads();
 #pragma unroll
       for (int q = 0; q < kZPer; ++q) {
-        const int e = tid + q * kGThreads;
+        const int e = tid + q * kThreads;
         if (e < kMB * nc) yz[e] = z[q];
       }
       __syncthreads();
     }
     // C −= V·Z on this block's rows >= m0, one warp per row, lane k holds V[i, k]
-    for (int i = max(m0, r0) + warp; i < r1; i += kGWarps) {
+    for (int i = max(m0, r0) + warp; i < r1; i += kWarps) {
       T* row = slab + (size_t)(i - r0) * w;
       const T vk = vmask(row[m0 + lane], i, m0 + lane);
       for (int cz = lane; cz < nc; cz += 32) {
@@ -433,69 +295,47 @@ qr_wide_kernel(const T* __restrict__ a, T* vr, T* taus, int H, int w, int R,
     __syncthreads();
   }
   if (kResident)
-    for (size_t k = tid; k < cells; k += kGThreads) vr[(size_t)r0 * w + k] = slab[k];
+    for (size_t k = tid; k < cells; k += kThreads) vr[(size_t)r0 * w + k] = slab[k];
 }
 
 template <typename T>
-int qr_panel_wide(const void* a, void* vr, void* taus, int H, int w, int G,
-                  int R, int resident, void* scratch, void* bar, void* stream) {
-  if (H < w || w <= kMB || w > kMaxW || w % kMB != 0 ||
+int qr_panel(const void* a, void* vr, void* taus, int H, int w, int G, int R,
+             int resident, void* scratch, void* bar, void* stream) {
+  if (w <= 0 || H < w || w > kMaxW || (w > kMB && w % kMB != 0) ||
       !grid_panel::plan_covers(H, G, R))
     return (int)cudaErrorInvalidValue;
   const size_t smem =
-      (kWideFixed + (resident ? (size_t)R * w : 0)) * sizeof(T);
+      (kFixed + (resident ? (size_t)R * w : 0)) * sizeof(T);
   void* args[] = {&a, &vr, &taus, &H, &w, &R, &scratch, &bar};
   return resident
-             ? grid_panel::launch_cooperative(qr_wide_kernel<T, true>, G, smem,
-                                              args, stream)
-             : grid_panel::launch_cooperative(qr_wide_kernel<T, false>, G,
+             ? grid_panel::launch_cooperative(qr_panel_kernel<T, true>, G,
+                                              smem, args, stream)
+             : grid_panel::launch_cooperative(qr_panel_kernel<T, false>, G,
                                               smem, args, stream);
-}
-
-template <typename T>
-int qr_panel(const void* a, void* vr, void* taus, int H, int w, void* stream) {
-  if (w <= 0 || H < w || w > kMB) return (int)cudaErrorInvalidValue;
-  const int smem = smem_elems() * (int)sizeof(T);
-  cudaError_t e = cudaFuncSetAttribute(
-      qr_panel_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  qr_panel_kernel<T><<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(a), static_cast<T*>(vr), static_cast<T*>(taus),
-      H, w);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
+// bytes of global scratch one launch of G blocks on a w-wide panel needs
+long long slate_qr_panel_scratch_bytes(int G, int w, int itemsize) {
+  return (long long)(scratch_elems(G, w) * (size_t)itemsize);
+}
+
+// K3 (w <= 32) and K4 (32 < w <= 128, w % 32 == 0) alike
 int slate_qr_panel_f32(const void* a, void* vr, void* taus, int H, int w,
+                       int G, int R, int resident, void* scratch, void* bar,
                        void* stream) {
-  return qr_panel<float>(a, vr, taus, H, w, stream);
+  return qr_panel<float>(a, vr, taus, H, w, G, R, resident, scratch, bar,
+                         stream);
 }
 
 int slate_qr_panel_f64(const void* a, void* vr, void* taus, int H, int w,
+                       int G, int R, int resident, void* scratch, void* bar,
                        void* stream) {
-  return qr_panel<double>(a, vr, taus, H, w, stream);
-}
-
-// bytes of global scratch one K4 launch of G blocks needs
-long long slate_qr_panel_wide_scratch_bytes(int G, int itemsize) {
-  return (long long)(wide_scratch_elems(G) * (size_t)itemsize);
-}
-
-int slate_qr_panel_wide_f32(const void* a, void* vr, void* taus, int H, int w,
-                            int G, int R, int resident, void* scratch,
-                            void* bar, void* stream) {
-  return qr_panel_wide<float>(a, vr, taus, H, w, G, R, resident, scratch, bar,
-                              stream);
-}
-
-int slate_qr_panel_wide_f64(const void* a, void* vr, void* taus, int H, int w,
-                            int G, int R, int resident, void* scratch,
-                            void* bar, void* stream) {
-  return qr_panel_wide<double>(a, vr, taus, H, w, G, R, resident, scratch, bar,
-                               stream);
+  return qr_panel<double>(a, vr, taus, H, w, G, R, resident, scratch, bar,
+                          stream);
 }
 
 const char* slate_qr_error_string(int e) {

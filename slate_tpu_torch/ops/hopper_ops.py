@@ -26,6 +26,16 @@ every real f32/f64 ``herk_lower_rec(c, a)`` without ``b`` goes through
 ``herk_lower_update`` at any n ≥ 1 and k ≥ 1, in one launch (the
 reference's divisibility gates and its k-chunking at 1024 are TPU
 limits).
+
+Two multi-block designs carry the serial kernels across SMs. The panel
+kernels K2 (``lu_panel_base``), K3 (``qr_panel_base``) and K4
+(``qr_panel_base_wide``) are one cooperative launch each, with the grid
+plan ``panel_grid_plan`` (row slabs resident in shared memory or
+streamed) and one grid barrier per column; K3 and K4 share one kernel
+body, K3 being its single micro-block. K1 (``chol_tile``) is one launch
+of a thread-block cluster with the plan ``chol_tile_plan`` (32-row
+blocks dealt cyclically to up to 8 CTAs, resident or streamed) and two
+cluster barriers per 32-wide step.
 """
 
 from __future__ import annotations
@@ -84,7 +94,7 @@ def _raise_on(rc: int, lib: str, err_sym: str, what: str):
 
 
 # ---------------------------------------------------------------------------
-# The grid plan of the multi-block panel kernels (K2, K4)
+# The grid plan of the multi-block panel kernels (K2, K3, K4)
 # ---------------------------------------------------------------------------
 
 PANEL_MIN_ROWS = 32          # the fewest rows a block of a tall panel gets
@@ -171,14 +181,84 @@ def chol_tile_plain(a: torch.Tensor) -> torch.Tensor:
     return torch.tril(l)
 
 
+CHOL_STEP = 32        # K1's step width and row-block height
+CHOL_MAX_CLUSTER = 8  # the portable cluster size
+
+
+class CholPlan(NamedTuple):
+    """K1's cluster of ``ctas`` CTAs; the tile's ``block_rows``-row blocks
+    are dealt to them cyclically. ``resident``: each CTA holds its row
+    blocks in shared memory (the whole tile when ``ctas`` is 1), else
+    the rows stay in ``out`` and are read through L2."""
+    ctas: int
+    block_rows: int
+    resident: bool
+
+    @property
+    def mode(self) -> str:
+        return "resident" if self.resident else "streaming"
+
+    def row_blocks(self, cta: int, b: int):
+        """The [lo, hi) row ranges CTA ``cta`` owns in a b × b tile."""
+        nblk = -(-b // self.block_rows)
+        return [(g * self.block_rows, min(b, (g + 1) * self.block_rows))
+                for g in range(cta, nblk, self.ctas)]
+
+
+def chol_tile_smem_bytes(b: int, itemsize: int, ctas: int,
+                         resident: bool) -> int:
+    """Shared memory of one K1 CTA (csrc/chol_tile.cu ``smem_elems``, held
+    against it by ``chol_tile_launch_smem`` in ``chip_smoke.py``):
+    L11 with the reciprocals of its diagonal (32 × 33); resident, also
+    the CTA's row blocks (the whole tile when there is one CTA) at a row
+    stride of b + 1 and, beside them when there is more than one CTA, the
+    panel copy ((blocks − 1)·32 rows × 33)."""
+    nblk = -(-b // CHOL_STEP)
+    elems = CHOL_STEP * (CHOL_STEP + 1)
+    if resident and ctas == 1:
+        elems += nblk * CHOL_STEP * (b + 1)
+    elif resident:
+        elems += (-(-nblk // ctas) * CHOL_STEP * (b + 1)
+                  + (nblk - 1) * CHOL_STEP * (CHOL_STEP + 1))
+    return elems * itemsize
+
+
+def chol_tile_plan(b: int, itemsize: int) -> CholPlan:
+    """K1's plan for a b × b tile of ``itemsize``-byte elements: one CTA
+    holding the whole tile when it fits a block's shared memory
+    (PANEL_SMEM_LIMIT), else a cluster of min(8, blocks) CTAs, resident
+    when each CTA's row blocks fit with the panel copy beside them,
+    else streaming. Pure: the C launcher checks it, the CPU tests hold
+    it."""
+    if b < 1 or itemsize < 1:
+        raise SlateError(f"chol_tile_plan: bad tile {b} or itemsize "
+                         f"{itemsize}")
+    if chol_tile_smem_bytes(b, itemsize, 1, True) <= PANEL_SMEM_LIMIT:
+        return CholPlan(1, CHOL_STEP, True)
+    ctas = min(CHOL_MAX_CLUSTER, -(-b // CHOL_STEP))
+    return CholPlan(ctas, CHOL_STEP, chol_tile_smem_bytes(
+        b, itemsize, ctas, True) <= PANEL_SMEM_LIMIT)
+
+
+def chol_tile_launch_smem(b: int, itemsize: int, plan: CholPlan) -> int:
+    """The shared memory per CTA that the C launcher sizes ``plan`` with
+    (csrc/chol_tile.cu ``slate_chol_tile_smem_bytes``); ``chip_smoke.py``
+    holds ``chol_tile_smem_bytes`` against it. Needs the built kernel."""
+    return _fn("chol_tile", "slate_chol_tile_smem_bytes", [_I] * 4,
+               ctypes.c_longlong)(b, plan.ctas, int(plan.resident), itemsize)
+
+
 def chol_tile(a: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor of one (b, b) tile (strict upper zeroed).
 
     Replaces ``pallas_ops.chol_tile`` (pallas_ops.py:337-348). The CUDA
-    kernel (csrc/chol_tile.cu) is latency-bound: one serial chain of b
-    pivots, kept inside one thread block with MB-wide column panels
-    staged in shared memory, so any b goes through it. Reads only the
-    lower triangle."""
+    kernel (csrc/chol_tile.cu) is one launch of a thread-block cluster
+    (``chol_tile_plan``): a right-looking Cholesky in 32-wide steps, the
+    32-row blocks dealt cyclically to the CTAs and held in shared memory
+    (or streamed through L2), every CTA factoring the diagonal block
+    redundantly, two cluster barriers per step. It is bound by those
+    b/32 serial steps. Any b ≥ 1 goes through it; a plan the card cannot
+    schedule raises. Reads only the lower triangle."""
     if a.dtype not in _REAL:
         raise NotImplementedError(
             f"chol_tile: real float32/float64 only, got {a.dtype}")
@@ -189,17 +269,15 @@ def chol_tile(a: torch.Tensor) -> torch.Tensor:
         return chol_tile_plain(a)
     _check_cuda_args("chol_tile", a)
     b = a.shape[0]
+    plan = chol_tile_plan(b, a.element_size())
     out = torch.empty_like(a)
     f = _fn("chol_tile", f"slate_chol_tile_{_SUFFIX[a.dtype]}",
-            [_P, _P, _I, _P])
+            [_P, _P, _I, _I, _I, _P])
     with torch.cuda.device(a.device):
-        rc = f(a.data_ptr(), out.data_ptr(), b,
+        rc = f(a.data_ptr(), out.data_ptr(), b, plan.ctas, int(plan.resident),
                torch.cuda.current_stream(a.device).cuda_stream)
-    if rc:
-        maxb = _fn("chol_tile", "slate_chol_tile_max_b", [_I])
-        _raise_on(rc, "chol_tile", "slate_chol_error_string",
-                  f"chol_tile (b={b}; largest b at {a.dtype}: "
-                  f"{maxb(a.element_size())})")
+    _raise_on(rc, "chol_tile", "slate_chol_error_string",
+              f"chol_tile (b={b}, plan {plan})")
     LAUNCHES["chol_tile"] += 1
     return out
 
@@ -408,31 +486,37 @@ def _check_qr_panel(name: str, a: torch.Tensor, ok_width):
                          f"{(hh, w)} panel")
 
 
+def _qr_panel_launch(a: torch.Tensor, name: str):
+    """One cooperative launch of csrc/qr_panel.cu's kernel (K3 and K4
+    alike) with K2's plan; a refused launch raises."""
+    _check_cuda_args(name, a)
+    plan = panel_plan_for(a)
+    vr = torch.empty_like(a)
+    taus = torch.empty(a.shape[1], dtype=a.dtype, device=a.device)
+    nbytes = _fn("qr_panel", "slate_qr_panel_scratch_bytes", [_I, _I, _I],
+                 ctypes.c_longlong)(plan.blocks, a.shape[1], a.element_size())
+    _grid_launch("qr_panel", f"slate_qr_panel_{_SUFFIX[a.dtype]}",
+                 "slate_qr_error_string", nbytes, a, (vr, taus), plan, name)
+    LAUNCHES[name] += 1
+    return vr, taus
+
+
 def qr_panel_base(a: torch.Tensor):
     """Householder QR of one (H, w) panel base, 0 < w ≤ min(H, 32),
     → (vr, taus) with the ``_panel_geqrf_base`` contract.
 
     Replaces ``pallas_ops.qr_panel_base`` (pallas_ops.py:682-697). The
-    CUDA kernel (csrc/qr_panel.cu) is one block looping over the w
-    columns, the panel kept in global memory (L2); it is bound by the
-    panel's bytes re-read through one SM per column. Equal to the plain
-    version up to the order of its H-long reductions."""
+    CUDA kernel (csrc/qr_panel.cu) is K4's at one micro-block: one
+    cooperative launch of G blocks with K2's plan, each owning a row slab
+    held in shared memory or streamed, one grid barrier per column (the G
+    blocks' partial sums reduced in one fixed order, so every block takes
+    the same reflector). It is bound by those w serial steps; the panel
+    crosses HBM once each way. Equal to the plain version up to the order
+    of its H-long reductions."""
     _check_qr_panel("qr_panel_base", a, lambda w: 0 < w <= QR_WIDE_MB)
     if a.device.type == "cpu":
         return qr_panel_base_plain(a)
-    _check_cuda_args("qr_panel_base", a)
-    hh, w = a.shape
-    vr = torch.empty_like(a)
-    taus = torch.empty(w, dtype=a.dtype, device=a.device)
-    f = _fn("qr_panel", f"slate_qr_panel_{_SUFFIX[a.dtype]}",
-            [_P, _P, _P, _I, _I, _P])
-    with torch.cuda.device(a.device):
-        rc = f(a.data_ptr(), vr.data_ptr(), taus.data_ptr(), hh, w,
-               torch.cuda.current_stream(a.device).cuda_stream)
-    _raise_on(rc, "qr_panel", "slate_qr_error_string",
-              f"qr_panel_base (H={hh}, w={w})")
-    LAUNCHES["qr_panel_base"] += 1
-    return vr, taus
+    return _qr_panel_launch(a, "qr_panel_base")
 
 
 def qr_panel_base_wide(a: torch.Tensor):
@@ -441,29 +525,18 @@ def qr_panel_base_wide(a: torch.Tensor):
     between them → (vr, taus), K3's contract.
 
     Replaces ``pallas_ops.qr_panel_base_wide`` (pallas_ops.py:662-679).
-    The CUDA kernel (csrc/qr_panel.cu) is one cooperative launch of G
-    blocks with K2's plan, each owning a row slab: one grid barrier per
-    column (the G blocks' partial sums reduced in one fixed order, so
-    every block takes the same reflector) and two per compact-WY update.
-    It is bound by those serial steps; the panel crosses HBM once each
-    way (PERF.md has its times beside the one-block design's). Equal to
-    ``qr_panel_base_wide_plain`` up to the order of its H-long sums, and
-    to the unblocked column loop (``qr_panel_base_plain``) to tolerance
-    (reassociated trailing arithmetic)."""
+    The CUDA kernel (csrc/qr_panel.cu, K3's) is one cooperative launch of
+    G blocks with K2's plan, each owning a row slab: one grid barrier per
+    column and two per compact-WY update. It is bound by those serial
+    steps; the panel crosses HBM once each way (PERF.md has its times
+    beside the one-block design's). Equal to ``qr_panel_base_wide_plain``
+    up to the order of its H-long sums, and to the unblocked column loop
+    (``qr_panel_base_plain``) to tolerance (reassociated trailing
+    arithmetic)."""
     _check_qr_panel("qr_panel_base_wide", a, qr_panel_wide_eligible)
     if a.device.type == "cpu":
         return qr_panel_base_wide_plain(a)
-    _check_cuda_args("qr_panel_base_wide", a)
-    plan = panel_plan_for(a)
-    vr = torch.empty_like(a)
-    taus = torch.empty(a.shape[1], dtype=a.dtype, device=a.device)
-    nbytes = _fn("qr_panel", "slate_qr_panel_wide_scratch_bytes", [_I, _I],
-                 ctypes.c_longlong)(plan.blocks, a.element_size())
-    _grid_launch("qr_panel", f"slate_qr_panel_wide_{_SUFFIX[a.dtype]}",
-                 "slate_qr_error_string", nbytes, a, (vr, taus), plan,
-                 "qr_panel_base_wide")
-    LAUNCHES["qr_panel_base_wide"] += 1
-    return vr, taus
+    return _qr_panel_launch(a, "qr_panel_base_wide")
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
-"""The multi-block design of K2 (lu_panel_base) and K4 (qr_panel_base_wide)
-on the CPU.
+"""The multi-block designs of K2 (lu_panel_base), K3 and K4
+(qr_panel_base, qr_panel_base_wide) and K1 (chol_tile) on the CPU.
 
 The CUDA kernels run only on the card (chip_smoke.py holds them against
 their plain versions there). What the CPU can hold is the design itself:
 
-- the grid plan (``hopper_ops.panel_grid_plan``), a pure function;
+- the grid plan of K2, K3 and K4 (``hopper_ops.panel_grid_plan``) and
+  the cluster plan of K1 (``hopper_ops.chol_tile_plan``), pure
+  functions;
 - what the G blocks of each kernel reduce across their row slabs after
   a grid barrier, in numpy here: K2's candidates give the same pivot in
   any reduction order, also for a tie or a NaN across slabs, and it is
@@ -12,7 +14,7 @@ their plain versions there). What the CPU can hold is the design itself:
   give the first reflector within the 4·ε·√H that chip_smoke.py holds
   the kernel to against ``qr_panel_base_wide_plain``, a zero column sums
   to exactly 0 and a NaN in another slab reaches every block's sum;
-- the build hash, which must cover the shared header of the two kernels.
+- the build hash, which must cover the shared header of the kernels.
 """
 
 import math
@@ -68,11 +70,12 @@ def test_plan_covers_the_panel(hh, w, itemsize, n_sm):
 @pytest.mark.parametrize("hh,w,itemsize,mode", [
     (16384, 128, 4, "resident"), (4096, 128, 8, "resident"),
     (32768, 128, 4, "resident"), (65536, 128, 4, "streaming"),
-    (32768, 128, 8, "streaming")])
+    (32768, 128, 8, "streaming"), (32768, 32, 4, "resident"),
+    (131072, 32, 8, "streaming"), (262144, 32, 4, "streaming")])
 def test_plan_modes_at_the_smoke_shapes(hh, w, itemsize, mode):
-    """The main path's tallest bases (K2 at 16384 × 128 f32, K4 at
-    32768 × 128 f32) spread over all 132 SMs with resident slabs; the
-    smoke's streaming cases stream."""
+    """The main path's tallest bases (K2 at 16384 × 128 f32, K3 at
+    32768 × 32 f32, K4 at 32768 × 128 f32) spread over all 132 SMs with
+    resident slabs; the smoke's streaming cases stream."""
     plan = hopper_ops.panel_grid_plan(hh, w, itemsize, H100_SMS)
     assert plan.mode == mode
     if hh >= 16384:
@@ -91,6 +94,89 @@ def test_plan_rejects_bad_arguments():
         hopper_ops.panel_grid_plan(0, 4, 4, H100_SMS)
     with pytest.raises(SlateError):
         hopper_ops.panel_grid_plan(64, 4, 4, 0)
+
+
+# ---------------------------------------------------------------------------
+# K1: the cluster plan
+# ---------------------------------------------------------------------------
+
+CHOL_SHAPES = [(b, s) for b in (1, 31, 32, 33, 100, 128, 165, 200, 233, 300,
+                                512, 777, 1000, 1024, 2048)
+               for s in (4, 8)]
+
+
+@pytest.mark.parametrize("b,itemsize", CHOL_SHAPES)
+def test_chol_plan_covers_every_row_once(b, itemsize):
+    """The 32-row blocks are dealt cyclically (block g to CTA g mod C):
+    every row of the tile lies in exactly one CTA's blocks, no CTA is
+    empty, and the CTAs' row counts differ by at most one block."""
+    plan = hopper_ops.chol_tile_plan(b, itemsize)
+    step = plan.block_rows
+    assert step == hopper_ops.CHOL_STEP == 32
+    nblk = -(-b // step)
+    assert 1 <= plan.ctas <= min(hopper_ops.CHOL_MAX_CLUSTER, nblk)
+    covered = np.zeros(b, dtype=int)
+    counts = []
+    for cta in range(plan.ctas):
+        blocks = plan.row_blocks(cta, b)
+        assert blocks
+        for lo, hi in blocks:
+            assert lo % step == 0 and (lo // step) % plan.ctas == cta
+            assert hi - lo == min(step, b - lo)
+            covered[lo:hi] += 1
+        counts.append(len(blocks))
+    assert (covered == 1).all()
+    assert max(counts) - min(counts) <= 1
+
+
+@pytest.mark.parametrize("b,itemsize", CHOL_SHAPES)
+def test_chol_plan_is_resident_iff_it_fits(b, itemsize):
+    """One CTA exactly when the whole tile fits a block's shared memory;
+    otherwise up to 8 CTAs, resident exactly when each CTA's row blocks
+    and the panel copy fit."""
+    plan = hopper_ops.chol_tile_plan(b, itemsize)
+    limit = hopper_ops.PANEL_SMEM_LIMIT
+    whole = hopper_ops.chol_tile_smem_bytes(b, itemsize, 1, True)
+    assert (plan.ctas == 1) == (whole <= limit)
+    used = hopper_ops.chol_tile_smem_bytes(b, itemsize, plan.ctas,
+                                           plan.resident)
+    assert used <= limit
+    assert plan.resident == (hopper_ops.chol_tile_smem_bytes(
+        b, itemsize, plan.ctas, True) <= limit)
+    assert plan.mode == ("resident" if plan.resident else "streaming")
+
+
+def test_chol_plan_smem_grows_with_the_tile():
+    """A resident CTA holds its rows at a stride of b + 1 beside L11
+    (32 × 33); the cluster's CTAs also hold the panel copy; streaming
+    holds L11 only."""
+    l11 = 32 * 33 * 4
+    assert hopper_ops.chol_tile_smem_bytes(128, 4, 1, True) == \
+        128 * 129 * 4 + l11
+    assert hopper_ops.chol_tile_smem_bytes(512, 4, 8, True) == \
+        (64 * 513 + 480 * 33) * 4 + l11
+    assert hopper_ops.chol_tile_smem_bytes(1024, 4, 8, False) == l11
+
+
+@pytest.mark.parametrize("b,itemsize,ctas,mode", [
+    (1, 4, 1, "resident"), (33, 4, 1, "resident"), (128, 4, 1, "resident"),
+    (200, 4, 1, "resident"), (512, 4, 8, "resident"),
+    (1024, 4, 8, "streaming"), (512, 8, 8, "streaming"),
+    (1024, 8, 8, "streaming")])
+def test_chol_plan_modes_at_the_smoke_shapes(b, itemsize, ctas, mode):
+    """chip_smoke.py's K1 cases cover each mode: one CTA holding the
+    whole tile (b = 128 is the nb = 128 factor's tile), 8 CTAs holding
+    their row blocks (b = 512, the nb = 512 factor's), 8 CTAs
+    streaming."""
+    plan = hopper_ops.chol_tile_plan(b, itemsize)
+    assert (plan.ctas, plan.mode) == (ctas, mode)
+
+
+def test_chol_plan_rejects_bad_arguments():
+    with pytest.raises(SlateError):
+        hopper_ops.chol_tile_plan(0, 4)
+    with pytest.raises(SlateError):
+        hopper_ops.chol_tile_plan(64, 0)
 
 
 # ---------------------------------------------------------------------------
