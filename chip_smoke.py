@@ -8,6 +8,9 @@ Phases, one JSON line each:
 
 1. env     torch/CUDA versions and the card (nvidia-smi name, power limit);
 2. build   nvcc builds every kernel source of slate_tpu_torch/csrc;
+   sass    cuobjdump -sass of the herk_lower_update library: each float64
+           instance must hold DMMA and each float32 one TF32 HMMA
+           (their counts, with DFMA and FFMA, on this line);
 3. kernel  each kernel against its plain PyTorch version on the card, at
            the main path's shapes and a few more, plus the failure
            contracts (NaN pivot for chol_tile at pivots 0, 300 and in
@@ -16,9 +19,12 @@ Phases, one JSON line each:
            lu_panel_base, whose lu, perm and info must be bitwise the
            plain version's, also where a pivot tie or a NaN lies in
            another row slab; tau = 0 on a zeroed column and NaN propagation
-           for the QR panels, a NaN row of A for herk_lower_update, whose
-           strict upper triangle of C must also stay bitwise unchanged,
-           in place in a strided view too)
+           for the QR panels, a NaN row and an Inf row of A for
+           herk_lower_update, whose strict upper triangle of C must also
+           stay bitwise unchanged, in place in strided views of both
+           types too; every herk_lower_update row is also held entry by
+           entry to a float64 product, which a 1×TF32 product must fail,
+           and prints its tile plan, which must be the C launcher's)
            and a float64 Q·R reconstruction of the timed QR panels;
            lu_panel_base, qr_panel_base and qr_panel_base_wide run as one
            cooperative launch over the SMs, with cases in both plan modes
@@ -35,7 +41,8 @@ Phases, one JSON line each:
            of 7; chol_tile at b = nb and 128 f32 and streaming at 1024
            f32 and 512 f64, qr_panel_base resident at (2n, 32) f32 and
            streaming at (131072, 32) f64), and for
-           herk_lower_update the cuBLAS recursion too;
+           herk_lower_update the cuBLAS recursion too and its bound at
+           the tensor cores' peaks beside the FMA peaks' one;
 4. check   posv/gesv/gels on the card at small uneven sizes against
            float64 numpy; gels at nb = 32 runs qr_panel_base in every
            panel, at nb = 128 qr_panel_base_wide, and a wide operand runs
@@ -59,10 +66,11 @@ Phases, one JSON line each:
 The kernels' launch counters are zeroed just before the check phase and
 just before the main phase and read just after each; the launches made
 to compare a kernel with its plain version are not counted.
-Then a {"kernels": [...]} line (for each kernel but herk_lower_update
-also its plan, which is derived from the shape, the type and the SM
-count the run queried, not measured; for chol_tile also its numbers at
-b = 128 under "at_b128"), the nvidia-smi line,
+Then a {"kernels": [...]} line (for each kernel also its plan, which is
+derived from the shape, the type and the SM count the run queried, not
+measured; for chol_tile also its numbers at b = 128 under "at_b128",
+for herk_lower_update at 2048² float64 under "at_f64_2048"), the
+nvidia-smi line,
 and last
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device, or
@@ -87,6 +95,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # TFLOP/s and FP64 34 TFLOP/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+# herk_lower_update runs on the tensor cores (same data sheet): FP64
+# 67 TFLOP/s (DMMA), TF32 495 TFLOP/s of which 3×TF32 gets a third
+HERK_PEAK_FLOPS = {"float32": 495e12 / 3, "float64": 67e12}
 RESIDUAL_BOUND = 30.0
 # served least-squares columns against a float64 solve, as gels_check
 QR_REL_LIMIT = 1e-3
@@ -127,11 +138,11 @@ def cuda_ms(fn, reps: int = 7) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float, dtype: str):
+def bound(nbytes: float, flops: float, dtype: str, peaks=PEAK_FLOPS):
     """Least time (ms) the card could take: the larger of bytes over the
     memory rate and operations over the peak rate of the type."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / peaks[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -379,15 +390,52 @@ def qr_nan_case(torch, ho, gen):
     return out
 
 
+def tf32_rna(torch, x):
+    """float32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with
+    ties away from zero, by masking its bits."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def herk_entry_ratio(torch, kern, ref, c0, a, keep=None):
+    """The worst |kern − ref|ᵢⱼ / (ε·(|C| + |A|·|A|ᵀ)ᵢⱼ) over the lower
+    triangle (and ``keep``), in float64, ε of the working type."""
+    mask = torch.ones(kern.shape, dtype=torch.bool, device="cuda").tril()
+    if keep is not None:
+        mask &= keep
+    a64 = a.double().abs()
+    denom = torch.finfo(a.dtype).eps * (c0.double().abs() + a64 @ a64.mT)
+    return ((kern.double() - ref.double()).abs() / denom)[mask].max().item()
+
+
+def herk_plan_row(ho, c):
+    """The tile plan K5 launches with for ``c``; the C launcher's plan
+    must be the same, and the card must schedule at least the blocks per
+    SM it bounds the registers for."""
+    n, s = c.shape[0], c.element_size()
+    plan = ho.herk_plan_for(c)
+    launch_plan, resident = ho.herk_launch_plan(n, s)
+    check(plan == launch_plan, f"herk_lower_update n={n}: the plan is "
+          f"{plan}, the launcher's {launch_plan}")
+    check(resident >= plan.blocks_per_sm, f"herk_lower_update n={n}: "
+          f"{resident} resident blocks per SM for plan {plan}")
+    return {**plan._asdict(), "pairs": plan.pairs(n),
+            "resident_blocks_per_sm": resident}
+
+
 def herk_case(torch, ho, blocked, n, k, dtype, gen, timed: bool,
-              strided: bool = False):
+              strided: bool = False, tf32_probe: bool = False):
     """K5 against its plain version. Tolerance: the two differ only in
-    the order of their k-long sums, so the lower triangle is held to
-    4·ε·√k relative to max(|C| + |A|·|A|ᵀ); the strict upper triangle of
-    C must be bitwise unchanged. ``strided``: C is the view big[h:, h:]
-    and A = big[h:, :h] (h = k) of one (n + k)² tensor, as the recursive
-    potrf hands them over, and nothing of big outside C's lower triangle
-    may change."""
+    the order of their k-long sums (and, in float32, the 3×TF32 split),
+    so the lower triangle is held to 4·ε·√k relative to
+    max(|C| + |A|·|A|ᵀ); and entry by entry to ho.HERK_ENTRY_C·ε·(|C| +
+    |A|·|A|ᵀ)ᵢⱼ against a float64 product (float32) or the plain version
+    (float64); the strict upper triangle of C must be bitwise unchanged.
+    ``strided``: C is the view big[h:, h:] and A = big[h:, :h] (h = k) of
+    one (n + k)² tensor, as the recursive potrf hands them over, and
+    nothing of big outside C's lower triangle may change.
+    ``tf32_probe``: a 1×TF32 product of the same operands (A's mantissa
+    rounded to TF32, then a float32 product) must fail the entrywise
+    check."""
     if strided:
         big = torch.randn((n + k, n + k), generator=gen, device="cuda",
                           dtype=dtype)
@@ -399,8 +447,9 @@ def herk_case(torch, ho, blocked, n, k, dtype, gen, timed: bool,
                               dtype=dtype)
         ck, cp = c.clone(), c.clone()
     c0 = ck.clone()
+    plan = herk_plan_row(ho, ck)
     out = ho.herk_lower_update(ck, ak)
-    ho.herk_lower_update_plain(cp, ap)
+    ho.herk_lower_update_plain(cp, ap, tile=plan["tile"])
     torch.cuda.synchronize()
     check(out.data_ptr() == ck.data_ptr(), "herk_lower_update: not in place")
     low = torch.ones((n, n), dtype=torch.bool, device="cuda").tril()
@@ -410,6 +459,12 @@ def herk_case(torch, ho, blocked, n, k, dtype, gen, timed: bool,
     check(math.isfinite(err) and err <= tol * scale,
           f"herk_lower_update {(n, k)} {dtype}: |kernel - plain| = {err} > "
           f"{tol} * {scale}")
+    ref = (cp if dtype == torch.float64
+           else c0.double() - ak.double() @ ak.double().mT)
+    entry = herk_entry_ratio(torch, ck, ref, c0, ak)
+    check(math.isfinite(entry) and entry <= ho.HERK_ENTRY_C,
+          f"herk_lower_update {(n, k)} {dtype}: entrywise error {entry}·ε "
+          f"> {ho.HERK_ENTRY_C}·ε of (|C| + |A|·|A|ᵀ)ᵢⱼ")
     check(torch.equal(ck[~low], c0[~low]),
           f"herk_lower_update {(n, k)}: strict upper of C changed")
     if strided:
@@ -419,45 +474,105 @@ def herk_case(torch, ho, blocked, n, k, dtype, gen, timed: bool,
               "herk_lower_update: wrote outside the lower triangle of the "
               "strided view")
     row = {"n": n, "k": k, "dtype": str(dtype).split(".")[1],
-           "strided": strided, "max_abs_err": err, "rel_err": err / scale,
-           "tol": tol, "upper_unchanged": True}
+           "strided": strided, "plan": plan, "max_abs_err": err,
+           "rel_err": err / scale, "tol": tol, "entry_ratio_max": entry,
+           "entry_limit": ho.HERK_ENTRY_C, "upper_unchanged": True}
+    if tf32_probe:
+        t = tf32_rna(torch, ak)
+        one = herk_entry_ratio(torch, c0 - t @ t.mT, ref, c0, ak)
+        check(one > ho.HERK_ENTRY_C, f"herk_lower_update {(n, k)}: a 1×TF32 "
+              f"product passes the entrywise check ({one}·ε)")
+        row["tf32x1_entry_ratio_max"] = one
     if timed or n == k:  # the kernel at each square shape of the path
         work = c0.clone()
         row["ms"] = cuda_ms(lambda: ho.herk_lower_update(work, ak))
     if timed:
         c, a = c0, ak
-        row["plain_ms"] = cuda_ms(lambda: ho.herk_lower_update_plain(work, a),
-                                  reps=5)
+        row["plain_ms"] = cuda_ms(
+            lambda: ho.herk_lower_update_plain(work, a, tile=plan["tile"]),
+            reps=5)
         row["recursion_ms"] = cuda_ms(lambda: blocked.herk_lower_rec(c, a, a))
         # the full product: twice the flops of the lower-triangle update
         row["library_ms"] = cuda_ms(lambda: torch.addmm(c, a, a.mT, alpha=-1))
         s = a.element_size()
-        row["bound_ms"], row["bound_by"] = bound(
-            n * (n + 1) * s + n * k * s, float(n) * (n + 1) * k,
-            row["dtype"])
+        nbytes, flops = n * (n + 1) * s + n * k * s, float(n) * (n + 1) * k
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops, row["dtype"],
+                                                 HERK_PEAK_FLOPS)
+        row["bound_fma_ms"] = bound(nbytes, flops, row["dtype"])[0]
     return row
 
 
-def herk_nan_case(torch, ho, gen):
-    """A NaN in row r of A makes row r and column r of the lower result
-    NaN and leaves every other lower entry finite, in the kernel and in
-    its plain version."""
-    n, k, r = 1000, 300, 377
-    c = torch.randn((n, n), generator=gen, device="cuda")
-    a = torch.randn((n, k), generator=gen, device="cuda")
-    a[r, 5] = math.nan
+def herk_nonfinite_case(torch, ho, gen, dtype, value, k):
+    """A NaN or an Inf in row r of A makes row r and column r of the lower
+    result non-finite (NaN for a NaN: all NaN) and leaves every other
+    lower entry finite, within the entrywise check against a float64
+    product, and the strict upper unchanged, in the kernel and in its
+    plain version. Returns how many entries of that row and column each
+    gives as NaN and as ±Inf."""
+    n, r = 1000, 377
+    c = torch.randn((n, n), generator=gen, device="cuda", dtype=dtype)
+    a = torch.randn((n, k), generator=gen, device="cuda", dtype=dtype)
+    a[r, 5] = value
     low = torch.ones((n, n), dtype=torch.bool, device="cuda").tril()
     hit = torch.zeros_like(low)
     hit[r, :] = True
     hit[:, r] = True
+    ref = c.double() - a.double() @ a.double().mT
+    row = {"n": n, "k": k, "dtype": str(dtype).split(".")[1],
+           "bad_row": r, "value": str(value)}
     for name, fn in (("kernel", ho.herk_lower_update),
                      ("plain", ho.herk_lower_update_plain)):
         out = fn(c.clone(), a)
-        check(bool(torch.isnan(out[low & hit]).all())
-              and bool(torch.isfinite(out[low & ~hit]).all())
+        bad = out[low & hit]
+        poisoned = (bool(torch.isnan(bad).all()) if math.isnan(value)
+                    else not bool(torch.isfinite(bad).any()))
+        check(poisoned and bool(torch.isfinite(out[low & ~hit]).all())
               and torch.equal(out[~low], c[~low]),
-              f"herk_lower_update {name}: NaN contract broken at row {r}")
-    return {"n": n, "k": k, "nan_row": r, "row_and_col_nan": True}
+              f"herk_lower_update {name}: {value} contract broken at row "
+              f"{r} ({dtype})")
+        entry = herk_entry_ratio(torch, out, ref, c, a, keep=~hit)
+        check(entry <= ho.HERK_ENTRY_C, f"herk_lower_update {name}: entrywise "
+              f"error {entry}·ε off the {value} row ({dtype})")
+        row[name] = {"nan": int(torch.isnan(bad).sum()),
+                     "inf": int(torch.isinf(bad).sum()),
+                     "entry_ratio_max": entry}
+    return row
+
+
+def herk_sass_counts(_build):
+    """Tensor-core and FMA instructions in the SASS of each instance of
+    K5's kernel (``cuobjdump -sass`` of the built library): each float64
+    instance must hold DMMA and each float32 one TF32 HMMA, so no main
+    loop is FFMA/DFMA-only."""
+    import re
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", _build._lib_path("herk_lower")],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"herk_lower_kernelI([fd])Li(\d+)E", line)
+            cur = m and counts.setdefault(
+                f"{'f32' if m[1] == 'f' else 'f64'}_tile{m[2]}",
+                {"DMMA": 0, "HMMA_TF32": 0, "HMMA": 0, "DFMA": 0, "FFMA": 0})
+            continue
+        op = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if cur is None or not op:
+            continue
+        base = op[1].split(".")[0]
+        if base in cur:
+            cur[base] += 1
+        if base == "HMMA" and "TF32" in op[1]:
+            cur["HMMA_TF32"] += 1
+    check(sorted(counts) == ["f32_tile128", "f32_tile64", "f64_tile128",
+                             "f64_tile64"],
+          f"herk_lower_update SASS: kernel instances {sorted(counts)}")
+    for inst, cnt in counts.items():
+        mma = cnt["DMMA"] if inst.startswith("f64") else cnt["HMMA_TF32"]
+        check(mma > 0, f"herk_lower_update {inst}: no tensor-core "
+              f"instruction in its SASS: {cnt}")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -865,6 +980,7 @@ def main(argv=None) -> int:
                          "ptxas": [ln for ln in v["ptxas"].splitlines()
                                    if "registers" in ln or "spill" in ln]}
                      for k, v in log.items()})
+    emit("sass", herk_lower_update=herk_sass_counts(_build))
 
     # the library yardsticks (torch.linalg) run on cuSOLVER
     torch.backends.cuda.preferred_linalg_library("cusolver")
@@ -934,15 +1050,25 @@ def main(argv=None) -> int:
                         (300, 1000, f32), (2048, 1024, f64),
                         (2048, 2048, f64))
             if x[:2] != (args.n // 2, args.n // 2)]
-        # timed in full: the widest f32 case and the square f64 one
+        # timed in full: the widest f32 case and the square f64 one; a
+        # 1×TF32 product must fail the entrywise check at 2048² f32
         herk_rows = [herk_case(torch, ho, blocked, hn, hk, dt, gen,
                                timed=(i == 0 or (hn, hk, dt) ==
-                                      (2048, 2048, f64)))
+                                      (2048, 2048, f64)),
+                               tf32_probe=(hn, hk, dt) == (2048, 2048, f32))
                      for i, (hn, hk, dt) in enumerate(herk_shapes)]
-        herk_rows.append(herk_case(torch, ho, blocked, 2000, 700, f32, gen,
-                                   False, strided=True))
+        # strided views: A's row stride 16-byte aligned (f32, 16-byte
+        # copies) and not (f64 at k = 301, one element per copy)
+        herk_rows += [herk_case(torch, ho, blocked, hn, hk, dt, gen, False,
+                                strided=True)
+                      for hn, hk, dt in ((2000, 700, f32), (1000, 301, f64))]
+        check(any("tf32x1_entry_ratio_max" in r for r in herk_rows),
+              "herk_lower_update: the 1×TF32 probe did not run")
         emit("kernel", name="herk_lower_update", cases=herk_rows,
-             nan_case=herk_nan_case(torch, ho, gen))
+             nonfinite_cases=[
+                 herk_nonfinite_case(torch, ho, gen, dt, v, hk)
+                 for dt, v, hk in ((f32, math.nan, 300), (f32, math.inf, 301),
+                                   (f64, math.inf, 300))])
         # counted paths: the check phase, then the main phase
         ho.reset_launches()
         small = small_check(torch, stt, gen)
@@ -992,6 +1118,15 @@ def main(argv=None) -> int:
     kernels[0]["at_b128"] = {k: k1_128[k] for k in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "plan")}
+    # K5: the FMA bound and the cuBLAS recursion beside the tensor-core
+    # bound, and the same numbers at 2048² f64
+    k5_f64 = next(r for r in herk_rows if r.get("plain_ms") is not None
+                  and r["dtype"] == "float64")
+    k5_keys = ("max_abs_err", "entry_ratio_max", "ms", "plain_ms",
+               "recursion_ms", "bound_ms", "bound_fma_ms", "bound_by",
+               "library_ms", "plan")
+    kernels[4].update({k: timed["herk_lower_update"][k] for k in k5_keys})
+    kernels[4]["at_f64_2048"] = {k: k5_f64[k] for k in k5_keys}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -35,7 +35,9 @@ streamed) and one grid barrier per column; K3 and K4 share one kernel
 body, K3 being its single micro-block. K1 (``chol_tile``) is one launch
 of a thread-block cluster with the plan ``chol_tile_plan`` (32-row
 blocks dealt cyclically to up to 8 CTAs, resident or streamed) and two
-cluster barriers per 32-wide step.
+cluster barriers per 32-wide step. K5 (``herk_lower_update``) runs on
+the tensor cores through warp-level ``mma.sync`` (FP64 DMMA, 3×TF32 in
+float32), one block per lower tile pair of the plan ``herk_plan``.
 """
 
 from __future__ import annotations
@@ -543,7 +545,73 @@ def qr_panel_base_wide(a: torch.Tensor):
 # K5: lower-triangle rank-k update
 # ---------------------------------------------------------------------------
 
-HERK_TILE = 128  # the kernel's output tile edge
+HERK_TILE = 128        # the kernel's widest output tile edge
+HERK_SMALL_TILE = 64   # its edge where 128-wide pairs fill few waves
+HERK_CHUNK_BYTES = 128  # k-depth of one staged chunk, in bytes
+HERK_PAD = 4           # shared row padding, in elements
+HERK_WIDE_WAVES = 4    # 128-wide tiles need this many waves of pairs
+# K5's entrywise check (chip_smoke.py): on the lower triangle
+# |K5 − C₆₄|ᵢⱼ ≤ HERK_ENTRY_C·ε·(|C| + |A|·|A|ᵀ)ᵢⱼ, C₆₄ the float64
+# result (in float64, the plain version). It tells 3×TF32 from 1×TF32,
+# which a global tolerance of 4·ε·√k cannot (tests/test_torch_herk.py).
+HERK_ENTRY_C = 32.0
+
+
+class HerkPlan(NamedTuple):
+    """K5's block shape: ``tile`` × ``tile`` output tiles, one block of
+    ``warps`` warps each, a ring of ``stages`` staged k-chunks of both
+    row panels (``smem_bytes`` of shared memory), registers bounded for
+    ``blocks_per_sm`` resident blocks."""
+    tile: int
+    warps: int
+    stages: int
+    blocks_per_sm: int
+    smem_bytes: int
+
+    def pairs(self, n: int) -> int:
+        """The lower tile pairs of an (n, n) C: the launch's blocks."""
+        nt = -(-n // self.tile)
+        return nt * (nt + 1) // 2
+
+
+def herk_plan(n: int, itemsize: int, n_sm: int) -> HerkPlan:
+    """K5's plan for an (n, n) C of ``itemsize``-byte elements on a card
+    with ``n_sm`` SMs (csrc/herk_lower.cu ``herk_plan_of``, held against
+    it by ``chip_smoke.py``): 128-wide tiles (8 warps of 64 × 32, 3
+    stages, one block per SM) where their pairs fill at least
+    HERK_WIDE_WAVES waves, else 64-wide ones (4 warps of 32 × 32, 2
+    stages, 4 blocks per SM), so that n = 2048 on 132 SMs is 528 pairs,
+    one full wave. Each stage holds the two panels' rows at
+    HERK_CHUNK_BYTES of k plus HERK_PAD elements. Pure: the CPU tests
+    hold it."""
+    if n < 1 or itemsize not in (4, 8) or n_sm < 1:
+        raise SlateError(f"herk_plan: bad n {n}, itemsize {itemsize} or SM "
+                         f"count {n_sm}")
+    nt = -(-n // HERK_TILE)
+    if nt * (nt + 1) // 2 >= HERK_WIDE_WAVES * n_sm:
+        tile, warps, stages, blocks = HERK_TILE, 8, 3, 1
+    else:
+        tile, warps, stages, blocks = HERK_SMALL_TILE, 4, 2, 4
+    row = (HERK_CHUNK_BYTES // itemsize + HERK_PAD) * itemsize
+    return HerkPlan(tile, warps, stages, blocks, stages * 2 * tile * row)
+
+
+def herk_plan_for(c: torch.Tensor) -> HerkPlan:
+    """The plan K5 launches with for the CUDA tensor ``c``."""
+    return herk_plan(c.shape[0], c.element_size(), _sm_count(c.device.index))
+
+
+def herk_launch_plan(n: int, itemsize: int) -> Tuple[HerkPlan, int]:
+    """The plan the C launcher takes for (n, itemsize) on the current
+    device (csrc/herk_lower.cu ``slate_herk_plan``) and the blocks per SM
+    the card schedules for it; ``chip_smoke.py`` holds ``herk_plan``
+    against both. Needs the built kernel."""
+    out = (ctypes.c_int * 6)()
+    rc = _fn("herk_lower", "slate_herk_plan", [_I, _I, _P])(
+        n, itemsize, ctypes.addressof(out))
+    _raise_on(rc, "herk_lower", "slate_herk_error_string",
+              f"herk_launch_plan (n={n}, itemsize={itemsize})")
+    return HerkPlan(*out[:5]), out[5]
 
 
 def herk_lower_update_plain(c: torch.Tensor, a: torch.Tensor,
@@ -551,7 +619,9 @@ def herk_lower_update_plain(c: torch.Tensor, a: torch.Tensor,
     """Plain version of K5, the Pallas kernel's step per lower tile pair
     (i ≥ j): C[i, j] −= Aᵢ·Aⱼᵀ, IN PLACE on ``c`` (any strides), with the
     diagonal tiles masked to row ≥ col so the strict upper triangle of
-    ``c`` is left bitwise unchanged. Returns ``c``."""
+    ``c`` is left bitwise unchanged. Returns ``c``. ``tile`` is the
+    kernel's plan tile where the two are compared (``herk_plan``); it
+    changes only which products cuBLAS is handed, not the k-long sums."""
     n = c.shape[0]
     for i0 in range(0, n, tile):
         ai = a[i0:i0 + tile]
@@ -577,11 +647,14 @@ def herk_lower_update(c: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
 
     Replaces ``pallas_ops.herk_lower_update`` (pallas_ops.py:136-170, the
     call at 127). The CUDA kernel (csrc/herk_lower.cu) runs one block per
-    lower 128 × 128 tile pair and streams the whole k in one launch; it
-    is bound by operations (n(n+1)·k flops). On the card both tensors
-    need a unit column stride; the row strides are passed, so ``c`` may
-    be a view of a larger matrix. Equal to the plain version up to the
-    order of its k-long sums."""
+    lower tile pair of ``herk_plan`` (128- or 64-wide) and streams the
+    whole k in one launch through the tensor cores (mma.sync: FP64 DMMA
+    in float64, 3×TF32 in float32, no 1×TF32 path); it is bound by
+    operations (n(n+1)·k flops). On the card both tensors need a unit
+    column stride; the row strides are passed, so ``c`` may be a view of
+    a larger matrix. Equal to the plain version up to the order of its
+    k-long sums and, in float32, the 3×TF32 split's error (about 2⁻²²
+    of |a|·|b| per product)."""
     if c.dtype not in _REAL:
         raise NotImplementedError(
             f"herk_lower_update: real float32/float64 only, got {c.dtype}")
