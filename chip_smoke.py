@@ -26,6 +26,17 @@ Phases, one JSON line each:
            entry to a float64 product, which a 1×TF32 product must fail,
            and prints its tile plan, which must be the C launcher's)
            and a float64 Q·R reconstruction of the timed QR panels;
+           the two leaf kernels without a Pallas counterpart:
+           trtri_leaves (P1) at (256, 64, 64) f32 (potri's leaves at
+           n = 16384), a 512 base's 8 leaves as a strided view of its
+           diagonal, f64, complex128 through a conjugate-transposed view,
+           complex64, unit and non-unit, s = 1, 7, 33, junk in the strict
+           upper triangles (X must not change) and zero diagonals
+           (non-finite in the same places), entry by entry within
+           LEAF_ENTRY_C·s·ε·(|X|·|L|·|X|)ᵢⱼ of the plain version;
+           lu_nopiv_base (P2) at (64, 64) f32 and f64 and smaller, a
+           zero pivot at step 20 (info = 21) and a NaN (info exact, NaN
+           in the same places);
            lu_panel_base, qr_panel_base and qr_panel_base_wide run as one
            cooperative launch over the SMs, with cases in both plan modes
            (row slabs resident in shared memory, and streamed: (65536,
@@ -46,7 +57,9 @@ Phases, one JSON line each:
 4. check   posv/gesv/gels on the card at small uneven sizes against
            float64 numpy; gels at nb = 32 runs qr_panel_base in every
            panel, at nb = 128 qr_panel_base_wide, and a wide operand runs
-           the minimum-norm path through gelqf; gels by CholQR at
+           the minimum-norm path through gelqf; trtri, trtrm, potri,
+           getri, gesv_nopiv and gesv_rbt at n = 300 / 256 (nb = 64)
+           against float64 numpy; gels by CholQR at
            (20000, 9000), nb = 128, whose 71-block-column Gram matrix
            takes potrf's recursion (herk_lower_update 7 times), against a
            float64 lstsq; tsqr; the BLAS-3 verbs and norm against float64
@@ -60,8 +73,17 @@ Phases, one JSON line each:
            right-hand sides and 16-column blocks), every scaled residual
            checked; every served qr column is held to a float64
            normal-equations solve (relative error ≤ QR_REL_LIMIT), and a
-           1 %-perturbed and a random answer must fail that check. Peak
-           memory is read before the float64 checks allocate.
+           1 %-perturbed and a random answer must fail that check; a
+           diagonally dominant operator registered with MethodLU.NoPiv
+           (factored by getrf_nopiv: P2 leaves) serves 8 requests too;
+           then chol_inverse_using_factor and lu_inverse_using_factor on
+           the resident chol and lu factors, each held to ‖I − A·X‖₁ /
+           (n·ε·‖A‖₁·‖X‖₁) ≤ 30 in float64, and one lu_solve of the
+           general operator with MethodLU.RBT under the residual gate,
+           with its refinement steps and fallback printed. The P1 and P2
+           launches of every factor, solve and inverse are held to fixed
+           numbers at n = 16384 and 2048 (nb = 512). Peak memory is read
+           before the inverses and the float64 checks allocate.
 
 The kernels' launch counters are zeroed just before the check phase and
 just before the main phase and read just after each; the launches made
@@ -575,6 +597,172 @@ def herk_sass_counts(_build):
     return counts
 
 
+def leaf_stack(torch, nblk, s, dtype, unit, gen):
+    """A (nblk, s, s) stack of well-conditioned lower-triangular leaves
+    with 1e6 junk in the strict upper triangles, and the same stack with
+    zero there."""
+    def draw():
+        return torch.randn((nblk, s, s), generator=gen, device="cuda",
+                           dtype=dtype)
+    off = torch.tril(draw(), -1) / (s if unit else math.sqrt(s))
+    diag = 2 + draw().diagonal(dim1=1, dim2=2).abs()
+    clean = off + torch.diag_embed(diag.to(dtype))
+    return clean + 1e6 * torch.triu(draw(), 1), clean
+
+
+def leaf_ratio(torch, x, xp, lo, unit):
+    """The worst |x − xp|ᵢⱼ / (s·ε·(|xp|·|L|·|xp|)ᵢⱼ) over the entries
+    where xp is finite, in float64; L the lower triangle of ``lo`` (1 on
+    a unit diagonal)."""
+    s = lo.shape[-1]
+    lt = torch.tril(lo).abs().double()
+    if unit:
+        lt.diagonal(dim1=-2, dim2=-1).fill_(1)
+    ax = xp.abs().double()
+    fin = torch.isfinite(ax)
+    ax = torch.where(fin, ax, 0)
+    eps = torch.finfo(x.real.dtype if x.is_complex() else x.dtype).eps
+    denom = s * eps * (ax @ lt @ ax)
+    diff = (x - xp).abs().double()
+    ratio = torch.where(fin & (diff > 0), diff / denom, 0)
+    return ratio.max().item()
+
+
+def trtri_case(torch, ho, blocked, nblk, s, dtype, unit, gen, timed=False,
+               view=None, zero_diag=None):
+    """P1 against its plain version: entrywise within
+    LEAF_ENTRY_C·s·ε·(|X|·|L|·|X|)ᵢⱼ, the strict upper triangle of X
+    exactly zero, non-finite entries in the same places, and junk in the
+    strict upper triangle of L changing nothing (bitwise). ``view``:
+    "diag" hands over the diagonal leaves of an (nblk·s)² matrix as one
+    strided view, "conj_t" a conjugate-transposed view of upper-triangular
+    leaves. ``zero_diag``: that diagonal entry of leaf 0 is 0."""
+    junk, clean = leaf_stack(torch, nblk, s, dtype, unit, gen)
+    if zero_diag is not None:
+        junk[0, zero_diag, zero_diag] = 0
+        clean[0, zero_diag, zero_diag] = 0
+    l = junk
+    if view == "diag":
+        big = torch.zeros((nblk * s, nblk * s), dtype=dtype, device="cuda")
+        blocked._blocks(big, 0, s, s).copy_(junk)
+        l = blocked._blocks(big, 0, s, s)
+    elif view == "conj_t":
+        l = junk.mH.contiguous().mH  # a conjugate, transposed view
+        check(l.is_conj() and not l.is_contiguous(), "P1 conj_t: no view")
+    xk = ho.trtri_leaves(l, unit)
+    xp = ho.trtri_leaves_plain(l, unit)
+    x_clean = ho.trtri_leaves(clean, unit)
+    torch.cuda.synchronize()
+    name = f"trtri_leaves {(nblk, s, s)} {dtype} unit={unit} view={view}"
+    check(torch.equal(torch.isfinite(xk), torch.isfinite(xp)),
+          f"{name}: non-finite entries differ from the plain version")
+    check(torch.equal(xk, x_clean) if zero_diag is None else
+          torch.equal(torch.isfinite(xk), torch.isfinite(x_clean)),
+          f"{name}: junk in the strict upper triangle changed X")
+    check(torch.count_nonzero(torch.triu(xk, 1)).item() == 0,
+          f"{name}: nonzero above the diagonal")
+    ratio = leaf_ratio(torch, xk, xp, clean, unit)
+    check(math.isfinite(ratio) and ratio <= ho.LEAF_ENTRY_C,
+          f"{name}: entrywise error {ratio}·s·ε > {ho.LEAF_ENTRY_C}")
+    fin = torch.isfinite(xp)
+    err = (xk - xp).abs()[fin].max().item()
+    row = {"B": nblk, "s": s, "dtype": str(dtype).split(".")[1],
+           "unit": unit, "view": view, "max_abs_err": err,
+           "entry_ratio_max": ratio, "entry_limit": ho.LEAF_ENTRY_C}
+    if zero_diag is not None:
+        row["zero_diag"] = zero_diag
+        row["nonfinite"] = int((~fin).sum())
+        bad = torch.zeros((s, s), dtype=torch.bool, device="cuda")
+        bad[zero_diag:, :zero_diag + 1] = True
+        check(torch.equal(~torch.isfinite(xk[0]), bad)
+              and bool(torch.isfinite(xk[1:]).all()),
+              f"{name}: a zero diagonal at {zero_diag} did not make exactly "
+              "rows ≥ it, columns ≤ it non-finite")
+    if timed:
+        eye = torch.eye(s, dtype=dtype, device="cuda").expand(nblk, s, s)
+        row["ms"] = cuda_ms(lambda: ho.trtri_leaves(l, unit))
+        row["plain_ms"] = cuda_ms(lambda: ho.trtri_leaves_plain(l, unit),
+                                  reps=5)
+        row["library_ms"] = cuda_ms(lambda: torch.linalg.solve_triangular(
+            l, eye, upper=False, unitriangular=unit))
+        it = l.element_size()
+        # the lower triangle read once, X written once; s³/3 operations
+        # per leaf (about four times as many real ones for a complex type)
+        real = {"complex64": "float32", "complex128": "float64"}
+        row["bound_ms"], row["bound_by"] = bound(
+            nblk * (s * (s + 1) // 2 + s * s) * it,
+            nblk * s ** 3 / 3.0 * (4 if dtype.is_complex else 1),
+            real.get(row["dtype"], row["dtype"]))
+    return row
+
+
+def exact_zero_pivot(torch, s, zero_at, dtype, gen):
+    """L·U with entries in {−1, 0, 1}, unit-diagonal U except
+    U[zero_at, zero_at] = 0 and L zero below it: every step of the
+    no-pivot LU is exact and the pivot of step ``zero_at`` is 0."""
+    def pick(*shape):
+        return torch.randint(-1, 2, shape, generator=gen,
+                             device="cuda").to(dtype)
+    eye = torch.eye(s, dtype=dtype, device="cuda")
+    lo = torch.tril(pick(s, s), -1) + eye
+    up = torch.triu(pick(s, s), 1) + eye
+    up[zero_at, zero_at] = 0
+    lo[zero_at + 1:, zero_at] = 0
+    return lo @ up
+
+
+def lu_nopiv_case(torch, ho, s, dtype, gen, timed=False, zero_at=None,
+                  nan_at=None):
+    """P2 against its plain version: info exact, NaN in the same places,
+    the finite entries within LEAF_ENTRY_C·s·ε·(|L̂|·|Û|)ᵢⱼ (they are
+    expected bitwise equal: products and differences rounded alike)."""
+    if zero_at is not None:
+        a = exact_zero_pivot(torch, s, zero_at, dtype, gen)
+    else:
+        a = torch.randn((s, s), generator=gen, device="cuda", dtype=dtype)
+        a.diagonal().add_(s)
+        if nan_at is not None:
+            a[nan_at] = math.nan
+    lk, ik = ho.lu_nopiv_base(a)
+    lp, ip = ho.lu_nopiv_base_plain(a)
+    torch.cuda.synchronize()
+    name = f"lu_nopiv_base {(s, s)} {dtype}"
+    check(int(ik) == int(ip), f"{name}: info {int(ik)} != {int(ip)}")
+    if zero_at is not None:
+        check(int(ik) == zero_at + 1, f"{name}: info {int(ik)} for a zero "
+              f"pivot at step {zero_at}")
+    if nan_at is not None:
+        check(int(ik) == nan_at[0] + 1, f"{name}: info {int(ik)} for a NaN "
+              f"at {nan_at}")
+    nan_k, nan_p = torch.isnan(lk), torch.isnan(lp)
+    check(torch.equal(nan_k, nan_p), f"{name}: NaN in other places")
+    fin = ~nan_p
+    lo = torch.where(fin, torch.tril(lp, -1), 0).abs().double()
+    lo.diagonal().fill_(1)
+    up = torch.where(fin, torch.triu(lp), 0).abs().double()
+    denom = s * torch.finfo(dtype).eps * (lo @ up)
+    diff = (lk - lp).abs().double()
+    ratio = torch.where(fin & (diff > 0), diff / denom, 0).max().item()
+    check(ratio <= ho.LEAF_ENTRY_C, f"{name}: entrywise error {ratio}·s·ε")
+    err = diff[fin].max().item()
+    row = {"s": s, "dtype": str(dtype).split(".")[1], "info": int(ik),
+           "max_abs_err": err, "entry_ratio_max": ratio,
+           "bitwise_equal": bool(torch.equal(lk[fin], lp[fin]))}
+    if zero_at is not None:
+        row["zero_pivot_step"] = zero_at
+    if nan_at is not None:
+        row["nan_at"] = list(nan_at)
+    if timed:
+        row["ms"] = cuda_ms(lambda: ho.lu_nopiv_base(a))
+        row["plain_ms"] = cuda_ms(lambda: ho.lu_nopiv_base_plain(a), reps=5)
+        row["library_ms"] = cuda_ms(
+            lambda: torch.linalg.lu_factor(a, pivot=False))
+        it = a.element_size()
+        row["bound_ms"], row["bound_by"] = bound(
+            2 * s * s * it + 4, 2.0 * s ** 3 / 3.0, row["dtype"])
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: factorizations and the serving path
 # ---------------------------------------------------------------------------
@@ -643,6 +831,35 @@ def gels_check(torch, stt, ho, gen):
 # nb = n/128, by n: one K5 per split (16384 → 8192 → 4096 → 2048, and
 # 2048 → 1024 in the --n 2048 rehearsal), 128 K1 at the leaves
 REC_POTRF_LAUNCHES = {16384: (7, 128), 2048: (1, 128)}
+# trtri_leaves (P1) launches of the main path at nb = 512, by n, derived
+# from the dispatch: every trtri_lower_batched of a power-of-two leaf
+# grid is one launch, every trsm_rec base one, every smaller recursion
+# leaf one.
+#  chol factor: one per panel step but the last (nt − 1: 31, 3);
+#  lu factor: per 512-wide panel 4 K2 bases and 8 leaves of panel_getrf's
+#   64-row trsm_rec bases (2 + 4 + 2), plus inv11 per step but the last
+#   (32·8 + 31 = 287; 4·8 + 3 = 35);
+#  qr factor: per panel larft at 128, 256, 128 and 512 columns (16·4 =
+#   64; 2·4 = 8);
+#  chol_nb128 factor: 15 per 2048-row iterative leaf × 8, and one per
+#   128-row trsm_rec base of the 7 splits (3 × 64) (120 + 192 = 312); at
+#   n = 2048, nb = 16: 63 per 1024-row leaf × 2 and 64 for the one
+#   split's 16-row bases (126 + 64 = 190);
+#  a solve (any width): one per 512-row trsm_rec base of its two solves
+#   (chol, lu: 2·32 = 64; qr: 16; chol_nb128 at 128 rows: 256);
+#  potri: one over the 256 (32) leaves of trtri_rec; getri: as a solve;
+#  the no-pivot factor: one per 64-row trsm_rec base (2048; 160) and one
+#   P2 per 64-row leaf (256; 32).
+P1_FACTOR = {16384: {"chol": 31, "lu": 287, "qr": 64, "chol_nb128": 312,
+                     "nopiv": 2048},
+             2048: {"chol": 3, "lu": 35, "qr": 8, "chol_nb128": 190,
+                    "nopiv": 160}}
+P1_SOLVE = {16384: {"chol": 64, "lu": 64, "qr": 16, "chol_nb128": 256,
+                    "nopiv": 64},
+            2048: {"chol": 8, "lu": 8, "qr": 2, "chol_nb128": 256,
+                   "nopiv": 8}}
+P1_INVERSE = {16384: {"potri": 1, "getri": 64}, 2048: {"potri": 1, "getri": 8}}
+P2_NOPIV_FACTOR = {16384: 256, 2048: 32}
 
 
 def cholqr_gels_check(torch, stt, ho, gen):
@@ -782,6 +999,115 @@ def small_check(torch, stt, gen):
     return out
 
 
+def inverse_residual(torch, a, x):
+    """‖I − A·X‖₁ / (n·ε·‖A‖₁·‖X‖₁) in float64 on the card, ε of A's
+    type."""
+    n = a.shape[0]
+    a64, x64 = a.double(), x.double()
+    r = a64 @ x64
+    r.diagonal().sub_(1)
+    one = lambda m: m.abs().sum(dim=0).max().item()  # noqa: E731
+    res = one(r) / (n * torch.finfo(a.dtype).eps * one(a64) * one(x64))
+    del a64, x64, r
+    return res
+
+
+def dominant(torch, n, gen, dtype=None):
+    """G/√n + 2·I, G Gaussian: no-pivot LU is stable on it."""
+    a = torch.randn((n, n), generator=gen, device="cuda",
+                    dtype=dtype or torch.float32) / math.sqrt(n)
+    a.diagonal().add_(2.0)
+    return a
+
+
+def inverse_verbs_check(torch, stt, gen):
+    """The slice's verbs on the card at small uneven sizes (nb = 64),
+    float32, against float64 numpy on the same inputs: trtri for both
+    triangles and both diagonals, trtrm, potri, getri, getrf_nopiv and
+    gesv_nopiv on a diagonally dominant matrix, and gesv_rbt on a
+    diagonally dominant n = 256 and a Gaussian n = 300 (whose padded
+    transform usually makes it fall back to partial pivoting; its steps
+    and fallback are printed). Relative error to the largest entry
+    ≤ 1e-3, for the inverses ‖I − A·X‖ scaled ≤ 30, for gesv_rbt the
+    scaled residual ≤ 30 (the Gaussian's condition number makes its
+    relative error a reading, not a check)."""
+    import numpy as np
+    from slate_tpu_torch.linalg import lu as lu_mod
+    n, nb, dev = 300, 64, "cuda"
+    out = {}
+
+    def rel(got, want):
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    for lower in (True, False):
+        for unit in (False, True):
+            d = dominant(torch, n, gen)
+            tri = torch.tril(d) if lower else torch.triu(d)
+            if unit:
+                tri = tri / n
+                tri.diagonal().fill_(1)
+            T = stt.triangular(tri + 1e6 * (torch.triu(d, 1) if lower
+                                            else torch.tril(d, -1)),
+                               nb, stt.Uplo.Lower if lower else stt.Uplo.Upper,
+                               stt.Diag.Unit if unit else stt.Diag.NonUnit,
+                               device=dev)
+            x = stt.trtri(T).to_numpy()
+            want = np.linalg.inv(tri.double().cpu().numpy())
+            key = f"trtri_{'lower' if lower else 'upper'}_" \
+                  f"{'unit' if unit else 'nonunit'}"
+            out[key] = rel(x, want)
+            res = inverse_residual(torch, tri,
+                                   torch.from_numpy(x).to(tri.device))
+            check(out[key] <= 1e-3 and res <= RESIDUAL_BOUND,
+                  f"{key}: relative error {out[key]}, residual {res}")
+    d = torch.tril(dominant(torch, n, gen))
+    out["trtrm"] = rel(stt.trtrm(stt.triangular(d, nb, stt.Uplo.Lower,
+                                                device=dev)).to_numpy(),
+                       (d.T.double() @ d.double()).cpu().numpy())
+    x = torch.randn((n, n), generator=gen, device=dev)
+    spd = x @ x.T / n + torch.eye(n, device=dev)
+    L, info = stt.potrf(stt.hermitian(spd, nb, stt.Uplo.Lower, device=dev))
+    pinv = stt.chol_inverse_using_factor(L).dense()[:n, :n]
+    out["potri"] = rel(pinv.cpu().numpy(),
+                       np.linalg.inv(spd.double().cpu().numpy()))
+    out["potri_residual"] = inverse_residual(torch, spd, pinv)
+    g = torch.randn((n, n), generator=gen, device=dev) + math.sqrt(n) * \
+        torch.eye(n, device=dev)
+    LU, perm, _ = stt.lu_factor(stt.from_dense(g, nb, device=dev))
+    ginv = stt.lu_inverse_using_factor(LU, perm).dense()[:n, :n]
+    out["getri"] = rel(ginv.cpu().numpy(),
+                       np.linalg.inv(g.double().cpu().numpy()))
+    out["getri_residual"] = inverse_residual(torch, g, ginv)
+    dd = dominant(torch, n, gen)
+    b = torch.randn((n, 3), generator=gen, device=dev)
+    X, info = stt.gesv_nopiv(stt.from_dense(dd, nb, device=dev),
+                             stt.from_dense(b, nb, device=dev))
+    check(int(info) == 0, f"gesv_nopiv: info {int(info)}")
+    out["gesv_nopiv"] = rel(X.to_numpy(), np.linalg.solve(
+        dd.double().cpu().numpy(), b.double().cpu().numpy()))
+    rbt = stt.Options(method_lu=stt.MethodLU.RBT)
+    for m, g in ((256, dominant(torch, 256, gen)),
+                 (300, torch.randn((300, 300), generator=gen, device=dev))):
+        bm = torch.randn((m, 2), generator=gen, device=dev)
+        X = stt.lu_solve(stt.from_dense(g, nb, device=dev),
+                         stt.from_dense(bm, nb, device=dev), rbt)
+        x = X.to_numpy()
+        res = max(scaled_residuals(torch, g, torch.from_numpy(x).to(
+            g.device), bm))
+        out[f"gesv_rbt_{m}"] = {
+            "rel_err": rel(x, np.linalg.solve(g.double().cpu().numpy(),
+                                              bm.double().cpu().numpy())),
+            "scaled_residual": res, **lu_mod.RBT_LAST}
+        check(res <= RESIDUAL_BOUND, f"gesv_rbt n={m}: scaled residual "
+              f"{res} ({lu_mod.RBT_LAST})")
+    worst = max(v for k, v in out.items() if isinstance(v, float)
+                and not k.endswith("residual"))
+    check(worst <= 1e-3 and out["potri_residual"] <= RESIDUAL_BOUND
+          and out["getri_residual"] <= RESIDUAL_BOUND,
+          f"the inverse and no-pivot verbs against float64 numpy: {out}")
+    return out
+
+
 def lstsq_normal64(torch, a64, B):
     """Least-squares solutions of the float64 ``a64`` for the columns of
     ``B`` by the float64 normal equations (accurate to about κ(A)²·ε₆₄;
@@ -797,6 +1123,86 @@ def rel_errors(torch, X, ref):
     return (d / ref.abs().max(dim=0).values).tolist()
 
 
+def inverse_phase(torch, stt, ho, sess, ops, gen_m, b_rbt):
+    """potri and getri on the resident chol and lu factors
+    (``chol_inverse_using_factor``, ``lu_inverse_using_factor``), and one
+    ``lu_solve`` of the general operator with MethodLU.RBT, each timed
+    (host clock ending in a sync) with its launches; the inverses and the
+    RBT solution are returned under x_* for the float64 checks."""
+    from slate_tpu_torch.linalg import lu as lu_mod
+    n, k = b_rbt.shape
+    nb = sess._ops[ops["lu"]].A.nb
+    out = {}
+    runs = (("potri", lambda: stt.chol_inverse_using_factor(
+                *sess.factor(ops["chol"]).payload)),
+            ("getri", lambda: stt.lu_inverse_using_factor(
+                *sess.factor(ops["lu"]).payload)),
+            ("rbt", lambda: stt.lu_solve(
+                stt.from_dense(gen_m, nb, device="cuda"),
+                stt.from_dense(b_rbt, nb, device="cuda"),
+                stt.Options(method_lu=stt.MethodLU.RBT))))
+    for name, fn in runs:
+        before = dict(ho.LAUNCHES)
+        t0 = time.perf_counter()
+        X = fn()
+        torch.cuda.synchronize()
+        out[name] = {"seconds": time.perf_counter() - t0,
+                     "launches": {key: ho.LAUNCHES[key] - before[key]
+                                  for key in ho.LAUNCHES}}
+        out[f"x_{name}"] = X.dense()[:n, :n if name != "rbt" else k]
+    out["rbt"].update(lu_mod.RBT_LAST)
+    return out
+
+
+def check_p1_p2(n, nb, factor_launches, solve_launches, inverse, requests):
+    """P1 and P2 launched as the dispatch says: fixed numbers where the
+    tables above have n (at nb = 512), else at least once; P2 only in
+    the no-pivot factors, and no K1–K5 launch from the inverses or the
+    no-pivot factor (K2 in the RBT solve only if it fell back)."""
+    exact = nb == 512 and n in P1_FACTOR
+    kernels = ("chol_tile", "lu_panel_base", "qr_panel_base",
+               "qr_panel_base_wide", "herk_lower_update")
+
+    def want(got, table, key, what, scale=1):
+        ok = got == scale * table[n][key] if exact else got > 0
+        check(ok, f"{what} launched trtri_leaves {got} times, expected "
+              f"{scale * table[n][key] if exact else '> 0'}")
+
+    for name, fl in factor_launches.items():
+        want(fl["trtri_leaves"], P1_FACTOR, name, f"the {name} factor")
+        want(solve_launches[name]["trtri_leaves"], P1_SOLVE, name,
+             f"the {name} solves", requests)
+        p2 = fl["lu_nopiv_base"]
+        check((p2 == P2_NOPIV_FACTOR[n] if exact else p2 > 0)
+              if name == "nopiv" else p2 == 0,
+              f"the {name} factor launched lu_nopiv_base {p2} times")
+        check(solve_launches[name]["lu_nopiv_base"] == 0,
+              f"the {name} solves launched lu_nopiv_base")
+    check(not any(factor_launches["nopiv"][k] for k in kernels),
+          f"the no-pivot factor launched {factor_launches['nopiv']}")
+    for name in ("potri", "getri"):
+        got = inverse[name]["launches"]
+        want(got["trtri_leaves"], P1_INVERSE, name, name)
+        check(got["lu_nopiv_base"] == 0 and not any(got[k] for k in kernels),
+              f"{name} launched {got}")
+    rbt = inverse["rbt"]
+    got = rbt["launches"]
+    steps = 1 + rbt["refinements"]  # rbt_solve calls: one, then corrections
+    if exact:
+        p1 = P1_FACTOR[n]["nopiv"] + steps * P1_SOLVE[n]["lu"]
+        if rbt["fallback"]:
+            p1 += P1_FACTOR[n]["lu"] + P1_SOLVE[n]["lu"]
+        check(got["trtri_leaves"] == p1
+              and got["lu_nopiv_base"] == P2_NOPIV_FACTOR[n]
+              and got["lu_panel_base"] == (4 * n // nb if rbt["fallback"]
+                                           else 0),
+              f"the RBT solve launched {got} after {rbt}, expected "
+              f"{p1} trtri_leaves and {P2_NOPIV_FACTOR[n]} lu_nopiv_base")
+    else:
+        check(got["trtri_leaves"] > 0 and got["lu_nopiv_base"] > 0,
+              f"the RBT solve launched {got}")
+
+
 def main_path(torch, stt, ho, n, nb, gen):
     dev = "cuda"
     x = torch.randn((n, n), generator=gen, device=dev)
@@ -804,6 +1210,8 @@ def main_path(torch, stt, ho, n, nb, gen):
     spd.diagonal().add_(1.0)
     del x
     gen_m = torch.randn((n, n), generator=gen, device=dev)
+    # the no-pivot operator: diagonally dominant
+    dom = dominant(torch, n, gen)
     # the least-squares operator: 2n × n/2, the same bytes as the others
     m_q, n_q = 2 * n, n // 2
     tall = torch.randn((m_q, n_q), generator=gen, device=dev)
@@ -812,7 +1220,8 @@ def main_path(torch, stt, ho, n, nb, gen):
                     for k in widths],
            "qr": [torch.randn((m_q, k), generator=gen, device=dev)
                   for k in widths]}
-    rhs["lu"] = rhs["chol_nb128"] = rhs["chol"]
+    rhs["lu"] = rhs["chol_nb128"] = rhs["nopiv"] = rhs["chol"]
+    b_rbt = torch.randn((n, 16), generator=gen, device=dev)
     # the SPD operator again at 128 block columns: potrf's 2×2 recursion
     nb_rec = n // 128
     torch.cuda.synchronize()
@@ -826,7 +1235,10 @@ def main_path(torch, stt, ho, n, nb, gen):
            "qr": sess.register(stt.from_dense(tall, nb, device=dev),
                                op="auto"),
            "chol_nb128": sess.register(stt.hermitian(
-               spd, nb_rec, stt.Uplo.Lower, device=dev), op="chol")}
+               spd, nb_rec, stt.Uplo.Lower, device=dev), op="chol"),
+           "nopiv": sess.register(stt.from_dense(dom, nb, device=dev),
+                                  op="lu", opts=stt.Options(
+                                      method_lu=stt.MethodLU.NoPiv))}
     check(sess._ops[ops["chol_nb128"]].A.data.data_ptr() == spd.data_ptr(),
           "the nb = n/128 operator was registered with a copy")
     check(sess._ops[ops["qr"]].op == "qr",
@@ -843,19 +1255,25 @@ def main_path(torch, stt, ho, n, nb, gen):
     from slate_tpu_torch.runtime.metrics import Histogram
     latency = {name: Histogram() for name in ops}
     served = {name: [] for name in ops}
+    solve_launches = {}
     for name, h in ops.items():
+        before = dict(ho.LAUNCHES)
         for b in rhs[name]:
             t0 = time.perf_counter()
             xs = torch.from_numpy(sess.solve(h, b)).to(dev)
             latency[name].observe(time.perf_counter() - t0)
             served[name].append(xs)
-    launches = dict(ho.LAUNCHES)
-    # the serving path's peak, before the float64 checks allocate theirs
+        solve_launches[name] = {k: ho.LAUNCHES[k] - before[k]
+                                for k in ho.LAUNCHES}
+    # the serving path's peak, before the inverses and the float64 checks
+    # allocate theirs
     peak = torch.cuda.max_memory_allocated()
+    inverse = inverse_phase(torch, stt, ho, sess, ops, gen_m, b_rbt)
+    launches = dict(ho.LAUNCHES)
 
     res = {name: [] for name in ops}
-    operators = {"chol": spd, "lu": gen_m, "chol_nb128": spd}
-    for name in ("chol", "lu", "chol_nb128"):
+    operators = {"chol": spd, "lu": gen_m, "chol_nb128": spd, "nopiv": dom}
+    for name in ("chol", "lu", "chol_nb128", "nopiv"):
         for xs, b in zip(served[name], rhs[name]):
             res[name] += scaled_residuals(torch, operators[name], xs, b)
     # qr: every served column against a float64 solve of the same problem
@@ -907,6 +1325,13 @@ def main_path(torch, stt, ho, n, nb, gen):
           == rec_fl["qr_panel_base_wide"] == 0,
           f"nb = {nb_rec} chol factor launched {rec_fl}, expected "
           f"(herk_lower_update, chol_tile) = {k5_k1} and nothing else")
+    res["rbt"] = scaled_residuals(torch, gen_m, inverse.pop("x_rbt"), b_rbt)
+    for name, a in (("potri", spd), ("getri", gen_m)):
+        inverse[name]["inverse_residual"] = r = inverse_residual(
+            torch, a, inverse.pop(f"x_{name}"))
+        check(math.isfinite(r) and r <= RESIDUAL_BOUND, f"{name}: ‖I − A·X‖₁ "
+              f"/ (n·ε·‖A‖₁·‖X‖₁) = {r} > {RESIDUAL_BOUND}")
+    check_p1_p2(n, nb, factor_launches, solve_launches, inverse, len(widths))
     worst = max(max(v) for v in res.values())
     check(math.isfinite(worst) and worst <= RESIDUAL_BOUND,
           f"scaled residual {worst} > {RESIDUAL_BOUND}")
@@ -931,6 +1356,9 @@ def main_path(torch, stt, ho, n, nb, gen):
         "chol_nb128_gflops": flops.potrf(n) / factor_s["chol_nb128"] / 1e9,
         "chol_nb128_expected_launches": k5_k1 and {
             "herk_lower_update": k5_k1[0], "chol_tile": k5_k1[1]},
+        "nopiv_factor_s": factor_s["nopiv"],
+        "nopiv_gflops": flops.getrf(n) / factor_s["nopiv"] / 1e9,
+        **inverse,
         "solve_p50_s": solve_hist["p50"], "solve_p99_s": solve_hist["p99"],
         "solves": solve_hist["count"],
         "solve_latency_s": {k: {"p50": h.percentile(50),
@@ -943,6 +1371,7 @@ def main_path(torch, stt, ho, n, nb, gen):
         "qr_wrong_answer_scaled_residual_max": wrong_res,
         "residuals_checked": {k: len(v) for k, v in res.items()},
         "launches_factor": factor_launches,
+        "launches_solves": solve_launches,
         "launches": launches,
         "metrics": sess.metrics.snapshot()["counters"],
     }
@@ -1069,6 +1498,37 @@ def main(argv=None) -> int:
                  herk_nonfinite_case(torch, ho, gen, dt, v, hk)
                  for dt, v, hk in ((f32, math.nan, 300), (f32, math.inf, 301),
                                    (f64, math.inf, 300))])
+        # P1: potri's 256 leaves at n = 16384 first (timed, the kernels
+        # line's row), a 512 base's 8 leaves as a strided view of its
+        # diagonal, f64, complex128 through a conjugate-transposed view,
+        # ragged s, and zero diagonals
+        c64, c128 = torch.complex64, torch.complex128
+        trtri_rows = [
+            trtri_case(torch, ho, blocked, nblk, s_, dt, unit, gen,
+                       timed=zero is None, view=view, zero_diag=zero)
+            for nblk, s_, dt, unit, view, zero in (
+                (256, 64, f32, False, None, None),
+                (8, 64, f32, False, "diag", None),
+                (8, 64, f32, True, "diag", None),
+                (8, 64, f64, False, None, None),
+                (8, 64, f64, True, None, None),
+                (8, 64, c128, False, "conj_t", None),
+                (8, 64, c128, True, "conj_t", None),
+                (8, 33, c64, False, None, None),
+                (4, 1, f32, False, None, None), (4, 1, f32, True, None, None),
+                (4, 7, f32, False, None, None), (4, 7, f32, True, None, None),
+                (4, 33, f32, False, None, None),
+                (4, 33, f32, True, None, None),
+                (2, 33, f32, False, None, 20), (2, 64, f64, False, None, 0))]
+        emit("kernel", name="trtri_leaves", cases=trtri_rows)
+        nopiv_rows = [lu_nopiv_case(torch, ho, s_, dt, gen, timed=True)
+                      for s_, dt in ((64, f32), (64, f64), (33, f32),
+                                     (7, f64), (1, f32))]
+        nopiv_rows += [lu_nopiv_case(torch, ho, 64, dt, gen, zero_at=20)
+                       for dt in (f32, f64)]
+        nopiv_rows.append(lu_nopiv_case(torch, ho, 64, f32, gen,
+                                        nan_at=(5, 3)))
+        emit("kernel", name="lu_nopiv_base", cases=nopiv_rows)
         # counted paths: the check phase, then the main phase
         ho.reset_launches()
         small = small_check(torch, stt, gen)
@@ -1076,9 +1536,10 @@ def main(argv=None) -> int:
         gels_cholqr = cholqr_gels_check(torch, stt, ho, gen)
         tsqr = tsqr_check(torch, stt, gen)
         blas3 = blas3_check(torch, stt, gen)
+        inverse = inverse_verbs_check(torch, stt, gen)
         check_launches = dict(ho.LAUNCHES)
         emit("check", **small, **gels, gels_cholqr=gels_cholqr, tsqr=tsqr,
-             blas3=blas3, launches=check_launches)
+             blas3=blas3, inverse_and_nopiv=inverse, launches=check_launches)
         main = main_path(torch, stt, ho, args.n, args.nb, gen)
     emit("main", **main)
 
@@ -1092,7 +1553,9 @@ def main(argv=None) -> int:
                                 ("lu_panel_base", lu_rows),
                                 ("qr_panel_base", qr_rows),
                                 ("qr_panel_base_wide", wide_rows),
-                                ("herk_lower_update", herk_rows))}
+                                ("herk_lower_update", herk_rows),
+                                ("trtri_leaves", trtri_rows),
+                                ("lu_nopiv_base", nopiv_rows))}
     kernels = []
     for name, src, rep in (
             ("chol_tile", "chol_tile.cu", "slate_tpu/ops/pallas_ops.py:342"),
@@ -1103,7 +1566,11 @@ def main(argv=None) -> int:
             ("qr_panel_base_wide", "qr_panel.cu",
              "slate_tpu/ops/pallas_ops.py:670"),
             ("herk_lower_update", "herk_lower.cu",
-             "slate_tpu/ops/pallas_ops.py:127")):
+             "slate_tpu/ops/pallas_ops.py:127"),
+            # no Pallas kernel: the reference's vmapped and fori_loop leaves
+            ("trtri_leaves", "trtri_leaves.cu",
+             "slate_tpu/ops/blocked.py:242"),
+            ("lu_nopiv_base", "lu_nopiv.cu", "slate_tpu/linalg/lu.py:463")):
         row = timed[name]
         launches = check_launches[name] + main["launches"][name]
         check(launches > 0, f"{name} was not launched on a counted path")
@@ -1114,7 +1581,9 @@ def main(argv=None) -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            **({"plan": row["plan"]} if "plan" in row else {})})
+            **({"plan": row["plan"]} if "plan" in row else {}),
+            **({"entry_ratio_max": row["entry_ratio_max"]}
+               if name in ("trtri_leaves", "lu_nopiv_base") else {})})
     kernels[0]["at_b128"] = {k: k1_128[k] for k in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "plan")}

@@ -16,10 +16,11 @@ those, or of three that run a kernel in another plan mode: "chol_f64"
 8n × 64 float64 operator at nb = 32, K3 at (8n, 32) f64). Each runs
 through a Session that has factored every kind and type it profiles
 once at n = 1024 (so that one-time set-up of libraries and kernels is
-not in the profile), under torch.profiler (CPU and CUDA activity), and
-prints one
+not in the profile), under torch.profiler (CPU and CUDA activity), then
+once more without it, and prints one
 JSON line per factor: the wall time under the profiler (the profiler
-slows the host, so this is not the factor time), the summed time of its
+slows the host, so this is not the factor time) and without it (host
+clock ending in a sync: the factor time), the summed time of its
 device events (kernels, copies, sets; no host op is counted, so nothing
 twice) and its share of that wall, the count of device events, the
 device time and launches of each of the port's own kernels (by kernel
@@ -43,7 +44,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_FUNCS = {"chol_tile": "chol_tile_kernel",
                 "lu_panel_base": "lu_panel_kernel",
                 "qr_panel": "qr_panel_kernel",
-                "herk_lower_update": "herk_lower_kernel"}
+                "herk_lower_update": "herk_lower_kernel",
+                "trtri_leaves": "trtri_leaves_kernel",
+                "lu_nopiv_base": "lu_nopiv_kernel"}
 
 
 def register(torch, stt, sess, shape, op, nb, gen, dtype):
@@ -79,6 +82,14 @@ def profile_factor(torch, stt, sess, shape, op, nb, dtype, gen, top=12):
     if info != 0:
         raise AssertionError(f"{op} factor: info {info}")
     sess.unregister(h)
+    # the same factor again without the profiler: its wall time
+    h = register(torch, stt, sess, shape, op, nb, gen, dtype)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.factor_info(h)
+    torch.cuda.synchronize()
+    unprofiled = time.perf_counter() - t0
+    sess.unregister(h)
     events = prof.key_averages()
     dev = [e for e in events if on_device(e)]
     host = [e for e in events if not on_device(e)]
@@ -86,6 +97,7 @@ def profile_factor(torch, stt, sess, shape, op, nb, dtype, gen, top=12):
     return {
         "op": op, "shape": list(shape), "nb": nb,
         "dtype": str(dtype).split(".")[1], "wall_s": wall,
+        "unprofiled_wall_s": unprofiled,
         "device_busy_s": busy_us / 1e6,
         "device_busy_share": busy_us / 1e6 / wall,
         "device_events": sum(e.count for e in dev),

@@ -6,10 +6,11 @@ without a card unless "cpu" is asked for. The hand-written kernels live
 in ``csrc/`` and are built with nvcc on first use (``ops/_build.py``).
 """
 
-from .api import (chol_factor, chol_solve, chol_solve_using_factor,
-                  least_squares_solve, least_squares_solve_using_factor,
-                  lu_factor, lu_solve, lu_solve_using_factor, multiply,
-                  qr_factor, rank_2k_update, rank_k_update,
+from .api import (chol_factor, chol_inverse_using_factor, chol_solve,
+                  chol_solve_using_factor, least_squares_solve,
+                  least_squares_solve_using_factor, lu_factor,
+                  lu_inverse_using_factor, lu_solve, lu_solve_using_factor,
+                  multiply, qr_factor, rank_2k_update, rank_k_update,
                   triangular_multiply, triangular_solve)
 from .core.exceptions import SlateError
 from .core.tiled_matrix import (TiledMatrix, from_dense, hermitian, pad_mask,
@@ -19,19 +20,22 @@ from .core.types import (Diag, MatrixKind, MethodGels, MethodGemm,
                          Op, Options, Side, Uplo)
 from .linalg.blas3 import (gemm, hemm, her2k, herk, symm, syr2k, syrk, trmm,
                            trsm)
-from .linalg.cholesky import posv, potrf, potrs
+from .linalg.cholesky import posv, potrf, potri, potrs, trtri, trtrm
 from .linalg.elementwise import (add, copy, redistribute, scale,
                                  scale_row_col, set_lambda, set_matrix)
-from .linalg.lu import gesv, getrf, getrs
+from .linalg.lu import (gerbt, gesv, gesv_nopiv, gesv_rbt, getrf,
+                        getrf_nopiv, getri, getri_oop, getrs)
 from .linalg.norms import col_norms, norm
 from .linalg.qr import (QRFactors, cholqr, gelqf, gels, gels_using_factor,
                         geqrf, qr_multiply_explicit, tsqr, unmlq, unmqr)
 from .runtime.session import Session
 
 __all__ = [
-    "chol_factor", "chol_solve", "chol_solve_using_factor",
-    "least_squares_solve", "least_squares_solve_using_factor", "lu_factor",
-    "lu_solve", "lu_solve_using_factor", "multiply", "qr_factor",
+    "chol_factor", "chol_inverse_using_factor", "chol_solve",
+    "chol_solve_using_factor", "least_squares_solve",
+    "least_squares_solve_using_factor", "lu_factor",
+    "lu_inverse_using_factor", "lu_solve", "lu_solve_using_factor",
+    "multiply", "qr_factor",
     "rank_2k_update", "rank_k_update", "triangular_multiply",
     "triangular_solve", "SlateError",
     "TiledMatrix", "from_dense", "hermitian", "pad_mask", "resolve_device",
@@ -41,7 +45,9 @@ __all__ = [
     "Side", "Uplo", "gemm", "hemm", "her2k", "herk", "symm", "syr2k", "syrk",
     "trmm", "trsm", "add", "copy", "redistribute", "scale", "scale_row_col",
     "set_lambda", "set_matrix", "col_norms", "norm",
-    "posv", "potrf", "potrs", "gesv", "getrf", "getrs",
+    "posv", "potrf", "potri", "potrs", "trtri", "trtrm", "gerbt", "gesv",
+    "gesv_nopiv", "gesv_rbt", "getrf", "getrf_nopiv", "getri", "getri_oop",
+    "getrs",
     "QRFactors", "cholqr", "gelqf", "gels", "gels_using_factor", "geqrf",
     "qr_multiply_explicit", "tsqr", "unmlq", "unmqr", "Session",
 ]

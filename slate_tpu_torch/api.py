@@ -1,7 +1,7 @@
 """Simplified API verbs of the ported slices (counterpart of
 ``slate_tpu/api.py:38-105`` and ``119-289``, dense operands only, no
 tracing spans): the BLAS-3 verbs dispatch on the matrix kinds as the
-reference does."""
+reference does; the inverse verbs run getri and potri."""
 
 from __future__ import annotations
 
@@ -70,6 +70,12 @@ def lu_solve_using_factor(LU: TiledMatrix, perm, B: TiledMatrix,
     return lu_mod.getrs(LU, perm, B, opts)
 
 
+def lu_inverse_using_factor(LU: TiledMatrix, perm,
+                            opts: Options = DEFAULT_OPTIONS) -> TiledMatrix:
+    """A⁻¹ from lu_factor's (LU, perm)."""
+    return lu_mod.getri(LU, perm, opts)
+
+
 def chol_factor(A: TiledMatrix, opts: Options = DEFAULT_OPTIONS):
     """(L, info) for a Hermitian/Symmetric A."""
     return cholesky.potrf(A, opts)
@@ -84,6 +90,12 @@ def chol_solve(A: TiledMatrix, B: TiledMatrix,
 def chol_solve_using_factor(L: TiledMatrix, B: TiledMatrix,
                             opts: Options = DEFAULT_OPTIONS) -> TiledMatrix:
     return cholesky.potrs(L, B, opts)
+
+
+def chol_inverse_using_factor(L: TiledMatrix,
+                              opts: Options = DEFAULT_OPTIONS) -> TiledMatrix:
+    """A⁻¹ from chol_factor's L (potri)."""
+    return cholesky.potri(L, opts)
 
 
 def qr_factor(A: TiledMatrix, opts: Options = DEFAULT_OPTIONS):

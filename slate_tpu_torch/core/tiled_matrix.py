@@ -188,7 +188,7 @@ def from_dense(a, nb: int, *, kind: MatrixKind = MatrixKind.General,
     canonical shape and no masking needed is wrapped without a copy."""
     if grid is not None and getattr(grid, "size", 1) > 1:
         raise SlateError("slate_tpu_torch: multi-device grids are not "
-                         "ported yet (ROADMAP Queue 1 item 14)")
+                         "ported yet (ROADMAP Queue 1 item 12)")
     t = as_tensor(a, device)
     if t.ndim != 2:
         raise SlateError("from_dense expects a 2-D array")

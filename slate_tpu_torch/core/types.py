@@ -106,7 +106,10 @@ class Options:
     """Per-call options bag (the fields the ported slices read).
 
     ``method_lu``, ``pivot_threshold`` and ``method_gels`` are read, and
-    ``method_gemm`` for SUMMA (the unported methods raise). The others are
+    ``method_gemm`` for SUMMA (the unported methods raise); so are
+    ``max_iterations`` and ``use_fallback_solver`` (gesv_rbt's refinement
+    steps and its partial-pivot fallback) and ``depth`` (the butterfly
+    depth of gerbt). The others are
     accepted for parity and ignored: ``method_hemm`` and ``method_gemm``'s
     A and C because they pick the reference's data placement on a grid,
     which one device does not have; ``method_trsm`` because trsm runs one
@@ -127,6 +130,9 @@ class Options:
     lu_pivot_fusion: bool = True
     factor_iter_large: bool = True
     method_gels: MethodGels = MethodGels.Auto
+    max_iterations: int = 30
+    use_fallback_solver: bool = True
+    depth: int = 2  # RBT butterfly depth
 
     def replace(self, **kw) -> "Options":
         return dataclasses.replace(self, **kw)

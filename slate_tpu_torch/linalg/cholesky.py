@@ -1,5 +1,5 @@
-"""Cholesky family: potrf, potrs, posv (counterpart of
-``slate_tpu/linalg/cholesky.py:60-340``).
+"""Cholesky family: potrf, potrs, posv, and the inverse verbs trtri,
+trtrm and potri (counterpart of ``slate_tpu/linalg/cholesky.py:60-378``).
 
 The blocked right-looking loop in its lookahead-1 order is the
 reference's default path; the 2×2 recursion runs only where that loop
@@ -26,7 +26,8 @@ import torch
 from ..core.exceptions import SlateError
 from ..core.precision import accurate_matmuls
 from ..core.tiled_matrix import TiledMatrix, from_dense, unit_pad_diag
-from ..core.types import MatrixKind, Options, Side, Uplo, DEFAULT_OPTIONS
+from ..core.types import (Diag, MatrixKind, Options, Side, Uplo,
+                          DEFAULT_OPTIONS)
 from ..ops import blocked, tile_ops
 from . import blas3
 
@@ -201,3 +202,39 @@ def posv(A: TiledMatrix, B: TiledMatrix,
     """Solve A·X = B for Hermitian positive definite A."""
     L, info = potrf(A, opts)
     return potrs(L, B, opts), info
+
+
+@accurate_matmuls
+def trtri(A: TiledMatrix, opts: Options = DEFAULT_OPTIONS) -> TiledMatrix:
+    """Triangular inverse of a Triangular A, lower or upper, unit or not.
+
+    The padded triangle (the other one zeroed, 1 on a padded diagonal) is
+    inverted by ``blocked.trtri_rec``: its diagonal leaves of at most 64
+    rows are P1 launches, combined by batched gemms (the one inversion
+    path of the port; the reference solves against I with
+    ``lax.linalg.triangular_solve``). TriangularBand raises until band
+    kinds are ported."""
+    if A.kind not in (MatrixKind.Triangular, MatrixKind.TriangularBand):
+        raise SlateError("trtri: A must be triangular")
+    n = A.shape[0]
+    a = unit_pad_diag(A.full_dense_canonical(), n, n)
+    inv = blocked.trtri_rec(a, lower=A.uplo is Uplo.Lower,
+                            unit=A.diag is Diag.Unit)
+    return from_dense(inv, A.nb, kind=MatrixKind.Triangular, uplo=A.uplo,
+                      diag=A.diag, logical_shape=A.shape, device=inv.device)
+
+
+@accurate_matmuls
+def trtrm(L: TiledMatrix, opts: Options = DEFAULT_OPTIONS) -> TiledMatrix:
+    """Lᴴ·L (Lower) or U·Uᴴ (Upper) of a triangular matrix, one gemm: the
+    second half of potri."""
+    a = L.full_dense_canonical()
+    out = a.mH @ a if L.uplo is Uplo.Lower else a @ a.mH
+    return from_dense(out, L.nb, kind=MatrixKind.Hermitian, uplo=L.uplo,
+                      logical_shape=L.shape, device=out.device)
+
+
+def potri(A_factor: TiledMatrix, opts: Options = DEFAULT_OPTIONS
+          ) -> TiledMatrix:
+    """A⁻¹ from the Cholesky factor: L⁻ᴴ·L⁻¹ (trtri, then trtrm)."""
+    return trtrm(trtri(A_factor, opts), opts)

@@ -1,5 +1,8 @@
-"""LU family: getrf (partial pivot), getrs, gesv (counterpart of
-``slate_tpu/linalg/lu.py:52-425, 672-717``).
+"""LU family: getrf (partial pivot and no pivoting), getrs, gesv, the
+no-pivot and butterfly solvers (getrf_nopiv, gesv_nopiv, gerbt, gesv_rbt)
+and the inverse (getri, getri_oop) (counterpart of
+``slate_tpu/linalg/lu.py:52-482, 672-848``). CALU and threshold pivoting
+raise until the tournament is ported.
 
 Pivots are a gather permutation: ``A[perm] = L·U``. The reference's
 default round-6/7 path is the one path here: the pivot-fused iterative
@@ -21,15 +24,18 @@ column (it is zero there).
 
 from __future__ import annotations
 
-from typing import List, Tuple
+import math
+from typing import Dict, List, Tuple
 
 import torch
 
 from ..core.exceptions import SlateError
 from ..core.precision import accurate_matmuls
 from ..core.tiled_matrix import TiledMatrix, from_dense, unit_pad_diag
-from ..core.types import MethodLU, Options, DEFAULT_OPTIONS
-from ..ops import blocked
+from ..core.types import MethodLU, Norm, Options, DEFAULT_OPTIONS
+from ..ops import blocked, hopper_ops
+from . import blas3, elementwise as ew
+from .norms import norm
 
 _GETRF_ITER_BASE = 2048
 _ITER_MAX_NT = blocked.ITER_MAX_NT
@@ -174,22 +180,27 @@ def _getrf_blocked(a: torch.Tensor, nb: int):
 
 
 def _check_method(opts: Options, what: str):
-    if opts.method_lu in (MethodLU.NoPiv, MethodLU.CALU, MethodLU.RBT):
+    if opts.method_lu is MethodLU.CALU:
         raise NotImplementedError(
-            f"{what}: MethodLU.{opts.method_lu.name} is not ported yet "
+            f"{what}: MethodLU.CALU (tournament pivoting) is not ported yet "
             "(ROADMAP Queue 1 item 3)")
     if opts.pivot_threshold < 1.0:
         raise NotImplementedError(
-            f"{what}: pivot_threshold < 1 (tournament pivoting) is not "
-            "ported yet (ROADMAP Queue 1 item 3)")
+            f"{what}: pivot_threshold < 1 (threshold pivoting, which runs "
+            "the tournament) is not ported yet (ROADMAP Queue 1 item 3)")
 
 
 @accurate_matmuls
 def getrf(A: TiledMatrix, opts: Options = DEFAULT_OPTIONS
           ) -> Tuple[TiledMatrix, torch.Tensor, torch.Tensor]:
     """Partial-pivot LU: A[perm] = L·U. Returns (LU packed in one
-    matrix, perm int32, info 0-d int32: 1-based first zero pivot)."""
+    matrix, perm int32, info 0-d int32: 1-based first zero pivot).
+    ``MethodLU.NoPiv`` factors through ``getrf_nopiv`` and returns the
+    identity perm over the canonical rows."""
     _check_method(opts, "getrf")
+    if opts.method_lu is MethodLU.NoPiv:
+        LU, info = getrf_nopiv(A, opts)
+        return LU, _iota(LU), info
     m, n = A.shape
     # the one working copy of this call: every update below writes it
     a = A.dense_canonical().clone(memory_format=torch.contiguous_format)
@@ -228,7 +239,235 @@ def getrs(LU: TiledMatrix, perm: torch.Tensor, B: TiledMatrix,
 
 def gesv(A: TiledMatrix, B: TiledMatrix, opts: Options = DEFAULT_OPTIONS
          ) -> Tuple[TiledMatrix, torch.Tensor]:
-    """Solve A·X = B (getrf + getrs)."""
+    """Solve A·X = B (getrf + getrs; ``MethodLU.RBT`` runs
+    ``gesv_rbt``)."""
+    if opts.method_lu is MethodLU.RBT:
+        return gesv_rbt(A, B, opts)
     _check_method(opts, "gesv")
     LU, perm, info = getrf(A, opts)
     return getrs(LU, perm, B, opts), info
+
+
+def _iota(LU: TiledMatrix) -> torch.Tensor:
+    """The identity gather perm over the factor's canonical rows."""
+    return torch.arange(LU.mt * LU.nb, dtype=torch.int32, device=LU.device)
+
+
+# ---------------------------------------------------------------------------
+# LU without pivoting
+# ---------------------------------------------------------------------------
+
+_NOPIV_BASE = 64
+
+
+def _lu_nopiv_leaf(a: torch.Tensor) -> torch.Tensor:
+    """No-pivot LU of an (m, n) leaf with s = min(m, n) ≤ 64, IN PLACE:
+    the top s × s square is one P2 launch (``hopper_ops.lu_nopiv_base``),
+    and the rest is solved against it, L21 = A21·U11⁻¹ below and
+    U12 = L11⁻¹·A12 to the right (``blocked.trsm_rec``). This is the
+    reference's unblocked loop (``_lu_nopiv_unblocked``, which runs min(m,
+    n) steps over the whole leaf) with other rounding; after a zero pivot
+    the two differ (the loop divides by 1 there, the solve by the pivot).
+    Returns info."""
+    m, n = a.shape
+    s = min(m, n)
+    lu, info = hopper_ops.lu_nopiv_base(a[:s, :s])
+    a[:s, :s] = lu
+    if m > s:
+        a[s:, :s] = blocked.trsm_rec(lu, a[s:, :s], left=False, lower=False)
+    if n > s:
+        a[:s, s:] = blocked.trsm_rec(lu, a[:s, s:], left=True, lower=True,
+                                     unit=True)
+    return info
+
+
+def _lu_nopiv_recursive(a: torch.Tensor, base: int = _NOPIV_BASE
+                        ) -> torch.Tensor:
+    """Recursive blocked no-pivot LU, IN PLACE on ``a``, with the
+    reference's 8-aligned halves: factor A11, U12 = L11⁻¹·A12 and
+    L21 = A21·U11⁻¹ (``blocked.trsm_rec``), A22 −= L21·U12, recurse on
+    A22; leaves of at most ``base`` (≤ 64) are ``_lu_nopiv_leaf``.
+    The solves invert only diagonal blocks of ``base`` rows (P1) and
+    substitute between them by gemms: without pivoting L is unbounded,
+    and inverting the 512-row blocks of the default trsm base loses
+    accuracy with their condition (RBT then falls back to partial
+    pivoting more often). Returns info (0-d int32)."""
+    n = min(a.shape)
+    if n <= base:
+        return _lu_nopiv_leaf(a)
+    half = (n // 2 + 7) & ~7 if n > 16 else n // 2  # 8-aligned split
+    half = max(8, min(half, n - 1))
+    info1 = _lu_nopiv_recursive(a[:half, :half], base)
+    a11 = a[:half, :half]
+    a[:half, half:] = blocked.trsm_rec(a11, a[:half, half:], left=True,
+                                       lower=True, unit=True, base=base)
+    a[half:, :half] = blocked.trsm_rec(a11, a[half:, :half], left=False,
+                                       lower=False, base=base)
+    a[half:, half:] -= a[half:, :half] @ a[:half, half:]
+    info2 = _lu_nopiv_recursive(a[half:, half:], base)
+    return torch.where(info1 > 0, info1,
+                       torch.where(info2 > 0, info2 + half, 0)
+                       ).to(torch.int32)
+
+
+@accurate_matmuls
+def getrf_nopiv(A: TiledMatrix, opts: Options = DEFAULT_OPTIONS
+                ) -> Tuple[TiledMatrix, torch.Tensor]:
+    """LU without pivoting, A = L·U, for diagonally dominant or
+    butterfly-preconditioned matrices. Returns (LU packed, info 0-d
+    int32: the 1-based first zero or NaN pivot). Padded rows/cols carry an
+    identity diagonal. Real float32/float64 (P2 takes no complex)."""
+    m, n = A.shape
+    # the one working copy of this call: every update below writes it
+    a = A.dense_canonical().clone(memory_format=torch.contiguous_format)
+    a = unit_pad_diag(a.resolve_conj(), m, n)
+    info = _lu_nopiv_recursive(a)
+    return from_dense(a, A.nb, logical_shape=(m, n), device=a.device), info
+
+
+def gesv_nopiv(A: TiledMatrix, B: TiledMatrix,
+               opts: Options = DEFAULT_OPTIONS
+               ) -> Tuple[TiledMatrix, torch.Tensor]:
+    """Solve A·X = B by ``getrf_nopiv`` and ``getrs``."""
+    LU, info = getrf_nopiv(A, opts)
+    return getrs(LU, _iota(LU), B, opts), info
+
+
+# ---------------------------------------------------------------------------
+# inverse from the factors
+# ---------------------------------------------------------------------------
+
+def getri(LU: TiledMatrix, perm: torch.Tensor,
+          opts: Options = DEFAULT_OPTIONS) -> TiledMatrix:
+    """A⁻¹ from getrf factors: getrs against I."""
+    n = LU.shape[0]
+    eye = torch.eye(LU.dense_canonical().shape[0], dtype=LU.dtype,
+                    device=LU.device)
+    I = from_dense(eye, LU.nb, logical_shape=(n, n), device=LU.device)
+    return getrs(LU, perm, I, opts)
+
+
+def getri_oop(LU: TiledMatrix, perm: torch.Tensor,
+              opts: Options = DEFAULT_OPTIONS) -> TiledMatrix:
+    """Out-of-place inverse from getrf factors: every solve here leaves
+    the factors as they are, so this is ``getri`` under the reference's
+    other name."""
+    return getri(LU, perm, opts)
+
+
+# ---------------------------------------------------------------------------
+# Random Butterfly Transform (RBT)
+# ---------------------------------------------------------------------------
+
+# what the last gesv_rbt call did: refinement steps taken, and whether it
+# fell back to partial pivoting (a diagnostic, like hopper_ops.LAUNCHES)
+RBT_LAST: Dict[str, object] = {"refinements": 0, "fallback": False}
+
+
+def _butterfly_vectors(n2: int, depth: int, seed: int, dtype,
+                       device) -> torch.Tensor:
+    """(2·depth, n2) random butterfly diagonals exp(r/10)/√2 with r
+    uniform in [−1, 1), drawn in float32 on the CPU from a
+    ``torch.Generator`` seeded with ``seed`` and moved to ``device``, so
+    they do not depend on the device. They are not ``jax.random``'s
+    numbers for the same seed (the reference's): the two packages' RBTs
+    are different random transforms of the same kind."""
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed)
+    r = torch.rand((2 * depth, n2), generator=gen, dtype=torch.float32)
+    d = torch.exp((2 * r - 1) / 10.0) / math.sqrt(2.0)
+    return d.to(dtype=dtype, device=device)
+
+
+def _apply_butterfly(x: torch.Tensor, d: torch.Tensor,
+                     transpose: bool) -> torch.Tensor:
+    """One butterfly level on a (nblk, blk, k) stack: y = Bᵀ·x
+    (transpose) or B·x per block, B = [[D1, D2], [D1, −D2]], d the
+    (nblk, blk) diagonals."""
+    h = x.shape[1] // 2
+    x1, x2 = x[:, :h], x[:, h:]
+    d1, d2 = d[:, :h, None], d[:, h:2 * h, None]
+    if transpose:
+        return torch.cat([d1 * (x1 + x2), d2 * (x1 - x2)], dim=1)
+    return torch.cat([d1 * x1 + d2 * x2, d1 * x1 - d2 * x2], dim=1)
+
+
+def _rbt_rows(x: torch.Tensor, diags: torch.Tensor, depth: int,
+              transpose: bool) -> torch.Tensor:
+    """The depth-d recursive butterfly W (or Wᵀ) applied to the rows of
+    x, as a new tensor."""
+    n = x.shape[0]
+    levels = range(depth) if transpose else range(depth - 1, -1, -1)
+    for lev in levels:
+        nblk = 2 ** lev
+        blk = n // nblk
+        d = diags[lev][: nblk * blk].reshape(nblk, blk)
+        x = _apply_butterfly(x.reshape(nblk, blk, -1), d,
+                             transpose).reshape(n, -1)
+    return x
+
+
+def gerbt(A: TiledMatrix, opts: Options = DEFAULT_OPTIONS, seed: int = 0):
+    """Two-sided random butterfly transform Ã = Uᵀ·A·V of the padded A
+    (identity on the padded diagonal), at depth ``opts.depth`` lowered
+    until 2^depth divides the padded size. Returns (Ã, (u, depth),
+    (v, depth)). As in the reference, Ã is cut to A's logical shape (its
+    padding is zeroed)."""
+    depth = opts.depth
+    a = unit_pad_diag(A.dense_canonical().clone(), *A.shape)
+    n = a.shape[0]
+    while n % (2 ** depth):
+        depth -= 1
+    u = _butterfly_vectors(n, depth, seed * 2 + 1, a.dtype, a.device)
+    v = _butterfly_vectors(n, depth, seed * 2 + 2, a.dtype, a.device)
+    at = _rbt_rows(a, u, depth, transpose=True)           # Uᵀ·A
+    at = _rbt_rows(at.mT, v, depth, transpose=True).mT    # Uᵀ·A·V
+    At = from_dense(at, A.nb, logical_shape=A.shape, device=at.device)
+    return At, (u, depth), (v, depth)
+
+
+def gesv_rbt(A: TiledMatrix, B: TiledMatrix,
+             opts: Options = DEFAULT_OPTIONS
+             ) -> Tuple[TiledMatrix, torch.Tensor]:
+    """Solve A·X = B by the butterfly transform, no-pivot LU and
+    iterative refinement: A = U·Ã·Vᵀ ⇒ X = V·Ã⁻¹·Uᵀ·B, refined in working
+    precision (residual by ``blas3.gemm``, correction added by
+    ``elementwise.add``) until ‖R‖∞ ≤ ‖X‖∞·‖A‖∞·ε·√n, at most
+    ``opts.max_iterations`` steps; without convergence and with
+    ``opts.use_fallback_solver`` it solves again with partial pivoting.
+    ``RBT_LAST`` records the steps taken and whether it fell back."""
+    At, (u, du), (v, dv) = gerbt(A, opts)
+    LU, info = getrf_nopiv(At, opts)
+    npad = LU.dense_canonical().shape[0]
+    iota = _iota(LU)
+
+    def rbt_solve(rhs: TiledMatrix) -> TiledMatrix:
+        rb = rhs.dense_canonical()
+        if rb.shape[0] < npad:
+            rb = torch.cat([rb, rb.new_zeros((npad - rb.shape[0],
+                                              rb.shape[1]))])
+        tb = _rbt_rows(rb, u, du, transpose=True)
+        Tb = from_dense(tb, B.nb, logical_shape=(npad, rhs.shape[1]),
+                        device=tb.device)
+        Y = getrs(LU, iota, Tb, opts)
+        x = _rbt_rows(Y.dense_canonical()[:npad], v, dv, transpose=False)
+        return from_dense(x[: B.shape[0]], B.nb, logical_shape=B.shape,
+                          device=x.device)
+
+    X = rbt_solve(B)
+    anorm = norm(A, Norm.Inf)
+    cte = anorm * torch.finfo(A.dtype).eps * math.sqrt(A.shape[0])
+    RBT_LAST.update(refinements=0, fallback=False)
+    for step in range(opts.max_iterations + 1):
+        R = blas3.gemm(-1.0, A, X, 1.0, B, opts)
+        if bool(norm(R, Norm.Inf) <= norm(X, Norm.Inf) * cte):
+            RBT_LAST["refinements"] = step
+            return X, info
+        X = ew.add(1.0, rbt_solve(R), 1.0, X, opts)
+    RBT_LAST["refinements"] = opts.max_iterations + 1
+    if not opts.use_fallback_solver:
+        return X, info
+    RBT_LAST["fallback"] = True
+    LU2, perm2, info2 = getrf(A, opts.replace(
+        method_lu=MethodLU.PartialPiv))
+    return getrs(LU2, perm2, B, opts), info2

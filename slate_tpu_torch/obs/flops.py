@@ -25,12 +25,24 @@ def tri_mm(n: int, k: int) -> float:
     return float(n) * n * k
 
 
+def trtri(n: int) -> float:
+    return n ** 3 / 3.0
+
+
 def potrf(n: int) -> float:
     return n ** 3 / 3.0
 
 
+def potri(n: int) -> float:
+    return 2.0 * n ** 3 / 3.0
+
+
 def getrf(n: int, m=None) -> float:
     return 2.0 * n ** 3 / 3.0
+
+
+def getri(n: int) -> float:
+    return 2.0 * n ** 3
 
 
 def geqrf(m: int, n: int) -> float:

@@ -62,22 +62,17 @@ def bucket_pow2(h: int, q: int) -> int:
 # ---------------------------------------------------------------------------
 
 def _trtri_lower_base(l: torch.Tensor, unit: bool) -> torch.Tensor:
-    """Inverse of a lower-triangular block by row substitution (reads
-    only the lower triangle)."""
-    n = l.shape[0]
-    x = torch.zeros_like(l)
-    for i in range(n):
-        row = -(l[i, :i] @ x[:i])
-        row[i] += 1
-        x[i] = row if unit else row / l[i, i]
-    return x
+    """Inverse of one lower-triangular block of at most 64 rows: one P1
+    launch (``hopper_ops.trtri_leaves``; its plain version on the CPU).
+    Reads only the lower triangle."""
+    return hopper_ops.trtri_leaves(l[None], unit)[0]
 
 
 def trtri_lower_rec(l: torch.Tensor, unit: bool = False,
                     base: int = TRTRI_BASE) -> torch.Tensor:
     """inv(L) by 2×2 block recursion:
     inv([[A,0],[B,C]]) = [[iA,0],[−iC·B·iA, iC]]. Only the lower
-    triangle of ``l`` is read."""
+    triangle of ``l`` is read. ``base`` ≤ 64 (P1's widest leaf)."""
     n = l.shape[0]
     if n <= base:
         return _trtri_lower_base(l, unit)
@@ -91,36 +86,31 @@ def trtri_lower_rec(l: torch.Tensor, unit: bool = False,
     return out
 
 
-def _trtri_leaves(d: torch.Tensor, unit: bool) -> torch.Tensor:
-    """Inverses of a (B, s, s) stack of lower-triangular leaves: one
-    substitution loop over s rows, every leaf at once."""
-    nblk, s, _ = d.shape
-    x = torch.zeros_like(d)
-    for i in range(s):
-        row = -(d[:, i:i + 1, :i] @ x[:, :i, :])[:, 0, :]
-        row[:, i] += 1
-        x[:, i, :] = row if unit else row / d[:, i, i:i + 1]
-    return x
+def _blocks(l: torch.Tensor, row0: int, s: int, step: int) -> torch.Tensor:
+    """The (n/step, s, s) stack of blocks l[row0 + i : row0 + i + s, i :
+    i + s] for i = 0, step, 2·step, … as one strided view (no copy)."""
+    rs, cs = l.stride()
+    return l.as_strided((l.shape[0] // step, s, s),
+                        (step * (rs + cs), rs, cs),
+                        l.storage_offset() + row0 * rs)
 
 
 def trtri_lower_batched(l: torch.Tensor, unit: bool = False,
                         leaf: int = 64) -> torch.Tensor:
-    """inv(L) with all diagonal leaf blocks inverted together (the batch
-    dimension written out), then combined level by level with batched
-    gemms. Needs a power-of-two leaf grid; otherwise the recursion."""
+    """inv(L) with all diagonal leaf blocks inverted in one P1 launch
+    (``hopper_ops.trtri_leaves`` on a strided view of the diagonal), then
+    combined level by level with batched gemms. Needs a power-of-two leaf
+    grid; otherwise the recursion."""
     n = l.shape[0]
     nleaf = n // leaf if n % leaf == 0 else 0
     if n <= leaf or nleaf == 0 or (nleaf & (nleaf - 1)) != 0:
         return trtri_lower_rec(l, unit)
-    diags = torch.stack([l[i:i + leaf, i:i + leaf]
-                         for i in range(0, n, leaf)])
-    inv = _trtri_leaves(diags, unit)
+    inv = hopper_ops.trtri_leaves(_blocks(l, 0, leaf, leaf), unit)
     s = leaf
     while s < n:
         nblk = inv.shape[0]
         ia, ic = inv[0::2], inv[1::2]
-        b = torch.stack([l[i + s:i + 2 * s, i:i + s]
-                         for i in range(0, n, 2 * s)])
+        b = _blocks(l, s, s, 2 * s)
         nxt = torch.zeros((nblk // 2, 2 * s, 2 * s), dtype=l.dtype,
                           device=l.device)
         nxt[:, :s, :s] = ia
@@ -129,6 +119,15 @@ def trtri_lower_batched(l: torch.Tensor, unit: bool = False,
         inv = nxt
         s *= 2
     return inv[0]
+
+
+def trtri_rec(a: torch.Tensor, lower: bool = True,
+              unit: bool = False) -> torch.Tensor:
+    """Triangular inverse, lower or upper (inv(U) = inv(Uᵀ)ᵀ), through
+    ``trtri_lower_batched``. Reads only the stored triangle."""
+    if lower:
+        return trtri_lower_batched(a, unit)
+    return trtri_lower_batched(a.mT, unit).mT
 
 
 # ---------------------------------------------------------------------------

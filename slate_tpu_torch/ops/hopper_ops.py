@@ -38,6 +38,13 @@ blocks dealt cyclically to up to 8 CTAs, resident or streamed) and two
 cluster barriers per 32-wide step. K5 (``herk_lower_update``) runs on
 the tensor cores through warp-level ``mma.sync`` (FP64 DMMA, 3×TF32 in
 float32), one block per lower tile pair of the plan ``herk_plan``.
+
+Two kernels have no Pallas counterpart: they replace programs the
+reference fuses with ``jax.vmap``/``fori_loop`` and the port would
+otherwise run as Python loops of small launches. P1
+(``trtri_leaves``) inverts a stack of lower-triangular leaves of at most
+64 rows, one block per leaf; P2 (``lu_nopiv_base``) is the no-pivot LU of
+one square leaf of at most 64 rows, in one block.
 """
 
 from __future__ import annotations
@@ -54,7 +61,8 @@ from . import _build
 
 LAUNCHES: Dict[str, int] = {"chol_tile": 0, "lu_panel_base": 0,
                             "qr_panel_base": 0, "qr_panel_base_wide": 0,
-                            "herk_lower_update": 0}
+                            "herk_lower_update": 0, "trtri_leaves": 0,
+                            "lu_nopiv_base": 0}
 
 _REAL = (torch.float32, torch.float64)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -686,3 +694,151 @@ def herk_lower_update(c: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
               f"herk_lower_update (n={n}, k={k})")
     LAUNCHES["herk_lower_update"] += 1
     return c
+
+
+# ---------------------------------------------------------------------------
+# P1: inverses of a stack of lower-triangular leaves (no Pallas counterpart)
+# ---------------------------------------------------------------------------
+
+LEAF_MAX = 64  # the widest leaf P1 and P2 take
+_LEAF_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
+                torch.complex64: "c64", torch.complex128: "c128"}
+# P1's and P2's entrywise check against their plain versions
+# (chip_smoke.py): |X − X_plain|ᵢⱼ ≤ LEAF_ENTRY_C·s·ε·(|X_plain|·|L|·
+# |X_plain|)ᵢⱼ, s·ε the forward-error bound of triangular inversion, which
+# each of the two meets on its own (so c = 2 covers their difference, and
+# 4 leaves room for complex products).
+LEAF_ENTRY_C = 4.0
+
+
+def trtri_leaves_plain(l: torch.Tensor, unit: bool = False) -> torch.Tensor:
+    """Plain version of P1: X_b = L_b⁻¹ for a (B, s, s) stack by one row
+    substitution loop over the s rows, every leaf at once,
+    X[i, :i+1] = (e_i − L[i, :i]·X[:i, :i+1]) / L[i, i]. Reads only the
+    lower triangle of ``l`` (not the diagonal when ``unit``); the strict
+    upper triangle of X stays zero, so a zero diagonal entry makes
+    non-finite only the entries that depend on it."""
+    nblk, s, _ = l.shape
+    x = torch.zeros((nblk, s, s), dtype=l.dtype, device=l.device)
+    for i in range(s):
+        row = -(l[:, i:i + 1, :i] @ x[:, :i, :i + 1])[:, 0, :]
+        row[:, i] += 1
+        x[:, i, :i + 1] = row if unit else row / l[:, i, i:i + 1]
+    return x
+
+
+def trtri_leaves(l: torch.Tensor, unit: bool = False) -> torch.Tensor:
+    """Inverses of a (B, s, s) stack of lower-triangular leaves, s ≤ 64,
+    as a new contiguous (B, s, s) tensor whose strict upper triangles are
+    zero. Only the lower triangle of each leaf is read (not its diagonal
+    when ``unit``), so the diagonal blocks of a larger matrix can be
+    handed over as a strided view.
+
+    Counterpart of ``_trtri_unrolled_u`` under ``jax.vmap``
+    (slate_tpu/ops/blocked.py:242, :265-276; no Pallas kernel). The CUDA
+    kernel (csrc/trtri_leaves.cu) runs one block per leaf with the leaf in
+    shared memory, read through the view's batch, row and column strides;
+    thread j substitutes column j. Types: float32, float64, complex64 and
+    complex128; a conjugate or negative view is resolved before the
+    launch. Equal to the plain version up to the order of its sums (within
+    LEAF_ENTRY_C·s·ε·(|X|·|L|·|X|)ᵢⱼ), with non-finite entries in the same
+    places."""
+    if l.dtype not in _LEAF_SUFFIX:
+        raise NotImplementedError(
+            f"trtri_leaves: float32/float64/complex64/complex128 only, got "
+            f"{l.dtype}")
+    if l.ndim != 3 or l.shape[1] != l.shape[2] or not (
+            1 <= l.shape[1] <= LEAF_MAX):
+        raise SlateError(f"trtri_leaves: expects a (B, s, s) stack with "
+                         f"1 ≤ s ≤ {LEAF_MAX}, got {tuple(l.shape)}")
+    if l.device.type == "cpu":
+        return trtri_leaves_plain(l, unit)
+    if l.device.type != "cuda":
+        raise SlateError(f"trtri_leaves: unsupported device {l.device}")
+    l = l.resolve_conj().resolve_neg()
+    nblk, s, _ = l.shape
+    x = torch.empty((nblk, s, s), dtype=l.dtype, device=l.device)
+    if nblk == 0:
+        return x
+    f = _fn("trtri_leaves", f"slate_trtri_leaves_{_LEAF_SUFFIX[l.dtype]}",
+            [_P, _P, _I, _I, _L, _L, _L, _I, _P])
+    with torch.cuda.device(l.device):
+        rc = f(l.data_ptr(), x.data_ptr(), nblk, s, *l.stride(), int(unit),
+               torch.cuda.current_stream(l.device).cuda_stream)
+    _raise_on(rc, "trtri_leaves", "slate_trtri_error_string",
+              f"trtri_leaves (B={nblk}, s={s})")
+    LAUNCHES["trtri_leaves"] += 1
+    return x
+
+
+# ---------------------------------------------------------------------------
+# P2: no-pivot LU of one square leaf (no Pallas counterpart)
+# ---------------------------------------------------------------------------
+
+def lu_nopiv_base_plain(a: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of P2 (= the reference's ``_lu_nopiv_unblocked``,
+    any (m, n)): min(m, n) steps, each scaling column i below the
+    diagonal by the pivot and subtracting col ⊗ urow from the WHOLE
+    matrix (col zero on and above row i, urow zero left of and at column
+    i), so a non-finite entry spreads as in the reference. A zero or NaN
+    pivot sets info (1-based, the first) and that step divides by 1.
+    Returns (L\\U packed, info int32 0-d). No host sync."""
+    m, n = a.shape
+    dev = a.device
+    mat = a.clone()
+    info = torch.zeros((), dtype=torch.int32, device=dev)
+    one = torch.ones((), dtype=a.dtype, device=dev)
+    zero = torch.zeros((), dtype=a.dtype, device=dev)
+    rows = torch.arange(m, device=dev)
+    cols = torch.arange(n, device=dev)
+    for i in range(min(m, n)):
+        d = mat[i, i]
+        bad = torch.isnan(d.abs()) | (d.abs() == 0)
+        info = torch.where((info == 0) & bad,
+                           torch.full_like(info, i + 1), info)
+        dsafe = torch.where(bad, one, d)
+        below = rows > i
+        col = torch.where(below, mat[:, i] / dsafe, zero)
+        mat[:, i] = torch.where(below, col, mat[:, i])
+        urow = torch.where(cols > i, mat[i, :], zero)
+        mat -= torch.outer(col, urow)
+    return mat, info
+
+
+def lu_nopiv_base(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """No-pivot LU of one square (s, s) leaf, s ≤ 64 → (L\\U packed,
+    info int32 0-d: the 1-based first step whose pivot is 0 or NaN; that
+    step goes on with the pivot taken as 1).
+
+    Counterpart of ``_lu_nopiv_unblocked`` (slate_tpu/linalg/lu.py:463-482;
+    no Pallas kernel). The CUDA kernel (csrc/lu_nopiv.cu) is one block
+    with the leaf in shared memory and one barrier per step; info stays
+    on the device. Bitwise equal to the plain version on the same input
+    (products and differences rounded separately). Real float32/float64
+    only."""
+    if a.dtype not in _REAL:
+        raise NotImplementedError(
+            f"lu_nopiv_base: real float32/float64 only, got {a.dtype} "
+            "(complex: ROADMAP Queue 1 item 3)")
+    if a.ndim != 2 or a.shape[0] != a.shape[1] or not (
+            1 <= a.shape[0] <= LEAF_MAX):
+        raise SlateError(f"lu_nopiv_base: expects a square (s, s) leaf "
+                         f"with 1 ≤ s ≤ {LEAF_MAX}, got {tuple(a.shape)}")
+    if a.device.type == "cpu":
+        return lu_nopiv_base_plain(a)
+    if a.device.type != "cuda":
+        raise SlateError(f"lu_nopiv_base: unsupported device {a.device}")
+    a = a.contiguous()
+    s = a.shape[0]
+    lu = torch.empty_like(a)
+    info = torch.empty((), dtype=torch.int32, device=a.device)
+    f = _fn("lu_nopiv", f"slate_lu_nopiv_{_SUFFIX[a.dtype]}",
+            [_P, _P, _P, _I, _P])
+    with torch.cuda.device(a.device):
+        rc = f(a.data_ptr(), lu.data_ptr(), info.data_ptr(), s,
+               torch.cuda.current_stream(a.device).cuda_stream)
+    _raise_on(rc, "lu_nopiv", "slate_lu_nopiv_error_string",
+              f"lu_nopiv_base (s={s})")
+    LAUNCHES["lu_nopiv_base"] += 1
+    return lu, info

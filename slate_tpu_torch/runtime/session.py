@@ -140,7 +140,7 @@ class Session:
         if op in LATER_OPS:
             raise NotImplementedError(
                 f"Session.register: op {op!r} is not ported yet (ROADMAP "
-                "Queue 1 items 6-10)")
+                "Queue 1 items 4, 8 and 9)")
         if op not in OPS:
             raise SlateError(f"Session.register: unknown op {op!r}")
         if not isinstance(A, TiledMatrix):

@@ -151,7 +151,8 @@ def test_cpu_dispatch_counts_no_launch_and_rejects_complex():
         hopper_ops.herk_lower_update_plain(c.clone(), h), rtol=0, atol=0)
     assert set(hopper_ops.LAUNCHES) == {"chol_tile", "lu_panel_base",
                                         "qr_panel_base", "qr_panel_base_wide",
-                                        "herk_lower_update"}
+                                        "herk_lower_update", "trtri_leaves",
+                                        "lu_nopiv_base"}
     assert not any(hopper_ops.LAUNCHES.values())
     with pytest.raises(NotImplementedError):
         hopper_ops.chol_tile(a.to(torch.complex128))
