@@ -27,12 +27,16 @@ Phases, one JSON line each:
            and prints its tile plan, which must be the C launcher's)
            and a float64 Q·R reconstruction of the timed QR panels;
            the two leaf kernels without a Pallas counterpart:
-           trtri_leaves (P1) at (256, 64, 64) f32 (potri's leaves at
-           n = 16384), a 512 base's 8 leaves as a strided view of its
-           diagonal, f64, complex128 through a conjugate-transposed view,
-           complex64, unit and non-unit, s = 1, 7, 33, junk in the strict
-           upper triangles (X must not change) and zero diagonals
-           (non-finite in the same places), entry by entry within
+           trtri_leaves (P1) at the main path's shapes, timed in f32 and
+           f64: (256, 64, 64) (potri's leaves at n = 16384), one 64-row
+           base, the 2 and 8 leaves of a 128 and a 512 diagonal block as
+           strided views (also by device time per launch, behind a
+           device-side sleep); transposed views of upper leaves,
+           complex128 through a conjugate-transposed view, complex64,
+           unit and non-unit, s = 1, 7, 33, junk in the strict upper
+           triangles (X must not change) and zero diagonals at 0, 7, 8,
+           20 and s − 1 (non-finite in the same places), and every s from
+           1 to 64 in f32, f64 and complex128, entry by entry within
            LEAF_ENTRY_C·s·ε·(|X|·|L|·|X|)ᵢⱼ of the plain version;
            lu_nopiv_base (P2) at (64, 64) f32 and f64 and smaller, a
            zero pivot at step 20 (info = 21) and a NaN (info exact, NaN
@@ -120,6 +124,9 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 # herk_lower_update runs on the tensor cores (same data sheet): FP64
 # 67 TFLOP/s (DMMA), TF32 495 TFLOP/s of which 3×TF32 gets a third
 HERK_PEAK_FLOPS = {"float32": 495e12 / 3, "float64": 67e12}
+# device_ms's sleep: about 10 ms at the H100's clocks, longer than the
+# host takes to queue 50 small launches
+SLEEP_CYCLES = 20_000_000
 RESIDUAL_BOUND = 30.0
 # served least-squares columns against a float64 solve, as gels_check
 QR_REL_LIMIT = 1e-3
@@ -158,6 +165,32 @@ def cuda_ms(fn, reps: int = 7) -> float:
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def device_ms(fn, launches: int = 50) -> float:
+    """Device time per launch of ``fn()`` in ms, by CUDA events around
+    ``launches`` calls queued behind a device-side sleep, so that the
+    host's launch work is not in the time. The host must have queued every
+    call before the sleep ends (else host gaps are in the time): the sleep
+    is made four times longer up to twice, then the check fails."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    for cycles in (SLEEP_CYCLES, 4 * SLEEP_CYCLES, 16 * SLEEP_CYCLES):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        for _ in range(launches):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        ev[2].synchronize()
+        if host_ms < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / launches
+    check(False, f"device_ms: the host took {host_ms} ms to queue "
+          f"{launches} calls, longer than the sleep")
 
 
 def bound(nbytes: float, flops: float, dtype: str, peaks=PEAK_FLOPS):
@@ -635,8 +668,10 @@ def trtri_case(torch, ho, blocked, nblk, s, dtype, unit, gen, timed=False,
     exactly zero, non-finite entries in the same places, and junk in the
     strict upper triangle of L changing nothing (bitwise). ``view``:
     "diag" hands over the diagonal leaves of an (nblk·s)² matrix as one
-    strided view, "conj_t" a conjugate-transposed view of upper-triangular
-    leaves. ``zero_diag``: that diagonal entry of leaf 0 is 0."""
+    strided view, "t" a transposed view of upper-triangular leaves (unit
+    row stride), "conj_t" a conjugate-transposed one. ``zero_diag``: that
+    diagonal entry of leaf 0 is 0. Timed rows also carry the device time
+    per launch of the kernel and of the library call (``device_ms``)."""
     junk, clean = leaf_stack(torch, nblk, s, dtype, unit, gen)
     if zero_diag is not None:
         junk[0, zero_diag, zero_diag] = 0
@@ -646,6 +681,9 @@ def trtri_case(torch, ho, blocked, nblk, s, dtype, unit, gen, timed=False,
         big = torch.zeros((nblk * s, nblk * s), dtype=dtype, device="cuda")
         blocked._blocks(big, 0, s, s).copy_(junk)
         l = blocked._blocks(big, 0, s, s)
+    elif view == "t":
+        l = junk.mT.contiguous().mT  # upper leaves, read transposed
+        check(l.stride(1) == 1 and not l.is_contiguous(), "P1 t: no view")
     elif view == "conj_t":
         l = junk.mH.contiguous().mH  # a conjugate, transposed view
         check(l.is_conj() and not l.is_contiguous(), "P1 conj_t: no view")
@@ -685,6 +723,10 @@ def trtri_case(torch, ho, blocked, nblk, s, dtype, unit, gen, timed=False,
                                   reps=5)
         row["library_ms"] = cuda_ms(lambda: torch.linalg.solve_triangular(
             l, eye, upper=False, unitriangular=unit))
+        row["device_ms"] = device_ms(lambda: ho.trtri_leaves(l, unit))
+        row["library_device_ms"] = device_ms(
+            lambda: torch.linalg.solve_triangular(l, eye, upper=False,
+                                                  unitriangular=unit))
         it = l.element_size()
         # the lower triangle read once, X written once; s³/3 operations
         # per leaf (about four times as many real ones for a complex type)
@@ -694,6 +736,24 @@ def trtri_case(torch, ho, blocked, nblk, s, dtype, unit, gen, timed=False,
             nblk * s ** 3 / 3.0 * (4 if dtype.is_complex else 1),
             real.get(row["dtype"], row["dtype"]))
     return row
+
+
+def trtri_sweep(torch, ho, blocked, gen):
+    """P1 at every leaf size s = 1, ..., 64 in float32, float64 and
+    complex128 (two leaves; unit on even s; contiguous, strided diagonal
+    and transposed views in turn), each case checked as trtri_case checks
+    it: the ragged last blocks of every combine level, where a sum could
+    reach rows past s (s = 34 and 36 at the 32-wide level). One row."""
+    worst, cases = 0.0, 0
+    for dtype in (torch.float32, torch.float64, torch.complex128):
+        for s in range(1, 65):
+            row = trtri_case(torch, ho, blocked, 2, s, dtype, s % 2 == 0,
+                             gen, view=(None, "diag", "t")[s % 3])
+            worst = max(worst, row["entry_ratio_max"])
+            cases += 1
+    return {"sweep": "s = 1..64", "B": 2,
+            "dtypes": ["float32", "float64", "complex128"], "cases": cases,
+            "entry_ratio_max": worst, "entry_limit": ho.LEAF_ENTRY_C}
 
 
 def exact_zero_pivot(torch, s, zero_at, dtype, gen):
@@ -1499,27 +1559,44 @@ def main(argv=None) -> int:
                  for dt, v, hk in ((f32, math.nan, 300), (f32, math.inf, 301),
                                    (f64, math.inf, 300))])
         # P1: potri's 256 leaves at n = 16384 first (timed, the kernels
-        # line's row), a 512 base's 8 leaves as a strided view of its
-        # diagonal, f64, complex128 through a conjugate-transposed view,
-        # ragged s, and zero diagonals
+        # line's row); the main path's launches: one 64-row base (B = 1),
+        # the leaves of a 128 and a 512 diagonal block as strided views
+        # of it (B = 2, 8), in f32 and f64; transposed views of upper
+        # leaves (trsm_rec's upper bases), complex128 through a
+        # conjugate-transposed view, complex64, ragged s, and zero
+        # diagonals at the edges of the 8 × 8 sub-blocks
         c64, c128 = torch.complex64, torch.complex128
         trtri_rows = [
             trtri_case(torch, ho, blocked, nblk, s_, dt, unit, gen,
                        timed=zero is None, view=view, zero_diag=zero)
             for nblk, s_, dt, unit, view, zero in (
                 (256, 64, f32, False, None, None),
+                (1, 64, f32, False, None, None),
+                (2, 64, f32, False, "diag", None),
                 (8, 64, f32, False, "diag", None),
+                (256, 64, f64, False, None, None),
+                (1, 64, f64, False, None, None),
+                (2, 64, f64, False, "diag", None),
+                (8, 64, f64, False, "diag", None),
                 (8, 64, f32, True, "diag", None),
                 (8, 64, f64, False, None, None),
                 (8, 64, f64, True, None, None),
+                (8, 64, f32, False, "t", None),
+                (8, 64, f64, True, "t", None),
                 (8, 64, c128, False, "conj_t", None),
                 (8, 64, c128, True, "conj_t", None),
                 (8, 33, c64, False, None, None),
+                (4, 64, c64, False, None, None),
+                (4, 64, c64, True, "t", None),
                 (4, 1, f32, False, None, None), (4, 1, f32, True, None, None),
                 (4, 7, f32, False, None, None), (4, 7, f32, True, None, None),
                 (4, 33, f32, False, None, None),
                 (4, 33, f32, True, None, None),
-                (2, 33, f32, False, None, 20), (2, 64, f64, False, None, 0))]
+                (2, 33, f32, False, None, 20), (2, 33, f32, False, None, 0),
+                (2, 33, f32, False, None, 7), (2, 33, f32, False, None, 8),
+                (2, 33, f64, False, "t", 32), (2, 64, f64, False, None, 0),
+                (2, 64, f32, False, "diag", 63))]
+        trtri_rows.append(trtri_sweep(torch, ho, blocked, gen))
         emit("kernel", name="trtri_leaves", cases=trtri_rows)
         nopiv_rows = [lu_nopiv_case(torch, ho, s_, dt, gen, timed=True)
                       for s_, dt in ((64, f32), (64, f64), (33, f32),

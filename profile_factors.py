@@ -10,7 +10,9 @@ By default factors the SPD (n × n, op "chol", at nb and at nb = n/128,
 where potrf takes its recursion and K1 runs at b = n/128), the general
 (n × n, op "lu") and the tall (2n × n/2, op "qr") operators of
 chip_smoke.py's main phase once each. ``--factors`` picks some of
-those, or of three that run a kernel in another plan mode: "chol_f64"
+those, or "nopiv" (the main phase's diagonally dominant n × n operator,
+op "lu" with MethodLU.NoPiv: getrf_nopiv, 2048 P1 launches at
+n = 16384), or of three that run a kernel in another plan mode: "chol_f64"
 (the SPD operator in float64 at nb, K1 at b = nb f64), "chol_nb1024"
 (in float32 at nb = 1024, K1 at b = 1024) and "qr_f64_nb32" (an
 8n × 64 float64 operator at nb = 32, K3 at (8n, 32) f64). Each runs
@@ -34,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -56,6 +59,11 @@ def register(torch, stt, sess, shape, op, nb, gen, dtype):
         a.diagonal().add_(1.0)
         return sess.register(stt.hermitian(a, nb, stt.Uplo.Lower,
                                            device="cuda"), op=op)
+    if op == "nopiv":  # diagonally dominant, as chip_smoke.py's
+        a = a / math.sqrt(shape[0])
+        a.diagonal().add_(2.0)
+        return sess.register(stt.from_dense(a, nb, device="cuda"), op="lu",
+                             opts=stt.Options(method_lu=stt.MethodLU.NoPiv))
     return sess.register(stt.from_dense(a, nb, device="cuda"), op=op)
 
 
@@ -123,7 +131,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--factors", default="chol,lu,qr,chol_nb128",
                     help="which factors to profile, comma-separated (also "
-                    "chol_f64, chol_nb1024, qr_f64_nb32)")
+                    "nopiv, chol_f64, chol_nb1024, qr_f64_nb32)")
     args = ap.parse_args(argv)
 
     import torch
@@ -143,6 +151,7 @@ def main(argv=None) -> int:
                "lu": ((n, n), "lu", args.nb, f32),
                "qr": ((2 * n, n // 2), "qr", args.nb, f32),
                "chol_nb128": ((n, n), "chol", n // 128, f32),
+               "nopiv": ((n, n), "nopiv", args.nb, f32),
                "chol_f64": ((n, n), "chol", args.nb, f64),
                "chol_nb1024": ((n, n), "chol", 1024, f32),
                "qr_f64_nb32": ((8 * n, 64), "qr", 32, f64)}

@@ -736,11 +736,15 @@ def trtri_leaves(l: torch.Tensor, unit: bool = False) -> torch.Tensor:
 
     Counterpart of ``_trtri_unrolled_u`` under ``jax.vmap``
     (slate_tpu/ops/blocked.py:242, :265-276; no Pallas kernel). The CUDA
-    kernel (csrc/trtri_leaves.cu) runs one block per leaf with the leaf in
-    shared memory, read through the view's batch, row and column strides;
-    thread j substitutes column j. Types: float32, float64, complex64 and
-    complex128; a conjugate or negative view is resolved before the
-    launch. Equal to the plain version up to the order of its sums (within
+    kernel (csrc/trtri_leaves.cu) runs one block of 256 threads per leaf
+    with the leaf in shared memory, read through the view's batch, row and
+    column strides (lanes along the unit stride); it inverts the 8 × 8
+    diagonal sub-blocks at once by substitution, then joins them level by
+    level, X₂₁ = −iC·(B·iA), every entry of a level at once: its cost is
+    that dependent chain, not bytes or operations. Types: float32,
+    float64, complex64 and complex128; a conjugate or negative view is
+    resolved before the launch. Equal to the plain version up to the
+    order of its sums (within
     LEAF_ENTRY_C·s·ε·(|X|·|L|·|X|)ᵢⱼ), with non-finite entries in the same
     places."""
     if l.dtype not in _LEAF_SUFFIX:

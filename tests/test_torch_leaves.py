@@ -6,7 +6,10 @@ leaf) run their plain versions on a CPU tensor. Here those are held
 against the reference's fused programs on the same numpy inputs: P1
 against ``_trtri_unrolled_u`` under ``jax.vmap`` and P2 against
 ``_lu_nopiv_unblocked``. The CUDA kernels are held against the plain
-versions on the card by chip_smoke.py.
+versions on the card by chip_smoke.py; P1's kernel sums in another
+order than its plain version (8 × 8 sub-blocks by substitution, then a
+level combine), and a plain-torch model of that order is held here
+against both, on ill-conditioned leaves and zero diagonals too.
 
 Tolerances: P1 entrywise |X − X_ref|ᵢⱼ ≤ LEAF_ENTRY_C·s·ε·(|X_ref|·|L|·
 |X_ref|)ᵢⱼ (the forward-error bound of triangular inversion; the sums
@@ -106,6 +109,213 @@ def test_trtri_leaves_strided_and_conjugate_views():
             hopper_ops.trtri_leaves(v),
             hopper_ops.trtri_leaves(v.resolve_conj().contiguous()),
             rtol=0, atol=0)
+
+
+P1_SUB = 8  # csrc/trtri_leaves.cu's stage-1 sub-block (kSub)
+
+
+def _masked_add(acc, mask, term):
+    """acc + term where mask holds; a term left out (NaN or not) adds
+    nothing, as a sum whose range skips it."""
+    return acc + torch.where(mask, term, torch.zeros((), dtype=acc.dtype))
+
+
+def _p1_two_stage_model(l, unit):
+    """P1's arithmetic order in plain torch (csrc/trtri_leaves.cu):
+    stage 1 inverts the 8 × 8 diagonal sub-blocks by column substitution,
+    X[i][j] = (δᵢⱼ − Σ_{j≤k<i} L[i][k]·X[k][j]) / L[i][i], k ascending;
+    stage 2 joins neighbouring t-blocks (t = 8, 16, 32 while t < s) by
+    T[r][j] = Σ_{j≤k<t} B[r][k]·iA[k][j] and X₂₁[r][j] = −Σ_{0≤k≤r}
+    iC[r][k]·T[k][j], k ascending. Sums run over the triangles and the
+    real indices only; blocks past s are never formed."""
+    nblk, s, _ = l.shape
+    x = torch.zeros_like(l)
+    for r0 in range(0, s, P1_SUB):
+        n = min(P1_SUB, s - r0)
+        for j in range(r0, r0 + n):
+            for i in range(j, r0 + n):
+                acc = torch.full((nblk,), float(i == j), dtype=l.dtype)
+                for k in range(j, i):
+                    acc = acc - l[:, i, k] * x[:, k, j]
+                x[:, i, j] = acc if unit else acc / l[:, i, i]
+    t = P1_SUB
+    while t < s:
+        for a0 in range(0, s - t, 2 * t):
+            c0 = a0 + t
+            m = min(t, s - c0)
+            ia, ic = x[:, a0:a0 + t, a0:a0 + t], x[:, c0:c0 + m, c0:c0 + m]
+            b = l[:, c0:c0 + m, a0:a0 + t]
+            tt = torch.zeros((nblk, m, t), dtype=l.dtype)
+            for k in range(t):  # T[r][j] over k ≥ j
+                tt = _masked_add(tt, torch.arange(t) <= k,
+                                 b[:, :, k:k + 1] * ia[:, k:k + 1, :])
+            acc = torch.zeros((nblk, m, t), dtype=l.dtype)
+            for k in range(m):  # X₂₁[r][j] over k ≤ r
+                acc = _masked_add(acc, torch.arange(m)[:, None] >= k,
+                                  ic[:, :, k:k + 1] * tt[:, k:k + 1, :])
+            x[:, c0:c0 + m, a0:a0 + t] = -acc
+        t *= 2
+    return x
+
+
+def _ill_leaves(rng, nblk, s, dtype, unit, kappa=1e7):
+    """Lower-triangular leaves whose off-diagonal entries are scaled up
+    until the worst κ₁ of the stack reaches about ``kappa`` (s > 1), with
+    1e6 junk in the strict upper triangles (never read)."""
+    def draw():
+        x = rng.standard_normal((nblk, s, s))
+        if np.issubdtype(dtype, np.complexfloating):
+            x = x + 1j * rng.standard_normal((nblk, s, s))
+        return x
+    off = np.tril(draw(), -1)
+    diag = np.eye(s) if unit else np.einsum(
+        "bi,ij->bij", 0.5 + np.abs(draw()[:, np.arange(s), np.arange(s)]),
+        np.eye(s))
+
+    def cond(alpha):
+        return max(np.linalg.cond(d, 1) for d in alpha * off + diag)
+
+    lo, hi = -3.0, 3.0
+    for _ in range(40):  # bisection on log10 of the off-diagonal scale
+        mid = (lo + hi) / 2
+        lo, hi = (mid, hi) if cond(10 ** mid) < kappa else (lo, mid)
+    return (10 ** lo * off + diag + 1e6 * np.triu(draw(), 1)).astype(dtype)
+
+
+def _within_leaf_bound(x, ref, l, unit):
+    """|x − ref| ≤ LEAF_ENTRY_C·s·ε·(|ref|·|L|·|ref|) entrywise, in
+    float64, where ref is finite; non-finite in the same places."""
+    s = l.shape[-1]
+    fin = np.isfinite(ref)
+    np.testing.assert_array_equal(np.isfinite(x), fin)
+    ax = np.abs(np.where(fin, ref, 0)).astype(np.float64)
+    lt = np.abs(np.tril(l)).astype(np.float64)
+    if unit:
+        lt[:, np.arange(s), np.arange(s)] = 1.0
+    bound = (hopper_ops.LEAF_ENTRY_C * s * np.finfo(l.real.dtype).eps
+             * (ax @ lt @ ax))
+    diff = np.abs(np.where(fin, x, 0).astype(np.complex128)
+                  - np.where(fin, ref, 0).astype(np.complex128))
+    np.testing.assert_array_less(diff, bound + 1e-300)
+
+
+@pytest.mark.parametrize("conditioning", ["well", "ill"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.complex128])
+@pytest.mark.parametrize("unit", [False, True])
+@pytest.mark.parametrize("s", [1, 7, 8, 33, 64])
+def test_p1_two_stage_order_matches_reference(s, unit, dtype, conditioning):
+    """The kernel's two-stage order (sub-block substitution, then the
+    level combine) agrees with the reference's ``_trtri_unrolled_u`` under
+    ``jax.vmap`` and with ``trtri_leaves_plain`` within the unchanged
+    LEAF_ENTRY_C·s·ε·(|X|·|L|·|X|) bound, on well-conditioned leaves and
+    on leaves with large off-diagonal entries (κ₁ up to about 1e7)."""
+    rng = np.random.default_rng(300 + s)
+    l = (_leaves(rng, 3, s, dtype, unit) if conditioning == "well"
+         else _ill_leaves(rng, 3, s, dtype, unit))
+    model = _p1_two_stage_model(torch.from_numpy(l), unit).numpy()
+    assert model.dtype == l.dtype and not np.any(np.triu(model, 1))
+    ref = np.asarray(jax.vmap(
+        lambda d: ref_blocked._trtri_unrolled_u(d, s, unit))(jnp.asarray(l)))
+    plain = hopper_ops.trtri_leaves_plain(torch.from_numpy(l), unit).numpy()
+    _within_leaf_bound(model, ref, l, unit)
+    _within_leaf_bound(model, plain, l, unit)
+
+
+@pytest.mark.parametrize("s,p", [(33, 0), (33, 7), (33, 8), (33, 20),
+                                 (33, 32), (64, 0), (64, 7), (64, 8),
+                                 (64, 20), (64, 63)])
+def test_p1_two_stage_order_confines_a_zero_diagonal(s, p):
+    """A zero diagonal entry at p makes exactly rows ≥ p, columns ≤ p of
+    the two-stage order's inverse non-finite, as in the plain version, at
+    the edges of the 8 × 8 sub-blocks and of the ragged last block."""
+    l = _leaves(np.random.default_rng(400 + p), 2, s, np.float32, False)
+    l[1, p, p] = 0.0
+    model = _p1_two_stage_model(torch.from_numpy(l), False).numpy()
+    plain = hopper_ops.trtri_leaves_plain(torch.from_numpy(l)).numpy()
+    bad = np.zeros((s, s), dtype=bool)
+    bad[p:, :p + 1] = True
+    np.testing.assert_array_equal(~np.isfinite(model[1]), bad)
+    np.testing.assert_array_equal(~np.isfinite(plain[1]), bad)
+    assert np.isfinite(model[0]).all() and not np.any(np.triu(model, 1))
+    _within_leaf_bound(model, plain, l, False)
+
+
+P1_THREADS, P1_MAX, P1_SCRATCH = 256, 64, 32 * 33  # the kernel's constants
+
+
+def _p1_smem_accesses(s):
+    """Every shared-memory entry that P1's kernel (csrc/trtri_leaves.cu)
+    reads or writes for one leaf of size s, by the kernel's own index
+    arithmetic per thread: the load, stage 1, both products of each
+    combine level and the store. Returns (entries allocated, indices)."""
+    ld = s | 1
+    ls, xs, ts = 0, s * ld, 2 * s * ld
+    tid = np.arange(P1_THREADS)
+    out = []
+    # 1. load, either lane order (k ≤ i covers the unit diagonal's k < i)
+    e = tid[:, None] + P1_THREADS * np.arange(P1_MAX * P1_MAX // P1_THREADS)
+    f, g = e % P1_MAX, e // P1_MAX
+    for i, k in ((g, f), (f, g)):
+        out.append(ls + (i * ld + k)[(i < s) & (k <= i)])
+    # 2. stage 1: thread (b, jj) < 64 on column 8b + jj of its sub-block
+    t = tid[tid < P1_MAX]
+    r0, jj = t // P1_SUB * P1_SUB, t % P1_SUB
+    n = np.minimum(P1_SUB, s - r0)
+    for ii in range(P1_SUB):
+        act = (jj < n) & (ii >= jj) & (ii < n)
+        row = ls + (r0 + ii) * ld + r0
+        for kk in range(ii):
+            out.append((row + kk)[act & (kk >= jj)])
+        out += [(row + ii)[act], (xs + (r0 + ii) * ld + r0 + jj)[act]]
+    # 3. the combine levels
+    lane, w = tid % 32, tid // 32
+    kt = P1_SUB
+    while kt < s:
+        km, kts = kt // P1_SUB, kt + 1
+        p, q = lane // kt, lane % kt
+        a0 = 2 * kt * p
+        c0 = a0 + kt
+        tp = ts + p * kt * kts
+        live = c0 + q < s  # (a) T[q][j] = Σ_k B[q][k]·iA[k][j]
+        brow = np.where(live, ls + (c0 + q) * ld + a0, ls)
+        ia = np.where(c0 < s, xs + a0 * ld + a0, xs)
+        for k in range(kt):
+            out.append((brow + k)[k >= w])
+            for m in range(km):
+                out.append((ia + k * ld + w + P1_SUB * m)[
+                    k >= w + P1_SUB * m])
+        for m in range(km):
+            out.append((tp + q * kts + w + P1_SUB * m)[live])
+        ic = np.where(c0 < s, xs + c0 * ld + c0, xs)  # (b) X₂₁ = −iC·T
+        for k in range(kt):
+            out.append((tp + k * kts + q)[k <= w + P1_SUB * (km - 1)])
+            for m in range(km):
+                r = w + P1_SUB * m
+                out.append((ic + r * ld + k)[(k <= r) & (r < s - c0)])
+        for m in range(km):
+            r = w + P1_SUB * m
+            out.append((xs + (c0 + r) * ld + a0 + q)[r < s - c0])
+        kt *= 2
+    i, j = np.tril_indices(s)  # the store reads X's lower triangle
+    out.append(xs + i * ld + j)
+    return 2 * s * ld + P1_SCRATCH, np.concatenate(out)
+
+
+@pytest.mark.parametrize("s", range(1, P1_MAX + 1))
+def test_p1_shared_memory_stays_in_its_allocation(s):
+    """Every shared-memory entry that P1's kernel touches for a leaf of
+    size s lies inside the dynamic allocation it launches with
+    (smem_bytes(s): L and X, s rows of s | 1 entries each, and a 32 × 33
+    scratch block), for every s: an entry past it is a fault on the card.
+    Ragged last blocks (s = 34, 36, 49, …) are where a sum could reach rows
+    past s; the kernel's constants are read from its source."""
+    src = open(f"{_build.CSRC_DIR}/trtri_leaves.cu").read()
+    for decl in (f"kMaxLeaf = {P1_MAX};", f"kSub = {P1_SUB};",
+                 f"kThreads = {P1_THREADS};", "kScratch = 32 * 33;",
+                 "row_stride(int s) { return s | 1; }"):
+        assert decl in src, decl
+    size, idx = _p1_smem_accesses(s)
+    assert idx.size and idx.min() >= 0 and idx.max() < size, (idx.max(), size)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
