@@ -38,9 +38,16 @@ Phases, one JSON line each:
            20 and s − 1 (non-finite in the same places), and every s from
            1 to 64 in f32, f64 and complex128, entry by entry within
            LEAF_ENTRY_C·s·ε·(|X|·|L|·|X|)ᵢⱼ of the plain version;
-           lu_nopiv_base (P2) at (64, 64) f32 and f64 and smaller, a
-           zero pivot at step 20 (info = 21) and a NaN (info exact, NaN
-           in the same places);
+           lu_nopiv_base (P2) at (64, 64) f32 and f64 and smaller (timed
+           also by device time per launch of the in-place form and of
+           torch.linalg.lu_factor), a zero pivot at step 20 (info = 21),
+           a NaN (info 6), signed zeros, in place on strided and
+           transposed views inside a larger matrix (entries outside
+           unchanged), every s from 1 to 64 in f32 and f64
+           (lu_nopiv_sweep), and two leaves of one matrix filling one info
+           slot with their step offsets (the first bad leaf wins): info
+           exact and every entry bit for bit the plain version's (NaN in
+           the same places);
            lu_panel_base, qr_panel_base and qr_panel_base_wide run as one
            cooperative launch over the SMs, with cases in both plan modes
            (row slabs resident in shared memory, and streamed: (65536,
@@ -107,6 +114,7 @@ This script imports nothing of JAX and nothing of slate_tpu.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import os
@@ -771,22 +779,75 @@ def exact_zero_pivot(torch, s, zero_at, dtype, gen):
     return lo @ up
 
 
-def lu_nopiv_case(torch, ho, s, dtype, gen, timed=False, zero_at=None,
-                  nan_at=None):
-    """P2 against its plain version: info exact, NaN in the same places,
-    the finite entries within LEAF_ENTRY_C·s·ε·(|L̂|·|Û|)ᵢⱼ (they are
-    expected bitwise equal: products and differences rounded alike)."""
+def same_bits(torch, x, y) -> bool:
+    """NaN in the same places and every other entry equal bit for bit
+    (the sign of a zero and ±Inf included)."""
+    nan = torch.isnan(x)
+    if not torch.equal(nan, torch.isnan(y)):
+        return False
+    it = torch.int32 if x.dtype == torch.float32 else torch.int64
+    return torch.equal(x.view(it)[~nan], y.view(it)[~nan])
+
+
+def nopiv_leaf(torch, s, dtype, gen, zero_at=None, nan_at=None,
+               signed_zeros=False):
+    """A leaf for P2: diagonally dominant Gaussian, with exact zeros of
+    both signs in about a fifth of its off-diagonal entries each
+    (``signed_zeros``), a NaN at ``nan_at``, or exact integer factors
+    with a zero pivot at step ``zero_at``."""
     if zero_at is not None:
-        a = exact_zero_pivot(torch, s, zero_at, dtype, gen)
-    else:
-        a = torch.randn((s, s), generator=gen, device="cuda", dtype=dtype)
-        a.diagonal().add_(s)
-        if nan_at is not None:
-            a[nan_at] = math.nan
-    lk, ik = ho.lu_nopiv_base(a)
+        return exact_zero_pivot(torch, s, zero_at, dtype, gen)
+    a = torch.randn((s, s), generator=gen, device="cuda", dtype=dtype)
+    diag = a.diagonal() + s
+    if signed_zeros:
+        z = torch.rand((s, s), generator=gen, device="cuda")
+        a[z < 0.2] = -0.0
+        a[(z >= 0.2) & (z < 0.4)] = 0.0
+    a.diagonal().copy_(diag)
+    if nan_at is not None:
+        a[nan_at] = math.nan
+    return a
+
+
+# fresh copies of a leaf for the in-place form: one per timed launch
+NOPIV_POOL = 160
+
+
+def nopiv_view(t, s, view):
+    """The s × s view of a larger matrix t that P2 factors in place: a
+    row-major leaf at an offset ("strided") or a transposed one ("t")."""
+    return t[3:3 + s, 5:5 + s] if view == "strided" else t.mT[5:5 + s, 3:3 + s]
+
+
+def lu_nopiv_case(torch, ho, s, dtype, gen, timed=False, zero_at=None,
+                  nan_at=None, view=None, signed_zeros=False):
+    """P2 against its plain version: info exact and L\\U bit for bit
+    (NaN in the same places). ``view``: the in-place form on a strided
+    ("strided") or transposed ("t") view of a larger matrix, whose other
+    entries must not change; else the out-of-place ``lu_nopiv_base``.
+    Timed rows: one call of the in-place form (the main path's) by CUDA
+    events, and its device time per launch, each launch on a fresh copy,
+    beside the plain version and ``torch.linalg.lu_factor``."""
+    a = nopiv_leaf(torch, s, dtype, gen, zero_at, nan_at, signed_zeros)
     lp, ip = ho.lu_nopiv_base_plain(a)
+    name = f"lu_nopiv_base {(s, s)} {dtype} view={view}"
+    if view is None:
+        lk, ik = ho.lu_nopiv_base(a)
+    else:
+        big = torch.randn((s + 9, s + 13), generator=gen, device="cuda",
+                          dtype=dtype)
+        leaf = nopiv_view(big, s, view)
+        leaf.copy_(a)
+        want = big.clone()
+        nopiv_view(want, s, view).copy_(lp)
+        ik = torch.zeros((), dtype=torch.int32, device="cuda")
+        ho.lu_nopiv_base_inplace(leaf, ik)
+        lk = leaf
+        torch.cuda.synchronize()
+        check(same_bits(torch, big, want), f"{name}: the view is not the "
+              "plain version's L\\U bit for bit, or an entry outside it "
+              "changed")
     torch.cuda.synchronize()
-    name = f"lu_nopiv_base {(s, s)} {dtype}"
     check(int(ik) == int(ip), f"{name}: info {int(ik)} != {int(ip)}")
     if zero_at is not None:
         check(int(ik) == zero_at + 1, f"{name}: info {int(ik)} for a zero "
@@ -794,33 +855,92 @@ def lu_nopiv_case(torch, ho, s, dtype, gen, timed=False, zero_at=None,
     if nan_at is not None:
         check(int(ik) == nan_at[0] + 1, f"{name}: info {int(ik)} for a NaN "
               f"at {nan_at}")
-    nan_k, nan_p = torch.isnan(lk), torch.isnan(lp)
-    check(torch.equal(nan_k, nan_p), f"{name}: NaN in other places")
-    fin = ~nan_p
-    lo = torch.where(fin, torch.tril(lp, -1), 0).abs().double()
-    lo.diagonal().fill_(1)
-    up = torch.where(fin, torch.triu(lp), 0).abs().double()
-    denom = s * torch.finfo(dtype).eps * (lo @ up)
-    diff = (lk - lp).abs().double()
-    ratio = torch.where(fin & (diff > 0), diff / denom, 0).max().item()
-    check(ratio <= ho.LEAF_ENTRY_C, f"{name}: entrywise error {ratio}·s·ε")
-    err = diff[fin].max().item()
-    row = {"s": s, "dtype": str(dtype).split(".")[1], "info": int(ik),
-           "max_abs_err": err, "entry_ratio_max": ratio,
-           "bitwise_equal": bool(torch.equal(lk[fin], lp[fin]))}
+    check(same_bits(torch, lk, lp),
+          f"{name}: not bit for bit the plain version's L\\U")
+    diff = (lk - lp)[torch.isfinite(lp)]
+    row = {"s": s, "dtype": str(dtype).split(".")[1], "view": view,
+           "info": int(ik),
+           "max_abs_err": diff.abs().max().item() if diff.numel() else 0.0,
+           "bitwise_equal": True}
     if zero_at is not None:
         row["zero_pivot_step"] = zero_at
     if nan_at is not None:
         row["nan_at"] = list(nan_at)
+    if signed_zeros:
+        row["signed_zeros"] = True
     if timed:
-        row["ms"] = cuda_ms(lambda: ho.lu_nopiv_base(a))
+        pool = a.expand(NOPIV_POOL, s, s).clone()
+        slot = torch.zeros((), dtype=torch.int32, device="cuda")
+        taken = itertools.count()
+
+        def launch():
+            ho.lu_nopiv_base_inplace(pool[next(taken) % NOPIV_POOL], slot)
+
+        row["ms"] = cuda_ms(launch)
+        pool.copy_(a.expand(NOPIV_POOL, s, s))  # fresh copies again
+        row["device_ms"] = device_ms(launch)
         row["plain_ms"] = cuda_ms(lambda: ho.lu_nopiv_base_plain(a), reps=5)
         row["library_ms"] = cuda_ms(
             lambda: torch.linalg.lu_factor(a, pivot=False))
+        # lu_factor(pivot=False) waits for the host inside every call, so
+        # no queue of its calls can be timed behind a sleep;
+        # tools/p2_ablation.py reads its device time by the profiler
+        row["library_device_ms"] = None
+        check(int(slot) == 0, f"{name}: a timed launch set info")
         it = a.element_size()
         row["bound_ms"], row["bound_by"] = bound(
             2 * s * s * it + 4, 2.0 * s ** 3 / 3.0, row["dtype"])
     return row
+
+
+def lu_nopiv_sweep(torch, ho, gen):
+    """P2 at every leaf size s = 1, ..., 64 in float32 and float64, each
+    case checked as lu_nopiv_case checks it, in turn contiguous, in place
+    on a strided view and on a transposed view, with signed zeros, a NaN
+    or a zero pivot on every other s. One row."""
+    cases = 0
+    for dtype in (torch.float32, torch.float64):
+        for s in range(1, 65):
+            kind = s % 4
+            lu_nopiv_case(torch, ho, s, dtype, gen,
+                          view=(None, "strided", "t")[s % 3],
+                          signed_zeros=kind == 1,
+                          nan_at=(s // 2, s // 3) if kind == 2 else None,
+                          zero_at=s // 2 if kind == 3 and s > 1 else None)
+            cases += 1
+    return {"sweep": "s = 1..64", "dtypes": ["float32", "float64"],
+            "cases": cases, "bitwise_equal": True}
+
+
+def lu_nopiv_info_offsets(torch, ho, gen):
+    """Two 64-row leaves on the diagonal of one 128 × 128 matrix, factored
+    in place in order into one info slot with step offsets 0 and 64, as
+    the no-pivot factor does: a zero pivot at step 20 of the second leaf
+    gives info 85; zero pivots at step 10 of the first and 20 of the
+    second give 11 (the first wins). Each leaf bit for bit the plain
+    version's."""
+    out = {}
+    for zeros in ((None, 20), (10, 20)):
+        big = torch.randn((128, 128), generator=gen, device="cuda")
+        want, infos = big.clone(), []
+        for b, z in enumerate(zeros):
+            leaf = nopiv_leaf(torch, 64, torch.float32, gen, zero_at=z)
+            big[64 * b:64 * b + 64, 64 * b:64 * b + 64] = leaf
+            lp, ip = ho.lu_nopiv_base_plain(leaf)
+            want[64 * b:64 * b + 64, 64 * b:64 * b + 64] = lp
+            infos.append(int(ip))
+        slot = torch.zeros((), dtype=torch.int32, device="cuda")
+        for b in range(2):
+            ho.lu_nopiv_base_inplace(
+                big[64 * b:64 * b + 64, 64 * b:64 * b + 64], slot, 64 * b)
+        expect = infos[0] if infos[0] else infos[1] + 64
+        check(int(slot) == expect == (11 if zeros[0] else 85),
+              f"lu_nopiv_base offsets {zeros}: info {int(slot)}, "
+              f"expected {expect}")
+        check(same_bits(torch, big, want), f"lu_nopiv_base offsets {zeros}: "
+              "not the plain version's leaves bit for bit")
+        out[f"zero_pivots_{zeros}"] = int(slot)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1598,6 +1718,8 @@ def main(argv=None) -> int:
                 (2, 64, f32, False, "diag", 63))]
         trtri_rows.append(trtri_sweep(torch, ho, blocked, gen))
         emit("kernel", name="trtri_leaves", cases=trtri_rows)
+        # P2: the main path's 64-row leaf first (timed), then smaller
+        # ones, the failure contracts, in-place views and the sweep
         nopiv_rows = [lu_nopiv_case(torch, ho, s_, dt, gen, timed=True)
                       for s_, dt in ((64, f32), (64, f64), (33, f32),
                                      (7, f64), (1, f32))]
@@ -1605,7 +1727,12 @@ def main(argv=None) -> int:
                        for dt in (f32, f64)]
         nopiv_rows.append(lu_nopiv_case(torch, ho, 64, f32, gen,
                                         nan_at=(5, 3)))
-        emit("kernel", name="lu_nopiv_base", cases=nopiv_rows)
+        nopiv_rows += [lu_nopiv_case(torch, ho, 64, dt, gen, view=view,
+                                     signed_zeros=True)
+                       for dt in (f32, f64) for view in ("strided", "t")]
+        nopiv_rows.append(lu_nopiv_sweep(torch, ho, gen))
+        emit("kernel", name="lu_nopiv_base", cases=nopiv_rows,
+             info_offsets=lu_nopiv_info_offsets(torch, ho, gen))
         # counted paths: the check phase, then the main phase
         ho.reset_launches()
         small = small_check(torch, stt, gen)
@@ -1660,6 +1787,8 @@ def main(argv=None) -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             **({"plan": row["plan"]} if "plan" in row else {}),
             **({"entry_ratio_max": row["entry_ratio_max"]}
+               if name == "trtri_leaves" else {}),
+            **({k: row[k] for k in ("device_ms", "library_device_ms")}
                if name in ("trtri_leaves", "lu_nopiv_base") else {})})
     kernels[0]["at_b128"] = {k: k1_128[k] for k in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -1,7 +1,11 @@
 // LU without pivoting of one square s × s leaf, s ≤ 64, in float32 and
-// float64: L\U packed (unit lower L implied) and info, the 1-based first
-// step whose pivot is 0 or NaN (0 if none); that step goes on with the
-// pivot taken as 1.
+// float64, IN PLACE: the leaf is read through its row and column strides
+// and L\U (unit lower L implied) is written back into the same view. info:
+// the 1-based first step whose pivot is 0 or NaN; that step goes on with
+// the pivot taken as 1. The kernel writes offset + that step into a 0-d
+// int32 slot only if the slot still reads 0, so the leaves of a factor,
+// launched in diagonal order on one stream, leave the first bad pivot of
+// the whole factor there.
 //
 // No Pallas kernel: this is the port's counterpart of the reference's
 // unblocked leaf, slate_tpu/linalg/lu.py::_lu_nopiv_unblocked (one
@@ -9,37 +13,68 @@
 // hopper_ops.lu_nopiv_base_plain. Step i computes
 //     col = a[:, i] / dsafe on the rows below i (0 elsewhere),
 //     a[r, i] = col[r] below i,
-//     a = a − col ⊗ urow, urow = a[i, :] right of i (0 elsewhere),
+//     urow = a[i, :] right of i (0 elsewhere),
+//     a = a − col ⊗ urow
 // over the WHOLE leaf, as the reference does, so a non-finite entry
-// spreads to the same places (0·Inf = NaN) as in the plain version.
-// Products and differences are rounded separately (no FMA contraction) and
-// the scale is an IEEE division, so the result is bitwise the plain
-// version's.
+// spreads to the same places (0·Inf = NaN) and a zero keeps the same sign.
+// The kernel replays exactly that formula for every entry at every step,
+// the 0·x terms included (throughput, off the chain): products and
+// differences are rounded separately (no FMA contraction) and the scale is
+// an IEEE division, so the result is bitwise the plain version's.
 //
-// Design. One block, the leaf in shared memory, s serial steps with one
-// __syncthreads each. Row r belongs to a group of 16 lanes of one warp
-// (the block rounded up to whole warps, so every shuffle has 32 lanes),
-// lane g owning the columns g, g + 16, …; the lane that owns column i
-// computes the row's multiplier and hands it to the group by a shuffle.
-// Row i itself is read by the other rows from a copy (urow) that its own
-// group wrote during step i − 1, double buffered by the parity of i, so no
-// row reads another row's entries while they are written. info stays on
-// the device.
+// What bounds it. A leaf is 16–32 KB and 2s³/3 operations: neither bytes
+// nor the operation rate. Step i + 1 needs column i + 1 and row i + 1 after
+// step i, so a launch costs s dependent steps plus its launch, load and
+// store, and each step's latency is what the kernel is made of. The first
+// kernel held the leaf in shared memory and ended every step with a
+// barrier of all 32 warps. Publishing rows instead (rows dealt to warps,
+// one mbarrier per row) crossed warps at every step, and every warp ran
+// the division for its rows: slower than this design in float64.
 //
-// What bounds it: the s serial steps (a barrier and about s/16 dependent
-// update pairs each per thread), not the leaf's bytes nor its 2s³/3
-// operations. A first, simple kernel; PERF.md keeps its times.
+// Design: the leaf in registers, columns dealt to warps in blocks, the
+// multipliers published.
+// - 8 warps; warp w holds the 8 columns 8w … 8w + 7, lane l the rows l and
+//   l + 32 of them (16 entries). Row i, which every warp needs for its own
+//   columns, is in the warp's own registers: one shuffle per column; a
+//   warp whose columns are all left of i needs none (its urow is 0).
+// - The multipliers col of step k (k ≥ 1) are made in step k − 1 by the
+//   warp holding column k (lookahead): it first gives column k its step-
+//   (k − 1) update, reads the pivot by a shuffle, divides (two divisions
+//   per lane while k < 33, one after: rows 0 … 31 are then above the
+//   pivot; none in the other warps), stores col to shared memory and
+//   every lane arrives on step k's mbarrier (count 32, release); only
+//   then does it update its other columns. A warp that does not hold
+//   column i waits on step i's mbarrier alone (try_wait, acquire) and
+//   reads col from shared memory. Every col is written once: no double
+//   buffer, no write-after-read hazard.
+// - So for 7 of 8 steps the warp that makes col needs nothing from another
+//   warp: the chain of a step is in one warp (a multiply-subtract, a
+//   shuffle, the divisions, the next step's shuffles), and only every 8th
+//   step crosses warps. The other warps trail behind, off the chain. The
+//   steps run in two halves, so the register set (m0 or m1) that holds
+//   row i is known at compile time.
+// - Loads and stores go through a shared tile with lanes along the unit
+//   stride, so a row-major or a transposed view is read and written
+//   coalesced, every load in flight before the first store; the block
+//   barriers are two at the start and two at the end. info's slot is read
+//   at the start and written at the end by one thread.
 //
 // Built with nvcc for sm_90a WITHOUT --use_fast_math (IEEE division and
 // NaN handling are part of the contract).
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int kMaxLeaf = 64;
-constexpr int kGroup = 16;        // lanes per row
-constexpr int kPad = 16;          // shared row padding, in elements
+constexpr int kCols = 8;                     // columns per warp
+constexpr int kWarps = kMaxLeaf / kCols;     // 8
+constexpr int kThreads = 32 * kWarps;        // 256
+constexpr int kLoads = kMaxLeaf * kMaxLeaf / kThreads;  // per thread
+constexpr int kTile = kMaxLeaf + 1;          // the load/store tile's row stride
+constexpr int kLd = kMaxLeaf;                // col of step k at sh + k·kLd
 
 __device__ __forceinline__ float mul_rn(float x, float y) { return __fmul_rn(x, y); }
 __device__ __forceinline__ double mul_rn(double x, double y) { return __dmul_rn(x, y); }
@@ -48,63 +83,169 @@ __device__ __forceinline__ double sub_rn(double x, double y) { return __dsub_rn(
 __device__ __forceinline__ float div_rn(float x, float y) { return __fdiv_rn(x, y); }
 __device__ __forceinline__ double div_rn(double x, double y) { return __ddiv_rn(x, y); }
 
-template <typename T>
-__global__ void lu_nopiv_kernel(const T* __restrict__ a, T* __restrict__ lu,
-                                int* __restrict__ info, int s) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ld = s + kPad;
-  T* m = reinterpret_cast<T*>(smem_raw);  // s rows of ld
-  T* urow = m + s * ld;                   // 2 × s: row i at step i
-  const int tid = threadIdx.x;
-  const int r = tid / kGroup, g = tid % kGroup;
-  const bool row_ok = r < s;  // the block is rounded up to whole warps
-  for (int e = tid; e < s * s; e += blockDim.x) {
-    const int i = e / s, c = e - i * s;
-    m[i * ld + c] = a[e];
-    if (i == 0) urow[c] = a[e];
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// mbarriers by shared-window address, computed once per thread
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+// release at CTA scope: this thread's earlier stores are seen by whoever
+// acquires the completed phase
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n\t.reg .b64 st;\n\t"
+               "mbarrier.arrive.shared::cta.b64 st, [%0];\n\t}" ::"r"(bar)
+               : "memory");
+}
+
+// acquire at CTA scope; each barrier completes one phase (parity 0) only
+__device__ __forceinline__ void mbar_wait0(uint32_t bar) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile("{\n\t.reg .pred p;\n\t"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n\t"
+                 "selp.u32 %0, 1, 0, p;\n\t}"
+                 : "=r"(done) : "r"(bar) : "memory");
   }
-  __syncthreads();
-  int first_bad = 0;
-  for (int i = 0; i < s; ++i) {
-    const T* u = urow + (i & 1) * s;
-    const T d = u[i];
-    const bool bad = isnan(d) || d == T(0);
-    if (bad && first_bad == 0) first_bad = i + 1;
-    const T dsafe = bad ? T(1) : d;
-    // the row's multiplier, computed by the lane owning column i
-    T col = T(0);
-    if (row_ok && r > i && g == i % kGroup) col = div_rn(m[r * ld + i], dsafe);
-    col = __shfl_sync(0xFFFFFFFFu, col, i % kGroup, kGroup);
-    if (row_ok && r > i) {
-      for (int c = g; c < s; c += kGroup) {
-        const T ur = c > i ? u[c] : T(0);
-        const T base = c == i ? col : m[r * ld + c];
-        m[r * ld + c] = sub_rn(base, mul_rn(col, ur));
-      }
-      if (r == i + 1)
-        for (int c = g; c < s; c += kGroup) urow[((i + 1) & 1) * s + c] = m[r * ld + c];
-    } else if (row_ok) {
-      // col is 0 on this row: only 0·urow right of i can change it (NaN
-      // from a non-finite urow entry, or a zero's sign)
-      for (int c = g; c < s; c += kGroup)
-        if (c > i) m[r * ld + c] = sub_rn(m[r * ld + c], mul_rn(T(0), u[c]));
-    }
-    __syncthreads();
-  }
-  for (int e = tid; e < s * s; e += blockDim.x) {
-    const int i = e / s, c = e - i * s;
-    lu[e] = m[i * ld + c];
-  }
-  if (tid == 0) *info = first_bad;
 }
 
 template <typename T>
-int lu_nopiv(const void* a, void* lu, void* info, int s, void* stream) {
+__global__ void __launch_bounds__(kThreads)
+lu_nopiv_kernel(T* __restrict__ a, long long rs, long long cs, int s,
+                int* __restrict__ info, int offset) {
+  // the load/store tile (stride kTile), then col of step k at k·kLd
+  __shared__ T sh[kMaxLeaf * kTile];
+  __shared__ uint64_t bar[kMaxLeaf];  // col of step k published
+  __shared__ int bad_w[kWarps];       // each warp's first bad step
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int cw = w * kCols;           // this warp's first column
+  const int r0 = lane, r1 = lane + 32;
+  const uint32_t bar0 = smem_addr(bar);  // mbarrier k at bar0 + 8k
+
+  const int slot = threadIdx.x == 0 ? *info : 0;  // read early, used last
+  if (threadIdx.x < s) mbar_init(bar0 + 8 * threadIdx.x, 32);
+  // load: lanes along the unit stride (rows of a row-major view), every
+  // load in flight before the first store to the tile
+  const bool by_rows = cs <= rs;
+  T v[kLoads];
+#pragma unroll
+  for (int t = 0; t < kLoads; ++t) {
+    const int e = threadIdx.x + t * kThreads;
+    const int hi = e / kMaxLeaf, lo = e % kMaxLeaf;
+    const int r = by_rows ? hi : lo, c = by_rows ? lo : hi;
+    v[t] = r < s && c < s ? a[r * rs + c * cs] : T(0);
+  }
+#pragma unroll
+  for (int t = 0; t < kLoads; ++t) {
+    const int e = threadIdx.x + t * kThreads;
+    const int hi = e / kMaxLeaf, lo = e % kMaxLeaf;
+    sh[(by_rows ? hi : lo) * kTile + (by_rows ? lo : hi)] = v[t];
+  }
+  __syncthreads();
+  T m0[kCols], m1[kCols];  // rows r0 and r1 of columns cw …
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    const int c = cw + j;
+    m0[j] = r0 < s && c < s ? sh[r0 * kTile + c] : T(0);
+    m1[j] = r1 < s && c < s ? sh[r1 * kTile + c] : T(0);
+  }
+  __syncthreads();  // the tile is read: its memory now holds the cols
+
+  int first_bad = 0;
+  T nxt0 = T(0), nxt1 = T(0);  // the col this warp made last
+  // col of step k from column k (register jk), after step k − 1
+  auto make_col = [&](int k, int jk, bool low) {
+    const T d = __shfl_sync(0xFFFFFFFFu, k & 32 ? m1[jk] : m0[jk], k & 31);
+    const bool bad = isnan(d) || d == T(0);
+    if (bad && first_bad == 0) first_bad = k + 1;
+    const T ds = bad ? T(1) : d;
+    const T q1 = div_rn(m1[jk], ds);
+    nxt0 = T(0);
+    if (low) {  // rows r0 < 32 lie below the pivot only while k < 31
+      const T q0 = div_rn(m0[jk], ds);
+      nxt0 = r0 > k ? q0 : T(0);
+    }
+    nxt1 = r1 > k ? q1 : T(0);
+    sh[k * kLd + r0] = nxt0;
+    sh[k * kLd + r1] = nxt1;
+    mbar_arrive(bar0 + 8 * k);  // every lane, after its own stores
+  };
+  if (w == 0) make_col(0, 0, true);
+
+  // the two halves of the rows unrolled: row i is in m0 (h = 0) or m1
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+  for (int ib = 32 * h; ib < min(s, 32 * h + 32); ib += kCols) {
+    const int wi = ib / kCols;  // the warp holding columns ib …
+#pragma unroll
+    for (int ii = 0; ii < kCols; ++ii) {
+      const int i = ib + ii;
+      if (i >= s) break;
+      const int jn = (ii + 1) % kCols;  // column i + 1's register
+      const bool own = w == wi;
+      const bool own_next = i + 1 < s && w == (ii + 1 < kCols ? wi : wi + 1);
+      // urow on this warp's columns: row i before step i, 0 at and left of i
+      T ur[kCols];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) ur[j] = T(0);
+      if (w >= wi) {
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          const T u = __shfl_sync(0xFFFFFFFFu, h ? m1[j] : m0[j], i - 32 * h);
+          ur[j] = w > wi || j > ii ? u : T(0);
+        }
+      }
+      T col0 = nxt0, col1 = nxt1;
+      if (!own) {
+        mbar_wait0(bar0 + 8 * i);
+        col0 = sh[i * kLd + r0];
+        col1 = sh[i * kLd + r1];
+      }
+      auto update = [&](int j) {
+        const bool at_i = own && j == ii;  // column i: col below the pivot
+        m0[j] = sub_rn(at_i && r0 > i ? col0 : m0[j], mul_rn(col0, ur[j]));
+        m1[j] = sub_rn(at_i && r1 > i ? col1 : m1[j], mul_rn(col1, ur[j]));
+      };
+      update(jn);  // column i + 1 first: the next col is made from it
+      if (own_next) make_col(i + 1, jn, h == 0);
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        if (j != jn) update(j);
+    }
+  }
+
+  if (lane == 0) bad_w[w] = first_bad;
+  __syncthreads();  // every col is read: the memory is the tile again
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    sh[r0 * kTile + cw + j] = m0[j];
+    sh[r1 * kTile + cw + j] = m1[j];
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < kMaxLeaf * kMaxLeaf; e += kThreads) {
+    const int hi = e / kMaxLeaf, lo = e % kMaxLeaf;
+    const int r = by_rows ? hi : lo, c = by_rows ? lo : hi;
+    if (r < s && c < s) a[r * rs + c * cs] = sh[r * kTile + c];
+  }
+  if (threadIdx.x == 0 && slot == 0) {
+    // the warps' columns are in order: the first nonzero is the first step
+    for (int v = 0; v < kWarps; ++v)
+      if (bad_w[v] != 0) {
+        *info = offset + bad_w[v];
+        break;
+      }
+  }
+}
+
+template <typename T>
+int lu_nopiv(void* a, long long rs, long long cs, int s, void* info, int offset,
+             void* stream) {
   if (s < 1 || s > kMaxLeaf) return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)s * (s + kPad) + 2 * (size_t)s) * sizeof(T);
-  const int threads = (s * kGroup + 31) / 32 * 32;
-  lu_nopiv_kernel<T><<<1, threads, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(a), static_cast<T*>(lu), static_cast<int*>(info), s);
+  lu_nopiv_kernel<T><<<1, kThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<T*>(a), rs, cs, s, static_cast<int*>(info), offset);
   return (int)cudaGetLastError();
 }
 
@@ -112,14 +253,14 @@ int lu_nopiv(const void* a, void* lu, void* info, int s, void* stream) {
 
 extern "C" {
 
-int slate_lu_nopiv_f32(const void* a, void* lu, void* info, int s,
-                       void* stream) {
-  return lu_nopiv<float>(a, lu, info, s, stream);
+int slate_lu_nopiv_f32(void* a, long long rs, long long cs, int s, void* info,
+                       int offset, void* stream) {
+  return lu_nopiv<float>(a, rs, cs, s, info, offset, stream);
 }
 
-int slate_lu_nopiv_f64(const void* a, void* lu, void* info, int s,
-                       void* stream) {
-  return lu_nopiv<double>(a, lu, info, s, stream);
+int slate_lu_nopiv_f64(void* a, long long rs, long long cs, int s, void* info,
+                       int offset, void* stream) {
+  return lu_nopiv<double>(a, rs, cs, s, info, offset, stream);
 }
 
 const char* slate_lu_nopiv_error_string(int e) {

@@ -260,29 +260,29 @@ def _iota(LU: TiledMatrix) -> torch.Tensor:
 _NOPIV_BASE = 64
 
 
-def _lu_nopiv_leaf(a: torch.Tensor) -> torch.Tensor:
+def _lu_nopiv_leaf(a: torch.Tensor, info: torch.Tensor, offset: int):
     """No-pivot LU of an (m, n) leaf with s = min(m, n) ≤ 64, IN PLACE:
-    the top s × s square is one P2 launch (``hopper_ops.lu_nopiv_base``),
-    and the rest is solved against it, L21 = A21·U11⁻¹ below and
-    U12 = L11⁻¹·A12 to the right (``blocked.trsm_rec``). This is the
-    reference's unblocked loop (``_lu_nopiv_unblocked``, which runs min(m,
-    n) steps over the whole leaf) with other rounding; after a zero pivot
-    the two differ (the loop divides by 1 there, the solve by the pivot).
-    Returns info."""
+    the top s × s square is one P2 launch on the view itself
+    (``hopper_ops.lu_nopiv_base_inplace``, which sets ``info`` to
+    offset + its first bad step if it still reads 0), and the rest is
+    solved against it, L21 = A21·U11⁻¹ below and U12 = L11⁻¹·A12 to the
+    right (``blocked.trsm_rec``). This is the reference's unblocked loop
+    (``_lu_nopiv_unblocked``, which runs min(m, n) steps over the whole
+    leaf) with other rounding; after a zero pivot the two differ (the loop
+    divides by 1 there, the solve by the pivot)."""
     m, n = a.shape
     s = min(m, n)
-    lu, info = hopper_ops.lu_nopiv_base(a[:s, :s])
-    a[:s, :s] = lu
+    lu = a[:s, :s]
+    hopper_ops.lu_nopiv_base_inplace(lu, info, offset)
     if m > s:
         a[s:, :s] = blocked.trsm_rec(lu, a[s:, :s], left=False, lower=False)
     if n > s:
         a[:s, s:] = blocked.trsm_rec(lu, a[:s, s:], left=True, lower=True,
                                      unit=True)
-    return info
 
 
-def _lu_nopiv_recursive(a: torch.Tensor, base: int = _NOPIV_BASE
-                        ) -> torch.Tensor:
+def _lu_nopiv_recursive(a: torch.Tensor, info: torch.Tensor,
+                        offset: int = 0, base: int = _NOPIV_BASE):
     """Recursive blocked no-pivot LU, IN PLACE on ``a``, with the
     reference's 8-aligned halves: factor A11, U12 = L11⁻¹·A12 and
     L21 = A21·U11⁻¹ (``blocked.trsm_rec``), A22 −= L21·U12, recurse on
@@ -291,23 +291,24 @@ def _lu_nopiv_recursive(a: torch.Tensor, base: int = _NOPIV_BASE
     substitute between them by gemms: without pivoting L is unbounded,
     and inverting the 512-row blocks of the default trsm base loses
     accuracy with their condition (RBT then falls back to partial
-    pivoting more often). Returns info (0-d int32)."""
+    pivoting more often). ``info`` (0-d int32, 0 on entry) receives the
+    first bad pivot's 1-based step in ``a``, plus ``offset``: the leaves
+    run in diagonal order and each writes only into a slot still 0, which
+    is the reference's ``info1 if info1 > 0 else info2 + half``."""
     n = min(a.shape)
     if n <= base:
-        return _lu_nopiv_leaf(a)
+        _lu_nopiv_leaf(a, info, offset)
+        return
     half = (n // 2 + 7) & ~7 if n > 16 else n // 2  # 8-aligned split
     half = max(8, min(half, n - 1))
-    info1 = _lu_nopiv_recursive(a[:half, :half], base)
+    _lu_nopiv_recursive(a[:half, :half], info, offset, base)
     a11 = a[:half, :half]
     a[:half, half:] = blocked.trsm_rec(a11, a[:half, half:], left=True,
                                        lower=True, unit=True, base=base)
     a[half:, :half] = blocked.trsm_rec(a11, a[half:, :half], left=False,
                                        lower=False, base=base)
     a[half:, half:] -= a[half:, :half] @ a[:half, half:]
-    info2 = _lu_nopiv_recursive(a[half:, half:], base)
-    return torch.where(info1 > 0, info1,
-                       torch.where(info2 > 0, info2 + half, 0)
-                       ).to(torch.int32)
+    _lu_nopiv_recursive(a[half:, half:], info, offset + half, base)
 
 
 @accurate_matmuls
@@ -321,7 +322,8 @@ def getrf_nopiv(A: TiledMatrix, opts: Options = DEFAULT_OPTIONS
     # the one working copy of this call: every update below writes it
     a = A.dense_canonical().clone(memory_format=torch.contiguous_format)
     a = unit_pad_diag(a.resolve_conj(), m, n)
-    info = _lu_nopiv_recursive(a)
+    info = torch.zeros((), dtype=torch.int32, device=a.device)
+    _lu_nopiv_recursive(a, info)
     return from_dense(a, A.nb, logical_shape=(m, n), device=a.device), info
 
 

@@ -44,7 +44,8 @@ reference fuses with ``jax.vmap``/``fori_loop`` and the port would
 otherwise run as Python loops of small launches. P1
 (``trtri_leaves``) inverts a stack of lower-triangular leaves of at most
 64 rows, one block per leaf; P2 (``lu_nopiv_base``) is the no-pivot LU of
-one square leaf of at most 64 rows, in one block.
+one square leaf of at most 64 rows, in one block, in place through the
+leaf's strides (``lu_nopiv_base_inplace``).
 """
 
 from __future__ import annotations
@@ -810,39 +811,73 @@ def lu_nopiv_base_plain(a: torch.Tensor
     return mat, info
 
 
+def _check_nopiv_leaf(name: str, a: torch.Tensor):
+    if a.dtype not in _REAL:
+        raise NotImplementedError(
+            f"{name}: real float32/float64 only, got {a.dtype} "
+            "(complex: ROADMAP Queue 1 item 3)")
+    if a.ndim != 2 or a.shape[0] != a.shape[1] or not (
+            1 <= a.shape[0] <= LEAF_MAX):
+        raise SlateError(f"{name}: expects a square (s, s) leaf "
+                         f"with 1 ≤ s ≤ {LEAF_MAX}, got {tuple(a.shape)}")
+
+
 def lu_nopiv_base(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """No-pivot LU of one square (s, s) leaf, s ≤ 64 → (L\\U packed,
     info int32 0-d: the 1-based first step whose pivot is 0 or NaN; that
     step goes on with the pivot taken as 1).
 
     Counterpart of ``_lu_nopiv_unblocked`` (slate_tpu/linalg/lu.py:463-482;
-    no Pallas kernel). The CUDA kernel (csrc/lu_nopiv.cu) is one block
-    with the leaf in shared memory and one barrier per step; info stays
-    on the device. Bitwise equal to the plain version on the same input
-    (products and differences rounded separately). Real float32/float64
-    only."""
-    if a.dtype not in _REAL:
-        raise NotImplementedError(
-            f"lu_nopiv_base: real float32/float64 only, got {a.dtype} "
-            "(complex: ROADMAP Queue 1 item 3)")
-    if a.ndim != 2 or a.shape[0] != a.shape[1] or not (
-            1 <= a.shape[0] <= LEAF_MAX):
-        raise SlateError(f"lu_nopiv_base: expects a square (s, s) leaf "
-                         f"with 1 ≤ s ≤ {LEAF_MAX}, got {tuple(a.shape)}")
+    no Pallas kernel). On a CUDA tensor: ``lu_nopiv_base_inplace`` on a
+    copy. Bitwise equal to the plain version on the same input (products
+    and differences rounded separately). Real float32/float64 only."""
+    _check_nopiv_leaf("lu_nopiv_base", a)
     if a.device.type == "cpu":
         return lu_nopiv_base_plain(a)
-    if a.device.type != "cuda":
-        raise SlateError(f"lu_nopiv_base: unsupported device {a.device}")
-    a = a.contiguous()
+    lu = a.clone(memory_format=torch.contiguous_format)
+    info = torch.zeros((), dtype=torch.int32, device=a.device)
+    lu_nopiv_base_inplace(lu, info)
+    return lu, info
+
+
+def lu_nopiv_base_inplace(a: torch.Tensor, info: torch.Tensor,
+                          offset: int = 0) -> None:
+    """``lu_nopiv_base`` IN PLACE on a square (s, s) view, s ≤ 64, of any
+    non-overlapping strides: L\\U is written back into ``a``. ``info`` is
+    a 0-d int32 slot on a's device: if it reads 0 and this leaf has a bad
+    pivot at 1-based step p, it becomes ``offset + p``; else it is left as
+    it is. Leaves launched in factor order on one stream so leave the
+    factor's first bad pivot there (no host sync).
+
+    The CUDA kernel (csrc/lu_nopiv.cu) keeps the leaf in registers, 8
+    columns per warp; the warp holding column k makes step k's multipliers
+    one step ahead and publishes them through shared memory and an
+    mbarrier of their own: no block-wide barrier per step. A CPU tensor
+    runs ``lu_nopiv_base_plain`` and copies its result in."""
+    name = "lu_nopiv_base_inplace"
+    _check_nopiv_leaf(name, a)
+    if (info.dtype != torch.int32 or info.ndim != 0
+            or info.device != a.device):
+        raise SlateError(f"{name}: info must be a 0-d int32 tensor on "
+                         f"{a.device}, got {info.dtype} {tuple(info.shape)} "
+                         f"on {info.device}")
     s = a.shape[0]
-    lu = torch.empty_like(a)
-    info = torch.empty((), dtype=torch.int32, device=a.device)
+    lo, hi = sorted(a.stride())
+    if s > 1 and (lo < 1 or hi < s * lo):
+        raise SlateError(f"{name}: the view's entries overlap "
+                         f"(strides {a.stride()})")
+    if a.device.type == "cpu":
+        lu, got = lu_nopiv_base_plain(a)
+        a.copy_(lu)
+        info.copy_(torch.where((info == 0) & (got > 0), got + offset, info))
+        return
+    if a.device.type != "cuda":
+        raise SlateError(f"{name}: unsupported device {a.device}")
     f = _fn("lu_nopiv", f"slate_lu_nopiv_{_SUFFIX[a.dtype]}",
-            [_P, _P, _P, _I, _P])
+            [_P, _L, _L, _I, _P, _I, _P])
     with torch.cuda.device(a.device):
-        rc = f(a.data_ptr(), lu.data_ptr(), info.data_ptr(), s,
+        rc = f(a.data_ptr(), *a.stride(), s, info.data_ptr(), offset,
                torch.cuda.current_stream(a.device).cuda_stream)
     _raise_on(rc, "lu_nopiv", "slate_lu_nopiv_error_string",
-              f"lu_nopiv_base (s={s})")
+              f"{name} (s={s})")
     LAUNCHES["lu_nopiv_base"] += 1
-    return lu, info

@@ -19,6 +19,8 @@ column loop; XLA may contract products into FMAs), info exact, NaN in
 the same places.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -371,6 +373,43 @@ def test_lu_nopiv_zero_pivot_and_nan_info(dtype):
         P2_TOL[dtype] * np.abs(ref[fin]).max())
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("s", LEAF_SIZES)
+def test_lu_nopiv_inplace_on_strided_views(s, dtype):
+    """The in-place form on an s × s view inside a larger matrix (row
+    stride 170) and on a transposed view (column stride 150): the view
+    holds the plain version's L\\U bit for bit, every entry outside it is
+    untouched, and a good leaf leaves the info slot at 0."""
+    rng = np.random.default_rng(800 + s)
+    big = rng.standard_normal((150, 170)).astype(dtype)
+    for view_of in (lambda t: t[40:40 + s, 90:90 + s],
+                    lambda t: t.T[100:100 + s, 20:20 + s]):
+        b = torch.from_numpy(big.copy())
+        v = view_of(b)
+        v.diagonal().add_(2 * s)
+        want = b.clone()
+        lu, plain_info = hopper_ops.lu_nopiv_base_plain(v.clone())
+        view_of(want).copy_(lu)
+        info = torch.zeros((), dtype=torch.int32)
+        hopper_ops.lu_nopiv_base_inplace(v, info, 7)
+        assert int(info) == int(plain_info) == 0
+        _bitwise_equal(b.numpy(), want.numpy())
+
+
+def test_lu_nopiv_inplace_info_slot():
+    """A bad pivot at 1-based step p writes offset + p into a slot that
+    reads 0 and leaves a slot that already holds an earlier leaf's step
+    as it is; lu_nopiv_base reports p itself."""
+    a = torch.from_numpy(_exact_lu_with_zero_pivot(64, 20, np.float64))
+    for slot, offset, want in ((0, 0, 21), (0, 128, 149), (5, 128, 5)):
+        info = torch.tensor(slot, dtype=torch.int32)
+        leaf = a.clone()
+        hopper_ops.lu_nopiv_base_inplace(leaf, info, offset)
+        assert int(info) == want
+        assert torch.equal(leaf, hopper_ops.lu_nopiv_base_plain(a)[0])
+    assert int(hopper_ops.lu_nopiv_base(a)[1]) == 21
+
+
 def test_leaf_launchers_refuse_bad_input():
     with pytest.raises(NotImplementedError, match="trtri_leaves"):
         hopper_ops.trtri_leaves(torch.zeros((1, 4, 4), dtype=torch.int32))
@@ -382,6 +421,12 @@ def test_leaf_launchers_refuse_bad_input():
     for shape in ((4, 5), (65, 65), (2, 4, 4)):
         with pytest.raises(SlateError, match="lu_nopiv_base"):
             hopper_ops.lu_nopiv_base(torch.zeros(shape))
+    slot = torch.zeros((), dtype=torch.int32)
+    for a, info in ((torch.zeros(1, 4).expand(4, 4), slot),
+                    (torch.zeros(4, 4), slot.long()),
+                    (torch.zeros(4, 4), torch.zeros(1, dtype=torch.int32))):
+        with pytest.raises(SlateError, match="lu_nopiv_base_inplace"):
+            hopper_ops.lu_nopiv_base_inplace(a, info)
 
 
 def test_cpu_calls_never_reach_the_build(monkeypatch):
@@ -443,3 +488,203 @@ def test_trtri_helpers_hand_p1_their_leaves_without_copies(monkeypatch):
     blocked.trtri_lower_rec(l[:100, :100])
     assert [c[0] for c in calls] == [(1, 56, 56), (1, 44, 44)]
     assert not hasattr(blocked, "_trtri_leaves")
+
+
+# ---------------------------------------------------------------------------
+# P2's kernel (csrc/lu_nopiv.cu): its schedule and shared indices, modelled
+# ---------------------------------------------------------------------------
+
+def _p2_constants():
+    """The kernel's layout constants, read from its source (the models
+    below follow them): columns per warp, warps, the load/store tile's
+    row stride and the published cols' stride."""
+    src = open(f"{_build.CSRC_DIR}/lu_nopiv.cu").read()
+    for decl in ("kMaxLeaf = 64;", "kWarps = kMaxLeaf / kCols;",
+                 "kThreads = 32 * kWarps;", "kTile = kMaxLeaf + 1;",
+                 "kLd = kMaxLeaf;", "sh[kMaxLeaf * kTile];",
+                 "bar[kMaxLeaf];", "bad_w[kWarps];",
+                 "cw = w * kCols;", "r0 = lane, r1 = lane + 32;",
+                 "if (threadIdx.x < s) mbar_init(bar0 + 8 * threadIdx.x, 32);",
+                 "mbar_wait0(bar0 + 8 * i);",
+                 "sh[k * kLd + r0] = nxt0;", "sh[k * kLd + r1] = nxt1;",
+                 "mbar_arrive(bar0 + 8 * k);  // every lane",
+                 "sh[(by_rows ? hi : lo) * kTile + (by_rows ? lo : hi)] = v[t];",
+                 "kLoads = kMaxLeaf * kMaxLeaf / kThreads;",
+                 "if (w == 0) make_col(0, 0, true);",
+                 "jn = (ii + 1) % kCols;",
+                 "own_next = i + 1 < s && w == (ii + 1 < kCols ? wi : wi + 1);",
+                 "if (own_next) make_col(i + 1, jn, h == 0);",
+                 "if (low) {", "nxt0 = r0 > k ? q0 : T(0);",
+                 "col0 = sh[i * kLd + r0];", "if (w >= wi) {",
+                 "ur[j] = w > wi || j > ii ? u : T(0);",
+                 "sh[r0 * kTile + cw + j] = m0[j];"):
+        assert decl in src, decl
+    assert src.count("__syncthreads();") == 4
+    cols = int(re.search(r"kCols = (\d+);", src).group(1))
+    return cols, 64 // cols, 65, 64
+
+
+def _p2_kernel_model(a):
+    """The kernel's schedule in numpy, warp by warp in each step, with its
+    own index arithmetic: each warp's registers (its column block, all 64
+    rows), the pivot and row i read from the lanes that hold them, urow
+    zeroed by the kernel's predicate, the col of step k made by the warp
+    holding column k in step k − 1 after that column's update (once per
+    k), read by the other warps from the published cols, and the column-i
+    base. Products and differences rounded separately, as on the card.
+    Returns (L\\U, info)."""
+    cols, warps, _, ld = _p2_constants()
+    s = a.shape[0]
+    dt = a.dtype.type
+    reg = np.zeros((64, 64), dtype=a.dtype)
+    reg[:s, :s] = a
+    sh = np.full(64 * ld, np.nan, dtype=a.dtype)
+    rows = np.arange(64)
+    nxt = np.zeros((warps, 64), dtype=a.dtype)
+    first_bad = [0] * warps
+    made = []
+
+    def make_col(w, k, jk, low):
+        c = w * cols + jk
+        assert c == k
+        d = reg[(k & 32) + (k & 31), c]
+        bad = bool(np.isnan(d) or d == 0)
+        if bad and first_bad[w] == 0:
+            first_bad[w] = k + 1
+        q = np.divide(reg[:, c], dt(1) if bad else d)
+        if not low:  # rows 0..31 are not divided in the second half
+            q[:32] = np.nan
+        nxt[w] = np.where(rows > k, q, dt(0))
+        sh[k * ld + rows] = nxt[w]
+        made.append(k)
+
+    with np.errstate(all="ignore"):
+        make_col(0, 0, 0, True)
+        for i in range(s):
+            ii, wi = i % cols, i // cols
+            jn = (ii + 1) % cols
+            for w in range(warps):
+                own = w == wi
+                own_next = i + 1 < s and w == (wi if ii + 1 < cols else wi + 1)
+                ur = np.zeros(cols, dtype=a.dtype)
+                if w >= wi:
+                    u = reg[(i & 32) + (i & 31), w * cols:(w + 1) * cols]
+                    ur = np.where((w > wi) | (np.arange(cols) > ii), u, dt(0))
+                if own:
+                    col = nxt[w].copy()
+                else:
+                    assert i in made  # the mbarrier it waits on has arrived
+                    col = sh[i * ld + rows].copy()
+
+                def update(j):
+                    c = w * cols + j
+                    base = reg[:, c]
+                    if own and j == ii:  # column i: col below the pivot
+                        base = np.where(rows > i, col, base)
+                    reg[:, c] = np.subtract(base, np.multiply(col, ur[j]))
+
+                update(jn)
+                if own_next:
+                    make_col(w, i + 1, jn, i < 32)
+                for j in range(cols):
+                    if j != jn:
+                        update(j)
+    assert made == list(range(s))
+    return reg[:s, :s].copy(), next((b for b in first_bad if b), 0)
+
+
+def _adversarial_leaf(rng, s, dtype, case):
+    """A dominant leaf with exact zeros of both signs in a fifth of its
+    entries each, then the case's poison: "inf" ±Inf at chosen entries,
+    "nan" NaN at one, "zero_pivot" an exact zero pivot at step s // 2
+    (integer factors), "signed_zeros" nothing more."""
+    if case == "zero_pivot":
+        return _exact_lu_with_zero_pivot(s, s // 2, dtype)
+    a = rng.integers(-3, 4, (s, s)).astype(np.float64)
+    pick = rng.random((s, s))
+    a[pick < 0.2] = -0.0
+    a[(pick >= 0.2) & (pick < 0.4)] = 0.0
+    a[np.arange(s), np.arange(s)] = 4.0 * s * rng.choice([-1, 1], s)
+    if case == "inf" and s > 1:
+        a[s - 1, 0] = np.inf
+        a[0, s - 1] = -np.inf
+    if case == "nan":
+        a[s // 2, s // 3] = np.nan
+    return a.astype(dtype)
+
+
+def _bitwise_equal(x, y):
+    """NaN in the same places, and every other entry equal bit for bit
+    (the sign of a zero included)."""
+    nan = np.isnan(x)
+    np.testing.assert_array_equal(nan, np.isnan(y))
+    xb = x.view(np.uint32 if x.dtype == np.float32 else np.uint64)
+    yb = y.view(xb.dtype)
+    np.testing.assert_array_equal(xb[~nan], yb[~nan])
+
+
+@pytest.mark.parametrize("case", ["signed_zeros", "inf", "nan",
+                                  "zero_pivot"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("s", [1, 7, 16, 17, 33, 64])
+def test_p2_kernel_schedule_is_bitwise_the_plain_version(s, dtype, case):
+    """The kernel's schedule (registers by lane, published snapshots, the
+    keep predicate, the shuffled column entry) gives bit for bit the plain
+    version's L\\U and info on adversarial leaves: signed zeros, whose
+    sign the 0·x terms flip, ±Inf and NaN that spread, and a zero pivot."""
+    a = _adversarial_leaf(np.random.default_rng(700 + s), s, dtype, case)
+    model, info = _p2_kernel_model(a)
+    plain, plain_info = hopper_ops.lu_nopiv_base_plain(torch.from_numpy(a))
+    _bitwise_equal(model, plain.numpy())
+    assert info == int(plain_info)
+    if case == "zero_pivot" and s > 1:
+        assert info == s // 2 + 1
+
+
+@pytest.mark.parametrize("s", range(1, 65))
+def test_p2_shared_memory_and_barriers_stay_in_their_allocation(s):
+    """Every shared entry P2's kernel touches for a leaf of size s lies in
+    its allocation (sh: 64 rows of kTile), and every entry it reads was
+    written before in the same phase: the load tile (all 64 × 64 entries,
+    0 outside the leaf),
+    the published cols (col of step k at k·kLd + r, for every row r < 64)
+    and the store tile (all 64 rows of every warp's columns). mbarrier
+    k < s is initialised with count 32 and arrived on by the 32 lanes of
+    one warp once (the col of step k is made once), so no wait hangs;
+    none past s is touched.
+    Constants and index expressions from the source."""
+    cols, warps, tile, ld = _p2_constants()
+    size = 64 * tile
+    w, lane = np.divmod(np.arange(32 * warps), 32)
+    t = np.arange(64 * 64 // (32 * warps))
+    e = np.arange(32 * warps)[:, None] + t * 32 * warps
+    hi, lo = e // 64, e % 64
+    load = set()
+    for r, c in ((hi, lo), (lo, hi)):  # either lane order
+        load |= set((r * tile + c).ravel().tolist())
+        assert len(set((r * tile + c).ravel().tolist())) == 64 * 64
+    rr, cc = np.meshgrid(np.arange(s), np.arange(s), indexing="ij")
+    for r in (lane, lane + 32):  # registers read the tile where r, c < s
+        c = w[:, None] * cols + np.arange(cols)
+        read = (r[:, None] * tile + c)[(r[:, None] < s) & (c < s)]
+        assert set(read.tolist()) <= load
+    published = {}
+    for k in range(s):  # make_col(k): the warp holding column k
+        owner = k // cols
+        assert owner * cols <= k < s
+        written = np.concatenate([k * ld + lane[w == owner],
+                                  k * ld + lane[w == owner] + 32])
+        assert np.unique(written).size == 64
+        published[k] = set(written.tolist())
+    for i in range(s):  # every other warp reads rows r0, r1 of step i
+        read = np.concatenate([i * ld + lane, i * ld + lane + 32])
+        assert set(read.tolist()) <= published[i]
+    cols_used = set().union(*published.values())
+    store = set()
+    for r in (lane, lane + 32):
+        store |= set((r[:, None] * tile + w[:, None] * cols
+                      + np.arange(cols)).ravel().tolist())
+    assert set((rr * tile + cc).ravel().tolist()) <= store  # the copy-out
+    every = load | cols_used | store
+    assert min(every) >= 0 and max(every) < size
+    assert 64 * tile * 8 + 64 * 8 + warps * 4 <= 48 * 1024  # static, f64

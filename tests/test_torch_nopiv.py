@@ -110,6 +110,26 @@ def test_getrf_nopiv_zero_pivot_info():
     np.testing.assert_array_equal(np.tril(lu, -1) + np.eye(n), lo)
 
 
+@pytest.mark.parametrize("zeros", [(10,), (70,), (190,), (70, 190)])
+def test_getrf_nopiv_info_across_leaves(zeros):
+    """n = 200 (padded to 224: leaves at 0, 56, 112, 168): an exact zero
+    pivot in the first, a middle or the last leaf, or in two leaves, gives
+    the reference's info, the first bad step of the whole factor, though
+    every leaf after a bad one sees NaN pivots too."""
+    n = 200
+    rng = np.random.default_rng(sum(zeros))
+    lo = np.tril(rng.integers(-1, 2, (n, n)), -1) + np.eye(n)
+    up = np.triu(rng.integers(-1, 2, (n, n)), 1) + np.eye(n)
+    for z in zeros:
+        up[z, z] = 0
+        lo[z + 1:, z] = 0
+    a = lo @ up
+    _, info_ref = st.getrf_nopiv(st.from_dense(a, NB))
+    _, info = stt.getrf_nopiv(_port(a))
+    assert info.dtype == torch.int32 and info.ndim == 0
+    assert int(info) == int(info_ref) == zeros[0] + 1
+
+
 def test_gerbt_matches_reference_with_its_diagonals():
     n = 128
     a, _ = _dominant(n, n, np.float64)
