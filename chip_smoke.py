@@ -48,6 +48,15 @@ Phases, one JSON line each:
            slot with their step offsets (the first bad leaf wins): info
            exact and every entry bit for bit the plain version's (NaN in
            the same places);
+           lu_panel_batched (P3, one block per chunk, one launch per CALU
+           tournament round) bit for bit its plain version (lu, perm and
+           info) at the tournament's round shapes (32, 512, 512) and
+           (16, 1024, 512) in f32 and f64 (timed by CUDA events and by
+           device time per launch, beside the plain version and batched
+           torch.linalg.lu_factor), at one chunk, ragged heights and
+           w < H, with a zero column in one chunk (info there, the other
+           chunks bit for bit as without it), a NaN that must win its
+           column's pivot, and exact pivot ties;
            lu_panel_base, qr_panel_base and qr_panel_base_wide run as one
            cooperative launch over the SMs, with cases in both plan modes
            (row slabs resident in shared memory, and streamed: (65536,
@@ -74,7 +83,11 @@ Phases, one JSON line each:
            (20000, 9000), nb = 128, whose 71-block-column Gram matrix
            takes potrf's recursion (herk_lower_update 7 times), against a
            float64 lstsq; tsqr; the BLAS-3 verbs and norm against float64
-           torch;
+           torch; getrf with MethodLU.CALU at n = 300 (‖A[perm] − L·U‖
+           scaled ≤ 30, 13 lu_panel_batched launches, no lu_panel_base),
+           gesv with CALU and with pivot_threshold = 0.5 against float64
+           numpy, and a singular operator whose CALU info must equal the
+           CPU run's;
 5. main    the serving path: a Session registers an SPD operator (chol),
            a general one (lu), a tall (2n × n/2) one (op "auto" must
            infer qr) and the SPD operator again at nb = n/128 (128 block
@@ -86,14 +99,18 @@ Phases, one JSON line each:
            normal-equations solve (relative error ≤ QR_REL_LIMIT), and a
            1 %-perturbed and a random answer must fail that check; a
            diagonally dominant operator registered with MethodLU.NoPiv
-           (factored by getrf_nopiv: P2 leaves) serves 8 requests too;
+           (factored by getrf_nopiv: P2 leaves) serves 8 requests too, and
+           so does the general operator registered again with
+           MethodLU.CALU (getrf_tntpiv: exactly 161 lu_panel_batched and
+           256 lu_nopiv_base launches and no lu_panel_base at n = 16384;
+           its factor wall beside the lu factor's);
            then chol_inverse_using_factor and lu_inverse_using_factor on
            the resident chol and lu factors, each held to ‖I − A·X‖₁ /
            (n·ε·‖A‖₁·‖X‖₁) ≤ 30 in float64, and one lu_solve of the
            general operator with MethodLU.RBT under the residual gate,
-           with its refinement steps and fallback printed. The P1 and P2
-           launches of every factor, solve and inverse are held to fixed
-           numbers at n = 16384 and 2048 (nb = 512). Peak memory is read
+           with its refinement steps and fallback printed. The P1, P2
+           and P3 launches of every factor, solve and inverse are held to
+           fixed numbers at n = 16384 and 2048 (nb = 512). Peak memory is read
            before the inverses and the float64 checks allocate.
 
 The kernels' launch counters are zeroed just before the check phase and
@@ -943,6 +960,93 @@ def lu_nopiv_info_offsets(torch, ho, gen):
     return out
 
 
+def batched_stack(torch, bsz, hh, w, dtype, gen, fault=None):
+    """A (B, H, w) Gaussian stack for P3, with a fault: "zero_column"
+    (column 3 of chunk B // 2 zero), "nan" (a NaN in the last row of
+    column 2 of chunk 0, zeros left of it, so that row must win that
+    column's pivot) or "tie" (column 0 of every chunk ±1, so row 0 must
+    win; in the last chunk column 1 within ±1 but 7.0 at rows 5 and 9,
+    which stay tied, so row 5 must win there)."""
+    a = torch.randn((bsz, hh, w), generator=gen, device="cuda", dtype=dtype)
+    if fault == "zero_column":
+        a[bsz // 2, :, 3] = 0
+    elif fault == "nan":
+        a[0, hh - 1, :2] = 0
+        a[0, hh - 1, 2] = math.nan
+    elif fault == "tie":
+        a[:, :, 0] = torch.where(torch.arange(hh, device="cuda") % 2 == 1,
+                                 -1.0, 1.0).to(dtype)
+        a[-1, :, 1].clamp_(-1, 1)
+        a[-1, [5, 9], 1] = 7.0
+    return a
+
+
+def lu_batched_case(torch, ho, bsz, hh, w, dtype, gen, timed=False,
+                    fault=None):
+    """P3 against its plain version on the same stack: lu bit for bit (NaN
+    in the same places), perm and info exact, and the fault's contract
+    (``batched_stack``): with a zero column, info 4 in that chunk and
+    every other chunk bit for bit the kernel's result on the stack
+    without it. Timed rows: one launch by CUDA events and by device time
+    per launch, the plain version and batched torch.linalg.lu_factor
+    (cuSOLVER) on the same stack."""
+    a = batched_stack(torch, bsz, hh, w, dtype, gen, fault)
+    lk, pk, ik = ho.lu_panel_batched(a)
+    lp, pp, ip = ho.lu_panel_batched_plain(a)
+    torch.cuda.synchronize()
+    name = f"lu_panel_batched {(bsz, hh, w)} {dtype} fault={fault}"
+    check(torch.equal(pk, pp), f"{name}: perm differs")
+    check(torch.equal(ik, ip), f"{name}: info {ik.tolist()} != "
+          f"{ip.tolist()}")
+    check(same_bits(torch, lk, lp),
+          f"{name}: lu not bit for bit the plain version's")
+    if fault == "zero_column":
+        want = [0] * bsz
+        want[bsz // 2] = 4
+        clean = a.clone()
+        clean[bsz // 2] = torch.randn((hh, w), generator=gen, device="cuda",
+                                      dtype=dtype)
+        lc, pc, ic = ho.lu_panel_batched(clean)
+        keep = [b for b in range(bsz) if b != bsz // 2]
+        check(ik.tolist() == want and same_bits(torch, lk[keep], lc[keep])
+              and torch.equal(pk[keep], pc[keep]) and not ic.any(),
+              f"{name}: info {ik.tolist()}, or another chunk changed")
+    elif fault == "nan":
+        check(int(ik[0]) == 3 and int(pk[0, 2]) == hh - 1,
+              f"{name}: info {ik.tolist()}, pivot {int(pk[0, 2])}")
+    elif fault == "tie":
+        check(bool((pk[:, 0] == 0).all()) and int(pk[-1, 1]) == 5,
+              f"{name}: pivots {pk[:, 0].tolist()}, {int(pk[-1, 1])}")
+    fin = torch.isfinite(lp)
+    diff = (lk - lp)[fin]
+    row = {"B": bsz, "H": hh, "w": w, "dtype": str(dtype).split(".")[1],
+           "plan": {"blocks": bsz, "threads": 1024,
+                    "smem_bytes": w * a.element_size(),
+                    "launches_per_call": 1},
+           "info": ik.tolist() if bsz <= 8 else int(ik.count_nonzero()),
+           "max_abs_err": diff.abs().max().item() if diff.numel() else 0.0,
+           "bitwise_equal": True}
+    if fault is not None:
+        row["fault"] = fault
+    if timed:
+        row["ms"] = cuda_ms(lambda: ho.lu_panel_batched(a))
+        row["device_ms"] = device_ms(lambda: ho.lu_panel_batched(a),
+                                     launches=10)
+        row["plain_ms"] = cuda_ms(lambda: ho.lu_panel_batched_plain(a),
+                                  reps=3)
+        row["library_ms"] = cuda_ms(lambda: torch.linalg.lu_factor(a))
+        s = a.element_size()
+        row["bound_ms"], row["bound_by"] = bound(
+            bsz * (2 * hh * w * s + 4 * hh + 4),
+            bsz * (hh * w * w - w ** 3 / 3.0), row["dtype"])
+        # the other bound, for PERF.md's row: bytes and operations each
+        row["bound_bytes_ms"] = bsz * (2 * hh * w * s + 4 * hh + 4) \
+            / PEAK_BYTES_PER_S * 1e3
+        row["bound_operations_ms"] = bsz * (hh * w * w - w ** 3 / 3.0) \
+            / PEAK_FLOPS[row["dtype"]] * 1e3
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: factorizations and the serving path
 # ---------------------------------------------------------------------------
@@ -1030,16 +1134,27 @@ REC_POTRF_LAUNCHES = {16384: (7, 128), 2048: (1, 128)}
 #  potri: one over the 256 (32) leaves of trtri_rec; getri: as a solve;
 #  the no-pivot factor: one per 64-row trsm_rec base (2048; 160) and one
 #   P2 per 64-row leaf (256; 32).
+#  the CALU factor (lu_calu): per panel top (512²) 24 in its no-pivot
+#   recursion (8 + 2·4 + 4·2 at the 512-, 256- and 128-row nodes), 8 for
+#   the rows below it and 8 for U12 (64-row trsm_rec bases), neither in
+#   the last panel (31·40 + 24 = 1264; 3·40 + 24 = 144); 8 P2 leaves per
+#   panel top (256; 32); P3 once per tournament round (P3_CALU_FACTOR).
 P1_FACTOR = {16384: {"chol": 31, "lu": 287, "qr": 64, "chol_nb128": 312,
-                     "nopiv": 2048},
+                     "nopiv": 2048, "lu_calu": 1264},
              2048: {"chol": 3, "lu": 35, "qr": 8, "chol_nb128": 190,
-                    "nopiv": 160}}
+                    "nopiv": 160, "lu_calu": 144}}
 P1_SOLVE = {16384: {"chol": 64, "lu": 64, "qr": 16, "chol_nb128": 256,
-                    "nopiv": 64},
+                    "nopiv": 64, "lu_calu": 64},
             2048: {"chol": 8, "lu": 8, "qr": 2, "chol_nb128": 256,
-                   "nopiv": 8}}
+                   "nopiv": 8, "lu_calu": 8}}
 P1_INVERSE = {16384: {"potri": 1, "getri": 64}, 2048: {"potri": 1, "getri": 8}}
-P2_NOPIV_FACTOR = {16384: 256, 2048: 32}
+P2_FACTOR = {16384: {"nopiv": 256, "lu_calu": 256},
+             2048: {"nopiv": 32, "lu_calu": 32}}
+# P3 launches of the CALU factor at nb = 512: one per tournament round,
+# log2(chunks bucketed to a power of two) + 1 per panel: n = 16384,
+# 16 panels of 6 rounds, 8 of 5, 4 of 4, 2 of 3, one of 2 and one of 1
+# (161); n = 2048, 3 + 3 + 2 + 1 (9)
+P3_CALU_FACTOR = {16384: 161, 2048: 9}
 
 
 def cholqr_gels_check(torch, stt, ho, gen):
@@ -1288,6 +1403,60 @@ def inverse_verbs_check(torch, stt, gen):
     return out
 
 
+def calu_check(torch, stt, ho, gen):
+    """Tournament pivoting on the card at n = 300, nb = 64 (uneven),
+    float32: getrf with MethodLU.CALU (‖A[perm] − L·U‖ / (n·ε·‖A‖)),
+    gesv with CALU and with pivot_threshold = 0.5, each solution within
+    1e-3 of float64 numpy's and its scaled residual ≤ 30; and a singular
+    operator (column 77 zero), whose CALU info must be 78 and equal to the
+    CPU run's. The CALU factor launches P3 once per tournament round
+    (4 + 3 + 3 + 2 + 1 = 13 over its 5 panels of 320, 256, 192, 128 and
+    64 rows) and no K2."""
+    import numpy as np
+    n, nb, dev = 300, 64, "cuda"
+    a = torch.randn((n, n), generator=gen, device=dev)
+    b = torch.randn((n, 3), generator=gen, device=dev)
+    want = np.linalg.solve(a.double().cpu().numpy(), b.double().cpu().numpy())
+    calu = stt.Options(method_lu=stt.MethodLU.CALU)
+    out = {}
+    before = dict(ho.LAUNCHES)
+    LU, perm, info = stt.getrf(stt.from_dense(a, nb, device=dev), calu)
+    got = {k: ho.LAUNCHES[k] - before[k] for k in ho.LAUNCHES}
+    check(int(info) == 0 and got["lu_panel_batched"] == 13
+          and got["lu_panel_base"] == 0,
+          f"getrf CALU n={n}: info {int(info)}, launches {got}")
+    lu = LU.to_numpy().astype(np.float64)
+    p = perm.cpu().numpy()[:n]
+    low = np.tril(lu, -1) + np.eye(n)
+    a64 = a.double().cpu().numpy()
+    out["calu_pa_lu"] = float(np.abs(a64[p] - low @ np.triu(lu)).max() / (
+        n * torch.finfo(a.dtype).eps * np.abs(a64).max()))
+    check(out["calu_pa_lu"] <= RESIDUAL_BOUND,
+          f"getrf CALU: |A[perm] − L·U| scaled {out['calu_pa_lu']}")
+    for name, opts in (("gesv_calu", calu),
+                       ("gesv_threshold_0.5", stt.Options(pivot_threshold=0.5))):
+        X, info = stt.gesv(stt.from_dense(a, nb, device=dev),
+                           stt.from_dense(b, nb, device=dev), opts)
+        x = X.to_numpy()
+        rel = float(np.abs(x - want).max() / np.abs(want).max())
+        res = max(scaled_residuals(torch, a, torch.from_numpy(x).to(dev), b))
+        check(int(info) == 0 and rel <= 1e-3 and res <= RESIDUAL_BOUND,
+              f"{name}: info {int(info)}, relative error {rel}, scaled "
+              f"residual {res}")
+        out[name] = {"rel_err": rel, "scaled_residual": res}
+    sing = a.clone()
+    sing[:, 77] = 0
+    _, _, info = stt.getrf(stt.from_dense(sing, nb, device=dev), calu)
+    _, _, info_cpu = stt.getrf(stt.from_dense(sing.cpu(), nb, device="cpu"),
+                               calu)
+    check(int(info) == int(info_cpu) == 78,
+          f"getrf CALU of a singular operator: info {int(info)} on the "
+          f"card, {int(info_cpu)} on the CPU, expected 78")
+    out["singular_info"] = int(info)
+    out["launches_getrf"] = got
+    return out
+
+
 def lstsq_normal64(torch, a64, B):
     """Least-squares solutions of the float64 ``a64`` for the columns of
     ``B`` by the float64 normal equations (accurate to about κ(A)²·ε₆₄;
@@ -1335,10 +1504,11 @@ def inverse_phase(torch, stt, ho, sess, ops, gen_m, b_rbt):
 
 
 def check_p1_p2(n, nb, factor_launches, solve_launches, inverse, requests):
-    """P1 and P2 launched as the dispatch says: fixed numbers where the
-    tables above have n (at nb = 512), else at least once; P2 only in
-    the no-pivot factors, and no K1–K5 launch from the inverses or the
-    no-pivot factor (K2 in the RBT solve only if it fell back)."""
+    """P1, P2 and P3 launched as the dispatch says: fixed numbers where
+    the tables above have n (at nb = 512), else at least once; P2 only in
+    the no-pivot and CALU factors, P3 only in the CALU factor, and no
+    K1–K5 launch from the inverses, the no-pivot or the CALU factor (K2
+    in the RBT solve only if it fell back)."""
     exact = nb == 512 and n in P1_FACTOR
     kernels = ("chol_tile", "lu_panel_base", "qr_panel_base",
                "qr_panel_base_wide", "herk_lower_update")
@@ -1352,18 +1522,24 @@ def check_p1_p2(n, nb, factor_launches, solve_launches, inverse, requests):
         want(fl["trtri_leaves"], P1_FACTOR, name, f"the {name} factor")
         want(solve_launches[name]["trtri_leaves"], P1_SOLVE, name,
              f"the {name} solves", requests)
-        p2 = fl["lu_nopiv_base"]
-        check((p2 == P2_NOPIV_FACTOR[n] if exact else p2 > 0)
-              if name == "nopiv" else p2 == 0,
+        p2, p3 = fl["lu_nopiv_base"], fl["lu_panel_batched"]
+        check((p2 == P2_FACTOR[n][name] if exact else p2 > 0)
+              if name in ("nopiv", "lu_calu") else p2 == 0,
               f"the {name} factor launched lu_nopiv_base {p2} times")
-        check(solve_launches[name]["lu_nopiv_base"] == 0,
-              f"the {name} solves launched lu_nopiv_base")
-    check(not any(factor_launches["nopiv"][k] for k in kernels),
-          f"the no-pivot factor launched {factor_launches['nopiv']}")
+        check((p3 == P3_CALU_FACTOR[n] if exact else p3 > 0)
+              if name == "lu_calu" else p3 == 0,
+              f"the {name} factor launched lu_panel_batched {p3} times")
+        check(solve_launches[name]["lu_nopiv_base"] == 0
+              and solve_launches[name]["lu_panel_batched"] == 0,
+              f"the {name} solves launched {solve_launches[name]}")
+    for name in ("nopiv", "lu_calu"):
+        check(not any(factor_launches[name][k] for k in kernels),
+              f"the {name} factor launched {factor_launches[name]}")
     for name in ("potri", "getri"):
         got = inverse[name]["launches"]
         want(got["trtri_leaves"], P1_INVERSE, name, name)
-        check(got["lu_nopiv_base"] == 0 and not any(got[k] for k in kernels),
+        check(got["lu_nopiv_base"] == got["lu_panel_batched"] == 0
+              and not any(got[k] for k in kernels),
               f"{name} launched {got}")
     rbt = inverse["rbt"]
     got = rbt["launches"]
@@ -1373,11 +1549,12 @@ def check_p1_p2(n, nb, factor_launches, solve_launches, inverse, requests):
         if rbt["fallback"]:
             p1 += P1_FACTOR[n]["lu"] + P1_SOLVE[n]["lu"]
         check(got["trtri_leaves"] == p1
-              and got["lu_nopiv_base"] == P2_NOPIV_FACTOR[n]
+              and got["lu_nopiv_base"] == P2_FACTOR[n]["nopiv"]
               and got["lu_panel_base"] == (4 * n // nb if rbt["fallback"]
-                                           else 0),
+                                           else 0)
+              and got["lu_panel_batched"] == 0,
               f"the RBT solve launched {got} after {rbt}, expected "
-              f"{p1} trtri_leaves and {P2_NOPIV_FACTOR[n]} lu_nopiv_base")
+              f"{p1} trtri_leaves and {P2_FACTOR[n]['nopiv']} lu_nopiv_base")
     else:
         check(got["trtri_leaves"] > 0 and got["lu_nopiv_base"] > 0,
               f"the RBT solve launched {got}")
@@ -1400,7 +1577,8 @@ def main_path(torch, stt, ho, n, nb, gen):
                     for k in widths],
            "qr": [torch.randn((m_q, k), generator=gen, device=dev)
                   for k in widths]}
-    rhs["lu"] = rhs["chol_nb128"] = rhs["nopiv"] = rhs["chol"]
+    rhs["lu"] = rhs["chol_nb128"] = rhs["nopiv"] = rhs["lu_calu"] = \
+        rhs["chol"]
     b_rbt = torch.randn((n, 16), generator=gen, device=dev)
     # the SPD operator again at 128 block columns: potrf's 2×2 recursion
     nb_rec = n // 128
@@ -1418,7 +1596,11 @@ def main_path(torch, stt, ho, n, nb, gen):
                spd, nb_rec, stt.Uplo.Lower, device=dev), op="chol"),
            "nopiv": sess.register(stt.from_dense(dom, nb, device=dev),
                                   op="lu", opts=stt.Options(
-                                      method_lu=stt.MethodLU.NoPiv))}
+                                      method_lu=stt.MethodLU.NoPiv)),
+           # the general operator again, factored by tournament pivoting
+           "lu_calu": sess.register(stt.from_dense(gen_m, nb, device=dev),
+                                    op="lu", opts=stt.Options(
+                                        method_lu=stt.MethodLU.CALU))}
     check(sess._ops[ops["chol_nb128"]].A.data.data_ptr() == spd.data_ptr(),
           "the nb = n/128 operator was registered with a copy")
     check(sess._ops[ops["qr"]].op == "qr",
@@ -1452,8 +1634,9 @@ def main_path(torch, stt, ho, n, nb, gen):
     launches = dict(ho.LAUNCHES)
 
     res = {name: [] for name in ops}
-    operators = {"chol": spd, "lu": gen_m, "chol_nb128": spd, "nopiv": dom}
-    for name in ("chol", "lu", "chol_nb128", "nopiv"):
+    operators = {"chol": spd, "lu": gen_m, "chol_nb128": spd, "nopiv": dom,
+                 "lu_calu": gen_m}
+    for name in operators:
         for xs, b in zip(served[name], rhs[name]):
             res[name] += scaled_residuals(torch, operators[name], xs, b)
     # qr: every served column against a float64 solve of the same problem
@@ -1538,6 +1721,10 @@ def main_path(torch, stt, ho, n, nb, gen):
             "herk_lower_update": k5_k1[0], "chol_tile": k5_k1[1]},
         "nopiv_factor_s": factor_s["nopiv"],
         "nopiv_gflops": flops.getrf(n) / factor_s["nopiv"] / 1e9,
+        # the same general operator by tournament pivoting, beside lu's
+        "lu_calu_factor_s": factor_s["lu_calu"],
+        "lu_calu_gflops": flops.getrf(n) / factor_s["lu_calu"] / 1e9,
+        "lu_calu_over_lu_factor": factor_s["lu_calu"] / factor_s["lu"],
         **inverse,
         "solve_p50_s": solve_hist["p50"], "solve_p99_s": solve_hist["p99"],
         "solves": solve_hist["count"],
@@ -1733,6 +1920,23 @@ def main(argv=None) -> int:
         nopiv_rows.append(lu_nopiv_sweep(torch, ho, gen))
         emit("kernel", name="lu_nopiv_base", cases=nopiv_rows,
              info_offsets=lu_nopiv_info_offsets(torch, ho, gen))
+        # P3: the CALU tournament's round shapes at nb = 512 first (timed,
+        # f32 then f64), then one chunk, ragged heights, w < H, and the
+        # failure contracts
+        batched_rows = [lu_batched_case(torch, ho, bsz, hh, w_, dt, gen,
+                                        timed=True)
+                        for dt in (f32, f64)
+                        for bsz, hh, w_ in ((32, 512, 512), (16, 1024, 512))]
+        batched_rows += [lu_batched_case(torch, ho, bsz, hh, w_, dt, gen,
+                                         fault=fault)
+                         for bsz, hh, w_, dt, fault in (
+                             (1, 1000, 300, f32, None),
+                             (3, 777, 129, f64, None),
+                             (5, 45, 45, f32, None), (2, 64, 1, f64, None),
+                             (8, 512, 512, f32, "zero_column"),
+                             (4, 1000, 64, f32, "nan"),
+                             (4, 300, 40, f64, "tie"))]
+        emit("kernel", name="lu_panel_batched", cases=batched_rows)
         # counted paths: the check phase, then the main phase
         ho.reset_launches()
         small = small_check(torch, stt, gen)
@@ -1741,9 +1945,11 @@ def main(argv=None) -> int:
         tsqr = tsqr_check(torch, stt, gen)
         blas3 = blas3_check(torch, stt, gen)
         inverse = inverse_verbs_check(torch, stt, gen)
+        calu = calu_check(torch, stt, ho, gen)
         check_launches = dict(ho.LAUNCHES)
         emit("check", **small, **gels, gels_cholqr=gels_cholqr, tsqr=tsqr,
-             blas3=blas3, inverse_and_nopiv=inverse, launches=check_launches)
+             blas3=blas3, inverse_and_nopiv=inverse, calu=calu,
+             launches=check_launches)
         main = main_path(torch, stt, ho, args.n, args.nb, gen)
     emit("main", **main)
 
@@ -1759,7 +1965,8 @@ def main(argv=None) -> int:
                                 ("qr_panel_base_wide", wide_rows),
                                 ("herk_lower_update", herk_rows),
                                 ("trtri_leaves", trtri_rows),
-                                ("lu_nopiv_base", nopiv_rows))}
+                                ("lu_nopiv_base", nopiv_rows),
+                                ("lu_panel_batched", batched_rows))}
     kernels = []
     for name, src, rep in (
             ("chol_tile", "chol_tile.cu", "slate_tpu/ops/pallas_ops.py:342"),
@@ -1774,7 +1981,9 @@ def main(argv=None) -> int:
             # no Pallas kernel: the reference's vmapped and fori_loop leaves
             ("trtri_leaves", "trtri_leaves.cu",
              "slate_tpu/ops/blocked.py:242"),
-            ("lu_nopiv_base", "lu_nopiv.cu", "slate_tpu/linalg/lu.py:463")):
+            ("lu_nopiv_base", "lu_nopiv.cu", "slate_tpu/linalg/lu.py:463"),
+            ("lu_panel_batched", "lu_panel_batched.cu",
+             "slate_tpu/ops/blocked.py:691")):
         row = timed[name]
         launches = check_launches[name] + main["launches"][name]
         check(launches > 0, f"{name} was not launched on a counted path")
@@ -1789,7 +1998,14 @@ def main(argv=None) -> int:
             **({"entry_ratio_max": row["entry_ratio_max"]}
                if name == "trtri_leaves" else {}),
             **({k: row[k] for k in ("device_ms", "library_device_ms")}
-               if name in ("trtri_leaves", "lu_nopiv_base") else {})})
+               if name in ("trtri_leaves", "lu_nopiv_base") else {}),
+            **({k: row[k] for k in ("device_ms", "bound_bytes_ms",
+                                    "bound_operations_ms")}
+               if name == "lu_panel_batched" else {})})
+    # P3 at the tournament's other round shape, (16, 1024, 512) f32
+    kernels[-1]["at_16x1024x512"] = {k: batched_rows[1][k] for k in (
+        "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "plan")}
     kernels[0]["at_b128"] = {k: k1_128[k] for k in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "plan")}

@@ -12,7 +12,8 @@ where potrf takes its recursion and K1 runs at b = n/128), the general
 chip_smoke.py's main phase once each. ``--factors`` picks some of
 those, or "nopiv" (the main phase's diagonally dominant n × n operator,
 op "lu" with MethodLU.NoPiv: getrf_nopiv, 2048 P1 launches at
-n = 16384), or of three that run a kernel in another plan mode: "chol_f64"
+n = 16384), "calu" (the general operator with MethodLU.CALU:
+getrf_tntpiv, 161 P3 launches at n = 16384), or of three that run a kernel in another plan mode: "chol_f64"
 (the SPD operator in float64 at nb, K1 at b = nb f64), "chol_nb1024"
 (in float32 at nb = 1024, K1 at b = 1024) and "qr_f64_nb32" (an
 8n × 64 float64 operator at nb = 32, K3 at (8n, 32) f64). Each runs
@@ -49,7 +50,8 @@ KERNEL_FUNCS = {"chol_tile": "chol_tile_kernel",
                 "qr_panel": "qr_panel_kernel",
                 "herk_lower_update": "herk_lower_kernel",
                 "trtri_leaves": "trtri_leaves_kernel",
-                "lu_nopiv_base": "lu_nopiv_kernel"}
+                "lu_nopiv_base": "lu_nopiv_kernel",
+                "lu_panel_batched": "lu_panel_batched_kernel"}
 
 
 def register(torch, stt, sess, shape, op, nb, gen, dtype):
@@ -64,6 +66,9 @@ def register(torch, stt, sess, shape, op, nb, gen, dtype):
         a.diagonal().add_(2.0)
         return sess.register(stt.from_dense(a, nb, device="cuda"), op="lu",
                              opts=stt.Options(method_lu=stt.MethodLU.NoPiv))
+    if op == "calu":  # the general operator, tournament pivoting
+        return sess.register(stt.from_dense(a, nb, device="cuda"), op="lu",
+                             opts=stt.Options(method_lu=stt.MethodLU.CALU))
     return sess.register(stt.from_dense(a, nb, device="cuda"), op=op)
 
 
@@ -131,7 +136,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--factors", default="chol,lu,qr,chol_nb128",
                     help="which factors to profile, comma-separated (also "
-                    "nopiv, chol_f64, chol_nb1024, qr_f64_nb32)")
+                    "nopiv, calu, chol_f64, chol_nb1024, qr_f64_nb32)")
     args = ap.parse_args(argv)
 
     import torch
@@ -152,6 +157,7 @@ def main(argv=None) -> int:
                "qr": ((2 * n, n // 2), "qr", args.nb, f32),
                "chol_nb128": ((n, n), "chol", n // 128, f32),
                "nopiv": ((n, n), "nopiv", args.nb, f32),
+               "calu": ((n, n), "calu", args.nb, f32),
                "chol_f64": ((n, n), "chol", args.nb, f64),
                "chol_nb1024": ((n, n), "chol", 1024, f32),
                "qr_f64_nb32": ((8 * n, 64), "qr", 32, f64)}

@@ -24,7 +24,7 @@ from .linalg.cholesky import posv, potrf, potri, potrs, trtri, trtrm
 from .linalg.elementwise import (add, copy, redistribute, scale,
                                  scale_row_col, set_lambda, set_matrix)
 from .linalg.lu import (gerbt, gesv, gesv_nopiv, gesv_rbt, getrf,
-                        getrf_nopiv, getri, getri_oop, getrs)
+                        getrf_nopiv, getrf_tntpiv, getri, getri_oop, getrs)
 from .linalg.norms import col_norms, norm
 from .linalg.qr import (QRFactors, cholqr, gelqf, gels, gels_using_factor,
                         geqrf, qr_multiply_explicit, tsqr, unmlq, unmqr)
@@ -46,8 +46,8 @@ __all__ = [
     "trmm", "trsm", "add", "copy", "redistribute", "scale", "scale_row_col",
     "set_lambda", "set_matrix", "col_norms", "norm",
     "posv", "potrf", "potri", "potrs", "trtri", "trtrm", "gerbt", "gesv",
-    "gesv_nopiv", "gesv_rbt", "getrf", "getrf_nopiv", "getri", "getri_oop",
-    "getrs",
+    "gesv_nopiv", "gesv_rbt", "getrf", "getrf_nopiv", "getrf_tntpiv",
+    "getri", "getri_oop", "getrs",
     "QRFactors", "cholqr", "gelqf", "gels", "gels_using_factor", "geqrf",
     "qr_multiply_explicit", "tsqr", "unmlq", "unmqr", "Session",
 ]

@@ -116,9 +116,10 @@ class Options:
     path, the gemm-based block recursion;
     ``update_precision`` because every factorization path runs its
     matmuls in full precision with TF32 off (core/precision.py);
-    ``lookahead``, ``lu_pivot_fusion`` and ``factor_iter_large`` because
-    the port runs one path, the reference's default (fused pivoting,
-    lookahead-1, the iterative loop wherever it applies)."""
+    ``lookahead``, ``lu_pivot_fusion``, ``lu_tournament_batched`` and
+    ``factor_iter_large`` because the port runs one path, the reference's
+    default (fused pivoting, lookahead-1, batched tournament rounds, the
+    iterative loop wherever it applies)."""
 
     lookahead: int = 1
     pivot_threshold: float = 1.0
@@ -128,6 +129,7 @@ class Options:
     method_hemm: MethodHemm = MethodHemm.Auto
     method_lu: MethodLU = MethodLU.Auto
     lu_pivot_fusion: bool = True
+    lu_tournament_batched: bool = True
     factor_iter_large: bool = True
     method_gels: MethodGels = MethodGels.Auto
     max_iterations: int = 30

@@ -1,8 +1,8 @@
-"""LU family: getrf (partial pivot and no pivoting), getrs, gesv, the
-no-pivot and butterfly solvers (getrf_nopiv, gesv_nopiv, gerbt, gesv_rbt)
-and the inverse (getri, getri_oop) (counterpart of
-``slate_tpu/linalg/lu.py:52-482, 672-848``). CALU and threshold pivoting
-raise until the tournament is ported.
+"""LU family: getrf (partial pivot, threshold pivoting, no pivoting and
+tournament pivoting), getrs, gesv, the no-pivot and butterfly solvers
+(getrf_nopiv, gesv_nopiv, gerbt, gesv_rbt), CALU (getrf_tntpiv) and the
+inverse (getri, getri_oop) (counterpart of
+``slate_tpu/linalg/lu.py:52-848``).
 
 Pivots are a gather permutation: ``A[perm] = L·U``. The reference's
 default round-6/7 path is the one path here: the pivot-fused iterative
@@ -11,10 +11,12 @@ stored L columns reordered once at the end by composed suffix
 permutations) in the lookahead-1 order, with pow2-bucketed panel
 heights; the 2×2 width recursion runs only where the iterative loop
 does not apply (more than ``ITER_MAX_NT`` block columns). The
-reference's ``Options.lookahead``, ``lu_pivot_fusion`` and
-``factor_iter_large`` select its other arms; the port accepts and
-ignores them. Each call clones the operand ONCE into a working copy;
-the reference's functional updates are in-place slice writes on it.
+reference's ``Options.lookahead``, ``lu_pivot_fusion``,
+``lu_tournament_batched`` and ``factor_iter_large`` select its other
+arms; the port accepts and ignores them (its tournament runs the batched
+rounds, one P3 launch each). Each call clones the operand ONCE into a
+working copy; the reference's functional updates are in-place slice
+writes on it.
 
 Padding: padded rows/cols carry an identity diagonal (``unit_pad_diag``,
 the reference's ``_pad_identity_diag``), so the padded system is
@@ -25,7 +27,7 @@ column (it is zero there).
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -56,21 +58,24 @@ def _bucketed_panel(panel: torch.Tensor, nb: int):
     return lu[:rows], perm[:rows], info
 
 
-def _getrf_rec(a: torch.Tensor, nb: int):
+def _getrf_rec(a: torch.Tensor, nb: int, threshold: float = 1.0):
     """Recursive blocked partial-pivot LU of an (M × W) block, W ≤ M
-    (returns new tensors: lu, perm, info)."""
+    (returns new tensors: lu, perm, info). Under ``threshold`` < 1 a tall
+    nb-wide base is a tournament panel (``_tournament_panel``)."""
     m, w = a.shape
     if w <= nb:
+        if threshold < 1.0 and m > w:
+            return _tournament_panel(a, w, nb, m)
         return _bucketed_panel(a, nb)
     if w <= _GETRF_ITER_BASE and w % nb == 0 and w // nb <= _ITER_MAX_NT:
-        return _getrf_iter(a.clone(), nb)
+        return _getrf_iter(a.clone(), nb, threshold)
     h = blocked._half(w, nb)
-    lu1, p1, i1 = _getrf_rec(a[:, :h], nb)
+    lu1, p1, i1 = _getrf_rec(a[:, :h], nb, threshold)
     right = a[:, h:].index_select(0, p1)
     u_top = blocked.trsm_rec(lu1[:h, :h], right[:h], left=True, lower=True,
                              unit=True, base=min(nb, h))
     schur = right[h:] - lu1[h:, :h] @ u_top
-    lu2, p2, i2 = _getrf_rec(schur, nb)
+    lu2, p2, i2 = _getrf_rec(schur, nb, threshold)
     lu = torch.empty_like(a)
     lu[:h, :h] = lu1[:h]
     lu[:h, h:] = u_top
@@ -110,18 +115,25 @@ def _apply_deferred_left_swaps(a: torch.Tensor, pps, nb: int) -> torch.Tensor:
     return a
 
 
-def _getrf_iter(a: torch.Tensor, nb: int):
+def _getrf_iter(a: torch.Tensor, nb: int, threshold: float = 1.0):
     """Iterative right-looking blocked partial-pivot LU, IN PLACE on
     ``a``, in the reference's lookahead-1 order: at step k the next-panel
     slab is updated first, panel k+1 is factored from it, then the
     remaining slabs. Row swaps are fused into the trailing update's row
-    reads; the stored L columns are reordered once at the end. Returns
-    (a, perm, info)."""
+    reads; the stored L columns are reordered once at the end. Under
+    ``threshold`` < 1 (threshold pivoting) each panel is a tournament
+    panel: the winners first (``_tournament_perm``), then the gathered
+    panel eliminated without pivoting. Returns (a, perm, info)."""
     m, w = a.shape
     nt = w // nb
     perm = torch.arange(m, dtype=torch.int32, device=a.device)
     info = torch.zeros((), dtype=torch.int32, device=a.device)
     pps = []
+
+    def factor_panel(panel):
+        if threshold < 1.0:
+            return _tournament_panel(panel, nb, nb, panel.shape[0], m)
+        return _bucketed_panel(panel, nb)
 
     def trail(k0, p_p, lu_p, inv11, lo, hi):
         # one nb-wide column slab at a time: U12 from the pivot rows,
@@ -138,7 +150,7 @@ def _getrf_iter(a: torch.Tensor, nb: int):
     for k in range(nt):
         k0, k1 = k * nb, (k + 1) * nb
         if ahead is None:
-            lu_p, p_p, i_p = _bucketed_panel(a[k0:, k0:k1], nb)
+            lu_p, p_p, i_p = factor_panel(a[k0:, k0:k1])
         else:
             (lu_p, p_p, i_p), ahead = ahead, None
         info = torch.where((info == 0) & (i_p > 0), i_p + k0, info)
@@ -153,24 +165,25 @@ def _getrf_iter(a: torch.Tensor, nb: int):
         lo = k1
         if k1 + nb < w:
             trail(k0, p_p, lu_p, inv11, k1, k1 + nb)
-            ahead = _bucketed_panel(a[k1:, k1:k1 + nb], nb)
+            ahead = factor_panel(a[k1:, k1:k1 + nb])
             lo = k1 + nb
         trail(k0, p_p, lu_p, inv11, lo, w)
     _apply_deferred_left_swaps(a, pps, nb)
     return a, perm, info.to(torch.int32)
 
 
-def _getrf_blocked(a: torch.Tensor, nb: int):
+def _getrf_blocked(a: torch.Tensor, nb: int, threshold: float = 1.0):
     """Blocked partial-pivot LU of the padded working copy (possibly
     rectangular): the iterative loop for every width with nt ≤
     ITER_MAX_NT, else the width recursion; a wide matrix's remaining U
-    columns get one block solve."""
+    columns get one block solve. ``threshold`` < 1 runs tournament
+    panels."""
     m, n = a.shape
     k = min(m, n)
     if _iter_eligible(k, nb):
-        lu, perm, info = _getrf_iter(a[:, :k], nb)
+        lu, perm, info = _getrf_iter(a[:, :k], nb, threshold)
     else:
-        lu, perm, info = _getrf_rec(a[:, :k], nb)
+        lu, perm, info = _getrf_rec(a[:, :k], nb, threshold)
         a[:, :k] = lu
     if n > k:
         rest = a[:, k:].index_select(0, perm)
@@ -179,33 +192,25 @@ def _getrf_blocked(a: torch.Tensor, nb: int):
     return a, perm, info
 
 
-def _check_method(opts: Options, what: str):
-    if opts.method_lu is MethodLU.CALU:
-        raise NotImplementedError(
-            f"{what}: MethodLU.CALU (tournament pivoting) is not ported yet "
-            "(ROADMAP Queue 1 item 3)")
-    if opts.pivot_threshold < 1.0:
-        raise NotImplementedError(
-            f"{what}: pivot_threshold < 1 (threshold pivoting, which runs "
-            "the tournament) is not ported yet (ROADMAP Queue 1 item 3)")
-
-
 @accurate_matmuls
 def getrf(A: TiledMatrix, opts: Options = DEFAULT_OPTIONS
           ) -> Tuple[TiledMatrix, torch.Tensor, torch.Tensor]:
     """Partial-pivot LU: A[perm] = L·U. Returns (LU packed in one
     matrix, perm int32, info 0-d int32: 1-based first zero pivot).
-    ``MethodLU.NoPiv`` factors through ``getrf_nopiv`` and returns the
-    identity perm over the canonical rows."""
-    _check_method(opts, "getrf")
+    ``pivot_threshold`` < 1 runs tournament panels (threshold pivoting);
+    ``MethodLU.CALU`` factors through ``getrf_tntpiv``; ``MethodLU.NoPiv``
+    through ``getrf_nopiv`` (which ignores ``pivot_threshold``) and
+    returns the identity perm over the canonical rows."""
     if opts.method_lu is MethodLU.NoPiv:
         LU, info = getrf_nopiv(A, opts)
         return LU, _iota(LU), info
+    if opts.method_lu is MethodLU.CALU:
+        return getrf_tntpiv(A, opts)
     m, n = A.shape
     # the one working copy of this call: every update below writes it
     a = A.dense_canonical().clone(memory_format=torch.contiguous_format)
     a = unit_pad_diag(a.resolve_conj(), m, n)
-    lu, perm, info = _getrf_blocked(a, A.nb)
+    lu, perm, info = _getrf_blocked(a, A.nb, opts.pivot_threshold)
     out = from_dense(lu, A.nb, logical_shape=(m, n), device=lu.device)
     return out, perm, info
 
@@ -239,11 +244,10 @@ def getrs(LU: TiledMatrix, perm: torch.Tensor, B: TiledMatrix,
 
 def gesv(A: TiledMatrix, B: TiledMatrix, opts: Options = DEFAULT_OPTIONS
          ) -> Tuple[TiledMatrix, torch.Tensor]:
-    """Solve A·X = B (getrf + getrs; ``MethodLU.RBT`` runs
-    ``gesv_rbt``)."""
+    """Solve A·X = B (getrf + getrs, so CALU and threshold pivoting too;
+    ``MethodLU.RBT`` runs ``gesv_rbt``)."""
     if opts.method_lu is MethodLU.RBT:
         return gesv_rbt(A, B, opts)
-    _check_method(opts, "gesv")
     LU, perm, info = getrf(A, opts)
     return getrs(LU, perm, B, opts), info
 
@@ -268,14 +272,19 @@ def _lu_nopiv_leaf(a: torch.Tensor, info: torch.Tensor, offset: int):
     solved against it, L21 = A21·U11⁻¹ below and U12 = L11⁻¹·A12 to the
     right (``blocked.trsm_rec``). This is the reference's unblocked loop
     (``_lu_nopiv_unblocked``, which runs min(m, n) steps over the whole
-    leaf) with other rounding; after a zero pivot the two differ (the loop
-    divides by 1 there, the solve by the pivot)."""
+    leaf) with other rounding. The rows below solve against U11 with each
+    bad diagonal entry (zero or NaN) taken as 1, as that loop divides by 1
+    at a bad pivot, so a zero pivot leaves them finite."""
     m, n = a.shape
     s = min(m, n)
     lu = a[:s, :s]
     hopper_ops.lu_nopiv_base_inplace(lu, info, offset)
     if m > s:
-        a[s:, :s] = blocked.trsm_rec(lu, a[s:, :s], left=False, lower=False)
+        d = lu.diagonal()
+        u11 = torch.triu(lu)
+        u11.diagonal().copy_(torch.where(torch.isnan(d) | (d == 0),
+                                         torch.ones_like(d), d))
+        a[s:, :s] = blocked.trsm_rec(u11, a[s:, :s], left=False, lower=False)
     if n > s:
         a[:s, s:] = blocked.trsm_rec(lu, a[:s, s:], left=True, lower=True,
                                      unit=True)
@@ -333,6 +342,134 @@ def gesv_nopiv(A: TiledMatrix, B: TiledMatrix,
     """Solve A·X = B by ``getrf_nopiv`` and ``getrs``."""
     LU, info = getrf_nopiv(A, opts)
     return getrs(LU, _iota(LU), B, opts), info
+
+
+# ---------------------------------------------------------------------------
+# tournament pivoting (CALU)
+# ---------------------------------------------------------------------------
+
+def _tournament_perm(panel: torch.Tensor, w: int, nb: int, prows: int,
+                     mpad: int) -> torch.Tensor:
+    """CALU tournament over a (prows × w) panel → the length-``prows``
+    gather perm putting the w winner rows on top, the other rows after
+    them in order (the reference's batched arm).
+
+    The panel is cut into nb-row chunks, their count rounded up to a
+    power of two with zero chunks whose candidate rows carry the sentinel
+    ``mpad`` (rows past the panel that pad the last chunk carry their own
+    index ≥ prows). Each round is one ``blocked.panel_getrf_batched`` call
+    over the stack (one P3 launch on the card); each chunk's first w
+    pivot rows are its candidates, and chunk 2i meets chunk 2i + 1 as one
+    (2w, w) chunk of the next round, down to one chunk, whose first w
+    pivot rows win. A sentinel can win only where a panel column is
+    entirely zero; each is replaced by a distinct unused row (the unused
+    rows in order, one per sentinel by its ordinal), so the result stays a
+    permutation and the singularity shows only in info. No host sync."""
+    dev = panel.device
+    nchunks = -(-prows // nb)
+    nck = 1
+    while nck < nchunks:
+        nck *= 2
+    pad = nck * nb - prows
+    if pad:
+        panel = torch.cat([panel, panel.new_zeros((pad, w))])
+    chunks = panel.reshape(nck, nb, w)
+    cand = torch.arange(nck * nb, dtype=torch.int32, device=dev).reshape(
+        nck, nb)
+    if nck != nchunks:
+        cand = torch.where(cand < prows, cand, mpad)
+    while chunks.shape[0] > 1:
+        top = blocked.panel_getrf_batched(chunks)[1][:, :w].long()
+        chunks = chunks.gather(1, top[:, :, None].expand(-1, -1, w)).reshape(
+            -1, 2 * w, w)
+        cand = cand.gather(1, top).reshape(-1, 2 * w)
+    pfin = blocked.panel_getrf_batched(chunks)[1][0, :w].long()
+    winners = cand[0].index_select(0, pfin)  # panel-relative rows
+    valid = winners < prows
+    # index_fill_ takes its value as a scalar: an indexed assignment would
+    # copy it to the card first and wait for the stream
+    used = torch.zeros(prows + 1, dtype=torch.bool, device=dev).index_fill_(
+        0, torch.where(valid, winners, prows).long(), True)
+    # the unused rows in order, first (a stable sort of the flags)
+    unused = torch.argsort(used[:prows].to(torch.int8), stable=True)
+    invalid = (~valid).long()
+    slot = torch.cumsum(invalid, 0) - invalid  # per-slot sentinel ordinal
+    winners = torch.where(valid, winners,
+                          unused.index_select(0, slot).to(torch.int32))
+    others = torch.ones(prows, dtype=torch.bool, device=dev).index_fill_(
+        0, winners.long(), False)
+    rest = torch.argsort((~others).to(torch.int8), stable=True)[:prows - w]
+    return torch.cat([winners, rest.to(torch.int32)])
+
+
+def _tournament_panel(panel: torch.Tensor, w: int, nb: int, prows: int,
+                      mpad: Optional[int] = None):
+    """Tournament-pivoted factorization of a (prows × w) panel → (lu
+    packed, the tournament's compaction perm, info 0-d int32): the
+    winners (``_tournament_perm``, sentinel ``mpad``, default prows), then
+    the panel gathered by that perm (a new tensor, the only copy) and
+    eliminated without pivoting, its w × w top IN PLACE by
+    ``_lu_nopiv_recursive`` (P2 leaves) and the rows below by
+    ``blocked.trsm_rec(..., left=False, lower=False)`` against that U
+    (P1 bases). That solve divides by a zero pivot, as the reference's
+    ``triangular_solve`` does there; info still names the first bad
+    pivot. The reference's ``perm_done`` arm (the caller gathers) is this
+    one: here the gather is always this call's."""
+    p_p = _tournament_perm(panel, w, nb, prows,
+                           prows if mpad is None else mpad)
+    pan = panel.index_select(0, p_p)
+    info = torch.zeros((), dtype=torch.int32, device=panel.device)
+    _lu_nopiv_recursive(pan[:w], info)
+    if prows > w:
+        pan[w:] = blocked.trsm_rec(pan[:w], pan[w:], left=False, lower=False,
+                                   base=_NOPIV_BASE)
+    return pan, p_p, info
+
+
+@accurate_matmuls
+def getrf_tntpiv(A: TiledMatrix, opts: Options = DEFAULT_OPTIONS
+                 ) -> Tuple[TiledMatrix, torch.Tensor, torch.Tensor]:
+    """Tournament (CALU) pivoting LU: A[perm] = L·U → (LU packed, perm
+    int32, info 0-d int32), in the reference's fused form. Per nb-wide
+    panel: the tournament panel (``_tournament_panel``: the winners, then
+    the gathered panel factored without pivoting), U12 by a unit-lower
+    solve of the winner rows and the Schur complement from the other
+    rows, both gathered on read, one nb-wide column slab at a time;
+    the stored L columns are reordered once at the end
+    (``_apply_deferred_left_swaps``). Each call clones the operand once
+    into a working copy and updates it in place."""
+    m, n = A.shape
+    nb = A.nb
+    a = A.dense_canonical().clone(memory_format=torch.contiguous_format)
+    a = unit_pad_diag(a.resolve_conj(), m, n)
+    mpad, npad = a.shape
+    perm = torch.arange(mpad, dtype=torch.int32, device=a.device)
+    info = torch.zeros((), dtype=torch.int32, device=a.device)
+    pps = []
+    for k in range(min(A.mt, A.nt)):
+        k0, k1 = k * nb, min((k + 1) * nb, npad)
+        w, prows = k1 - k0, mpad - k0
+        lu_p, p_perm, i_p = _tournament_panel(a[k0:, k0:k1], w, nb, prows,
+                                              mpad)
+        perm[k0:] = perm[k0:].index_select(0, p_perm)
+        pps.append(p_perm)
+        info = torch.where((info == 0) & (i_p > 0), i_p + k0, info)
+        if k1 < npad:
+            # U12 from the winner rows, then the Schur complement slab by
+            # slab from the other rows, gathered on read (the writes go
+            # below row k1 and the winner rows' values are held in urow)
+            urow = blocked.trsm_rec(
+                lu_p[:w], a[k0:, k1:].index_select(0, p_perm[:w]), left=True,
+                lower=True, unit=True, base=_NOPIV_BASE)
+            for j0 in range(k1, npad, nb):
+                j1 = min(j0 + nb, npad)
+                a[k1:, j0:j1] = (a[k0:, j0:j1].index_select(0, p_perm[w:])
+                                 - lu_p[w:] @ urow[:, j0 - k1:j1 - k1])
+            a[k0:k1, k1:] = urow
+        a[k0:, k0:k1] = lu_p
+    _apply_deferred_left_swaps(a, pps, nb)
+    return (from_dense(a, nb, logical_shape=(m, n), device=a.device), perm,
+            info.to(torch.int32))
 
 
 # ---------------------------------------------------------------------------

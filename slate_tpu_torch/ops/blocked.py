@@ -278,6 +278,16 @@ def panel_getrf(a: torch.Tensor, ib: int = PANEL_IB
     return lu, perm, info.to(torch.int32)
 
 
+def panel_getrf_batched(stack: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Partial-pivot LU of every chunk of a (B, H, w) stack, the per-round
+    factorization of the CALU tournament → (lu, perm (B, H), info (B,))
+    stacks with ``panel_getrf``'s contract per chunk. One
+    ``lu_panel_batched`` call: the P3 kernel on the card (one launch per
+    round), its plain version on the CPU."""
+    return hopper_ops.lu_panel_batched(stack.contiguous())
+
+
 # ---------------------------------------------------------------------------
 # blocked panel QR (Householder)
 # ---------------------------------------------------------------------------

@@ -39,13 +39,15 @@ cluster barriers per 32-wide step. K5 (``herk_lower_update``) runs on
 the tensor cores through warp-level ``mma.sync`` (FP64 DMMA, 3×TF32 in
 float32), one block per lower tile pair of the plan ``herk_plan``.
 
-Two kernels have no Pallas counterpart: they replace programs the
+Three kernels have no Pallas counterpart: they replace programs the
 reference fuses with ``jax.vmap``/``fori_loop`` and the port would
 otherwise run as Python loops of small launches. P1
 (``trtri_leaves``) inverts a stack of lower-triangular leaves of at most
 64 rows, one block per leaf; P2 (``lu_nopiv_base``) is the no-pivot LU of
 one square leaf of at most 64 rows, in one block, in place through the
-leaf's strides (``lu_nopiv_base_inplace``).
+leaf's strides (``lu_nopiv_base_inplace``); P3 (``lu_panel_batched``) is
+the partial-pivot LU of every chunk of a (B, H, w) stack, one block per
+chunk, so one launch is one round of the CALU tournament.
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ from . import _build
 LAUNCHES: Dict[str, int] = {"chol_tile": 0, "lu_panel_base": 0,
                             "qr_panel_base": 0, "qr_panel_base_wide": 0,
                             "herk_lower_update": 0, "trtri_leaves": 0,
-                            "lu_nopiv_base": 0}
+                            "lu_nopiv_base": 0, "lu_panel_batched": 0}
 
 _REAL = (torch.float32, torch.float64)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -881,3 +883,102 @@ def lu_nopiv_base_inplace(a: torch.Tensor, info: torch.Tensor,
     _raise_on(rc, "lu_nopiv", "slate_lu_nopiv_error_string",
               f"{name} (s={s})")
     LAUNCHES["lu_nopiv_base"] += 1
+
+
+# ---------------------------------------------------------------------------
+# P3: partial-pivot LU of every chunk of a stack (no Pallas counterpart)
+# ---------------------------------------------------------------------------
+
+def lu_panel_batched_plain(stack: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of P3 (= the reference's ``_panel_getrf_batched_impl``,
+    written out over the batch): per chunk, ``lu_panel_base_plain``'s
+    column loop — argmax pivot under jnp.argmax's rule (NaN is the
+    maximum, ties go to the lowest row, rows above j are not candidates),
+    row and perm swap, first-bad-pivot info (that column divides by 1),
+    scale, and the rank-1 update of the trailing block as a rounded
+    product and a separate difference. Every step runs on all B chunks at
+    once and no reduction crosses chunks. Returns (lu, perm int32 (B, H)
+    with stack[b][perm[b]] = L·U, info int32 (B,)). No host sync."""
+    bsz, hh, w = stack.shape
+    dev = stack.device
+    lu = stack.clone()
+    perm = torch.arange(hh, dtype=torch.int32, device=dev).repeat(bsz, 1)
+    info = torch.zeros(bsz, dtype=torch.int32, device=dev)
+    one = torch.ones((), dtype=stack.dtype, device=dev)
+    batch = torch.arange(bsz, device=dev)
+    for j in range(w):
+        col = lu[:, j:, j].abs()
+        nanmask = torch.isnan(col)
+        finite = torch.where(nanmask, torch.full_like(col, -1.0), col)
+        cand = torch.where(nanmask.any(1, keepdim=True), nanmask,
+                           finite == finite.max(1, keepdim=True).values)
+        idx = torch.arange(hh - j, device=dev).expand_as(col)
+        p = torch.where(cand, idx, hh).min(1).values + j
+        row_j, row_p = lu[batch, j], lu[batch, p]
+        lu[batch, p] = row_j
+        lu[batch, j] = row_p
+        perm_j, perm_p = perm[batch, j], perm[batch, p]
+        perm[batch, p] = perm_j
+        perm[batch, j] = perm_p
+        d = lu[:, j, j]
+        bad = torch.isnan(d) | (d == 0)
+        info = torch.where((info == 0) & bad,
+                           torch.full_like(info, j + 1), info)
+        dsafe = torch.where(bad, one, d)
+        if j + 1 < hh:
+            lu[:, j + 1:, j] /= dsafe[:, None]
+            if j + 1 < w:
+                lu[:, j + 1:, j + 1:] -= (lu[:, j + 1:, j, None]
+                                          * lu[:, j, None, j + 1:])
+    return lu, perm, info
+
+
+def lu_panel_batched(stack: torch.Tensor):
+    """Partial-pivot LU of every (H, w) chunk of a contiguous (B, H, w)
+    stack, 0 < w ≤ H → (lu, perm int32 (B, H), info int32 (B,)), each
+    chunk with ``lu_panel_base``'s contract. Chunks never mix: a zero or
+    NaN column in one changes nothing in the others.
+
+    Counterpart of ``blocked.panel_getrf_batched`` (body
+    ``_panel_getrf_batched_impl``, slate_tpu/ops/blocked.py:691-763; no
+    Pallas kernel), the reference's one batched program per CALU
+    tournament round. The CUDA kernel (csrc/lu_panel_batched.cu) runs one
+    block per chunk, the whole stack in one launch, so one launch is one
+    round: a column loop inside the block, the pivot search as a block
+    argmax (fused into the previous column's update), the row swap and the
+    rank-1 update in global memory (a round's stack mostly stays in L2).
+    It is bound by the chunk's H·w² update traffic through one SM.
+    The stack must be contiguous (``blocked.panel_getrf_batched`` makes it
+    so). Bitwise equal to the plain version on the same input: lu, perm
+    and info. Real float32/float64 only."""
+    if stack.dtype not in _REAL:
+        raise NotImplementedError(
+            f"lu_panel_batched: real float32/float64 only, got {stack.dtype} "
+            "(complex: ROADMAP Queue 1 item 3)")
+    if stack.ndim != 3:
+        raise SlateError(f"lu_panel_batched: expects a (B, H, w) stack, got "
+                         f"{tuple(stack.shape)}")
+    bsz, hh, w = stack.shape
+    if w > hh or w == 0:
+        raise SlateError(f"lu_panel_batched: needs 0 < w ≤ H, got "
+                         f"{(hh, w)}")
+    if stack.device.type == "cpu":
+        return lu_panel_batched_plain(stack)
+    _check_cuda_args("lu_panel_batched", stack)
+    lu = torch.empty_like(stack)
+    perm = torch.empty((bsz, hh), dtype=torch.int32, device=stack.device)
+    info = torch.empty(bsz, dtype=torch.int32, device=stack.device)
+    if bsz == 0:
+        return lu, perm, info
+    f = _fn("lu_panel_batched",
+            f"slate_lu_panel_batched_{_SUFFIX[stack.dtype]}",
+            [_P, _P, _P, _P, _I, _I, _I, _P])
+    with torch.cuda.device(stack.device):
+        rc = f(stack.data_ptr(), lu.data_ptr(), perm.data_ptr(),
+               info.data_ptr(), bsz, hh, w,
+               torch.cuda.current_stream(stack.device).cuda_stream)
+    _raise_on(rc, "lu_panel_batched", "slate_lu_panel_batched_error_string",
+              f"lu_panel_batched (B={bsz}, H={hh}, w={w})")
+    LAUNCHES["lu_panel_batched"] += 1
+    return lu, perm, info

@@ -117,7 +117,8 @@ def test_getrf_recursion_path(monkeypatch):
     calls = []
     rec = port_lu._getrf_rec
     monkeypatch.setattr(port_lu, "_getrf_rec",
-                        lambda a, nb: calls.append(a.shape[1]) or rec(a, nb))
+                        lambda a, nb, threshold=1.0: calls.append(a.shape[1])
+                        or rec(a, nb, threshold))
     LU, perm, info = _port_getrf(a)
     assert calls[:3] == [224, 128, 64]
     assert int(info) == 0
@@ -185,18 +186,3 @@ def test_gemm_matches_reference():
                      stt.from_dense(c, NB, device="cpu"))
     assert out.logical_shape == (70, 50)
     np.testing.assert_allclose(out.to_numpy(), ref, rtol=1e-12, atol=1e-12)
-
-
-@pytest.mark.parametrize("opts", [
-    stt.Options(method_lu=stt.MethodLU.CALU),
-    stt.Options(method_lu=stt.MethodLU.PartialPiv, pivot_threshold=0.0),
-    stt.Options(pivot_threshold=0.5),
-    stt.Options(method_lu=stt.MethodLU.NoPiv, pivot_threshold=0.5)])
-def test_unported_methods_raise(opts):
-    """CALU and threshold pivoting (the tournament) still raise, in getrf
-    and gesv; NoPiv and RBT are ported (tests/test_torch_nopiv.py)."""
-    A = stt.from_dense(np.eye(8), 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        stt.getrf(A, opts)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        stt.gesv(A, A, opts)

@@ -110,6 +110,29 @@ def test_getrf_nopiv_zero_pivot_info():
     np.testing.assert_array_equal(np.tril(lu, -1) + np.eye(n), lo)
 
 
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_getrf_nopiv_tall_zero_pivot_in_the_last_leaf(dtype):
+    """150 × 90 (padded to 160 × 96: the last leaf is 112 × 48, tall) with
+    an exact zero pivot at step 70 from integer factors: the rows below
+    the leaf's square solve with the bad pivot taken as 1, as the
+    reference's unblocked loop divides by 1 there, so the factors stay
+    finite and match the reference's; info is 71 in both."""
+    m, n, z = 150, 90, 70
+    rng = np.random.default_rng(1570)
+    lo = np.tril(rng.integers(-1, 2, (m, n)), -1) + np.eye(m, n)
+    up = np.triu(rng.integers(-1, 2, (n, n)), 1) + np.eye(n)
+    up[z, z] = 0
+    lo[z + 1:, z] = 0
+    a = (lo @ up).astype(dtype)
+    LU_ref, info_ref = st.getrf_nopiv(st.from_dense(a, NB))
+    LU, info = stt.getrf_nopiv(_port(a))
+    assert int(info) == int(info_ref) == z + 1
+    lu, lu_ref = LU.to_numpy(), LU_ref.to_numpy()
+    assert np.isfinite(lu_ref).all() and np.isfinite(lu).all()
+    assert _rel(lu, lu_ref) < TOL[dtype]
+    np.testing.assert_array_equal(np.triu(lu)[:n], up)
+
+
 @pytest.mark.parametrize("zeros", [(10,), (70,), (190,), (70, 190)])
 def test_getrf_nopiv_info_across_leaves(zeros):
     """n = 200 (padded to 224: leaves at 0, 56, 112, 168): an exact zero
