@@ -48,15 +48,20 @@ Phases, one JSON line each:
            slot with their step offsets (the first bad leaf wins): info
            exact and every entry bit for bit the plain version's (NaN in
            the same places);
-           lu_panel_batched (P3, one block per chunk, one launch per CALU
-           tournament round) bit for bit its plain version (lu, perm and
-           info) at the tournament's round shapes (32, 512, 512) and
-           (16, 1024, 512) in f32 and f64 (timed by CUDA events and by
+           lu_panel_batched (P3, one thread-block cluster per chunk, one
+           launch per CALU tournament round) bit for bit its plain
+           version (lu, perm and info) at the tournament's round shapes
+           (32, 512, 512) and (16, 1024, 512) in f32 and f64 and the
+           final round's (1, 1024, 512) f32 (timed by CUDA events and by
            device time per launch, beside the plain version and batched
-           torch.linalg.lu_factor), at one chunk, ragged heights and
-           w < H, with a zero column in one chunk (info there, the other
-           chunks bit for bit as without it), a NaN that must win its
-           column's pivot, and exact pivot ties;
+           torch.linalg.lu_factor), on both sides of the boundary between
+           resident and streaming CTAs ((1, 1744, 512) and (1, 1745, 512)
+           f32), at one chunk, ragged heights and w < H, with a zero
+           column in one chunk (info there, the other chunks bit for bit
+           as without it), a NaN that must win its column's pivot, and
+           exact pivot ties; each row prints its plan (CTAs per chunk,
+           rows per CTA, mode, shared memory per CTA, which must equal
+           the C launcher's);
            lu_panel_base, qr_panel_base and qr_panel_base_wide run as one
            cooperative launch over the SMs, with cases in both plan modes
            (row slabs resident in shared memory, and streamed: (65536,
@@ -119,8 +124,9 @@ to compare a kernel with its plain version are not counted.
 Then a {"kernels": [...]} line (for each kernel also its plan, which is
 derived from the shape, the type and the SM count the run queried, not
 measured; for chol_tile also its numbers at b = 128 under "at_b128",
-for herk_lower_update at 2048² float64 under "at_f64_2048"), the
-nvidia-smi line,
+for herk_lower_update at 2048² float64 under "at_f64_2048", for
+lu_panel_batched at (16, 1024, 512) and (1, 1024, 512) f32 under
+"at_16x1024x512" and "at_1x1024x512"), the nvidia-smi line,
 and last
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device, or
@@ -981,6 +987,36 @@ def batched_stack(torch, bsz, hh, w, dtype, gen, fault=None):
     return a
 
 
+def p3_plan_row(ho, a):
+    """The cluster plan P3 launches with for the stack ``a``; the plan's
+    shared memory per CTA must be the launcher's."""
+    bsz, hh, w = a.shape
+    plan = ho.lu_panel_batched_plan_for(a)
+    launch_smem = ho.lu_panel_batched_launch_smem(hh, w, a.element_size(),
+                                                  plan)
+    check(plan.smem_bytes == launch_smem,
+          f"lu_panel_batched {(bsz, hh, w)}: the plan counts "
+          f"{plan.smem_bytes} bytes of shared memory, the launcher "
+          f"{launch_smem}")
+    return {"clusters": bsz, "ctas": plan.ctas, "rows": plan.rows,
+            "mode": plan.mode, "smem_bytes": plan.smem_bytes,
+            "launches_per_call": 1}
+
+
+def check_p3_modes(rows):
+    """The kernel phase must run P3 with resident and with streaming
+    CTAs, and on both sides of the boundary between them: (1, 1744, 512)
+    f32 resident at 16 CTAs (109 rows a CTA), (1, 1745, 512) streaming."""
+    modes = {r["plan"]["mode"] for r in rows}
+    edge = {r["H"]: r["plan"] for r in rows
+            if r["B"] == 1 and r["w"] == 512 and r["H"] in (1744, 1745)}
+    check(modes == {"resident", "streaming"} and len(edge) == 2
+          and edge[1744]["mode"] == "resident"
+          and edge[1745]["mode"] == "streaming",
+          f"lu_panel_batched: the cases did not cover both plan modes and "
+          f"their boundary: {modes}, {edge}")
+
+
 def lu_batched_case(torch, ho, bsz, hh, w, dtype, gen, timed=False,
                     fault=None):
     """P3 against its plain version on the same stack: lu bit for bit (NaN
@@ -1020,9 +1056,7 @@ def lu_batched_case(torch, ho, bsz, hh, w, dtype, gen, timed=False,
     fin = torch.isfinite(lp)
     diff = (lk - lp)[fin]
     row = {"B": bsz, "H": hh, "w": w, "dtype": str(dtype).split(".")[1],
-           "plan": {"blocks": bsz, "threads": 1024,
-                    "smem_bytes": w * a.element_size(),
-                    "launches_per_call": 1},
+           "plan": p3_plan_row(ho, a),
            "info": ik.tolist() if bsz <= 8 else int(ik.count_nonzero()),
            "max_abs_err": diff.abs().max().item() if diff.numel() else 0.0,
            "bitwise_equal": True}
@@ -1927,15 +1961,21 @@ def main(argv=None) -> int:
                                         timed=True)
                         for dt in (f32, f64)
                         for bsz, hh, w_ in ((32, 512, 512), (16, 1024, 512))]
+        # the final round's shape, then the resident/streaming boundary
+        batched_rows.append(lu_batched_case(torch, ho, 1, 1024, 512, f32,
+                                            gen, timed=True))
         batched_rows += [lu_batched_case(torch, ho, bsz, hh, w_, dt, gen,
                                          fault=fault)
                          for bsz, hh, w_, dt, fault in (
+                             (1, 1744, 512, f32, None),
+                             (1, 1745, 512, f32, None),
                              (1, 1000, 300, f32, None),
                              (3, 777, 129, f64, None),
                              (5, 45, 45, f32, None), (2, 64, 1, f64, None),
                              (8, 512, 512, f32, "zero_column"),
                              (4, 1000, 64, f32, "nan"),
                              (4, 300, 40, f64, "tie"))]
+        check_p3_modes(batched_rows)
         emit("kernel", name="lu_panel_batched", cases=batched_rows)
         # counted paths: the check phase, then the main phase
         ho.reset_launches()
@@ -2002,10 +2042,13 @@ def main(argv=None) -> int:
             **({k: row[k] for k in ("device_ms", "bound_bytes_ms",
                                     "bound_operations_ms")}
                if name == "lu_panel_batched" else {})})
-    # P3 at the tournament's other round shape, (16, 1024, 512) f32
-    kernels[-1]["at_16x1024x512"] = {k: batched_rows[1][k] for k in (
-        "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms", "plan")}
+    # P3 at the tournament's other round shapes, (16, 1024, 512) f32 and
+    # the final round's (1, 1024, 512)
+    p3_keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+               "bound_by", "bound_bytes_ms", "bound_operations_ms",
+               "library_ms", "plan")
+    kernels[-1]["at_16x1024x512"] = {k: batched_rows[1][k] for k in p3_keys}
+    kernels[-1]["at_1x1024x512"] = {k: batched_rows[4][k] for k in p3_keys}
     kernels[0]["at_b128"] = {k: k1_128[k] for k in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "plan")}

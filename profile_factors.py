@@ -27,8 +27,10 @@ clock ending in a sync: the factor time), the summed time of its
 device events (kernels, copies, sets; no host op is counted, so nothing
 twice) and its share of that wall, the count of device events, the
 device time and launches of each of the port's own kernels (by kernel
-name; "qr_panel" is K3 and K4, which share one kernel body), and the top twelve device events by device time and host
-ops by self CPU time. The last line is the card's nvidia-smi name and
+name; "qr_panel" is K3 and K4, which share one kernel body), P3's
+launches by (B, H, w) stack shape with the cluster plan each took
+(``p3_rounds``, counted in the unprofiled run), and the top twelve
+device events by device time and host ops by self CPU time. The last line is the card's nvidia-smi name and
 power limit. Exits 2 without a CUDA device. Imports nothing of JAX and
 nothing of slate_tpu.
 """
@@ -36,6 +38,7 @@ nothing of slate_tpu.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -72,6 +75,32 @@ def register(torch, stt, sess, shape, op, nb, gen, dtype):
     return sess.register(stt.from_dense(a, nb, device="cuda"), op=op)
 
 
+@contextlib.contextmanager
+def p3_rounds():
+    """Counts the P3 launches made inside the block by (B, H, w) stack,
+    each with the plan it launched with (null on a tree without
+    ``lu_panel_batched_plan_for``)."""
+    from slate_tpu_torch.ops import hopper_ops as ho
+    launch, plan_for = (ho.lu_panel_batched,
+                        getattr(ho, "lu_panel_batched_plan_for", None))
+    rounds = {}
+
+    def counted(stack):
+        key = "x".join(map(str, stack.shape))
+        if key not in rounds:
+            plan = plan_for(stack) if plan_for else None
+            rounds[key] = {"launches": 0, "plan": plan and {
+                "ctas": plan.ctas, "mode": plan.mode}}
+        rounds[key]["launches"] += 1
+        return launch(stack)
+
+    ho.lu_panel_batched = counted
+    try:
+        yield rounds
+    finally:
+        ho.lu_panel_batched = launch
+
+
 def profile_factor(torch, stt, sess, shape, op, nb, dtype, gen, top=12):
     from torch.profiler import ProfilerActivity, profile
 
@@ -95,13 +124,15 @@ def profile_factor(torch, stt, sess, shape, op, nb, dtype, gen, top=12):
     if info != 0:
         raise AssertionError(f"{op} factor: info {info}")
     sess.unregister(h)
-    # the same factor again without the profiler: its wall time
+    # the same factor again without the profiler: its wall time, and P3's
+    # rounds by stack shape with their plans
     h = register(torch, stt, sess, shape, op, nb, gen, dtype)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sess.factor_info(h)
-    torch.cuda.synchronize()
-    unprofiled = time.perf_counter() - t0
+    with p3_rounds() as rounds:
+        t0 = time.perf_counter()
+        sess.factor_info(h)
+        torch.cuda.synchronize()
+        unprofiled = time.perf_counter() - t0
     sess.unregister(h)
     events = prof.key_averages()
     dev = [e for e in events if on_device(e)]
@@ -114,6 +145,7 @@ def profile_factor(torch, stt, sess, shape, op, nb, dtype, gen, top=12):
         "device_busy_s": busy_us / 1e6,
         "device_busy_share": busy_us / 1e6 / wall,
         "device_events": sum(e.count for e in dev),
+        "p3_rounds": rounds,
         "port_kernels": {
             k: {"device_ms": sum(dev_us(e) for e in mine) / 1e3,
                 "count": sum(e.count for e in mine)}

@@ -46,8 +46,11 @@ otherwise run as Python loops of small launches. P1
 64 rows, one block per leaf; P2 (``lu_nopiv_base``) is the no-pivot LU of
 one square leaf of at most 64 rows, in one block, in place through the
 leaf's strides (``lu_nopiv_base_inplace``); P3 (``lu_panel_batched``) is
-the partial-pivot LU of every chunk of a (B, H, w) stack, one block per
-chunk, so one launch is one round of the CALU tournament.
+the partial-pivot LU of every chunk of a (B, H, w) stack, one
+thread-block cluster per chunk with the plan ``lu_panel_batched_plan``
+(rows dealt cyclically to up to 16 CTAs, resident or streamed, row
+positions swapped instead of rows, one cluster barrier per column), so
+one launch is one round of the CALU tournament.
 """
 
 from __future__ import annotations
@@ -934,6 +937,133 @@ def lu_panel_batched_plain(stack: torch.Tensor
     return lu, perm, info
 
 
+P3_CLUSTERS = (1, 2, 4, 8, 16)  # cluster sizes P3 takes (16: non-portable)
+P3_WARPS = 8           # csrc/lu_panel_batched.cu kWarps (256 threads a CTA)
+P3_CTAS_PER_SM = 2     # its __launch_bounds__(256, 2)
+SM_SMEM = 233_472      # 228 KB: the shared memory of one SM
+SMEM_BLOCK_RESERVED = 1_024  # the runtime's own shared memory per block
+
+
+class P3Plan(NamedTuple):
+    """P3's cluster of ``ctas`` CTAs per chunk: row i of a chunk is CTA
+    i mod ctas's slot i // ctas, ``rows`` the slots of the fullest CTA.
+    ``resident``: each CTA holds its slots in shared memory, else in a
+    global scratch of its own. ``smem_bytes``: shared memory per CTA."""
+    ctas: int
+    rows: int
+    resident: bool
+    smem_bytes: int
+
+    @property
+    def mode(self) -> str:
+        return "resident" if self.resident else "streaming"
+
+    def slots(self, cta: int, hh: int) -> range:
+        """The chunk rows CTA ``cta`` owns, slot by slot."""
+        return range(cta, hh, self.ctas)
+
+
+def _align16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def lu_panel_batched_smem_bytes(hh: int, w: int, itemsize: int, ctas: int,
+                                resident: bool) -> int:
+    """Shared memory of one P3 CTA (csrc/lu_panel_batched.cu
+    ``smem_bytes``, held against it by ``lu_panel_batched_launch_smem`` in
+    ``chip_smoke.py``): the candidates of the cluster's ctas · 8 warps
+    for two columns and the pivot (16 bytes each), each slot's position,
+    the U rows of two columns and, resident, the CTA's slots."""
+    rows = -(-hh // ctas)
+    nbytes = ((2 * ctas * P3_WARPS + 1) * 16 + _align16(4 * rows)
+              + 2 * _align16(w * itemsize))
+    return nbytes + (rows * w * itemsize if resident else 0)
+
+
+def lu_panel_batched_plan_with(hh: int, w: int, itemsize: int,
+                               ctas: int) -> P3Plan:
+    """The plan at a given cluster size: resident when the slots fit
+    PANEL_SMEM_LIMIT. Refuses a size P3 does not take, more CTAs than
+    rows, and a streaming CTA whose U row does not fit."""
+    if ctas not in P3_CLUSTERS or ctas > hh or w < 1 or w > hh:
+        raise SlateError(f"lu_panel_batched_plan: no plan of {ctas} CTAs "
+                         f"for a chunk of {(hh, w)}")
+    resident = lu_panel_batched_smem_bytes(
+        hh, w, itemsize, ctas, True) <= PANEL_SMEM_LIMIT
+    smem = lu_panel_batched_smem_bytes(hh, w, itemsize, ctas, resident)
+    if smem > PANEL_SMEM_LIMIT:
+        raise SlateError(f"lu_panel_batched_plan: a chunk of {(hh, w)} "
+                         f"needs {smem} bytes of shared memory per CTA")
+    return P3Plan(ctas, -(-hh // ctas), resident, smem)
+
+
+def lu_panel_batched_plan(bsz: int, hh: int, w: int, itemsize: int,
+                          n_sm: int) -> P3Plan:
+    """P3's plan for a (bsz, hh, w) stack of ``itemsize``-byte elements
+    on a card with ``n_sm`` SMs: the cluster size C ∈ P3_CLUSTERS (at
+    most hh) whose CTAs hold their slots in shared memory, then whose
+    bsz·C CTAs fill the card in the fewest waves (P3_CTAS_PER_SM CTAs an
+    SM where their shared memory allows), then the largest C. A resident
+    plan wins over one wave fewer: on an H100 (16, 1024, 512) f32 took
+    5.4 ms at C = 16 resident in three waves and 6.3 ms at C = 8
+    streaming in one (tools/p3_plans.py). Many small chunks take C = 1,
+    where more CTAs would need more waves. Pure: the C launcher checks
+    it, the CPU tests hold it."""
+    if bsz < 1 or itemsize < 1 or n_sm < 1 or w < 1 or w > hh:
+        raise SlateError(f"lu_panel_batched_plan: bad stack "
+                         f"{(bsz, hh, w)}, itemsize {itemsize} or SM "
+                         f"count {n_sm}")
+    best, key = None, None
+    for ctas in P3_CLUSTERS:
+        try:
+            plan = lu_panel_batched_plan_with(hh, w, itemsize, ctas)
+        except SlateError:
+            continue
+        per_sm = min(P3_CTAS_PER_SM,
+                     SM_SMEM // (plan.smem_bytes + SMEM_BLOCK_RESERVED))
+        waves = -(-bsz * ctas // (n_sm * per_sm))
+        k = (not plan.resident, waves, -ctas)
+        if key is None or k < key:
+            best, key = plan, k
+    if best is None:
+        raise SlateError(f"lu_panel_batched_plan: a chunk of {(hh, w)} "
+                         f"does not fit a CTA's shared memory")
+    return best
+
+
+def lu_panel_batched_plan_for(stack: torch.Tensor) -> P3Plan:
+    """The plan P3 launches with for the CUDA stack ``stack``."""
+    bsz, hh, w = stack.shape
+    return lu_panel_batched_plan(bsz, hh, w, stack.element_size(),
+                                 _sm_count(stack.device.index))
+
+
+def lu_panel_batched_launch_smem(hh: int, w: int, itemsize: int,
+                                 plan: P3Plan) -> int:
+    """The shared memory per CTA that the C launcher sizes ``plan`` with
+    (``slate_lu_panel_batched_smem_bytes``); ``chip_smoke.py`` holds the
+    plan's ``smem_bytes`` against it. Needs the built kernel."""
+    return _fn("lu_panel_batched", "slate_lu_panel_batched_smem_bytes",
+               [_I] * 5, ctypes.c_longlong)(hh, w, plan.ctas,
+                                            int(plan.resident), itemsize)
+
+
+def lu_panel_batched_max_clusters(stack: torch.Tensor, plan: P3Plan) -> int:
+    """How many clusters of ``plan`` the card holds at once
+    (cudaOccupancyMaxActiveClusters), for timing plans against each
+    other. Needs the built kernel."""
+    bsz, hh, w = stack.shape
+    out = ctypes.c_int(0)
+    f = _fn("lu_panel_batched",
+            f"slate_lu_panel_batched_{_SUFFIX[stack.dtype]}_clusters",
+            [_I] * 5 + [ctypes.POINTER(ctypes.c_int)])
+    with torch.cuda.device(stack.device):
+        rc = f(bsz, hh, w, plan.ctas, int(plan.resident), ctypes.byref(out))
+    _raise_on(rc, "lu_panel_batched", "slate_lu_panel_batched_error_string",
+              f"lu_panel_batched_max_clusters (plan {plan})")
+    return out.value
+
+
 def lu_panel_batched(stack: torch.Tensor):
     """Partial-pivot LU of every (H, w) chunk of a contiguous (B, H, w)
     stack, 0 < w ≤ H → (lu, perm int32 (B, H), info int32 (B,)), each
@@ -944,14 +1074,14 @@ def lu_panel_batched(stack: torch.Tensor):
     ``_panel_getrf_batched_impl``, slate_tpu/ops/blocked.py:691-763; no
     Pallas kernel), the reference's one batched program per CALU
     tournament round. The CUDA kernel (csrc/lu_panel_batched.cu) runs one
-    block per chunk, the whole stack in one launch, so one launch is one
-    round: a column loop inside the block, the pivot search as a block
-    argmax (fused into the previous column's update), the row swap and the
-    rank-1 update in global memory (a round's stack mostly stays in L2).
-    It is bound by the chunk's H·w² update traffic through one SM.
-    The stack must be contiguous (``blocked.panel_getrf_batched`` makes it
-    so). Bitwise equal to the plain version on the same input: lu, perm
-    and info. Real float32/float64 only."""
+    thread-block cluster per chunk (``lu_panel_batched_plan``), the whole
+    stack in one launch, so one launch is one round: the chunk's rows
+    dealt cyclically to the cluster's CTAs and held in shared memory (or
+    streamed), row positions swapped instead of rows, one cluster barrier
+    per column. It is bound by the w serial column steps. The stack must
+    be contiguous (``blocked.panel_getrf_batched`` makes it so). Bitwise
+    equal to the plain version on the same input: lu, perm and info. A
+    plan the card cannot schedule raises. Real float32/float64 only."""
     if stack.dtype not in _REAL:
         raise NotImplementedError(
             f"lu_panel_batched: real float32/float64 only, got {stack.dtype} "
@@ -966,19 +1096,34 @@ def lu_panel_batched(stack: torch.Tensor):
     if stack.device.type == "cpu":
         return lu_panel_batched_plain(stack)
     _check_cuda_args("lu_panel_batched", stack)
+    if bsz == 0:
+        return (torch.empty_like(stack),
+                torch.empty((0, hh), dtype=torch.int32, device=stack.device),
+                torch.empty(0, dtype=torch.int32, device=stack.device))
+    return lu_panel_batched_launch(stack, lu_panel_batched_plan_for(stack))
+
+
+def lu_panel_batched_launch(stack: torch.Tensor, plan: P3Plan):
+    """One P3 launch of the contiguous CUDA stack with ``plan``
+    (``lu_panel_batched``'s own, or another cluster size from
+    ``lu_panel_batched_plan_with`` to time it); a streaming plan's
+    scratch is allocated here. Raises when the launch is refused."""
+    bsz, hh, w = stack.shape
     lu = torch.empty_like(stack)
     perm = torch.empty((bsz, hh), dtype=torch.int32, device=stack.device)
     info = torch.empty(bsz, dtype=torch.int32, device=stack.device)
-    if bsz == 0:
-        return lu, perm, info
+    scratch = torch.empty(0 if plan.resident else bsz * plan.ctas
+                          * plan.rows * w, dtype=stack.dtype,
+                          device=stack.device)
     f = _fn("lu_panel_batched",
             f"slate_lu_panel_batched_{_SUFFIX[stack.dtype]}",
-            [_P, _P, _P, _P, _I, _I, _I, _P])
+            [_P] * 5 + [_I] * 5 + [_P])
     with torch.cuda.device(stack.device):
         rc = f(stack.data_ptr(), lu.data_ptr(), perm.data_ptr(),
-               info.data_ptr(), bsz, hh, w,
+               info.data_ptr(), scratch.data_ptr(), bsz, hh, w, plan.ctas,
+               int(plan.resident),
                torch.cuda.current_stream(stack.device).cuda_stream)
     _raise_on(rc, "lu_panel_batched", "slate_lu_panel_batched_error_string",
-              f"lu_panel_batched (B={bsz}, H={hh}, w={w})")
+              f"lu_panel_batched (B={bsz}, H={hh}, w={w}, plan {plan})")
     LAUNCHES["lu_panel_batched"] += 1
     return lu, perm, info
