@@ -62,6 +62,29 @@ Phases, one JSON line each:
            exact pivot ties; each row prints its plan (CTAs per chunk,
            rows per CTA, mode, shared memory per CTA, which must equal
            the C launcher's);
+           and at the batched engine's panels (1000, 256, 32) and
+           (10000, 32, 32) f32, timed;
+           chol_tile_batched (P4, one warp per item) bit for bit its plain
+           version (L with NaN in the same places, info exact, zero strict
+           upper triangles although 1e6 junk lies there) at the engine's
+           tiles (the diagonal blocks of a (1000, 256, 256) stack as a
+           strided view, and (10000, 32, 32)) in f32 (and the first in
+           f64), timed by CUDA events and device time per launch beside
+           its plain version and batched torch.linalg.cholesky_ex; with
+           non-positive pivots at 0, 20 and s − 1 (info there, every
+           other item bit for bit as without them), and every s from 1 to
+           64 in f32 and f64 (chol_batched_sweep);
+           qr_panel_batched (P5, one CTA per item, its plan resident or
+           streaming) within qr_case's tolerance of its plain version per
+           item, at the engine's panels ((1000, 512, 32) as a strided
+           view, (10000, 64, 32), f64, streaming at (8, 2000, 128)), a
+           float64 reconstruction of the timed rows' first and last items,
+           tau = 0 on a zero column, a NaN kept to its item (its earlier
+           columns finite, every other item bit for bit), timed beside its
+           plain version and batched torch.geqrf; each row prints its plan,
+           whose shared memory must equal the C launcher's;
+           P1 also at the engine's leaves, (1000, 32, 32) unit blocks of a
+           stack and (10000, 32, 32), timed;
            lu_panel_base, qr_panel_base and qr_panel_base_wide run as one
            cooperative launch over the SMs, with cases in both plan modes
            (row slabs resident in shared memory, and streamed: (65536,
@@ -117,16 +140,37 @@ Phases, one JSON line each:
            and P3 launches of every factor, solve and inverse are held to
            fixed numbers at n = 16384 and 2048 (nb = 512). Peak memory is read
            before the inverses and the float64 checks allocate.
+6. small   the batched small-problem engine at both ends of the
+           reference's bench_batched (float32, 2 right-hand sides):
+           gesv/posv_batched at (n, B) = (256, 1000) and (32, 10000),
+           gels_batched at (2n, n) for the same; each call's wall and
+           requests per second, its kernel launches held to
+           SMALL_LAUNCHES, every item under its gate (scaled residual ≤ 30
+           in float64; gels within QR_REL_LIMIT of a float64 solve), a
+           torch.linalg call for the same function timed beside it, and 64
+           items served one at a time (their wall, gate, and whether each
+           equals its batched lane bit for bit, with 2 right-hand sides and
+           with a vector); then a Session with 1000 lu_small and one with
+           1000 chol_small operators at n = 256: one solve_small_batched
+           with every factor a miss, again with every factor resident, 8
+           per-request solves (grouped against per-request bits printed),
+           the counters, every answer under the gate; and each again with
+           one bad operator (a zero column, a non-positive pivot) among
+           the same ones: info on that item only, every other answer bit
+           for bit as without it.
 
-The kernels' launch counters are zeroed just before the check phase and
-just before the main phase and read just after each; the launches made
-to compare a kernel with its plain version are not counted.
+The kernels' launch counters are zeroed just before the check phase,
+the main phase and the small phase and read just after each; the
+launches made to compare a kernel with its plain version are not
+counted.
 Then a {"kernels": [...]} line (for each kernel also its plan, which is
 derived from the shape, the type and the SM count the run queried, not
 measured; for chol_tile also its numbers at b = 128 under "at_b128",
 for herk_lower_update at 2048² float64 under "at_f64_2048", for
 lu_panel_batched at (16, 1024, 512) and (1, 1024, 512) f32 under
-"at_16x1024x512" and "at_1x1024x512"), the nvidia-smi line,
+"at_16x1024x512" and "at_1x1024x512", and at the engine's shapes; P1,
+P4 and P5 at the engine's other shapes under "at_..."), the nvidia-smi
+line,
 and last
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device, or
@@ -699,8 +743,10 @@ def trtri_case(torch, ho, blocked, nblk, s, dtype, unit, gen, timed=False,
     exactly zero, non-finite entries in the same places, and junk in the
     strict upper triangle of L changing nothing (bitwise). ``view``:
     "diag" hands over the diagonal leaves of an (nblk·s)² matrix as one
-    strided view, "t" a transposed view of upper-triangular leaves (unit
-    row stride), "conj_t" a conjugate-transposed one. ``zero_diag``: that
+    strided view, "batch" the [s:, s:] blocks of a (nblk, 2s, 2s) stack
+    (the batched engine's leaves), "t" a transposed view of
+    upper-triangular leaves (unit row stride), "conj_t" a
+    conjugate-transposed one. ``zero_diag``: that
     diagonal entry of leaf 0 is 0. Timed rows also carry the device time
     per launch of the kernel and of the library call (``device_ms``)."""
     junk, clean = leaf_stack(torch, nblk, s, dtype, unit, gen)
@@ -715,6 +761,8 @@ def trtri_case(torch, ho, blocked, nblk, s, dtype, unit, gen, timed=False,
     elif view == "t":
         l = junk.mT.contiguous().mT  # upper leaves, read transposed
         check(l.stride(1) == 1 and not l.is_contiguous(), "P1 t: no view")
+    elif view == "batch":  # the engine's leaves: blocks of a stack
+        l = in_stack(torch, junk, 2 * s, s)
     elif view == "conj_t":
         l = junk.mH.contiguous().mH  # a conjugate, transposed view
         check(l.is_conj() and not l.is_contiguous(), "P1 conj_t: no view")
@@ -1078,6 +1126,196 @@ def lu_batched_case(torch, ho, bsz, hh, w, dtype, gen, timed=False,
             / PEAK_BYTES_PER_S * 1e3
         row["bound_operations_ms"] = bsz * (hh * w * w - w ** 3 / 3.0) \
             / PEAK_FLOPS[row["dtype"]] * 1e3
+    return row
+
+
+def spd_stack(torch, bsz, s, dtype, gen):
+    """A (bsz, s, s) stack of SPD items, x·xᵀ/s + I, with 1e6 junk in the
+    strict upper triangles (P4 must not read them)."""
+    x = torch.randn((bsz, s, s), generator=gen, device="cuda",
+                    dtype=torch.float64)
+    a = (x @ x.mT / s + torch.eye(s, device="cuda", dtype=torch.float64))
+    return (torch.tril(a) + 1e6 * torch.triu(torch.ones_like(a), 1)
+            ).to(dtype)
+
+
+def in_stack(torch, a, n_big, k0):
+    """``a`` (B, s, w) written into a zero (B, n_big, n_big) stack at
+    [k0:, k0:] and returned as that strided view (the block the engine
+    hands its kernels)."""
+    bsz, s, w = a.shape
+    big = torch.zeros((bsz, n_big, n_big), dtype=a.dtype, device="cuda")
+    view = big[:, k0:k0 + s, k0:k0 + w]
+    view.copy_(a)
+    check(not view.is_contiguous(), "in_stack: not a strided view")
+    return view
+
+
+def chol_batched_case(torch, ho, bsz, s, dtype, gen, timed=False,
+                      n_big=None, faults=()):
+    """P4 against its plain version on the same stack: L bit for bit (NaN
+    in the same places), info exact, strict upper triangles zero. With
+    ``n_big`` the items are the (k0 = n_big − s) diagonal blocks of a
+    (bsz, n_big, n_big) stack, read as that strided view. ``faults``:
+    item i + 1 gets d[p, p] = −1 for the i-th pivot p: info p + 1 there,
+    and every other item bit for bit as on the stack without faults.
+    Timed rows: one launch by CUDA events and by device time per launch,
+    the plain version and batched torch.linalg.cholesky_ex."""
+    clean = spd_stack(torch, bsz, s, dtype, gen)
+    a = clean.clone()
+    want = [0] * bsz
+    for i, p in enumerate(faults):
+        a[i + 1, p, p] = -1.0
+        want[i + 1] = p + 1
+    if n_big is not None:
+        a = in_stack(torch, a, n_big, n_big - s)
+        clean = in_stack(torch, clean, n_big, n_big - s)
+    lk, ik = ho.chol_tile_batched(a)
+    lp, ip = ho.chol_tile_batched_plain(a)
+    lc, ic = ho.chol_tile_batched(clean)
+    torch.cuda.synchronize()
+    name = f"chol_tile_batched {(bsz, s, s)} {dtype} n_big={n_big}"
+    check(same_bits(torch, lk, lp), f"{name}: L not bit for bit the plain "
+          "version's")
+    check(ik.tolist() == ip.tolist() == want and not ic.any(),
+          f"{name}: info {ik.tolist()[:8]}, plain {ip.tolist()[:8]}, "
+          f"expected {want[:8]}")
+    keep = [b for b in range(bsz) if want[b] == 0]
+    check(same_bits(torch, lk[keep], lc[keep]),
+          f"{name}: a faulty item changed its neighbours")
+    check(torch.count_nonzero(torch.triu(lk, 1)).item() == 0,
+          f"{name}: nonzero above the diagonal")
+    row = {"B": bsz, "s": s, "dtype": str(dtype).split(".")[1],
+           "view": None if n_big is None else f"[{n_big - s}:, {n_big - s}:] "
+           f"of ({bsz}, {n_big}, {n_big})",
+           "faults": list(faults), "max_abs_err": 0.0,
+           "bitwise_equal": True, "launches_per_call": 1}
+    if timed:
+        row["ms"] = cuda_ms(lambda: ho.chol_tile_batched(a))
+        row["device_ms"] = device_ms(lambda: ho.chol_tile_batched(a),
+                                     launches=20)
+        row["plain_ms"] = cuda_ms(lambda: ho.chol_tile_batched_plain(a),
+                                  reps=3)
+        row["library_ms"] = cuda_ms(lambda: torch.linalg.cholesky_ex(a))
+        it = a.element_size()
+        nbytes = bsz * ((s * (s + 1) // 2 + s * s) * it + 4)
+        flops = bsz * s ** 3 / 3.0
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops,
+                                                 row["dtype"])
+        row["bound_bytes_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
+        row["bound_operations_ms"] = flops / PEAK_FLOPS[row["dtype"]] * 1e3
+    return row
+
+
+def chol_batched_sweep(torch, ho, gen):
+    """P4 at every s = 1, ..., 64 in float32 and float64: four items, the
+    last three with a non-positive pivot at 0, min(20, s − 1) and s − 1,
+    on a contiguous stack and on strided diagonal blocks in turn. One
+    row."""
+    cases = 0
+    for dtype in (torch.float32, torch.float64):
+        for s in range(1, 65):
+            chol_batched_case(torch, ho, 4, s, dtype, gen,
+                              n_big=s + 8 if s % 2 else None,
+                              faults=(0, min(20, s - 1), s - 1))
+            cases += 1
+    return {"sweep": "s = 1..64", "B": 4, "faults": "0, min(20, s-1), s-1",
+            "dtypes": ["float32", "float64"], "cases": cases,
+            "bitwise_equal": True}
+
+
+def p5_plan_row(ho, a):
+    """The plan P5 launches with for the stack ``a``; its shared memory
+    per CTA must be the launcher's."""
+    bsz, hh, w = a.shape
+    plan = ho.qr_panel_batched_plan(hh, w, a.element_size())
+    launch_smem = ho.qr_panel_batched_launch_smem(hh, w, a.element_size(),
+                                                  plan)
+    check(plan.smem_bytes == launch_smem,
+          f"qr_panel_batched {(bsz, hh, w)}: the plan counts "
+          f"{plan.smem_bytes} bytes of shared memory, the launcher "
+          f"{launch_smem}")
+    return {"ctas": bsz, "threads": ho.P5_THREADS, "mode": plan.mode,
+            "smem_bytes": plan.smem_bytes, "launches_per_call": 1}
+
+
+def qr_batched_case(torch, ho, bsz, hh, w, dtype, gen, timed=False,
+                    strided=False, fault=None):
+    """P5 against its plain version on the same stack, per item within
+    4·ε·max(√H, w): R relative to its item's max|R|, V and the taus
+    absolute (qr_case's 4·ε·√H for the order of the H-long sums, where a
+    panel of w ≥ √H columns compounds w steps of such differences). ``strided``: the panels are the right
+    halves of a (bsz, hh, 2w) stack. ``fault``: "zero_column" (column 3
+    of item bsz // 2: tau = 0 there in both) or "nan" (a NaN at
+    (hh − 1, 3) of item 0: its taus NaN from column 3 on, its columns
+    before finite, every other item bit for bit as without it). Timed
+    rows: a float64 reconstruction of the first and last items, one
+    launch by CUDA events and by device time per launch, the plain
+    version and batched torch.geqrf."""
+    clean = torch.randn((bsz, hh, w), generator=gen, device="cuda",
+                        dtype=dtype)
+    a = clean.clone()
+    if fault == "zero_column":
+        a[bsz // 2, :, 3] = 0
+    elif fault == "nan":
+        a[0, hh - 1, 3] = math.nan
+    if strided:
+        big = torch.zeros((bsz, hh, 2 * w), dtype=dtype, device="cuda")
+        big[:, :, w:] = a
+        a = big[:, :, w:]
+    vk, tk = ho.qr_panel_batched(a)
+    vp, tp = ho.qr_panel_batched_plain(a)
+    torch.cuda.synchronize()
+    name = f"qr_panel_batched {(bsz, hh, w)} {dtype} fault={fault}"
+    items = [b for b in range(bsz) if not (fault == "nan" and b == 0)]
+    upper = torch.ones((hh, w), dtype=torch.bool, device="cuda").triu()
+    tol = 4 * torch.finfo(dtype).eps * max(math.sqrt(hh), w)
+    vk_, vp_ = vk[items], vp[items]
+    rmax = torch.where(upper, vp_, 0).abs().amax(dim=(1, 2))
+    err_r = (torch.where(upper, vk_ - vp_, 0).abs().amax(dim=(1, 2))
+             / rmax).max().item()
+    err_v = torch.where(upper, 0, vk_ - vp_).abs().max().item()
+    err_t = (tk[items] - tp[items]).abs().max().item()
+    check(all(math.isfinite(e) and e <= tol for e in (err_r, err_v, err_t)),
+          f"{name}: |kernel - plain| R {err_r} V {err_v} tau {err_t} "
+          f"> {tol}")
+    if fault == "zero_column":
+        check(tk[bsz // 2, 3].item() == 0 == tp[bsz // 2, 3].item(),
+              f"{name}: tau {tk[bsz // 2, 3].item()} on a zeroed column")
+    elif fault == "nan":
+        vc, tc = ho.qr_panel_batched(clean)
+        top = min(w, hh - 1)
+        check(bool(torch.isnan(tk[0, 3:top]).all())
+              and bool(torch.isfinite(tk[0, :3]).all())
+              and bool(torch.isfinite(vk[0, :, :3]).all())
+              and same_bits(torch, vk[1:], vc[1:])
+              and same_bits(torch, tk[1:], tc[1:]),
+              f"{name}: the NaN did not stay in its item and column")
+    row = {"B": bsz, "H": hh, "w": w, "dtype": str(dtype).split(".")[1],
+           "strided": strided, "plan": p5_plan_row(ho, a),
+           "max_abs_err": max(err_v, err_t, err_r * rmax.max().item()),
+           "err_r_rel": err_r, "err_v": err_v, "err_tau": err_t, "tol": tol}
+    if fault is not None:
+        row["fault"] = fault
+    if timed:
+        rec = max(qr_reconstruction(torch, a[b], vk[b], tk[b])
+                  for b in (0, bsz - 1))
+        check(rec <= RESIDUAL_BOUND, f"{name}: ‖A − QR‖ / (H·ε·‖A‖) = "
+              f"{rec} > {RESIDUAL_BOUND}")
+        row["reconstruction"] = rec
+        row["ms"] = cuda_ms(lambda: ho.qr_panel_batched(a))
+        row["device_ms"] = device_ms(lambda: ho.qr_panel_batched(a),
+                                     launches=10)
+        row["plain_ms"] = cuda_ms(lambda: ho.qr_panel_batched_plain(a),
+                                  reps=3)
+        row["library_ms"] = cuda_ms(lambda: torch.geqrf(a), reps=3)
+        it = a.element_size()
+        nbytes = bsz * (2 * hh * w + w) * it
+        flops = bsz * (2.0 * hh * w * w - 2.0 * w ** 3 / 3.0)
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops,
+                                                 row["dtype"])
+        row["bound_bytes_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
+        row["bound_operations_ms"] = flops / PEAK_FLOPS[row["dtype"]] * 1e3
     return row
 
 
@@ -1778,6 +2016,224 @@ def main_path(torch, stt, ho, n, nb, gen):
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the batched small-problem engine
+# ---------------------------------------------------------------------------
+
+# the ends of the reference's own bench_batched (bench_serve.py:662):
+# float32, (n, B) = (256, 1000) and (32, 10000), 2 right-hand sides (:689)
+SMALL_RUNS = ((256, 1000), (32, 10000))
+SMALL_RHS = 2
+PER_REQUEST_SAMPLE = 64  # B = 1 calls timed per verb, as bench_serve.py
+SESSION_N, SESSION_B, SESSION_REQUESTS = 256, 1000, 8
+SESSION_FAULT = (417, 100)  # (item, column or pivot) of the fault runs
+# kernel launches of one batched call at the default nb (32): blocked.py's
+# recursions (a 64-row trsm base is two P1 leaves of 32)
+SMALL_LAUNCHES = {
+    ("gesv", 256): {"lu_panel_batched": 8, "trtri_leaves": 7 + 16},
+    ("posv", 256): {"chol_tile_batched": 8, "trtri_leaves": 7 + 16},
+    ("gels", 256): {"qr_panel_batched": 8, "trtri_leaves": 8 + 8},
+    ("gesv", 32): {"lu_panel_batched": 1, "trtri_leaves": 2},
+    ("posv", 32): {"chol_tile_batched": 1, "trtri_leaves": 2},
+    ("gels", 32): {"qr_panel_batched": 1, "trtri_leaves": 1 + 1},
+    ("lu_small", "factor"): {"lu_panel_batched": 8, "trtri_leaves": 7},
+    ("chol_small", "factor"): {"chol_tile_batched": 8, "trtri_leaves": 7},
+    ("lu_small", "solve"): {"trtri_leaves": 16},
+    ("chol_small", "solve"): {"trtri_leaves": 16},
+}
+
+
+def launches_of(ho, fn):
+    """``fn()``'s result, its wall in s (host clock between two device
+    syncs) and the kernel launches it made (the nonzero counts)."""
+    import torch
+    before = dict(ho.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, {k: v - before[k] for k, v in ho.LAUNCHES.items()
+                       if v != before[k]}
+
+
+def batched_residuals(torch, a, x, b):
+    """Per item max over columns of ‖b − A·x‖∞ / (n·ε·‖A‖∞·‖x‖∞) in
+    float64, ε of A's type."""
+    eps = torch.finfo(a.dtype).eps
+    a64, x64 = a.double(), x.double()
+    r = (b.double() - a64 @ x64).abs().amax(dim=1)
+    anorm = a64.abs().sum(dim=2).amax(dim=1)
+    return (r / (a.shape[1] * eps * anorm[:, None]
+                 * x64.abs().amax(dim=1))).amax(dim=1)
+
+
+def batched_lstsq_rel(torch, a, x, b):
+    """Per item max over columns of ‖x − x₆₄‖∞ / ‖x₆₄‖∞, x₆₄ the float64
+    normal-equations solution (κ ≈ 3 for a 2:1 Gaussian), as the main
+    path's qr check."""
+    a64 = a.double()
+    chol = torch.linalg.cholesky(a64.mT @ a64)
+    ref = torch.cholesky_solve(a64.mT @ b.double(), chol)
+    return ((x.double() - ref).abs().amax(dim=1)
+            / ref.abs().amax(dim=1)).amax(dim=1)
+
+
+def small_verb_run(torch, stt, ho, verb, n, bsz, gen):
+    """One verb at (n, B): a warm call, then the batched call timed (wall,
+    requests per second, launches pinned to SMALL_LAUNCHES), every item
+    under its gate (gesv/posv: the scaled residual ≤ 30 in float64; gels:
+    within QR_REL_LIMIT of a float64 solve), a PyTorch call for the same
+    function timed beside it, and PER_REQUEST_SAMPLE items served one at a
+    time (B = 1): their wall, their gate, and whether each equals its lane
+    of the batched call bit for bit, with 2 right-hand sides and with one
+    (a vector)."""
+    m = 2 * n if verb == "gels" else n
+    a = torch.randn((bsz, m, n), generator=gen, device="cuda")
+    if verb == "posv":
+        a = a @ a.mT / n + torch.eye(n, device="cuda")
+    b = torch.randn((bsz, m, SMALL_RHS), generator=gen, device="cuda")
+    fn = getattr(stt, f"{verb}_batched")
+    fn(a, b)  # warm: cuBLAS handles and workspaces
+    (x, info), wall, launches = launches_of(ho, lambda: fn(a, b))
+    name = f"small {verb} (n={n}, B={bsz})"
+    check(launches == SMALL_LAUNCHES[(verb, n)],
+          f"{name}: launches {launches}, expected "
+          f"{SMALL_LAUNCHES[(verb, n)]}")
+    check(not info.any(), f"{name}: info {int(info.count_nonzero())} items")
+    lib = {"gesv": lambda: torch.linalg.solve(a, b),
+           "posv": lambda: torch.cholesky_solve(
+               b, torch.linalg.cholesky(a)),
+           "gels": lambda: torch.linalg.lstsq(a, b).solution}[verb]
+    lib()
+    _, lib_wall, _ = launches_of(ho, lib)
+    sample = range(PER_REQUEST_SAMPLE)
+    t0 = time.perf_counter()
+    singles = [fn(a[i:i + 1], b[i:i + 1])[0][0] for i in sample]
+    torch.cuda.synchronize()
+    per_request_wall = time.perf_counter() - t0
+    xs1 = torch.stack(singles)
+    bitwise = all(torch.equal(x[i], xs1[i]) for i in sample)
+    xv, _ = fn(a[:PER_REQUEST_SAMPLE], b[:PER_REQUEST_SAMPLE, :, 0])
+    vec_bitwise = all(torch.equal(xv[i], fn(a[i:i + 1], b[i:i + 1, :, 0])[0][0])
+                      for i in range(16))
+    if verb == "gels":
+        gate = batched_lstsq_rel(torch, a, x, b)
+        gate1 = batched_lstsq_rel(torch, a[:PER_REQUEST_SAMPLE],
+                                  xs1, b[:PER_REQUEST_SAMPLE])
+        limit = QR_REL_LIMIT
+    else:
+        gate = batched_residuals(torch, a, x, b)
+        gate1 = batched_residuals(torch, a[:PER_REQUEST_SAMPLE], xs1,
+                                  b[:PER_REQUEST_SAMPLE])
+        limit = RESIDUAL_BOUND
+    worst = max(gate.max().item(), gate1.max().item())
+    check(math.isfinite(worst) and worst <= limit,
+          f"{name}: worst item {worst} > {limit}")
+    return {"verb": verb, "n": n, "B": bsz, "m": m, "k": SMALL_RHS,
+            "dtype": "float32", "wall_s": wall, "req_per_s": bsz / wall,
+            "launches": launches,
+            "library_s": lib_wall, "library_req_per_s": bsz / lib_wall,
+            "per_request_sample": PER_REQUEST_SAMPLE,
+            "per_request_wall_s": per_request_wall,
+            "per_request_req_per_s": PER_REQUEST_SAMPLE / per_request_wall,
+            "per_request_bitwise": bitwise,
+            "vector_rhs_per_request_bitwise": vec_bitwise,
+            ("worst_rel_err" if verb == "gels" else "worst_scaled_residual"):
+                worst, "gate": limit, "items_checked": bsz
+            + PER_REQUEST_SAMPLE}
+
+
+def small_session_run(torch, stt, ho, op, mats, rhs, fault=None):
+    """A Session with one ``op`` operator per item of ``mats``: one
+    solve_small_batched over all of them with every factor a miss (one
+    batched factor, one batched solve), again with every factor resident,
+    then SESSION_REQUESTS per-request solves; walls, launches (pinned),
+    the counters, and each per-request answer against its grouped lane
+    bit for bit."""
+    import numpy as np
+    sess = stt.Session(device="cuda")
+    hs = [sess.register(m, op=op) for m in mats]
+    (xs, infos), cold, cold_launches = launches_of(
+        ho, lambda: sess.solve_small_batched(hs, rhs))
+    want = {k: SMALL_LAUNCHES[(op, "factor")].get(k, 0)
+            + SMALL_LAUNCHES[(op, "solve")].get(k, 0)
+            for k in ("lu_panel_batched", "chol_tile_batched",
+                      "trtri_leaves")}
+    check(cold_launches == {k: v for k, v in want.items() if v},
+          f"session {op}: cold launches {cold_launches}, expected {want}")
+    out = {"op": op, "n": SESSION_N, "operators": len(hs), "k": SMALL_RHS,
+           "cold_s": cold, "cold_req_per_s": len(hs) / cold,
+           "cold_launches": cold_launches}
+    if fault is None:
+        (xs_hot, _), hot, hot_launches = launches_of(
+            ho, lambda: sess.solve_small_batched(hs, rhs))
+        check(hot_launches == SMALL_LAUNCHES[(op, "solve")],
+              f"session {op}: hot launches {hot_launches}")
+        per, same = [], []
+        for i in range(SESSION_REQUESTS):
+            t0 = time.perf_counter()
+            xi = sess.solve(hs[i], rhs[i])
+            per.append(time.perf_counter() - t0)
+            same.append(np.array_equal(xi.view(np.int32),
+                                       xs_hot[i].view(np.int32)))
+        out.update({"hot_s": hot, "hot_req_per_s": len(hs) / hot,
+                    "hot_launches": hot_launches,
+                    "per_request_s": per,
+                    "grouped_equals_per_request_bitwise": all(same),
+                    "cold_equals_hot_bitwise": np.array_equal(
+                        xs.view(np.int32), xs_hot.view(np.int32))})
+    out["counters"] = sess.metrics.snapshot()["counters"]
+    return out, xs, infos
+
+
+def small_phase(torch, stt, ho, gen):
+    """The batched verbs at both ends of bench_batched and the Session's
+    small ops at n = 256, B = 1000, with their fault runs."""
+    import numpy as np
+    verbs = [small_verb_run(torch, stt, ho, verb, n, bsz, gen)
+             for n, bsz in SMALL_RUNS for verb in ("gesv", "posv", "gels")]
+    sessions = []
+    item, col = SESSION_FAULT
+    for op in ("lu_small", "chol_small"):
+        a = torch.randn((SESSION_B, SESSION_N, SESSION_N), generator=gen,
+                        device="cuda")
+        if op == "chol_small":
+            a = a @ a.mT / SESSION_N + torch.eye(SESSION_N, device="cuda")
+        b = torch.randn((SESSION_B, SESSION_N, SMALL_RHS), generator=gen,
+                        device="cuda")
+        rhs = list(b)
+        run, xs, infos = small_session_run(torch, stt, ho, op, list(a), rhs)
+        check(not any(infos), f"session {op}: infos {set(infos)}")
+        res = batched_residuals(torch, a, torch.from_numpy(xs).cuda(), b)
+        run["worst_scaled_residual"] = res.max().item()
+        check(run["worst_scaled_residual"] <= RESIDUAL_BOUND,
+              f"session {op}: worst scaled residual "
+              f"{run['worst_scaled_residual']}")
+        # one bad operator among the same ones: only its info, and every
+        # other lane bit for bit as without it
+        bad = a.clone()
+        if op == "lu_small":
+            bad[item, :, col] = 0
+        else:
+            bad[item, col, col] = -1.0
+        frun, fxs, finfos = small_session_run(torch, stt, ho, op,
+                                              list(bad), rhs, fault=True)
+        want = [0] * SESSION_B
+        want[item] = col + 1
+        keep = [i for i in range(SESSION_B) if i != item]
+        check(finfos == want and np.array_equal(fxs[keep].view(np.int32),
+                                                xs[keep].view(np.int32)),
+              f"session {op} fault run: infos at "
+              f"{[(i, v) for i, v in enumerate(finfos) if v]}, or a "
+              "neighbour changed")
+        run["fault"] = {"item": item, "info": finfos[item],
+                        "neighbours_bitwise": True, "cold_s": frun["cold_s"],
+                        "counters": frun["counters"]}
+        sessions.append(run)
+    return {"verbs": verbs, "sessions": sessions}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=16384)
@@ -1937,6 +2393,12 @@ def main(argv=None) -> int:
                 (2, 33, f32, False, None, 7), (2, 33, f32, False, None, 8),
                 (2, 33, f64, False, "t", 32), (2, 64, f64, False, None, 0),
                 (2, 64, f32, False, "diag", 63))]
+        # the batched engine's leaves (timed, appended): the unit leaves
+        # of getrs at n = 256 (blocks of a stack) and the leaves at n = 32
+        trtri_rows += [trtri_case(torch, ho, blocked, nblk, 32, f32, unit,
+                                  gen, timed=True, view=view)
+                       for nblk, unit, view in ((1000, True, "batch"),
+                                                (10000, False, None))]
         trtri_rows.append(trtri_sweep(torch, ho, blocked, gen))
         emit("kernel", name="trtri_leaves", cases=trtri_rows)
         # P2: the main path's 64-row leaf first (timed), then smaller
@@ -1975,8 +2437,52 @@ def main(argv=None) -> int:
                              (8, 512, 512, f32, "zero_column"),
                              (4, 1000, 64, f32, "nan"),
                              (4, 300, 40, f64, "tie"))]
+        # the batched engine's panels: (1000, 256, 32), the first of
+        # getrf_batched at n = 256, and (10000, 32, 32), its only one at
+        # n = 32 (appended: the rows above keep their places)
+        batched_rows += [lu_batched_case(torch, ho, bsz, hh, w_, f32, gen,
+                                         timed=True)
+                         for bsz, hh, w_ in ((1000, 256, 32),
+                                             (10000, 32, 32))]
         check_p3_modes(batched_rows)
         emit("kernel", name="lu_panel_batched", cases=batched_rows)
+        # P4: the engine's tiles first (timed): the diagonal blocks of a
+        # (1000, 256, 256) stack and (10000, 32, 32); then f64, faults,
+        # s > 32, and every s from 1 to 64
+        p4_rows = [chol_batched_case(torch, ho, bsz, s_, dt, gen,
+                                     timed=timed, n_big=n_big,
+                                     faults=faults)
+                   for bsz, s_, dt, timed, n_big, faults in (
+                       (1000, 32, f32, True, 256, ()),
+                       (10000, 32, f32, True, None, ()),
+                       (1000, 32, f64, True, 256, ()),
+                       (1000, 32, f32, False, 256, (0, 20, 31)),
+                       (64, 64, f64, False, 128, (0, 20, 63)),
+                       (5, 48, f32, False, None, (47,)),
+                       (3, 1, f64, False, None, (0,)))]
+        p4_rows.append(chol_batched_sweep(torch, ho, gen))
+        emit("kernel", name="chol_tile_batched", cases=p4_rows)
+        # P5: the engine's panels first (timed): the first of gels at
+        # (1000, 512, 256) as a strided view, and (10000, 64, 32); then
+        # f64, the streaming plan, ragged shapes and the faults
+        p5_rows = [qr_batched_case(torch, ho, bsz, hh, w_, dt, gen,
+                                   timed=timed, strided=strided,
+                                   fault=fault)
+                   for bsz, hh, w_, dt, timed, strided, fault in (
+                       (1000, 512, 32, f32, True, True, None),
+                       (10000, 64, 32, f32, True, False, None),
+                       (1000, 512, 32, f64, True, False, None),
+                       (8, 2000, 128, f32, True, False, None),
+                       (4, 1000, 128, f64, False, True, None),
+                       (5, 7, 7, f32, False, False, None),
+                       (3, 100, 1, f64, False, False, None),
+                       (16, 256, 32, f32, False, False, "zero_column"),
+                       (16, 256, 32, f32, False, True, "nan"),
+                       (4, 40, 40, f64, False, False, "nan"))]
+        check({r["plan"]["mode"] for r in p5_rows}
+              == {"resident", "streaming"},
+              "qr_panel_batched: the cases did not cover both plan modes")
+        emit("kernel", name="qr_panel_batched", cases=p5_rows)
         # counted paths: the check phase, then the main phase
         ho.reset_launches()
         small = small_check(torch, stt, gen)
@@ -1991,7 +2497,11 @@ def main(argv=None) -> int:
              blas3=blas3, inverse_and_nopiv=inverse, calu=calu,
              launches=check_launches)
         main = main_path(torch, stt, ho, args.n, args.nb, gen)
-    emit("main", **main)
+        emit("main", **main)
+        ho.reset_launches()
+        small = small_phase(torch, stt, ho, gen)
+        small_launches = dict(ho.LAUNCHES)
+    emit("small", **small, launches=small_launches)
 
     # each kernel's first timed f32 row (K1 at b = nb, the nb = 512
     # factor's tile), and K1 at b = 128 beside it
@@ -2006,7 +2516,9 @@ def main(argv=None) -> int:
                                 ("herk_lower_update", herk_rows),
                                 ("trtri_leaves", trtri_rows),
                                 ("lu_nopiv_base", nopiv_rows),
-                                ("lu_panel_batched", batched_rows))}
+                                ("lu_panel_batched", batched_rows),
+                                ("chol_tile_batched", p4_rows),
+                                ("qr_panel_batched", p5_rows))}
     kernels = []
     for name, src, rep in (
             ("chol_tile", "chol_tile.cu", "slate_tpu/ops/pallas_ops.py:342"),
@@ -2023,9 +2535,14 @@ def main(argv=None) -> int:
              "slate_tpu/ops/blocked.py:242"),
             ("lu_nopiv_base", "lu_nopiv.cu", "slate_tpu/linalg/lu.py:463"),
             ("lu_panel_batched", "lu_panel_batched.cu",
-             "slate_tpu/ops/blocked.py:691")):
+             "slate_tpu/ops/blocked.py:691"),
+            ("chol_tile_batched", "chol_tile_batched.cu",
+             "slate_tpu/ops/blocked.py:1072"),
+            ("qr_panel_batched", "qr_panel_batched.cu",
+             "slate_tpu/ops/blocked.py:1216")):
         row = timed[name]
-        launches = check_launches[name] + main["launches"][name]
+        launches = (check_launches[name] + main["launches"][name]
+                    + small_launches[name])
         check(launches > 0, f"{name} was not launched on a counted path")
         kernels.append({
             "name": name, "route": "cuda",
@@ -2041,14 +2558,34 @@ def main(argv=None) -> int:
                if name in ("trtri_leaves", "lu_nopiv_base") else {}),
             **({k: row[k] for k in ("device_ms", "bound_bytes_ms",
                                     "bound_operations_ms")}
-               if name == "lu_panel_batched" else {})})
+               if name in ("lu_panel_batched", "chol_tile_batched",
+                           "qr_panel_batched") else {})})
     # P3 at the tournament's other round shapes, (16, 1024, 512) f32 and
     # the final round's (1, 1024, 512)
     p3_keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                "bound_by", "bound_bytes_ms", "bound_operations_ms",
                "library_ms", "plan")
-    kernels[-1]["at_16x1024x512"] = {k: batched_rows[1][k] for k in p3_keys}
-    kernels[-1]["at_1x1024x512"] = {k: batched_rows[4][k] for k in p3_keys}
+    p3 = kernels[7]
+    p3["at_16x1024x512"] = {k: batched_rows[1][k] for k in p3_keys}
+    p3["at_1x1024x512"] = {k: batched_rows[4][k] for k in p3_keys}
+    # the batched engine's shapes: P3's panels, P1's leaves, P4's tiles and
+    # P5's panels beside the rows above
+    for r in batched_rows[-2:]:
+        p3[f"at_{r['B']}x{r['H']}x{r['w']}"] = {k: r[k] for k in p3_keys}
+    for r in trtri_rows[-3:-1]:
+        kernels[5][f"at_{r['B']}x{r['s']}x{r['s']}_{r['view'] or 'stack'}"
+                   f"_unit{int(r['unit'])}"] = {k: r[k] for k in (
+                       "max_abs_err", "ms", "device_ms", "plain_ms",
+                       "bound_ms", "bound_by", "library_ms",
+                       "library_device_ms")}
+    engine_keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                   "bound_by", "bound_bytes_ms", "bound_operations_ms",
+                   "library_ms")
+    for kern, rows, shape in ((kernels[8], p4_rows, ("B", "s", "s")),
+                              (kernels[9], p5_rows, ("B", "H", "w"))):
+        for r in (r for r in rows[1:] if "ms" in r):
+            kern["at_" + "x".join(str(r[k]) for k in shape) + "_"
+                 + r["dtype"]] = {k: r[k] for k in engine_keys}
     kernels[0]["at_b128"] = {k: k1_128[k] for k in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "plan")}

@@ -7,11 +7,12 @@ in ``csrc/`` and are built with nvcc on first use (``ops/_build.py``).
 """
 
 from .api import (chol_factor, chol_inverse_using_factor, chol_solve,
-                  chol_solve_using_factor, least_squares_solve,
+                  chol_solve_using_factor, gels_batched, geqrf_batched,
+                  gesv_batched, least_squares_solve,
                   least_squares_solve_using_factor, lu_factor,
                   lu_inverse_using_factor, lu_solve, lu_solve_using_factor,
-                  multiply, qr_factor, rank_2k_update, rank_k_update,
-                  triangular_multiply, triangular_solve)
+                  multiply, posv_batched, qr_factor, rank_2k_update,
+                  rank_k_update, triangular_multiply, triangular_solve)
 from .core.exceptions import SlateError
 from .core.tiled_matrix import (TiledMatrix, from_dense, hermitian, pad_mask,
                                 resolve_device, symmetric, triangular, zeros)
@@ -32,10 +33,11 @@ from .runtime.session import Session
 
 __all__ = [
     "chol_factor", "chol_inverse_using_factor", "chol_solve",
-    "chol_solve_using_factor", "least_squares_solve",
+    "chol_solve_using_factor", "gels_batched", "geqrf_batched",
+    "gesv_batched", "least_squares_solve",
     "least_squares_solve_using_factor", "lu_factor",
     "lu_inverse_using_factor", "lu_solve", "lu_solve_using_factor",
-    "multiply", "qr_factor",
+    "multiply", "posv_batched", "qr_factor",
     "rank_2k_update", "rank_k_update", "triangular_multiply",
     "triangular_solve", "SlateError",
     "TiledMatrix", "from_dense", "hermitian", "pad_mask", "resolve_device",

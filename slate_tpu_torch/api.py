@@ -1,13 +1,15 @@
 """Simplified API verbs of the ported slices (counterpart of
-``slate_tpu/api.py:38-105`` and ``119-289``, dense operands only, no
-tracing spans): the BLAS-3 verbs dispatch on the matrix kinds as the
-reference does; the inverse verbs run getri and potri."""
+``slate_tpu/api.py:38-105``, ``119-289`` and the batched verbs at
+``320-359``, no tracing spans): the BLAS-3 verbs dispatch on the matrix
+kinds as the reference does; the inverse verbs run getri and potri; the
+batched verbs take (B, m, n) stacks (``linalg/batched.py``)."""
 
 from __future__ import annotations
 
 from .core.tiled_matrix import TiledMatrix
 from .core.types import MatrixKind, Options, Side, DEFAULT_OPTIONS
-from .linalg import blas3, cholesky, lu as lu_mod, qr as qr_mod
+from .linalg import batched as batched_mod, blas3, cholesky, lu as lu_mod
+from .linalg import qr as qr_mod
 
 
 def multiply(alpha, A: TiledMatrix, B: TiledMatrix, beta, C: TiledMatrix,
@@ -113,3 +115,33 @@ def least_squares_solve_using_factor(QR, B: TiledMatrix,
 def least_squares_solve(A: TiledMatrix, B: TiledMatrix,
                         opts: Options = DEFAULT_OPTIONS) -> TiledMatrix:
     return qr_mod.gels(A, B, opts)
+
+
+# ---------------------------------------------------------------------------
+# batched small-problem verbs: (B, m, n) stacks, numpy or tensors; a
+# numpy stack goes to ``device`` ("cuda" unless "cpu" is asked for), a
+# tensor stays on its device
+# ---------------------------------------------------------------------------
+
+def gesv_batched(A, B, nb=None, device="cuda"):
+    """Batched A·X = B over a (B, n, n) stack → (X, info (B,)): batched LU
+    factor and solve."""
+    return batched_mod.gesv_batched(A, B, nb, device)
+
+
+def posv_batched(A, B, nb=None, device="cuda"):
+    """Batched symmetric-positive-definite A·X = B (lower storage) over a
+    (B, n, n) stack → (X, info (B,)): batched Cholesky factor and solve."""
+    return batched_mod.posv_batched(A, B, nb, device)
+
+
+def geqrf_batched(A, nb=None, device="cuda"):
+    """Batched Householder QR over a (B, m, n) stack (m ≥ n) → (packed
+    V\\R, taus, Ts), the factor ``gels_batched_using_factor`` takes."""
+    return batched_mod.geqrf_batched(A, nb, device)
+
+
+def gels_batched(A, B, nb=None, device="cuda"):
+    """Batched least squares min‖A·X − B‖ over a (B, m, n) stack (m ≥ n)
+    → (X, info (B,)): batched QR factor and solve."""
+    return batched_mod.gels_batched(A, B, nb, device)

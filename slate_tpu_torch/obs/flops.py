@@ -58,7 +58,9 @@ def gels(m: int, n: int) -> float:
 
 
 def factor_flops(op: str, m: int, n: int) -> float:
-    """Model flops of one dense factorization, by Session op kind."""
+    """Model flops of one factorization, by Session op kind (a small op
+    counts as its dense kind)."""
+    op = op.removesuffix("_small")
     if op == "lu":
         return getrf(n)
     if op == "chol":
@@ -70,6 +72,7 @@ def factor_flops(op: str, m: int, n: int) -> float:
 
 def solve_flops(op: str, m: int, n: int, k: int) -> float:
     """Model flops of a k-column solve against a resident factor."""
+    op = op.removesuffix("_small")
     if op in ("lu", "chol"):
         return 2.0 * n * n * k
     if op == "qr":

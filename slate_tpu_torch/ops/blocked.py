@@ -358,3 +358,242 @@ def panel_geqrf_with_t(a: torch.Tensor):
     vr, taus = panel_geqrf(a)
     t = larft(_split_v(vr, a.shape[1]), taus)
     return vr, taus, t
+
+
+# ---------------------------------------------------------------------------
+# the batched small-problem engine: (B, n, n) stacks, a leading batch dim
+# ---------------------------------------------------------------------------
+# Counterpart of slate_tpu/ops/blocked.py:997-1360 with the reference's
+# constants and recursions. Its column loops run as port-only kernels, one
+# launch for the whole stack: P1 (trtri_leaves) at every trtri leaf, P3
+# (lu_panel_batched) at every LU panel, P4 (chol_tile_batched) at every
+# Cholesky block and P5 (qr_panel_batched) at every QR panel. Every kernel
+# computes each item alone, so one bad item (singular, not SPD, NaN) flags
+# its own info and leaves its neighbours' bits untouched; the batched gemms
+# are cuBLAS's (plain jnp in the reference). Each driver clones its input
+# once and writes the reference's functional updates in place on that copy.
+
+TRTRI_B_LEAF = 32
+TRSM_B_BASE = 64
+CHOL_B_IB = 32
+
+
+def trtri_lower_b(l: torch.Tensor, unit: bool = False,
+                  leaf: int = TRTRI_B_LEAF) -> torch.Tensor:
+    """Batched inv(L) over a (B, n, n) stack by the 2×2 block recursion;
+    each leaf (n ≤ ``leaf``) is one P1 launch on the (B, s, s) view. Only
+    the lower triangles are read. Returns a new contiguous stack."""
+    n = l.shape[-1]
+    if n <= leaf:
+        return hopper_ops.trtri_leaves(l, unit)
+    h = _half(n, 8)
+    ia = trtri_lower_b(l[:, :h, :h], unit, leaf)
+    ic = trtri_lower_b(l[:, h:, h:], unit, leaf)
+    out = l.new_zeros(l.shape)
+    out[:, :h, :h] = ia
+    out[:, h:, h:] = ic
+    out[:, h:, :h] = -(ic @ (l[:, h:, :h] @ ia))
+    return out
+
+
+def trsm_lower_b(m: torch.Tensor, b: torch.Tensor, unit: bool = False,
+                 base: int = TRSM_B_BASE) -> torch.Tensor:
+    """Batched X with M·X = B, M a (B, n, n) lower-triangular stack: block
+    recursion on the rows, each base (n ≤ ``base``) multiplied by its
+    batched inverse (``trtri_lower_b``)."""
+    n = m.shape[-1]
+    if n <= base:
+        return trtri_lower_b(m, unit) @ b
+    h = _half(n, 8)
+    x = b.new_empty(b.shape)
+    x[:, :h] = trsm_lower_b(m[:, :h, :h], b[:, :h], unit, base)
+    x[:, h:] = trsm_lower_b(m[:, h:, h:], b[:, h:] - m[:, h:, :h] @ x[:, :h],
+                            unit, base)
+    return x
+
+
+def trsm_upper_b(m: torch.Tensor, b: torch.Tensor, unit: bool = False,
+                 base: int = TRSM_B_BASE) -> torch.Tensor:
+    """Batched X with M·X = B, M a (B, n, n) upper-triangular stack (each
+    base inverted as inv(Mᵀ)ᵀ: P1 reads the ``.mT`` view)."""
+    n = m.shape[-1]
+    if n <= base:
+        return trtri_lower_b(m.mT, unit).mT @ b
+    h = _half(n, 8)
+    x = b.new_empty(b.shape)
+    x[:, h:] = trsm_upper_b(m[:, h:, h:], b[:, h:], unit, base)
+    x[:, :h] = trsm_upper_b(m[:, :h, :h], b[:, :h] - m[:, :h, h:] @ x[:, h:],
+                            unit, base)
+    return x
+
+
+def chol_tile_b(d: torch.Tensor, ib: int = CHOL_B_IB
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched guarded Cholesky of a (B, b, b) stack of diagonal tiles →
+    (tril L, info (B,)). A tile of at most ``ib`` columns, or one that
+    ``ib`` does not divide, is one P4 launch (the reference's unrolled
+    base); otherwise ``ib``-wide steps: P4 on the diagonal block, one P1
+    launch for its inverse, the column block by a gemm and the trailing
+    update by another. Above P4's widest tile (64) a width that ``ib``
+    does not divide takes the same steps with a narrower last block (the
+    reference unrolls such a tile whole)."""
+    b = d.shape[-1]
+    if b <= hopper_ops.LEAF_MAX and (b <= ib or b % ib):
+        return hopper_ops.chol_tile_batched(d)
+    d = d.clone(memory_format=torch.contiguous_format)
+    info = torch.zeros(d.shape[0], dtype=torch.int32, device=d.device)
+    for j0 in range(0, b, ib):
+        j1 = min(j0 + ib, b)
+        l8, binfo = hopper_ops.chol_tile_batched(d[:, j0:j1, j0:j1])
+        info = torch.where((info == 0) & (binfo > 0), j0 + binfo, info)
+        d[:, j0:j1, j0:j1] = l8
+        if j1 >= b:
+            continue
+        col = d[:, j1:, j0:j1] @ hopper_ops.trtri_leaves(l8).mT
+        d[:, j1:, j0:j1] = col
+        d[:, j1:, j1:] -= col @ col.mT
+    return torch.tril(d), info
+
+
+def potrf_batched(a: torch.Tensor, nb: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched blocked lower Cholesky of a (B, n, n) stack → (tril L,
+    info (B,)): per nb-wide block column the tile factor (``chol_tile_b``),
+    the panel by the tile's batched inverse, and the trailing update one
+    nb-wide column slab at a time. Reads only the lower triangles; one
+    non-SPD item flags its own info (1-based) and changes no other."""
+    a = a.clone(memory_format=torch.contiguous_format)
+    bsz, n, _ = a.shape
+    info = torch.zeros(bsz, dtype=torch.int32, device=a.device)
+    for k0 in range(0, n, nb):
+        k1 = min(k0 + nb, n)
+        lkk, tinfo = chol_tile_b(a[:, k0:k1, k0:k1])
+        info = torch.where((info == 0) & (tinfo > 0), k0 + tinfo, info)
+        a[:, k0:k1, k0:k1] = lkk
+        if k1 >= n:
+            continue
+        pan = a[:, k1:, k0:k1] @ trtri_lower_b(lkk).mT
+        a[:, k1:, k0:k1] = pan
+        for j0 in range(k1, n, nb):
+            jw = min(nb, n - j0)
+            a[:, j0:, j0:j0 + jw] -= (pan[:, j0 - k1:]
+                                      @ pan[:, j0 - k1:j0 - k1 + jw].mT)
+    return torch.tril(a), info
+
+
+def getrf_batched(a: torch.Tensor, nb: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched blocked partial-pivot LU of a (B, n, n) stack → (LU, perm
+    int32 (B, n) with a[b][perm[b]] = L·U, info (B,)). Each nb-wide panel
+    is one P3 launch (``panel_getrf_batched``, on the panel's contiguous
+    copy); its perm is applied to the whole row block by one batched row
+    gather (the reference's ``lift_tail_perm_b`` gather map); U12 comes
+    from a batched unit-lower trsm and the Schur complement from one
+    batched gemm. A singular item keeps a valid perm, flags its own
+    1-based info column and changes no other."""
+    a = a.clone(memory_format=torch.contiguous_format)
+    bsz, n, _ = a.shape
+    perm = torch.arange(n, dtype=torch.int32,
+                        device=a.device).repeat(bsz, 1)
+    info = torch.zeros(bsz, dtype=torch.int32, device=a.device)
+    for k0 in range(0, n, nb):
+        k1 = min(k0 + nb, n)
+        w = k1 - k0
+        plu, pperm, pinfo = panel_getrf_batched(a[:, k0:, k0:k1])
+        info = torch.where((info == 0) & (pinfo > 0), k0 + pinfo, info)
+        rows = pperm.long()
+        a[:, k0:] = a[:, k0:].gather(1, rows[:, :, None].expand(-1, -1, n))
+        perm[:, k0:] = perm[:, k0:].gather(1, rows)
+        a[:, k0:, k0:k1] = plu
+        if k1 >= n:
+            continue
+        u12 = trsm_lower_b(plu[:, :w], a[:, k0:k1, k1:], unit=True)
+        a[:, k0:k1, k1:] = u12
+        a[:, k1:, k1:] -= plu[:, w:] @ u12
+    return a, perm, info
+
+
+def _split_v_b(vr: torch.Tensor, w: int) -> torch.Tensor:
+    """Batched unit-lower-trapezoidal V from packed V\\R stacks (first w
+    columns), as a new tensor."""
+    v = torch.tril(vr[:, :, :w], -1)
+    v.diagonal(dim1=1, dim2=2).fill_(1)
+    return v
+
+
+def larft_b(v: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
+    """Batched forward columnwise T factor in closed form,
+    T = D·(I + striu(VᵀV)·D)⁻¹, the inverse by the batched unit-triangular
+    ``trtri_lower_b`` (P1) on the transpose. A column with τ = 0 gives a
+    zero column of T."""
+    w = taus.shape[-1]
+    s = torch.triu(v.mT @ v, 1)
+    m = torch.eye(w, dtype=v.dtype, device=v.device) + s * taus[:, None, :]
+    return taus[:, :, None] * trtri_lower_b(m.mT, unit=True).mT
+
+
+def _panel_geqrf_batched(p: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed V\\R and taus of a (B, H, w) panel stack: one P5 launch,
+    or, wider than P5's 128 columns, the blocked QR of the panel in
+    128-wide panels."""
+    if p.shape[-1] <= hopper_ops.QR_PANEL_MAX_W:
+        return hopper_ops.qr_panel_batched(p)
+    vr, taus, _ = geqrf_batched(p, hopper_ops.QR_PANEL_MAX_W)
+    return vr, taus
+
+
+def geqrf_batched(a: torch.Tensor, nb: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched blocked Householder QR of a (B, m, n) stack, m ≥ n →
+    (packed V\\R, taus (B, n), Ts (B, ceil(n/nb), nb, nb)). Each nb-wide
+    panel is one P5 launch on the panel's view (``_panel_geqrf_batched``;
+    a panel wider than 128 takes one per 128 columns); its T comes from the
+    batched ``larft_b`` (zero-padded to nb on a narrower last panel) and
+    the trailing update is three batched gemms."""
+    a = a.clone(memory_format=torch.contiguous_format)
+    bsz, m, n = a.shape
+    taus = a.new_zeros((bsz, n))
+    ts = a.new_zeros((bsz, -(-n // nb), nb, nb))
+    for i, k0 in enumerate(range(0, n, nb)):
+        k1 = min(k0 + nb, n)
+        w = k1 - k0
+        vr, tau = _panel_geqrf_batched(a[:, k0:, k0:k1])
+        a[:, k0:, k0:k1] = vr
+        taus[:, k0:k1] = tau
+        v = _split_v_b(vr, w)
+        t = larft_b(v, tau)
+        ts[:, i, :w, :w] = t
+        if k1 < n:
+            c = a[:, k0:, k1:]
+            c -= v @ (t.mT @ (v.mT @ c))
+    return a, taus, ts
+
+
+def getrs_batched(lu: torch.Tensor, perm: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    """Batched A·X = B from ``getrf_batched`` factors: one batched row
+    gather b[perm], then the unit-lower and the upper batched trsm."""
+    pb = b.gather(1, perm.long()[:, :, None].expand(-1, -1, b.shape[2]))
+    return trsm_upper_b(lu, trsm_lower_b(lu, pb, unit=True))
+
+
+def potrs_batched(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched A·X = B from ``potrf_batched`` factors: L, then Lᵀ."""
+    return trsm_upper_b(l.mT, trsm_lower_b(l, b))
+
+
+def gels_qr_solve_batched(vr: torch.Tensor, ts: torch.Tensor,
+                          b: torch.Tensor, nb: int) -> torch.Tensor:
+    """Batched least-squares solve from ``geqrf_batched`` factors:
+    X = R⁻¹·(Qᵀ·B)[:n], Qᵀ applied panel by panel through the stored
+    compact-WY (V, T) pairs, then one batched upper trsm against R."""
+    n = vr.shape[2]
+    c = b.clone(memory_format=torch.contiguous_format)
+    for i, k0 in enumerate(range(0, n, nb)):
+        w = min(nb, n - k0)
+        v = _split_v_b(vr[:, k0:, k0:k0 + w], w)
+        t = ts[:, i, :w, :w]
+        ck = c[:, k0:]
+        ck -= v @ (t.mT @ (v.mT @ ck))
+    return trsm_upper_b(torch.triu(vr[:, :n, :n]), c[:, :n])

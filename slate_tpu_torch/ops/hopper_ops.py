@@ -39,7 +39,7 @@ cluster barriers per 32-wide step. K5 (``herk_lower_update``) runs on
 the tensor cores through warp-level ``mma.sync`` (FP64 DMMA, 3×TF32 in
 float32), one block per lower tile pair of the plan ``herk_plan``.
 
-Three kernels have no Pallas counterpart: they replace programs the
+Five kernels have no Pallas counterpart: they replace programs the
 reference fuses with ``jax.vmap``/``fori_loop`` and the port would
 otherwise run as Python loops of small launches. P1
 (``trtri_leaves``) inverts a stack of lower-triangular leaves of at most
@@ -50,7 +50,12 @@ the partial-pivot LU of every chunk of a (B, H, w) stack, one
 thread-block cluster per chunk with the plan ``lu_panel_batched_plan``
 (rows dealt cyclically to up to 16 CTAs, resident or streamed, row
 positions swapped instead of rows, one cluster barrier per column), so
-one launch is one round of the CALU tournament.
+one launch is one round of the CALU tournament and one panel of the
+batched LU. The batched small-problem engine adds P4
+(``chol_tile_batched``: the guarded Cholesky of every tile of a (B, s, s)
+stack, one warp per item) and P5 (``qr_panel_batched``: the Householder
+QR of every panel of a (B, H, w) stack, one CTA per item with the plan
+``qr_panel_batched_plan``).
 """
 
 from __future__ import annotations
@@ -68,7 +73,8 @@ from . import _build
 LAUNCHES: Dict[str, int] = {"chol_tile": 0, "lu_panel_base": 0,
                             "qr_panel_base": 0, "qr_panel_base_wide": 0,
                             "herk_lower_update": 0, "trtri_leaves": 0,
-                            "lu_nopiv_base": 0, "lu_panel_batched": 0}
+                            "lu_nopiv_base": 0, "lu_panel_batched": 0,
+                            "chol_tile_batched": 0, "qr_panel_batched": 0}
 
 _REAL = (torch.float32, torch.float64)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -101,6 +107,13 @@ def _check_cuda_args(name: str, a: torch.Tensor):
         raise SlateError(f"{name}: unsupported device {a.device}")
     if not a.is_contiguous():
         raise SlateError(f"{name}: expects a contiguous row-major tensor")
+
+
+def _check_real(name: str, x: torch.Tensor):
+    if x.dtype not in _REAL:
+        raise NotImplementedError(
+            f"{name}: real float32/float64 only, got {x.dtype} "
+            "(complex: ROADMAP Queue 1 item 3)")
 
 
 def _raise_on(rc: int, lib: str, err_sym: str, what: str):
@@ -817,10 +830,7 @@ def lu_nopiv_base_plain(a: torch.Tensor
 
 
 def _check_nopiv_leaf(name: str, a: torch.Tensor):
-    if a.dtype not in _REAL:
-        raise NotImplementedError(
-            f"{name}: real float32/float64 only, got {a.dtype} "
-            "(complex: ROADMAP Queue 1 item 3)")
+    _check_real(name, a)
     if a.ndim != 2 or a.shape[0] != a.shape[1] or not (
             1 <= a.shape[0] <= LEAF_MAX):
         raise SlateError(f"{name}: expects a square (s, s) leaf "
@@ -1082,10 +1092,7 @@ def lu_panel_batched(stack: torch.Tensor):
     be contiguous (``blocked.panel_getrf_batched`` makes it so). Bitwise
     equal to the plain version on the same input: lu, perm and info. A
     plan the card cannot schedule raises. Real float32/float64 only."""
-    if stack.dtype not in _REAL:
-        raise NotImplementedError(
-            f"lu_panel_batched: real float32/float64 only, got {stack.dtype} "
-            "(complex: ROADMAP Queue 1 item 3)")
+    _check_real("lu_panel_batched", stack)
     if stack.ndim != 3:
         raise SlateError(f"lu_panel_batched: expects a (B, H, w) stack, got "
                          f"{tuple(stack.shape)}")
@@ -1127,3 +1134,211 @@ def lu_panel_batched_launch(stack: torch.Tensor, plan: P3Plan):
               f"lu_panel_batched (B={bsz}, H={hh}, w={w}, plan {plan})")
     LAUNCHES["lu_panel_batched"] += 1
     return lu, perm, info
+
+
+# ---------------------------------------------------------------------------
+# P4: guarded Cholesky of every tile of a stack (no Pallas counterpart)
+# ---------------------------------------------------------------------------
+
+def chol_tile_batched_plain(d: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of P4 (= the reference's ``_chol_unrolled_b``): per
+    column j, on every item at once, the guarded pivot (a NaN or
+    non-positive d[j, j] sets info to j + 1 if it is still 0, and the
+    column divides by sqrt(1)), col = d[j+1:, j] / root, then
+    d[j+1:, j+1:] −= col·colᵀ, the product and the difference rounded
+    separately. Only the lower triangle reaches the result. Returns
+    (tril L, info int32 (B,)). No host sync."""
+    bsz, s, _ = d.shape
+    a = d.clone(memory_format=torch.contiguous_format)
+    info = torch.zeros(bsz, dtype=torch.int32, device=d.device)
+    one = torch.ones((), dtype=d.dtype, device=d.device)
+    for j in range(s):
+        dj = a[:, j, j]
+        bad = torch.isnan(dj) | (dj <= 0)
+        info = torch.where((info == 0) & bad,
+                           torch.full_like(info, j + 1), info)
+        root = torch.sqrt(torch.where(bad, one, dj))
+        if j + 1 < s:
+            col = a[:, j + 1:, j] / root[:, None]
+            a[:, j + 1:, j] = col
+            a[:, j + 1:, j + 1:] -= col[:, :, None] * col[:, None, :]
+        a[:, j, j] = root
+    return torch.tril(a), info
+
+
+def chol_tile_batched(d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Guarded lower Cholesky of every (s, s) item of a (B, s, s) stack,
+    1 ≤ s ≤ 64 → (L, info int32 (B,)): L a new contiguous stack with zero
+    strict upper triangles; info the 1-based index of each item's first
+    non-positive or NaN leading minor, 0 if none. That column divides by a
+    safe 1 and the factorization goes on, so a bad item changes nothing
+    in its neighbours. Only the lower triangle is read, through the
+    stack's batch, row and column strides: a diagonal block of a larger
+    stack needs no copy.
+
+    Counterpart of ``_chol_unrolled_b`` (slate_tpu/ops/blocked.py:1072-1097;
+    no Pallas kernel). The CUDA kernel (csrc/chol_tile_batched.cu) runs one
+    warp per item, four items per CTA, the item in registers (lane l holds
+    row l and, at s > 32, row l + 32), the pivot and the column entries by
+    shuffles. Bitwise equal to the plain version (IEEE square root and
+    division, products and differences rounded separately). Real
+    float32/float64 only."""
+    _check_real("chol_tile_batched", d)
+    if d.ndim != 3 or d.shape[1] != d.shape[2] or not (
+            1 <= d.shape[1] <= LEAF_MAX):
+        raise SlateError(f"chol_tile_batched: expects a (B, s, s) stack with "
+                         f"1 ≤ s ≤ {LEAF_MAX}, got {tuple(d.shape)}")
+    if d.device.type == "cpu":
+        return chol_tile_batched_plain(d)
+    if d.device.type != "cuda":
+        raise SlateError(f"chol_tile_batched: unsupported device {d.device}")
+    d = d.resolve_neg()
+    bsz, s, _ = d.shape
+    l = torch.empty((bsz, s, s), dtype=d.dtype, device=d.device)
+    info = torch.empty(bsz, dtype=torch.int32, device=d.device)
+    if bsz == 0:
+        return l, info
+    f = _fn("chol_tile_batched",
+            f"slate_chol_tile_batched_{_SUFFIX[d.dtype]}",
+            [_P, _P, _P, _I, _I, _L, _L, _L, _P])
+    with torch.cuda.device(d.device):
+        rc = f(d.data_ptr(), l.data_ptr(), info.data_ptr(), bsz, s,
+               *d.stride(), torch.cuda.current_stream(d.device).cuda_stream)
+    _raise_on(rc, "chol_tile_batched", "slate_chol_tile_batched_error_string",
+              f"chol_tile_batched (B={bsz}, s={s})")
+    LAUNCHES["chol_tile_batched"] += 1
+    return l, info
+
+
+# ---------------------------------------------------------------------------
+# P5: Householder QR of every panel of a stack (no Pallas counterpart)
+# ---------------------------------------------------------------------------
+
+P5_THREADS = 256       # csrc/qr_panel_batched.cu kThreads
+P5_WARPS = P5_THREADS // 32
+
+
+class P5Plan(NamedTuple):
+    """``resident``: each CTA holds its item in shared memory, else it
+    works the item in place in the output stack. ``smem_bytes``: shared
+    memory per CTA."""
+    resident: bool
+    smem_bytes: int
+
+    @property
+    def mode(self) -> str:
+        return "resident" if self.resident else "streaming"
+
+
+def qr_panel_batched_smem_bytes(hh: int, w: int, itemsize: int,
+                                resident: bool) -> int:
+    """Shared memory of one P5 CTA (csrc/qr_panel_batched.cu
+    ``smem_bytes``, held against it by ``chip_smoke.py``): the item in rows
+    of w + 1 entries when resident, then w_row and the warps' partial
+    sums."""
+    item = hh * (w + 1) if resident else 0
+    return (item + w + P5_WARPS) * itemsize
+
+
+def qr_panel_batched_plan(hh: int, w: int, itemsize: int) -> P5Plan:
+    """P5's plan for items of (hh, w) ``itemsize``-byte entries: resident
+    when the item fits PANEL_SMEM_LIMIT, else streaming. Every shape with
+    1 ≤ w ≤ min(hh, 128) and hh·w < 2³¹ has one. Pure: the C launcher
+    sizes the same shared memory, the CPU tests hold the plan."""
+    if (w < 1 or w > QR_PANEL_MAX_W or w > hh or itemsize < 1
+            or hh * w >= 2 ** 31):
+        raise SlateError(f"qr_panel_batched_plan: no plan for an item of "
+                         f"{(hh, w)}, itemsize {itemsize}")
+    resident = qr_panel_batched_smem_bytes(hh, w, itemsize,
+                                           True) <= PANEL_SMEM_LIMIT
+    return P5Plan(resident,
+                  qr_panel_batched_smem_bytes(hh, w, itemsize, resident))
+
+
+def qr_panel_batched_launch_smem(hh: int, w: int, itemsize: int,
+                                 plan: P5Plan) -> int:
+    """The shared memory per CTA that the C launcher sizes ``plan`` with
+    (``slate_qr_panel_batched_smem_bytes``). Needs the built kernel."""
+    return _fn("qr_panel_batched", "slate_qr_panel_batched_smem_bytes",
+               [_I] * 4, ctypes.c_longlong)(hh, w, int(plan.resident),
+                                            itemsize)
+
+
+def qr_panel_batched_plain(stack: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of P5 (the reference's ``_panel_geqrf_batched``
+    written out over the batch, with K3's reflector): per column j, on
+    every item at once, ``larfg`` of [alpha; x] = the column on and below
+    the diagonal (a degenerate column keeps alpha, tau = 0), v = [1;
+    x·scale], w_row = vᵀ·A[j:, j+1:], A[j:, j+1:] −= (tau·v)·w_row. Returns
+    (vr (B, H, w), taus (B, w)). No host sync."""
+    bsz, hh, w = stack.shape
+    vr = stack.clone(memory_format=torch.contiguous_format)
+    taus = torch.zeros((bsz, w), dtype=stack.dtype, device=stack.device)
+    for j in range(w):
+        col = vr[:, j:, j]
+        tail = col[:, 1:]
+        beta, tau, scale = larfg(col[:, 0], (tail * tail).sum(1))
+        v = col.clone()
+        v[:, 1:] *= scale[:, None]
+        v[:, 0] = 1
+        if j + 1 < w:
+            w_row = (v[:, None, :] @ vr[:, j:, j + 1:])[:, 0, :]
+            vr[:, j:, j + 1:] -= (tau[:, None] * v)[:, :, None] \
+                * w_row[:, None, :]
+        vr[:, j + 1:, j] = v[:, 1:]
+        vr[:, j, j] = beta
+        taus[:, j] = tau
+    return vr, taus
+
+
+def qr_panel_batched(stack: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Householder QR of every (H, w) item of a (B, H, w) stack,
+    1 ≤ w ≤ min(H, 128) → (vr, taus): vr a new contiguous (B, H, w) stack,
+    R on and above each diagonal and the reflectors' tails below (unit
+    heads implied), taus (B, w); each item with ``qr_panel_base``'s
+    contract. A degenerate column (zero below the diagonal) keeps its
+    diagonal entry with tau = 0. Items never mix: a NaN stays in its item.
+    The stack is read through its strides (a panel of a larger stack needs
+    no copy).
+
+    Counterpart of ``_panel_geqrf_batched`` (slate_tpu/ops/blocked.py:
+    1216-1264; no Pallas kernel). The CUDA kernel (csrc/qr_panel_batched.cu)
+    runs one CTA of 256 threads per item with the plan
+    ``qr_panel_batched_plan`` (the item in shared memory, or worked in the
+    output stack in global memory): per column a fixed-order reduction for
+    the norm, the larfg scalars, a reduction per trailing column, the
+    rank-1 update. It is bound by those w dependent steps. Equal to the
+    plain version up to the order of its H-long sums. Real float32/float64
+    only."""
+    _check_real("qr_panel_batched", stack)
+    if stack.ndim != 3:
+        raise SlateError(f"qr_panel_batched: expects a (B, H, w) stack, got "
+                         f"{tuple(stack.shape)}")
+    bsz, hh, w = stack.shape
+    if not 1 <= w <= min(hh, QR_PANEL_MAX_W):
+        raise SlateError(f"qr_panel_batched: needs 1 ≤ w ≤ min(H, "
+                         f"{QR_PANEL_MAX_W}), got {(hh, w)}")
+    if stack.device.type == "cpu":
+        return qr_panel_batched_plain(stack)
+    if stack.device.type != "cuda":
+        raise SlateError(f"qr_panel_batched: unsupported device "
+                         f"{stack.device}")
+    stack = stack.resolve_neg()
+    vr = torch.empty((bsz, hh, w), dtype=stack.dtype, device=stack.device)
+    taus = torch.empty((bsz, w), dtype=stack.dtype, device=stack.device)
+    if bsz == 0:
+        return vr, taus
+    plan = qr_panel_batched_plan(hh, w, stack.element_size())
+    f = _fn("qr_panel_batched", f"slate_qr_panel_batched_{_SUFFIX[stack.dtype]}",
+            [_P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _P])
+    with torch.cuda.device(stack.device):
+        rc = f(stack.data_ptr(), vr.data_ptr(), taus.data_ptr(), bsz, hh, w,
+               *stack.stride(), int(plan.resident),
+               torch.cuda.current_stream(stack.device).cuda_stream)
+    _raise_on(rc, "qr_panel_batched", "slate_qr_panel_batched_error_string",
+              f"qr_panel_batched (B={bsz}, H={hh}, w={w}, plan {plan})")
+    LAUNCHES["qr_panel_batched"] += 1
+    return vr, taus

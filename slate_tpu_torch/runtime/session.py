@@ -6,8 +6,11 @@ the factor resident under a byte budget (LRU eviction, refactor on
 miss) and serves solves from it. The ported slices cover dense
 ``TiledMatrix`` operators under ``op`` "chol", "lu" and "qr" (tall
 least-squares operators: ``solve`` takes m-row right-hand sides and
-returns n-row solutions). The reference's Batcher,
-Executor, refinement, meshes, band and small-problem operators,
+returns n-row solutions) and the small-problem operators "lu_small" and
+"chol_small": a plain dense (n, n) numpy array or tensor, factored and
+solved by the batched engine (``linalg/batched.py``) at B = 1 per
+request, or many requests at once through ``solve_small_batched``. The
+reference's Batcher, Executor, refinement, meshes, band operators,
 tracing and fault injection are later slices: registering such an
 operator raises ``NotImplementedError``.
 """
@@ -18,7 +21,7 @@ import dataclasses
 import threading
 import time
 from collections import OrderedDict
-from typing import Dict, Hashable, Optional, Tuple
+from typing import Dict, Hashable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,17 +31,19 @@ from ..core.exceptions import SlateError
 from ..linalg.qr import QRFactors
 from ..core.tiled_matrix import TiledMatrix, from_dense, resolve_device
 from ..core.types import MatrixKind, Options, DEFAULT_OPTIONS
+from ..linalg import batched as _batched
 from ..obs import flops as _flops
 from .metrics import Metrics
 
-OPS = ("lu", "chol", "qr")
+SMALL_OPS = ("lu_small", "chol_small")
+OPS = ("lu", "chol", "qr") + SMALL_OPS
 # op kinds of the reference Session that later slices port
-LATER_OPS = ("band_lu", "band_chol", "lu_small", "chol_small", "eig", "svd")
+LATER_OPS = ("band_lu", "band_chol", "eig", "svd")
 
 
 @dataclasses.dataclass
 class _Operator:
-    A: TiledMatrix
+    A: object  # a TiledMatrix, or an (n, n) tensor for the small ops
     op: str
     opts: Options
     m: int
@@ -63,9 +68,36 @@ def _payload_nbytes(payload) -> int:
     return total
 
 
+def _small_factor(op: str, stack: torch.Tensor):
+    """The batched factor of a (B, n, n) stack of small operators →
+    (per-item payloads, info (B,)). Each payload is a copy of its item, not
+    a view: a view would keep the whole stack allocated while any item of
+    it stays cached, and the byte budget counts each item alone."""
+    if op == "lu_small":
+        lus, perms, info = _batched.getrf_batched(stack)
+        return [(lu.clone(), p.clone()) for lu, p in zip(lus, perms)], info
+    ls, info = _batched.potrf_batched(stack)
+    return [(l.clone(),) for l in ls], info
+
+
+def _small_solve(op: str, payloads, b: torch.Tensor) -> torch.Tensor:
+    """One batched solve of the stacked per-item payloads against the
+    (B, n, k) or (B, n) right-hand sides ``b``."""
+    if op == "lu_small":
+        return _batched.getrs_batched(torch.stack([p[0] for p in payloads]),
+                                      torch.stack([p[1] for p in payloads]),
+                                      b)
+    return _batched.potrs_batched(torch.stack([p[0] for p in payloads]), b)
+
+
 def _make_factor_fn(op: str, opts: Options):
-    """The dense factor verb as an A -> (payload, info) function."""
-    if op == "lu":
+    """The factor verb as an A -> (payload, info) function (the small ops:
+    the B = 1 run of the batched factor)."""
+    if op in SMALL_OPS:
+        def factor(A):
+            payloads, info = _small_factor(op, A[None])
+            return payloads[0], info[0]
+    elif op == "lu":
         def factor(A):
             LU, perm, info = api.lu_factor(A, opts)
             return (LU, perm), info
@@ -115,6 +147,7 @@ class Session:
         self._lock = threading.RLock()
         self._ops: Dict[Hashable, _Operator] = {}
         self._cache: "OrderedDict[Hashable, _Resident]" = OrderedDict()
+        self._cached_total = 0  # the bytes of the factors in _cache
         self._seq = 0
 
     # -- registration ------------------------------------------------------
@@ -128,25 +161,33 @@ class Session:
             return "qr"
         return "lu"
 
-    def register(self, A: TiledMatrix, op: str = "auto",
+    def register(self, A, op: str = "auto",
                  handle: Optional[Hashable] = None,
                  opts: Optional[Options] = None) -> Hashable:
         """Register an operator; returns its handle (an int unless
-        given). ``op`` is "chol", "lu", "qr" or "auto" (Hermitian/
-        Symmetric → chol, square general → lu, non-square → qr). A "qr"
-        operator must be tall (m ≥ n); chol and lu need a square one."""
+        given). ``op`` is "chol", "lu", "qr", "lu_small", "chol_small" or
+        "auto" (a plain array → lu_small; Hermitian/Symmetric → chol,
+        square general → lu, non-square → qr). A "qr" operator must be
+        tall (m ≥ n); the others need a square one. The dense ops take a
+        ``TiledMatrix`` on the session's device; the small ops a plain
+        (n, n) numpy array or tensor of a real type, which the session
+        puts on its device."""
         if op == "auto":
             op = self._infer_op(A)
         if op in LATER_OPS:
             raise NotImplementedError(
                 f"Session.register: op {op!r} is not ported yet (ROADMAP "
-                "Queue 1 items 4, 8 and 9)")
+                "Queue 1 items 8 and 9)")
         if op not in OPS:
             raise SlateError(f"Session.register: unknown op {op!r}")
-        if not isinstance(A, TiledMatrix):
+        if (op in SMALL_OPS) == isinstance(A, TiledMatrix):
+            want = ("plain dense [n, n] array" if op in SMALL_OPS
+                    else "TiledMatrix")
             raise SlateError(f"Session.register: op {op!r} requires a "
-                             f"TiledMatrix operand, got {type(A).__name__}")
-        if A.device != self.device:
+                             f"{want} operand, got {type(A).__name__}")
+        if op in SMALL_OPS:
+            A = self._small_operand(A)
+        elif A.device != self.device:
             raise SlateError(f"Session.register: operand on {A.device}, "
                              f"session on {self.device}")
         m, n = A.shape
@@ -173,6 +214,24 @@ class Session:
             self._ops[handle] = _Operator(A, op, opts or self.opts, m, n)
         return handle
 
+    def _small_operand(self, A) -> torch.Tensor:
+        """A small operator as a square real tensor on the session's
+        device (the reference's validation: square, plain dense)."""
+        t = A if isinstance(A, torch.Tensor) else torch.as_tensor(
+            np.ascontiguousarray(A))
+        if t.ndim != 2 or t.shape[0] != t.shape[1]:
+            raise SlateError("Session.register: small-problem operators "
+                             f"must be square, got {tuple(t.shape)}")
+        if t.is_complex():
+            raise NotImplementedError(
+                f"Session.register: small-problem operators are real "
+                f"float32/float64 only, got {t.dtype} (complex: ROADMAP "
+                "Queue 1 item 3)")
+        if not t.is_floating_point():
+            raise SlateError("Session.register: small-problem operators "
+                             f"need a floating-point type, got {t.dtype}")
+        return t.to(self.device)
+
     def unregister(self, handle: Hashable):
         """Drop an operator and its cached factor (no error if absent)."""
         with self._lock:
@@ -191,7 +250,7 @@ class Session:
     @property
     def cached_bytes(self) -> int:
         with self._lock:
-            return sum(r.nbytes for r in self._cache.values())
+            return self._cached_total
 
     def cached_handles(self):
         """LRU → MRU order."""
@@ -201,6 +260,7 @@ class Session:
     def _drop(self, handle) -> bool:
         res = self._cache.pop(handle, None)
         if res is not None:
+            self._cached_total -= res.nbytes
             self.metrics.inc("evictions")
             self.metrics.inc("evicted_bytes", res.nbytes)
         self.metrics.set_gauge("resident_bytes", self.cached_bytes)
@@ -210,6 +270,12 @@ class Session:
         """Drop a cached factor (the operator stays registered)."""
         with self._lock:
             return self._drop(handle)
+
+    def _insert(self, handle: Hashable, res: _Resident):
+        """Cache a new factor (MRU), then evict to the budget."""
+        self._cache[handle] = res
+        self._cached_total += res.nbytes
+        self._evict_to_budget(keep=handle)
 
     def _evict_to_budget(self, keep: Hashable):
         budget = self.hbm_budget
@@ -229,9 +295,7 @@ class Session:
         """Resident factor for ``handle``: cache hit, or factor on miss
         (LRU touch either way, evict to budget on insert)."""
         with self._lock:
-            entry = self._ops.get(handle)
-            if entry is None:
-                raise SlateError(f"Session: unknown handle {handle!r}")
+            entry = self._entry(handle)
             res = self._cache.get(handle)
             if res is not None:
                 self._cache.move_to_end(handle)
@@ -241,15 +305,13 @@ class Session:
             t0 = time.perf_counter()
             payload, info = _make_factor_fn(entry.op, entry.opts)(entry.A)
             res = _Resident(payload, int(info), _payload_nbytes(payload))
-            if self.device.type == "cuda":  # the QR factor has no info sync
-                torch.cuda.synchronize(self.device)
+            self._sync()  # the QR factor has no info sync
             self.metrics.observe("factor_latency", time.perf_counter() - t0)
             self.metrics.inc("factors_total")
             fl = _flops.factor_flops(entry.op, entry.m, entry.n)
             self.metrics.inc("flops_total", fl)
             self.metrics.inc("factor_flops_total", fl)
-            self._cache[handle] = res
-            self._evict_to_budget(keep=handle)
+            self._insert(handle, res)
             return res
 
     def factor_info(self, handle: Hashable) -> int:
@@ -258,29 +320,27 @@ class Session:
             return res.info if res is not None else self.factor(handle).info
 
     # -- solves ------------------------------------------------------------
+    def _entry(self, handle: Hashable) -> _Operator:
+        entry = self._ops.get(handle)
+        if entry is None:
+            raise SlateError(f"Session: unknown handle {handle!r}")
+        return entry
+
     def solve_matrix(self, handle: Hashable, B: TiledMatrix) -> TiledMatrix:
         """Solve with the resident factor; B is a TiledMatrix on the
         session's device. Raises on factorization failure (info > 0).
         ``solve_latency`` ends when the device has finished."""
         with self._lock:
-            entry = self._ops.get(handle)
-            if entry is None:
-                raise SlateError(f"Session: unknown handle {handle!r}")
-            res = self.factor(handle)
-            if res.info != 0:
-                raise SlateError(f"Session: operator {handle!r} "
-                                 f"factorization failed (info={res.info})")
+            entry = self._entry(handle)
+            if entry.op in SMALL_OPS:
+                raise SlateError("Session.solve_matrix: small-problem "
+                                 "operators take arrays; use solve")
+            res = self._factored(handle)
             t0 = time.perf_counter()
             X = _make_solve_fn(entry.op, entry.opts)(res.payload, B)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.metrics.observe("solve_latency", time.perf_counter() - t0)
-            k = int(B.shape[1])
-            fl = _flops.solve_flops(entry.op, entry.m, entry.n, k)
-            self.metrics.inc("solves_total", k)
-            self.metrics.inc("dispatches_total")
-            self.metrics.inc("flops_total", fl)
-            self.metrics.inc("solve_flops_total", fl)
+            self._sync()
+            self._count_solve(entry.op, entry.m, entry.n, int(B.shape[1]),
+                              time.perf_counter() - t0)
             return X
 
     def solve(self, handle: Hashable, b) -> np.ndarray:
@@ -288,14 +348,128 @@ class Session:
         tensor); returns the solution as numpy with the same rank (n
         rows; m = n except for "qr" operators)."""
         with self._lock:
-            entry = self._ops.get(handle)
-            if entry is None:
-                raise SlateError(f"Session: unknown handle {handle!r}")
-            bt = (b if isinstance(b, torch.Tensor)
-                  else torch.as_tensor(np.asarray(b)))
+            entry = self._entry(handle)
+            bt = self._rhs(entry, b)
             vector = bt.ndim == 1
             b2 = bt[:, None] if vector else bt
-            B = from_dense(b2.to(self.device, entry.A.dtype), entry.A.nb,
-                           device=self.device)
-            x = self.solve_matrix(handle, B).to_numpy()
+            if entry.op in SMALL_OPS:
+                x = self._solve_small(handle, entry, b2)
+            else:
+                B = from_dense(b2, entry.A.nb, device=self.device)
+                x = self.solve_matrix(handle, B).to_numpy()
             return x[:, 0] if vector else x
+
+    def _rhs(self, entry: _Operator, b) -> torch.Tensor:
+        bt = (b if isinstance(b, torch.Tensor)
+              else torch.as_tensor(np.asarray(b)))
+        return bt.to(self.device, entry.A.dtype)
+
+    def _factored(self, handle: Hashable) -> _Resident:
+        """The resident factor; raises on factorization failure."""
+        res = self.factor(handle)
+        if res.info != 0:
+            raise SlateError(f"Session: operator {handle!r} factorization "
+                             f"failed (info={res.info})")
+        return res
+
+    def _count_solve(self, op: str, m: int, n: int, k: int, seconds: float):
+        self.metrics.observe("solve_latency", seconds)
+        fl = _flops.solve_flops(op, m, n, k)
+        self.metrics.inc("solves_total", k)
+        self.metrics.inc("dispatches_total")
+        self.metrics.inc("flops_total", fl)
+        self.metrics.inc("solve_flops_total", fl)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- the small-problem engine -------------------------------------------
+    def small_group_key(self, handle: Hashable) -> Optional[Tuple]:
+        """(op, n, dtype) for a small-problem operator, None otherwise:
+        requests whose keys match can be served by one batched solve
+        whichever operator each targets."""
+        entry = self._ops.get(handle)
+        if entry is None or entry.op not in SMALL_OPS:
+            return None
+        return (entry.op, entry.n, str(entry.A.dtype).split(".")[1])
+
+    def _solve_small(self, handle: Hashable, entry: _Operator,
+                     b2: torch.Tensor) -> np.ndarray:
+        """Caller holds the lock. The per-request arm: the B = 1 run of
+        the batched solve against the resident factor."""
+        res = self._factored(handle)
+        t0 = time.perf_counter()
+        x = _small_solve(entry.op, [res.payload], b2[None])[0]
+        self._sync()
+        self._count_solve(entry.op, entry.n, entry.n, int(b2.shape[1]),
+                          time.perf_counter() - t0)
+        return x.cpu().numpy()
+
+    def solve_small_batched(self, handles: List[Hashable], bs: List
+                            ) -> Tuple[np.ndarray, List[int]]:
+        """One batched pass for requests against small operators of one
+        (op, n, dtype) bucket (a handle may repeat): the operators not
+        resident are
+        factored together by one batched factor and each item's factor is
+        cached (the B = 1 factor's contract); then every request's factor
+        is stacked and served by one batched solve. Returns (xs (B, n, k)
+        or (B, n) in request order, per-item info): a singular or non-SPD
+        item flags itself, its lane holds garbage, and its neighbours are
+        served as without it. ``batched_programs`` counts the batched
+        calls (at most 2)."""
+        if not handles or len(handles) != len(bs):
+            raise SlateError("solve_small_batched: handles and bs must be "
+                             "equal-length and nonempty")
+        with self._lock:
+            entries = [self._entry(h) for h in handles]
+            for h, e in zip(handles, entries):
+                if e.op not in SMALL_OPS:
+                    raise SlateError(f"solve_small_batched: {h!r} is op "
+                                     f"{e.op!r}, not a small-problem "
+                                     "operator")
+            if len({self.small_group_key(h) for h in handles}) != 1:
+                raise SlateError("solve_small_batched: mixed bucket "
+                                 "(op/n/dtype must agree across the batch)")
+            op, n = entries[0].op, entries[0].n
+            t0 = time.perf_counter()
+            programs = 0
+            # every factor this call serves, taken before any insert can
+            # evict one; the first request against a cold operator misses
+            # and every other request hits, as B per-request solves count
+            unique = list(dict.fromkeys(handles))
+            factors = {h: self._cache[h] for h in unique if h in self._cache}
+            seen = set(factors)
+            misses = [h for h in unique if h not in factors]
+            if misses:
+                payloads, infos = _small_factor(
+                    op, torch.stack([self._ops[h].A for h in misses]))
+                fl = _flops.factor_flops(op, n, n)
+                for h, payload, info in zip(misses, payloads,
+                                            infos.tolist()):
+                    self.metrics.inc("factors_total")
+                    self.metrics.inc("flops_total", fl)
+                    self.metrics.inc("factor_flops_total", fl)
+                    factors[h] = _Resident(payload, info,
+                                           _payload_nbytes(payload))
+                    self._insert(h, factors[h])
+                programs += 1
+            for h in handles:
+                if h in seen:
+                    self.metrics.inc("cache_hits")
+                    if h in self._cache:
+                        self._cache.move_to_end(h)
+                else:
+                    self.metrics.inc("cache_misses")
+                    seen.add(h)
+            bstack = torch.stack([self._rhs(e, b)
+                                  for e, b in zip(entries, bs)])
+            x = _small_solve(op, [factors[h].payload for h in handles],
+                             bstack)
+            self._sync()
+            programs += 1
+            k = int(bstack.shape[2]) if bstack.ndim == 3 else 1
+            self._count_solve(op, n, n, len(handles) * k,
+                              time.perf_counter() - t0)
+            self.metrics.inc("batched_programs", programs)
+            return x.cpu().numpy(), [factors[h].info for h in handles]

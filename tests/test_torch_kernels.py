@@ -152,7 +152,9 @@ def test_cpu_dispatch_counts_no_launch_and_rejects_complex():
     assert set(hopper_ops.LAUNCHES) == {"chol_tile", "lu_panel_base",
                                         "qr_panel_base", "qr_panel_base_wide",
                                         "herk_lower_update", "trtri_leaves",
-                                        "lu_nopiv_base", "lu_panel_batched"}
+                                        "lu_nopiv_base", "lu_panel_batched",
+                                        "chol_tile_batched",
+                                        "qr_panel_batched"}
     assert not any(hopper_ops.LAUNCHES.values())
     with pytest.raises(NotImplementedError):
         hopper_ops.chol_tile(a.to(torch.complex128))

@@ -211,8 +211,8 @@ def test_failed_factor_raises_on_solve():
 
 def test_register_rejects_unported_and_bad_operands():
     sess = stt.Session(device="cpu")
-    with pytest.raises(NotImplementedError, match="lu_small"):
-        sess.register(np.eye(4))
+    with pytest.raises(NotImplementedError, match="eig"):
+        sess.register(np.eye(4), op="eig")
     with pytest.raises(NotImplementedError, match="band_lu"):
         sess.register(stt.from_dense(np.eye(4), 4, device="cpu"),
                       op="band_lu")
