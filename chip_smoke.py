@@ -242,12 +242,13 @@ def cuda_ms(fn, reps: int = 7) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, launches: int = 50) -> float:
+def device_ms(fn, launches: int = 50, must_queue: bool = True):
     """Device time per launch of ``fn()`` in ms, by CUDA events around
     ``launches`` calls queued behind a device-side sleep, so that the
     host's launch work is not in the time. The host must have queued every
     call before the sleep ends (else host gaps are in the time): the sleep
-    is made four times longer up to twice, then the check fails."""
+    is made four times longer up to twice, then the check fails (or, with
+    ``must_queue`` False, None is returned)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -264,8 +265,31 @@ def device_ms(fn, launches: int = 50) -> float:
         ev[2].synchronize()
         if host_ms < ev[0].elapsed_time(ev[1]):
             return ev[1].elapsed_time(ev[2]) / launches
-    check(False, f"device_ms: the host took {host_ms} ms to queue "
+    check(not must_queue, f"device_ms: the host took {host_ms} ms to queue "
           f"{launches} calls, longer than the sleep")
+    return None
+
+
+def library_device_ms(torch, fn, launches: int):
+    """A library yardstick's device time per call and how it was taken:
+    queued behind the sleep (``device_ms``) where the host can queue its
+    calls, else ("profiler") the sum of its device events under
+    torch.profiler over ``launches`` calls (a call that waits for the
+    host inside, as a batched ``torch.geqrf`` does, cannot be queued)."""
+    ms = device_ms(fn, launches, must_queue=False)
+    if ms is not None:
+        return ms, "sleep"
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages()
+             if str(e.device_type).endswith("CUDA"))
+    check(us > 0, "library_device_ms: the profiler saw no device time")
+    return us / 1e3 / launches, "profiler"
 
 
 def bound(nbytes: float, flops: float, dtype: str, peaks=PEAK_FLOPS):
@@ -1197,6 +1221,8 @@ def chol_batched_case(torch, ho, bsz, s, dtype, gen, timed=False,
         row["plain_ms"] = cuda_ms(lambda: ho.chol_tile_batched_plain(a),
                                   reps=3)
         row["library_ms"] = cuda_ms(lambda: torch.linalg.cholesky_ex(a))
+        row["library_device_ms"], row["library_device_by"] = \
+            library_device_ms(torch, lambda: torch.linalg.cholesky_ex(a), 20)
         it = a.element_size()
         nbytes = bsz * ((s * (s + 1) // 2 + s * s) * it + 4)
         flops = bsz * s ** 3 / 3.0
@@ -1235,8 +1261,46 @@ def p5_plan_row(ho, a):
           f"qr_panel_batched {(bsz, hh, w)}: the plan counts "
           f"{plan.smem_bytes} bytes of shared memory, the launcher "
           f"{launch_smem}")
-    return {"ctas": bsz, "threads": ho.P5_THREADS, "mode": plan.mode,
-            "smem_bytes": plan.smem_bytes, "launches_per_call": 1}
+    return {"team": plan.team, "threads": plan.threads,
+            "items_per_cta": plan.items_per_cta,
+            "rows_per_thread": plan.rows_per_thread,
+            "storage": plan.storage, "smem_bytes": plan.smem_bytes,
+            "ctas": -(-bsz // plan.items_per_cta), "launches_per_call": 1}
+
+
+def p5_boundary_shapes(torch, ho):
+    """(H, w, dtype) on each side of every boundary of P5's plan, in
+    float32 and float64: warp ↔ CTA team and registers ↔ shared by
+    height, registers ↔ shared by width, shared ↔ streaming, each height
+    found by searching the plan at w = 32. Each pair is checked to
+    straddle its boundary."""
+    shapes = []
+    for dt in (torch.float32, torch.float64):
+        it = torch.finfo(dt).bits // 8
+
+        def plan(hh, w):
+            return ho.qr_panel_batched_plan(hh, w, it)
+
+        def last(keep):  # the largest height at w = 32 with keep(plan)
+            lo, hi = 32, 2 ** 20
+            while hi - lo > 1:
+                mid = (lo + hi) // 2
+                lo, hi = (mid, hi) if keep(plan(mid, 32)) else (lo, mid)
+            return lo
+
+        for h0, (w0, w1), key in (
+                (last(lambda p: p.team == "warp"), (32, 32), "team"),
+                (last(lambda p: p.storage == "registers"), (32, 32),
+                 "storage"),
+                (100, (32, 33), "storage"),
+                (last(lambda p: p.storage != "streaming"), (32, 32),
+                 "storage")):
+            h1 = h0 if w1 != w0 else h0 + 1
+            check(getattr(plan(h0, w0), key) != getattr(plan(h1, w1), key),
+                  f"p5 boundary {(h0, w0)} | {(h1, w1)} {dt}: the same "
+                  f"{key}")
+            shapes += [(h0, w0, dt), (h1, w1, dt)]
+    return shapes
 
 
 def qr_batched_case(torch, ho, bsz, hh, w, dtype, gen, timed=False,
@@ -1309,6 +1373,8 @@ def qr_batched_case(torch, ho, bsz, hh, w, dtype, gen, timed=False,
         row["plain_ms"] = cuda_ms(lambda: ho.qr_panel_batched_plain(a),
                                   reps=3)
         row["library_ms"] = cuda_ms(lambda: torch.geqrf(a), reps=3)
+        row["library_device_ms"], row["library_device_by"] = \
+            library_device_ms(torch, lambda: torch.geqrf(a), 3)
         it = a.element_size()
         nbytes = bsz * (2 * hh * w + w) * it
         flops = bsz * (2.0 * hh * w * w - 2.0 * w ** 3 / 3.0)
@@ -2479,9 +2545,13 @@ def main(argv=None) -> int:
                        (16, 256, 32, f32, False, False, "zero_column"),
                        (16, 256, 32, f32, False, True, "nan"),
                        (4, 40, 40, f64, False, False, "nan"))]
-        check({r["plan"]["mode"] for r in p5_rows}
-              == {"resident", "streaming"},
-              "qr_panel_batched: the cases did not cover both plan modes")
+        # both sides of every boundary of the plan, f32 and f64
+        p5_rows += [qr_batched_case(torch, ho, 6, hh, w_, dt, gen)
+                    for hh, w_, dt in p5_boundary_shapes(torch, ho)]
+        check({r["plan"]["storage"] for r in p5_rows}
+              == {"registers", "shared", "streaming"}
+              and {r["plan"]["team"] for r in p5_rows} == {"warp", "cta"},
+              "qr_panel_batched: the cases did not cover every plan")
         emit("kernel", name="qr_panel_batched", cases=p5_rows)
         # counted paths: the check phase, then the main phase
         ho.reset_launches()
@@ -2559,7 +2629,10 @@ def main(argv=None) -> int:
             **({k: row[k] for k in ("device_ms", "bound_bytes_ms",
                                     "bound_operations_ms")}
                if name in ("lu_panel_batched", "chol_tile_batched",
-                           "qr_panel_batched") else {})})
+                           "qr_panel_batched") else {}),
+            **({k: row[k] for k in ("library_device_ms", "library_device_by")}
+               if name in ("chol_tile_batched", "qr_panel_batched")
+               else {})})
     # P3 at the tournament's other round shapes, (16, 1024, 512) f32 and
     # the final round's (1, 1024, 512)
     p3_keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
@@ -2580,12 +2653,13 @@ def main(argv=None) -> int:
                        "library_device_ms")}
     engine_keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                    "bound_by", "bound_bytes_ms", "bound_operations_ms",
-                   "library_ms")
+                   "library_ms", "library_device_ms", "library_device_by",
+                   "plan")
     for kern, rows, shape in ((kernels[8], p4_rows, ("B", "s", "s")),
                               (kernels[9], p5_rows, ("B", "H", "w"))):
         for r in (r for r in rows[1:] if "ms" in r):
             kern["at_" + "x".join(str(r[k]) for k in shape) + "_"
-                 + r["dtype"]] = {k: r[k] for k in engine_keys}
+                 + r["dtype"]] = {k: r[k] for k in engine_keys if k in r}
     kernels[0]["at_b128"] = {k: k1_128[k] for k in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "plan")}

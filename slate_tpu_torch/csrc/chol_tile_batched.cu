@@ -21,17 +21,34 @@
 // What bounds it. An item is s³/3 multiply-adds and at most 32 KB: at the
 // engine's shapes (B up to 10000 tiles of 32 × 32) the stack crosses HBM
 // once each way, which bounds it by bytes once every SM holds enough
-// items; each item alone is a chain of s dependent steps (a pivot
-// shuffle, a square root, a division, the column's shuffles).
+// items; each item alone is a chain of s dependent steps (a pivot, a
+// square root, a division).
 //
-// Design: one warp per item, four items per CTA, the item in registers.
-// Lane l holds row l (columns 0 … 31) and, for s > 32, row l + 32
-// (columns 0 … 63): only those columns can be in the lower triangle. The
-// pivot of step j and each column entry col[c] reach the other lanes by
-// one shuffle each; every step is unrolled so the registers are indexed at
-// compile time. No shared memory and no barrier: the warp's lanes run in
-// lock step. Loads and stores go straight to global memory (a lane reads
-// its row; the L1 cache catches the neighbouring columns).
+// Design: one warp per item, four items per CTA, the item in registers,
+// padded to kS = 16, 32 or 64 rows so that every register index is fixed
+// at compile time and the steps are one straight block of code. Lane l
+// holds row l (columns 0 … 31) and, for kS = 64, row l + 32 (columns
+// 0 … 63): only those columns can be in the lower triangle. The padded
+// rows and columns are zero; the steps past s touch only entries that are
+// never stored, and set no info.
+// 1. Coalesced staging: the warp reads its item one row per instruction
+//    (32 lanes on neighbouring columns) into a per-warp shared tile padded
+//    to 33 columns, in 32 × 32 quadrants; each lane then takes its row
+//    from the tile. The store goes back the same way, one row per
+//    instruction, zeros above the diagonal.
+// 2. Column entries by a broadcast: each step writes its column (one
+//    entry per lane) into a per-warp buffer (two buffers, alternating,
+//    so one __syncwarp a step suffices), and every lane reads the entries
+//    it needs as 16-byte vectors.
+// 3. A lookahead step: step j updates column j + 1 first, then takes the
+//    pivot of step j + 1 (a shuffle from its lane) and starts its square
+//    root and division, and only then finishes the rest of step j's
+//    trailing update, so the next pivot's chain overlaps that work (all
+//    instances but float64 with s > 32, where the registers do not allow
+//    it). Every entry still takes the same sub_rn(x, mul_rn(col_r, col_c))
+//    in increasing j. A lane updates its whole row: the entries of a row
+//    above the diagonal are never read and are stored as zeros, so no
+//    branch splits a step.
 //
 // Built with nvcc for sm_90a WITHOUT --use_fast_math (IEEE square root,
 // division and NaN handling are part of the contract).
@@ -43,6 +60,7 @@ namespace {
 constexpr int kItems = 4;              // warps, so items, per CTA
 constexpr int kThreads = 32 * kItems;  // 128
 constexpr int kMaxS = 64;
+constexpr int kLd = 33;                // the staging tile's row length
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 __device__ __forceinline__ float mul_rn(float x, float y) { return __fmul_rn(x, y); }
@@ -54,73 +72,179 @@ __device__ __forceinline__ double div_rn(double x, double y) { return __ddiv_rn(
 __device__ __forceinline__ float sqrt_rn(float x) { return __fsqrt_rn(x); }
 __device__ __forceinline__ double sqrt_rn(double x) { return __dsqrt_rn(x); }
 
-// kHalves = 1: s ≤ 32, one row per lane; 2: s ≤ 64, rows l and l + 32
-template <typename T, int kHalves>
+// 16 bytes of entries, for the column buffer's vector loads
+template <typename T> struct Vec16;
+template <> struct Vec16<float> { using type = float4; };
+template <> struct Vec16<double> { using type = double2; };
+__device__ __forceinline__ float part(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ double part(const double2& v, int k) {
+  return k == 0 ? v.x : v.y;
+}
+
+// one warp's shared memory: the staging tile and two column buffers
+template <typename T, int kS>
+struct __align__(16) WarpSmem {
+  T tile[32 * kLd];
+  T col[2][kS];
+};
+
+template <typename T, int kS>
+struct Item {
+  static constexpr int kHalves = kS > 32 ? 2 : 1;
+  static constexpr int kQ = kS < 32 ? kS : 32;  // rows/columns of a quadrant
+  T m0[kQ];                                     // row lane, columns 0 … kQ−1
+  T m1[kHalves == 2 ? kS : 1];                  // row lane + 32, columns 0 … 63
+};
+
+// quadrant (rb, cb) of the item into dst[32·cb …]: the warp reads row
+// 32·rb + i in instruction i, then lane l takes row 32·rb + l from the tile
+template <typename T, int kQ>
+__device__ __forceinline__ void load_quadrant(T* tile, const T* src, int s,
+                                              long long rs, long long cs,
+                                              int rb, int cb, int lane,
+                                              T* dst) {
+  const int c = 32 * cb + lane;
+#pragma unroll
+  for (int i = 0; i < kQ; ++i) {
+    const int r = 32 * rb + i;
+    tile[i * kLd + lane] =
+        r < s && c <= r ? src[r * rs + c * cs] : T(0);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < kQ; ++k) dst[k] = lane < kQ ? tile[lane * kLd + k] : T(0);
+  __syncwarp();
+}
+
+// quadrant (rb, cb) from src[32·cb …] (lane l's row 32·rb + l) to the
+// output, one row per instruction, zeros above the diagonal
+template <typename T, int kQ>
+__device__ __forceinline__ void store_quadrant(T* tile, T* dst, int s, int rb,
+                                               int cb, int lane,
+                                               const T* src) {
+#pragma unroll
+  for (int k = 0; k < kQ; ++k)
+    tile[lane * kLd + k] = 32 * cb + k <= 32 * rb + lane ? src[k] : T(0);
+  __syncwarp();
+  const int c = 32 * cb + lane;
+#pragma unroll
+  for (int i = 0; i < kQ; ++i) {
+    const int r = 32 * rb + i;
+    if (r < s && c < s) dst[r * s + c] = tile[i * kLd + lane];
+  }
+  __syncwarp();
+}
+
+// step k's pivot d[k][k] (a shuffle from lane k mod 32), its guard, root
+// and column at rows r0 and r1
+template <typename T, int kS>
+__device__ __forceinline__ void pivot(const Item<T, kS>& it, int k, int s,
+                                      int r0, int r1, int& first_bad, T& c0,
+                                      T& c1) {
+  using It = Item<T, kS>;
+  const T d = k < 32 ? __shfl_sync(kFull, it.m0[k < It::kQ ? k : 0], k)
+                     : __shfl_sync(kFull, it.m1[It::kHalves == 2 ? k : 0],
+                                   k - 32);
+  const bool bad = isnan(d) || d <= T(0);
+  if (bad && first_bad == 0 && k < s) first_bad = k + 1;
+  const T root = sqrt_rn(bad ? T(1) : d);
+  c0 = k < It::kQ ? (r0 > k ? div_rn(it.m0[k < It::kQ ? k : 0], root)
+                            : (r0 == k ? root : T(0)))
+                  : T(0);  // rows r0 < 32 ≤ k
+  if (It::kHalves == 2)
+    c1 = r1 > k ? div_rn(it.m1[It::kHalves == 2 ? k : 0], root)
+                : (r1 == k ? root : T(0));
+}
+
+template <typename T, int kS>
 __global__ void __launch_bounds__(kThreads)
 chol_tile_batched_kernel(const T* __restrict__ a, T* __restrict__ l,
                          int* __restrict__ info, int B, int s, long long bs,
                          long long rs, long long cs) {
-  constexpr int kS = 32 * kHalves;
-  const int lane = threadIdx.x & 31;
-  const long long item = (long long)blockIdx.x * kItems + (threadIdx.x >> 5);
+  using It = Item<T, kS>;
+  constexpr int kH = It::kHalves, kQ = It::kQ;
+  constexpr int kV = 16 / sizeof(T);
+  // the f64 kS = 64 instance holds 96 doubles a lane: there step j + 1's
+  // pivot waits for the end of step j, where fewer values are live, so it
+  // does not spill (ptxas: 255 registers, no spill; with the lookahead
+  // it spills 480 bytes)
+  constexpr bool kLookahead = !(kH == 2 && sizeof(T) == 8);
+  using V = typename Vec16<T>::type;
+  __shared__ WarpSmem<T, kS> smem[kItems];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long item = (long long)blockIdx.x * kItems + warp;
   if (item >= B) return;  // the whole warp leaves together
+  WarpSmem<T, kS>& sm = smem[warp];
   const T* src = a + item * bs;
   const int r0 = lane, r1 = lane + 32;
 
-  T m0[32];                       // row r0, columns 0 … 31
-  T m1[kHalves == 2 ? kMaxS : 1];  // row r1, columns 0 … 63
-#pragma unroll
-  for (int c = 0; c < 32; ++c)
-    m0[c] = r0 < s && c <= r0 ? src[r0 * rs + c * cs] : T(0);
-  if constexpr (kHalves == 2) {
-#pragma unroll
-    for (int c = 0; c < kMaxS; ++c)
-      m1[c] = r1 < s && c <= r1 ? src[r1 * rs + c * cs] : T(0);
+  It it;
+  load_quadrant<T, kQ>(sm.tile, src, s, rs, cs, 0, 0, lane, it.m0);
+  if (kH == 2) {
+    load_quadrant<T, kQ>(sm.tile, src, s, rs, cs, 1, 0, lane, it.m1);
+    load_quadrant<T, kQ>(sm.tile, src, s, rs, cs, 1, 1, lane,
+                         it.m1 + (kH == 2 ? 32 : 0));
   }
 
   int first_bad = 0;
+  if (s > 0) {  // the column steps
+    T col0, col1 = T(0);  // step j's column at rows r0 and r1
+    pivot<T, kS>(it, 0, s, r0, r1, first_bad, col0, col1);
 #pragma unroll
-  for (int j = 0; j < kS; ++j) {
-    if (j >= s) break;
-    T d;
-    if constexpr (kHalves == 2) {
-      d = j < 32 ? __shfl_sync(kFull, m0[j & 31], j)
-                 : __shfl_sync(kFull, m1[j], j - 32);
-    } else {
-      d = __shfl_sync(kFull, m0[j], j);
-    }
-    const bool bad = isnan(d) || d <= T(0);
-    if (bad && first_bad == 0) first_bad = j + 1;
-    const T root = sqrt_rn(bad ? T(1) : d);
-    T col0 = T(0), col1 = T(0);  // col at rows r0 and r1 (root at row j)
-    if (j < 32) {
-      col0 = r0 > j ? div_rn(m0[j & 31], root) : (r0 == j ? root : T(0));
-      m0[j & 31] = col0;
-    }
-    if constexpr (kHalves == 2) {
-      col1 = r1 > j ? div_rn(m1[j], root) : (r1 == j ? root : T(0));
-      m1[j] = col1;
-    }
+    for (int j = 0; j < kS; ++j) {
+      if (j < kQ) it.m0[j < kQ ? j : 0] = col0;
+      if (kH == 2) it.m1[kH == 2 ? j : 0] = col1;
+      if (j + 1 == kS) break;
+      const int k = j + 1;
+      T* buf = sm.col[j & 1];
+      if (kS >= 32 || lane < kS) buf[lane] = col0;
+      if (kH == 2) buf[lane + 32] = col1;
+      __syncwarp();
+      // column j + 1 takes step j first. Every lane updates its whole row:
+      // on a row r ≤ j these are entries above the diagonal, which no
+      // step reads and the store replaces by zeros, and no branch splits
+      // the step
+      const T ck = buf[k];
+      if (k < kQ)
+        it.m0[k < kQ ? k : 0] = sub_rn(it.m0[k < kQ ? k : 0], mul_rn(col0, ck));
+      if (kH == 2)
+        it.m1[kH == 2 ? k : 0] = sub_rn(it.m1[kH == 2 ? k : 0],
+                                        mul_rn(col1, ck));
+      // then step j + 1's pivot, root and column
+      T next0, next1 = T(0);
+      if (kLookahead) pivot<T, kS>(it, k, s, r0, r1, first_bad, next0, next1);
+      // then the rest of step j's trailing update, columns j + 2 …
 #pragma unroll
-    for (int c = j + 1; c < kS; ++c) {
-      if (c >= s) break;
-      const T cc = __shfl_sync(kFull, c < 32 ? col0 : col1, c & 31);
-      if (c < 32 && r0 > j) m0[c & 31] = sub_rn(m0[c & 31], mul_rn(col0, cc));
-      if constexpr (kHalves == 2) {
-        if (r1 > j) m1[c] = sub_rn(m1[c], mul_rn(col1, cc));
+      for (int g = (j + 2) / kV; g < kS / kV; ++g) {
+        const V v = reinterpret_cast<const V*>(buf)[g];
+#pragma unroll
+        for (int e = 0; e < kV; ++e) {
+          const int c = g * kV + e;
+          if (c < j + 2) continue;
+          const T cc = part(v, e);
+          if (c < kQ)
+            it.m0[c < kQ ? c : 0] = sub_rn(it.m0[c < kQ ? c : 0],
+                                           mul_rn(col0, cc));
+          if (kH == 2)
+            it.m1[kH == 2 ? c : 0] = sub_rn(it.m1[kH == 2 ? c : 0],
+                                            mul_rn(col1, cc));
+        }
       }
+      if (!kLookahead) pivot<T, kS>(it, k, s, r0, r1, first_bad, next0, next1);
+      col0 = next0;
+      col1 = next1;
     }
   }
 
   T* dst = l + item * s * s;
-#pragma unroll
-  for (int c = 0; c < 32; ++c)
-    if (r0 < s && c < s) dst[r0 * s + c] = c <= r0 ? m0[c] : T(0);
-  if constexpr (kHalves == 2) {
-    for (int c = 32; c < s; ++c) dst[r0 * s + c] = T(0);  // above row r0
-#pragma unroll
-    for (int c = 0; c < kMaxS; ++c)
-      if (r1 < s && c < s) dst[r1 * s + c] = c <= r1 ? m1[c] : T(0);
+  store_quadrant<T, kQ>(sm.tile, dst, s, 0, 0, lane, it.m0);
+  if (kH == 2) {
+    if (32 + lane < s)
+      for (int i = 0; i < 32; ++i) dst[i * s + 32 + lane] = T(0);  // above
+    store_quadrant<T, kQ>(sm.tile, dst, s, 1, 0, lane, it.m1);
+    store_quadrant<T, kQ>(sm.tile, dst, s, 1, 1, lane, it.m1 + (kH == 2 ? 32 : 0));
   }
   if (lane == 0) info[item] = first_bad;
 }
@@ -133,12 +257,17 @@ int chol_tile_batched(const void* a, void* l, void* info, int B, int s,
   const unsigned grid = (unsigned)((B + kItems - 1) / kItems);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* x = static_cast<const T*>(a);
-  if (s <= 32)
-    chol_tile_batched_kernel<T, 1><<<grid, kThreads, 0, st>>>(
-        x, static_cast<T*>(l), static_cast<int*>(info), B, s, bs, rs, cs);
+  T* y = static_cast<T*>(l);
+  int* f = static_cast<int*>(info);
+  if (s <= 16)
+    chol_tile_batched_kernel<T, 16><<<grid, kThreads, 0, st>>>(x, y, f, B, s,
+                                                               bs, rs, cs);
+  else if (s <= 32)
+    chol_tile_batched_kernel<T, 32><<<grid, kThreads, 0, st>>>(x, y, f, B, s,
+                                                               bs, rs, cs);
   else
-    chol_tile_batched_kernel<T, 2><<<grid, kThreads, 0, st>>>(
-        x, static_cast<T*>(l), static_cast<int*>(info), B, s, bs, rs, cs);
+    chol_tile_batched_kernel<T, 64><<<grid, kThreads, 0, st>>>(x, y, f, B, s,
+                                                               bs, rs, cs);
   return (int)cudaGetLastError();
 }
 

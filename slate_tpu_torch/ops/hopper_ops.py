@@ -54,8 +54,8 @@ one launch is one round of the CALU tournament and one panel of the
 batched LU. The batched small-problem engine adds P4
 (``chol_tile_batched``: the guarded Cholesky of every tile of a (B, s, s)
 stack, one warp per item) and P5 (``qr_panel_batched``: the Householder
-QR of every panel of a (B, H, w) stack, one CTA per item with the plan
-``qr_panel_batched_plan``).
+QR of every panel of a (B, H, w) stack, its rows owned by the threads of
+a warp or a CTA with the plan ``qr_panel_batched_plan``).
 """
 
 from __future__ import annotations
@@ -120,6 +120,18 @@ def _raise_on(rc: int, lib: str, err_sym: str, what: str):
     if rc:
         msg = _fn(lib, err_sym, [_I], ctypes.c_char_p)(rc).decode()
         raise SlateError(f"{what}: CUDA launch failed ({rc}: {msg})")
+
+
+def _on_device(x: torch.Tensor, f, *args) -> int:
+    """``f(*args, stream)`` with the raw handle of the current stream of
+    ``x``'s device, entering that device only when it is not already the
+    current one (no context manager and no Stream object on the common
+    path: a few µs of host time per launch)."""
+    dev = x.device.index
+    if dev == torch.cuda.current_device():
+        return f(*args, torch._C._cuda_getCurrentRawStream(dev))
+    with torch.cuda.device(dev):
+        return f(*args, torch._C._cuda_getCurrentRawStream(dev))
 
 
 # ---------------------------------------------------------------------------
@@ -1179,9 +1191,12 @@ def chol_tile_batched(d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
     Counterpart of ``_chol_unrolled_b`` (slate_tpu/ops/blocked.py:1072-1097;
     no Pallas kernel). The CUDA kernel (csrc/chol_tile_batched.cu) runs one
-    warp per item, four items per CTA, the item in registers (lane l holds
-    row l and, at s > 32, row l + 32), the pivot and the column entries by
-    shuffles. Bitwise equal to the plain version (IEEE square root and
+    warp per item, four items per CTA, the item in registers padded to
+    16, 32 or 64 rows (lane l holds row l and, past 32, row l + 32),
+    staged through a per-warp shared tile one row per instruction, the
+    columns broadcast through shared memory, each step's trailing update
+    finished after the next pivot's square root and division are under
+    way. Bitwise equal to the plain version (IEEE square root and
     division, products and differences rounded separately). Real
     float32/float64 only."""
     _check_real("chol_tile_batched", d)
@@ -1202,11 +1217,12 @@ def chol_tile_batched(d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     f = _fn("chol_tile_batched",
             f"slate_chol_tile_batched_{_SUFFIX[d.dtype]}",
             [_P, _P, _P, _I, _I, _L, _L, _L, _P])
-    with torch.cuda.device(d.device):
-        rc = f(d.data_ptr(), l.data_ptr(), info.data_ptr(), bsz, s,
-               *d.stride(), torch.cuda.current_stream(d.device).cuda_stream)
-    _raise_on(rc, "chol_tile_batched", "slate_chol_tile_batched_error_string",
-              f"chol_tile_batched (B={bsz}, s={s})")
+    rc = _on_device(d, f, d.data_ptr(), l.data_ptr(), info.data_ptr(), bsz,
+                    s, *d.stride())
+    if rc:
+        _raise_on(rc, "chol_tile_batched",
+                  "slate_chol_tile_batched_error_string",
+                  f"chol_tile_batched (B={bsz}, s={s})")
     LAUNCHES["chol_tile_batched"] += 1
     return l, info
 
@@ -1215,45 +1231,74 @@ def chol_tile_batched(d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 # P5: Householder QR of every panel of a stack (no Pallas counterpart)
 # ---------------------------------------------------------------------------
 
-P5_THREADS = 256       # csrc/qr_panel_batched.cu kThreads
-P5_WARPS = P5_THREADS // 32
+P5_THREADS = 256       # csrc/qr_panel_batched.cu kMemThreads: the CTA
+P5_WARPS = P5_THREADS // 32  # team of the shared and streaming plans
+P5_WARP_ITEMS = 4      # kWarpItems: items (warps) a CTA of warp teams
+P5_STORAGE = {"registers": 0, "shared": 1, "streaming": 2}  # enum Storage
 
 
 class P5Plan(NamedTuple):
-    """``resident``: each CTA holds its item in shared memory, else it
-    works the item in place in the output stack. ``smem_bytes``: shared
-    memory per CTA."""
-    resident: bool
+    """How P5 works one item: ``team`` "warp" (one warp per item,
+    ``items_per_cta`` items a CTA) or "cta" (one CTA per item) of
+    ``threads`` threads; thread t owns rows t, t + threads, … (at most
+    ``rows_per_thread``); ``storage`` "registers" (the rows in
+    registers), "shared" (the item in shared memory) or "streaming"
+    (worked in place in the output stack); ``smem_bytes``: shared memory
+    per CTA."""
+    team: str
+    threads: int
+    items_per_cta: int
+    rows_per_thread: int
+    storage: str
     smem_bytes: int
-
-    @property
-    def mode(self) -> str:
-        return "resident" if self.resident else "streaming"
 
 
 def qr_panel_batched_smem_bytes(hh: int, w: int, itemsize: int,
-                                resident: bool) -> int:
+                                storage: str, threads: int) -> int:
     """Shared memory of one P5 CTA (csrc/qr_panel_batched.cu
-    ``smem_bytes``, held against it by ``chip_smoke.py``): the item in rows
-    of w + 1 entries when resident, then w_row and the warps' partial
-    sums."""
-    item = hh * (w + 1) if resident else 0
-    return (item + w + P5_WARPS) * itemsize
+    ``smem_bytes``, held against it by ``chip_smoke.py``): a warp team's
+    row j, double-buffered, per warp; a CTA team's double-buffered
+    partials of every warp and row j (32 columns in registers, w rounded
+    up to 32 otherwise), then, shared, the item in rows of an odd length
+    (w | 1)."""
+    if storage == "registers":
+        if threads == 32:
+            return P5_WARP_ITEMS * 2 * 32 * itemsize
+        return (2 * (threads // 32) * 32 + 2 * 32) * itemsize
+    wp = -(-w // 32) * 32
+    item = hh * (w | 1) if storage == "shared" else 0
+    return (2 * P5_WARPS * wp + 2 * wp + item) * itemsize
 
 
+@functools.lru_cache(maxsize=256)
 def qr_panel_batched_plan(hh: int, w: int, itemsize: int) -> P5Plan:
-    """P5's plan for items of (hh, w) ``itemsize``-byte entries: resident
-    when the item fits PANEL_SMEM_LIMIT, else streaming. Every shape with
-    1 ≤ w ≤ min(hh, 128) and hh·w < 2³¹ has one. Pure: the C launcher
-    sizes the same shared memory, the CPU tests hold the plan."""
-    if (w < 1 or w > QR_PANEL_MAX_W or w > hh or itemsize < 1
+    """P5's plan for items of (hh, w) ``itemsize``-byte entries. It does
+    not read B, so an item's bits do not depend on how many items share
+    the call. With kR = 8 // itemsize rows a thread (2 in float32, 1 in
+    float64): registers when w ≤ 32 and hh ≤ 256·kR, in a team of
+    32·⌈hh / 32kR⌉ threads (a warp team when that is 32, four items a
+    CTA; else a CTA team); otherwise a CTA team of 256 threads with the
+    item in shared memory when it fits PANEL_SMEM_LIMIT, else streaming.
+    Every shape with 1 ≤ w ≤ min(hh, 128) and hh·w < 2³¹ has one. Pure:
+    the C launcher sizes the same shared memory, the CPU tests hold the
+    plan."""
+    if (w < 1 or w > QR_PANEL_MAX_W or w > hh or itemsize not in (4, 8)
             or hh * w >= 2 ** 31):
         raise SlateError(f"qr_panel_batched_plan: no plan for an item of "
                          f"{(hh, w)}, itemsize {itemsize}")
-    resident = qr_panel_batched_smem_bytes(hh, w, itemsize,
-                                           True) <= PANEL_SMEM_LIMIT
-    return P5Plan(resident,
-                  qr_panel_batched_smem_bytes(hh, w, itemsize, resident))
+    kr = 8 // itemsize
+    if w <= 32 and hh <= P5_THREADS * kr:
+        storage, threads = "registers", 32 * -(-hh // (32 * kr))
+    else:
+        threads = P5_THREADS
+        storage = ("shared" if qr_panel_batched_smem_bytes(
+            hh, w, itemsize, "shared", threads) <= PANEL_SMEM_LIMIT
+            else "streaming")
+    warp = threads == 32
+    return P5Plan("warp" if warp else "cta", threads,
+                  P5_WARP_ITEMS if warp else 1, -(-hh // threads), storage,
+                  qr_panel_batched_smem_bytes(hh, w, itemsize, storage,
+                                              threads))
 
 
 def qr_panel_batched_launch_smem(hh: int, w: int, itemsize: int,
@@ -1261,8 +1306,8 @@ def qr_panel_batched_launch_smem(hh: int, w: int, itemsize: int,
     """The shared memory per CTA that the C launcher sizes ``plan`` with
     (``slate_qr_panel_batched_smem_bytes``). Needs the built kernel."""
     return _fn("qr_panel_batched", "slate_qr_panel_batched_smem_bytes",
-               [_I] * 4, ctypes.c_longlong)(hh, w, int(plan.resident),
-                                            itemsize)
+               [_I] * 5, ctypes.c_longlong)(
+                   hh, w, P5_STORAGE[plan.storage], plan.threads, itemsize)
 
 
 def qr_panel_batched_plain(stack: torch.Tensor
@@ -1306,13 +1351,14 @@ def qr_panel_batched(stack: torch.Tensor
 
     Counterpart of ``_panel_geqrf_batched`` (slate_tpu/ops/blocked.py:
     1216-1264; no Pallas kernel). The CUDA kernel (csrc/qr_panel_batched.cu)
-    runs one CTA of 256 threads per item with the plan
-    ``qr_panel_batched_plan`` (the item in shared memory, or worked in the
-    output stack in global memory): per column a fixed-order reduction for
-    the norm, the larfg scalars, a reduction per trailing column, the
-    rank-1 update. It is bound by those w dependent steps. Equal to the
-    plain version up to the order of its H-long sums. Real float32/float64
-    only."""
+    works each item with a team of threads that own its rows (the plan
+    ``qr_panel_batched_plan``: a warp or a CTA; the rows in registers, in
+    shared memory, or streamed through the output stack): per column one
+    pass over each thread's rows for every trailing column's partial sum,
+    one fixed-order reduction (a transposing butterfly in each warp, then
+    the warps in order), the larfg scalars, w_row and the rank-1 update.
+    Equal to the plain version up to the order of its H-long sums. Real
+    float32/float64 only."""
     _check_real("qr_panel_batched", stack)
     if stack.ndim != 3:
         raise SlateError(f"qr_panel_batched: expects a (B, H, w) stack, got "
@@ -1333,12 +1379,13 @@ def qr_panel_batched(stack: torch.Tensor
         return vr, taus
     plan = qr_panel_batched_plan(hh, w, stack.element_size())
     f = _fn("qr_panel_batched", f"slate_qr_panel_batched_{_SUFFIX[stack.dtype]}",
-            [_P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _P])
-    with torch.cuda.device(stack.device):
-        rc = f(stack.data_ptr(), vr.data_ptr(), taus.data_ptr(), bsz, hh, w,
-               *stack.stride(), int(plan.resident),
-               torch.cuda.current_stream(stack.device).cuda_stream)
-    _raise_on(rc, "qr_panel_batched", "slate_qr_panel_batched_error_string",
-              f"qr_panel_batched (B={bsz}, H={hh}, w={w}, plan {plan})")
+            [_P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _I, _P])
+    rc = _on_device(stack, f, stack.data_ptr(), vr.data_ptr(),
+                    taus.data_ptr(), bsz, hh, w, *stack.stride(),
+                    P5_STORAGE[plan.storage], plan.threads)
+    if rc:
+        _raise_on(rc, "qr_panel_batched",
+                  "slate_qr_panel_batched_error_string",
+                  f"qr_panel_batched (B={bsz}, H={hh}, w={w}, plan {plan})")
     LAUNCHES["qr_panel_batched"] += 1
     return vr, taus

@@ -265,21 +265,42 @@ def test_qr_panel_batched_plain_reconstructs():
 
 def test_qr_panel_batched_plan():
     plan = hopper_ops.qr_panel_batched_plan
-    # the engine's shapes: resident
-    for hh, w, it in ((512, 32, 4), (512, 32, 8), (64, 32, 4),
-                      (32, 32, 8)):
+    smem = hopper_ops.qr_panel_batched_smem_bytes
+    # the engine's shapes: the rows in registers, a warp per 64 × 32 f32
+    # panel (four a CTA), a CTA of 256 threads with two rows each per
+    # 512 × 32 f32 panel; 512 × 32 f64 takes shared memory
+    for (hh, w, it), team, threads, storage in (
+            ((512, 32, 4), "cta", 256, "registers"),
+            ((64, 32, 4), "warp", 32, "registers"),
+            ((32, 32, 8), "warp", 32, "registers"),
+            ((512, 32, 8), "cta", 256, "shared")):
         p = plan(hh, w, it)
-        assert p.resident and p.mode == "resident"
-        assert p.smem_bytes == (hh * (w + 1) + w + hopper_ops.P5_WARPS) * it
-    # the boundary: the last resident height and the first streaming one
+        assert (p.team, p.threads, p.storage) == (team, threads, storage)
+        assert p.items_per_cta == (hopper_ops.P5_WARP_ITEMS
+                                   if team == "warp" else 1)
+        assert p.smem_bytes == smem(hh, w, it, storage, threads)
+    # the boundary: the last shared height and the first streaming one
     limit = hopper_ops.PANEL_SMEM_LIMIT
-    for w, it in ((32, 4), (128, 4), (128, 8)):
-        last = (limit // it - w - hopper_ops.P5_WARPS) // (w + 1)
-        assert plan(last, w, it).resident
+    for w, it in ((32, 4), (32, 8), (128, 4), (128, 8)):
+        wp = -(-w // 32) * 32
+        base = 2 * hopper_ops.P5_WARPS * wp + 2 * wp
+        last = (limit // it - base) // (w | 1)
+        p = plan(last, w, it)
+        assert p.storage == "shared" and p.smem_bytes == (
+            base + last * (w | 1)) * it <= limit
         p = plan(last + 1, w, it)
-        assert not p.resident and p.smem_bytes == (
-            w + hopper_ops.P5_WARPS) * it
-    for bad in ((8, 9, 4), (200, 129, 4), (10, 0, 4), (2 ** 24, 128, 4)):
+        assert p.storage == "streaming" and p.smem_bytes == base * it
+    # at w ≤ 32 with kR = 8 // itemsize: a warp team up to 32·kR rows,
+    # registers up to 256·kR
+    for it in (4, 8):
+        kr = 8 // it
+        assert plan(32 * kr, 32, it).team == "warp"
+        assert plan(32 * kr + 1, 32, it).team == "cta"
+        assert plan(256 * kr, 32, it).storage == "registers"
+        assert plan(256 * kr + 1, 32, it).storage == "shared"
+        assert plan(100, 33, it).storage == "shared"
+    for bad in ((8, 9, 4), (200, 129, 4), (10, 0, 4), (2 ** 24, 128, 4),
+                (64, 32, 2)):
         with pytest.raises(SlateError):
             plan(*bad)
 
