@@ -158,10 +158,34 @@ Phases, one JSON line each:
            one bad operator (a zero column, a non-positive pivot) among
            the same ones: info on that item only, every other answer bit
            for bit as without it.
+7. complex the complex64 and complex128 LU and Cholesky paths
+           (complex_phase): a Session with complex64 Hermitian positive
+           definite (chol) and general (lu) operators at n, nb (16384,
+           512 by default) beside torch.linalg.cholesky and lu_factor on
+           the same operators (factor times and GFLOP/s by LAWN 41's
+           complex counts, 4n³/3 and 8n³/3), complex128 chol and lu
+           operators and complex64 and complex128 CALU ones at
+           n = 4096, a diagonally dominant complex64 NoPiv one, 8
+           requests each, every served column under the residual gate in
+           complex128, potri/getri of the complex128 factors; the factors
+           launch the complex instances of K1, K2, P2, P3 and P1 and no
+           K3, K4, K5 or P5;
+   complex_small  the small phase's gesv/posv_batched and Sessions in
+           complex64, and gesv/posv_batched at (32, 10000) in
+           complex128 (P3 and P4's complex instances).
+The kernel phase also holds the complex instances of K1, K2, P2, P3 and
+P4 against their plain versions at the real rows' shapes (kernel lines
+with "dtype": "complex"; K2, P2, P3 and P4 bit for bit), with their
+fault cases (a negative real pivot with an imaginary part, a zero
+column or pivot, a NaN, inf + nan·i, ties in modulus), and a "spills"
+line gives ptxas's registers and spill stores for every complex
+instance.
 
 The kernels' launch counters are zeroed just before the check phase,
-the main phase and the small phase and read just after each; the
-launches made to compare a kernel with its plain version are not
+the main phase, the small phase, the complex phase and the
+complex_small phase and read just after each (also by element type:
+each kernel's "dtypes" and "launches_by_dtype" in the kernels line);
+the launches made to compare a kernel with its plain version are not
 counted.
 Then a {"kernels": [...]} line (for each kernel also its plan, which is
 derived from the shape, the type and the SM count the run queried, not
@@ -169,8 +193,9 @@ measured; for chol_tile also its numbers at b = 128 under "at_b128",
 for herk_lower_update at 2048² float64 under "at_f64_2048", for
 lu_panel_batched at (16, 1024, 512) and (1, 1024, 512) f32 under
 "at_16x1024x512" and "at_1x1024x512", and at the engine's shapes; P1,
-P4 and P5 at the engine's other shapes under "at_..."), the nvidia-smi
-line,
+P4 and P5 at the engine's other shapes under "at_..."; the complex
+instances of K1, K2, P2, P3 and P4 under "at_complex64_..." and
+"at_complex128_..."), the nvidia-smi line,
 and last
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device, or
@@ -195,7 +220,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # NVIDIA H100 SXM data sheet (dense, 700 W): HBM3 3.35 TB/s; FP32 67
 # TFLOP/s and FP64 34 TFLOP/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12,
+              "complex64": 67e12, "complex128": 34e12}
 # herk_lower_update runs on the tensor cores (same data sheet): FP64
 # 67 TFLOP/s (DMMA), TF32 495 TFLOP/s of which 3×TF32 gets a third
 HERK_PEAK_FLOPS = {"float32": 495e12 / 3, "float64": 67e12}
@@ -292,12 +318,29 @@ def library_device_ms(torch, fn, launches: int):
     return us / 1e3 / launches, "profiler"
 
 
+def real_ops(flops: float, dtype: str) -> float:
+    """The real operations of ``flops`` complex-or-real ones: a complex
+    multiply-add is four real ones (LAWN 41's counts)."""
+    return 4 * flops if dtype.startswith("complex") else flops
+
+
 def bound(nbytes: float, flops: float, dtype: str, peaks=PEAK_FLOPS):
     """Least time (ms) the card could take: the larger of bytes over the
-    memory rate and operations over the peak rate of the type."""
+    memory rate and operations over the peak rate of the type (``flops``
+    counted in the type's own operations, four real ones to a complex
+    one)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / peaks[dtype] * 1e3
+    t_ops = real_ops(flops, dtype) / peaks[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).split(".")[1]
+
+
+def wide(torch, x):
+    """``x`` in float64, or complex128 if it is complex."""
+    return x.to(torch.complex128 if x.is_complex() else torch.float64)
 
 
 # ---------------------------------------------------------------------------
@@ -305,11 +348,15 @@ def bound(nbytes: float, flops: float, dtype: str, peaks=PEAK_FLOPS):
 # ---------------------------------------------------------------------------
 
 def spd_tile(torch, b, dtype, gen, junk_upper=True):
+    """x·xᴴ/b + I; with ``junk_upper`` 1e6 junk in the strict upper
+    triangle and, complex, 5i on the diagonal (K1 reads neither)."""
     x = torch.randn((b, b), generator=gen, device="cuda", dtype=dtype)
-    a = x @ x.T / b + torch.eye(b, device="cuda", dtype=dtype)
+    a = x @ x.mH / b + torch.eye(b, device="cuda", dtype=dtype)
     if junk_upper:
         junk = torch.randn((b, b), generator=gen, device="cuda", dtype=dtype)
         a = torch.tril(a) + 1e6 * torch.triu(junk, 1)
+        if a.is_complex():
+            a.diagonal().add_(5j)
     return a.contiguous()
 
 
@@ -320,15 +367,22 @@ def chol_case(torch, ho, b, dtype, gen, timed: bool):
     torch.cuda.synchronize()
     scale = lp.abs().max().item()
     err = (lk - lp).abs().max().item()
-    tol = (1e-5 if dtype == torch.float32 else 1e-12) * scale
+    tol = (1e-5 if dtype in (torch.float32, torch.complex64)
+           else 1e-12) * scale
     check(math.isfinite(err) and err <= tol,
           f"chol_tile b={b} {dtype}: |kernel - plain| = {err} > {tol}")
     check(torch.count_nonzero(torch.triu(lk, 1)).item() == 0,
           f"chol_tile b={b}: nonzero above the diagonal")
+    if a.is_complex():
+        check(not lk.diagonal().imag.any(),
+              f"chol_tile b={b} {dtype}: an imaginary part on the diagonal")
     row = {"b": b, "dtype": str(dtype).split(".")[1],
            "plan": chol_plan_row(ho, a), "max_abs_err": err, "tol": tol}
     if timed:
         row["ms"] = cuda_ms(lambda: ho.chol_tile(a))
+        if a.is_complex():
+            row["device_ms"] = device_ms(lambda: ho.chol_tile(a),
+                                         launches=20)
         row["plain_ms"] = cuda_ms(lambda: ho.chol_tile_plain(a), reps=5)
         row["library_ms"] = cuda_ms(lambda: torch.linalg.cholesky(a))
         s = a.element_size()
@@ -360,18 +414,20 @@ def check_chol_modes(rows):
           f"chol_tile: the cases did not cover every plan mode: {modes}")
 
 
-def chol_nan_case(torch, ho, gen):
+def chol_nan_case(torch, ho, gen, dtype=None, cases=None):
     """A negative pivot makes that diagonal entry NaN and every one after
     it, and leaves those before it finite: at b = 512 f32 (8 CTAs,
     resident) at pivots 0, 300 and in the last CTA's last row block; at
-    b = 128 (one CTA) and b = 1024 (streaming) in a middle row block."""
+    b = 128 (one CTA) and b = 1024 (streaming) in a middle row block.
+    Complex: the real part negative and 3i on that entry, at ``cases``."""
+    dtype = dtype or torch.float32
     plan = ho.chol_tile_plan(512, 4)
     last_lo = plan.row_blocks(plan.ctas - 1, 512)[-1][0]
-    cases = [(512, 0), (512, 300), (512, last_lo + 20), (128, 70),
-             (1024, 700)]
+    cases = cases or [(512, 0), (512, 300), (512, last_lo + 20), (128, 70),
+                      (1024, 700)]
     for b, bad in cases:
-        a = spd_tile(torch, b, torch.float32, gen)
-        a[bad, bad] = -a.abs().sum()
+        a = spd_tile(torch, b, dtype, gen)
+        a[bad, bad] = -a.abs().sum() + (3j if a.is_complex() else 0)
         for name, fn in (("kernel", ho.chol_tile),
                          ("plain", ho.chol_tile_plain)):
             d = fn(a).diagonal()
@@ -379,10 +435,12 @@ def chol_nan_case(torch, ho, gen):
                   bool(torch.isnan(d[bad:]).all()),
                   f"chol_tile {name}: NaN contract broken at b = {b}, "
                   f"pivot {bad}")
-    return {"bad_pivots": [{"b": b, "pivot": bad, "ctas": p.ctas,
+    it = torch.empty((), dtype=dtype).element_size()
+    return {"dtype": dtype_name(dtype),
+            "bad_pivots": [{"b": b, "pivot": bad, "ctas": p.ctas,
                             "mode": p.mode}
                            for b, bad in cases
-                           for p in [ho.chol_tile_plan(b, 4)]],
+                           for p in [ho.chol_tile_plan(b, it)]],
             "nan_from_pivot_on": True}
 
 
@@ -416,6 +474,9 @@ def lu_case(torch, ho, hh, w, dtype, gen, timed: bool, zero_col=None):
            "max_abs_err": err, "bitwise_equal": True, "info": int(ik)}
     if timed:
         row["ms"] = cuda_ms(lambda: ho.lu_panel_base(a))
+        if a.is_complex():
+            row["device_ms"] = device_ms(lambda: ho.lu_panel_base(a),
+                                         launches=20)
         row["plain_ms"] = cuda_ms(lambda: ho.lu_panel_base_plain(a), reps=5)
         row["library_ms"] = cuda_ms(lambda: torch.linalg.lu_factor(a))
         s = a.element_size()
@@ -436,17 +497,21 @@ def check_plan_modes(name, rows):
           f"{name}: no case has a slab of a few rows: {plans}")
 
 
-def lu_edge_case(torch, ho, gen):
+def lu_edge_case(torch, ho, gen, dtype=None):
     """K2 where the pivot search crosses slabs: in column 0 the largest
     |a| ties between rows 33 and 70 (two slabs other than row 0's), so
     row 33 must win; a NaN at row 600 of column 5 (another slab than row
     5's) must win column 5 and set info = 6. lu, perm and info equal the
-    plain version's (NaN where it has NaN, bitwise elsewhere)."""
+    plain version's (NaN where it has NaN, bitwise elsewhere). Complex:
+    the tie is −3i against 3 (equal moduli), and the NaN is inf + nan·i,
+    whose modulus is NaN, as the reference's jnp.abs gives it."""
     hh, w = 1000, 64
-    a = torch.randn((hh, w), generator=gen, device="cuda")
-    a[:, 0] = a[:, 0].clamp(-1, 1)
-    a[33, 0], a[70, 0] = -3.0, 3.0
-    a[600, 5] = math.nan
+    dtype = dtype or torch.float32
+    a = torch.randn((hh, w), generator=gen, device="cuda", dtype=dtype)
+    a[:, 0] = (a[:, 0] / a[:, 0].abs().max() if a.is_complex()
+               else a[:, 0].clamp(-1, 1))
+    a[33, 0], a[70, 0] = (-3j if a.is_complex() else -3.0), 3.0
+    a[600, 5] = complex(math.inf, math.nan) if a.is_complex() else math.nan
     lk, pk, ik = ho.lu_panel_base(a)
     lp, pp, ip = ho.lu_panel_base_plain(a)
     torch.cuda.synchronize()
@@ -458,7 +523,8 @@ def lu_edge_case(torch, ho, gen):
           f"{int(ik)}, plain {int(ip)}, expected 6")
     check(torch.equal(nan_k, nan_p) and torch.equal(lk[~nan_k], lp[~nan_p]),
           "lu_panel_base edge case: lu differs from the plain version")
-    return {"H": hh, "w": w, "plan": plan_row(ho, a), "tie_rows": [33, 70],
+    return {"H": hh, "w": w, "dtype": dtype_name(dtype),
+            "plan": plan_row(ho, a), "tie_rows": [33, 70],
             "pivot_0": int(pk[0]), "nan_at": [600, 5], "info": int(ik),
             "bitwise_equal_off_nan": True}
 
@@ -877,6 +943,8 @@ def exact_zero_pivot(torch, s, zero_at, dtype, gen):
 def same_bits(torch, x, y) -> bool:
     """NaN in the same places and every other entry equal bit for bit
     (the sign of a zero and ±Inf included)."""
+    if x.is_complex():
+        x, y = torch.view_as_real(x), torch.view_as_real(y)
     nan = torch.isnan(x)
     if not torch.equal(nan, torch.isnan(y)):
         return False
@@ -1042,15 +1110,23 @@ def batched_stack(torch, bsz, hh, w, dtype, gen, fault=None):
     """A (B, H, w) Gaussian stack for P3, with a fault: "zero_column"
     (column 3 of chunk B // 2 zero), "nan" (a NaN in the last row of
     column 2 of chunk 0, zeros left of it, so that row must win that
-    column's pivot) or "tie" (column 0 of every chunk ±1, so row 0 must
-    win; in the last chunk column 1 within ±1 but 7.0 at rows 5 and 9,
-    which stay tied, so row 5 must win there)."""
+    column's pivot; complex: inf + nan·i, whose modulus is NaN) or "tie"
+    (column 0 of every chunk ±1, complex 1, −1, i, −i in turn, so row 0
+    must win; in the last chunk column 1 of modulus at most 1 but 7.0 at
+    rows 5 and 9, which stay tied, so row 5 must win there)."""
     a = torch.randn((bsz, hh, w), generator=gen, device="cuda", dtype=dtype)
     if fault == "zero_column":
         a[bsz // 2, :, 3] = 0
     elif fault == "nan":
         a[0, hh - 1, :2] = 0
-        a[0, hh - 1, 2] = math.nan
+        a[0, hh - 1, 2] = (complex(math.inf, math.nan) if a.is_complex()
+                           else math.nan)
+    elif fault == "tie" and a.is_complex():
+        # column 0 all of modulus 1 in four phases, so row 0 must win
+        phase = torch.tensor([1, -1, 1j, -1j], dtype=dtype, device="cuda")
+        a[:, :, 0] = phase[torch.arange(hh, device="cuda") % 4]
+        a[-1, :, 1] /= a[-1, :, 1].abs().max()
+        a[-1, [5, 9], 1] = 7.0
     elif fault == "tie":
         a[:, :, 0] = torch.where(torch.arange(hh, device="cuda") % 2 == 1,
                                  -1.0, 1.0).to(dtype)
@@ -1148,19 +1224,23 @@ def lu_batched_case(torch, ho, bsz, hh, w, dtype, gen, timed=False,
         # the other bound, for PERF.md's row: bytes and operations each
         row["bound_bytes_ms"] = bsz * (2 * hh * w * s + 4 * hh + 4) \
             / PEAK_BYTES_PER_S * 1e3
-        row["bound_operations_ms"] = bsz * (hh * w * w - w ** 3 / 3.0) \
+        row["bound_operations_ms"] = real_ops(
+            bsz * (hh * w * w - w ** 3 / 3.0), row["dtype"]) \
             / PEAK_FLOPS[row["dtype"]] * 1e3
     return row
 
 
 def spd_stack(torch, bsz, s, dtype, gen):
-    """A (bsz, s, s) stack of SPD items, x·xᵀ/s + I, with 1e6 junk in the
-    strict upper triangles (P4 must not read them)."""
-    x = torch.randn((bsz, s, s), generator=gen, device="cuda",
-                    dtype=torch.float64)
-    a = (x @ x.mT / s + torch.eye(s, device="cuda", dtype=torch.float64))
-    return (torch.tril(a) + 1e6 * torch.triu(torch.ones_like(a), 1)
-            ).to(dtype)
+    """A (bsz, s, s) stack of SPD (complex: Hermitian positive definite)
+    items, x·xᴴ/s + I, with 1e6 junk in the strict upper triangles and,
+    complex, 3i on the diagonals (P4 must read neither)."""
+    wide_t = torch.complex128 if dtype.is_complex else torch.float64
+    x = torch.randn((bsz, s, s), generator=gen, device="cuda", dtype=wide_t)
+    a = (x @ x.mH / s + torch.eye(s, device="cuda", dtype=wide_t))
+    a = torch.tril(a) + 1e6 * torch.triu(torch.ones_like(a), 1)
+    if dtype.is_complex:
+        a.diagonal(dim1=1, dim2=2).add_(3j)
+    return a.to(dtype)
 
 
 def in_stack(torch, a, n_big, k0):
@@ -1229,7 +1309,8 @@ def chol_batched_case(torch, ho, bsz, s, dtype, gen, timed=False,
         row["bound_ms"], row["bound_by"] = bound(nbytes, flops,
                                                  row["dtype"])
         row["bound_bytes_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
-        row["bound_operations_ms"] = flops / PEAK_FLOPS[row["dtype"]] * 1e3
+        row["bound_operations_ms"] = real_ops(flops, row["dtype"]) \
+            / PEAK_FLOPS[row["dtype"]] * 1e3
     return row
 
 
@@ -1381,7 +1462,8 @@ def qr_batched_case(torch, ho, bsz, hh, w, dtype, gen, timed=False,
         row["bound_ms"], row["bound_by"] = bound(nbytes, flops,
                                                  row["dtype"])
         row["bound_bytes_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
-        row["bound_operations_ms"] = flops / PEAK_FLOPS[row["dtype"]] * 1e3
+        row["bound_operations_ms"] = real_ops(flops, row["dtype"]) \
+            / PEAK_FLOPS[row["dtype"]] * 1e3
     return row
 
 
@@ -1389,10 +1471,13 @@ def qr_batched_case(torch, ho, bsz, hh, w, dtype, gen, timed=False,
 # phases 4-5: factorizations and the serving path
 # ---------------------------------------------------------------------------
 
-def scaled_residuals(torch, A, X, B):
-    """Per column ‖b − A·x‖∞ / (n·ε·‖A‖∞·‖x‖∞)."""
+def scaled_residuals(torch, A, X, B, in_wide=False):
+    """Per column ‖b − A·x‖∞ / (n·ε·‖A‖∞·‖x‖∞), ε of A's type; with
+    ``in_wide`` in float64 (complex128 for a complex A)."""
     n = A.shape[0]
     eps = torch.finfo(A.dtype).eps
+    if in_wide:
+        A, X, B = (wide(torch, t) for t in (A, X, B))
     anorm = A.abs().sum(dim=1).max()
     r = (B - A @ X).abs().max(dim=0).values
     return (r / (n * eps * anorm * X.abs().max(dim=0).values)).tolist()
@@ -1633,10 +1718,10 @@ def small_check(torch, stt, gen):
 
 
 def inverse_residual(torch, a, x):
-    """‖I − A·X‖₁ / (n·ε·‖A‖₁·‖X‖₁) in float64 on the card, ε of A's
-    type."""
+    """‖I − A·X‖₁ / (n·ε·‖A‖₁·‖X‖₁) in float64 (complex128 for a complex
+    A) on the card, ε of A's type."""
     n = a.shape[0]
-    a64, x64 = a.double(), x.double()
+    a64, x64 = wide(torch, a), wide(torch, x)
     r = a64 @ x64
     r.diagonal().sub_(1)
     one = lambda m: m.abs().sum(dim=0).max().item()  # noqa: E731
@@ -2125,10 +2210,10 @@ def launches_of(ho, fn):
 
 def batched_residuals(torch, a, x, b):
     """Per item max over columns of ‖b − A·x‖∞ / (n·ε·‖A‖∞·‖x‖∞) in
-    float64, ε of A's type."""
+    float64 (complex128 for a complex A), ε of A's type."""
     eps = torch.finfo(a.dtype).eps
-    a64, x64 = a.double(), x.double()
-    r = (b.double() - a64 @ x64).abs().amax(dim=1)
+    a64, x64 = wide(torch, a), wide(torch, x)
+    r = (wide(torch, b) - a64 @ x64).abs().amax(dim=1)
     anorm = a64.abs().sum(dim=2).amax(dim=1)
     return (r / (a.shape[1] * eps * anorm[:, None]
                  * x64.abs().amax(dim=1))).amax(dim=1)
@@ -2145,7 +2230,7 @@ def batched_lstsq_rel(torch, a, x, b):
             / ref.abs().amax(dim=1)).amax(dim=1)
 
 
-def small_verb_run(torch, stt, ho, verb, n, bsz, gen):
+def small_verb_run(torch, stt, ho, verb, n, bsz, gen, dtype=None):
     """One verb at (n, B): a warm call, then the batched call timed (wall,
     requests per second, launches pinned to SMALL_LAUNCHES), every item
     under its gate (gesv/posv: the scaled residual ≤ 30 in float64; gels:
@@ -2153,16 +2238,19 @@ def small_verb_run(torch, stt, ho, verb, n, bsz, gen):
     function timed beside it, and PER_REQUEST_SAMPLE items served one at a
     time (B = 1): their wall, their gate, and whether each equals its lane
     of the batched call bit for bit, with 2 right-hand sides and with one
-    (a vector)."""
+    (a vector). ``dtype``: float32 unless given (complex: the gate in
+    complex128, posv's items Hermitian)."""
+    dtype = dtype or torch.float32
     m = 2 * n if verb == "gels" else n
-    a = torch.randn((bsz, m, n), generator=gen, device="cuda")
+    a = torch.randn((bsz, m, n), generator=gen, device="cuda", dtype=dtype)
     if verb == "posv":
-        a = a @ a.mT / n + torch.eye(n, device="cuda")
-    b = torch.randn((bsz, m, SMALL_RHS), generator=gen, device="cuda")
+        a = a @ a.mH / n + torch.eye(n, device="cuda", dtype=dtype)
+    b = torch.randn((bsz, m, SMALL_RHS), generator=gen, device="cuda",
+                    dtype=dtype)
     fn = getattr(stt, f"{verb}_batched")
     fn(a, b)  # warm: cuBLAS handles and workspaces
     (x, info), wall, launches = launches_of(ho, lambda: fn(a, b))
-    name = f"small {verb} (n={n}, B={bsz})"
+    name = f"small {verb} (n={n}, B={bsz}, {dtype_name(dtype)})"
     check(launches == SMALL_LAUNCHES[(verb, n)],
           f"{name}: launches {launches}, expected "
           f"{SMALL_LAUNCHES[(verb, n)]}")
@@ -2197,7 +2285,8 @@ def small_verb_run(torch, stt, ho, verb, n, bsz, gen):
     check(math.isfinite(worst) and worst <= limit,
           f"{name}: worst item {worst} > {limit}")
     return {"verb": verb, "n": n, "B": bsz, "m": m, "k": SMALL_RHS,
-            "dtype": "float32", "wall_s": wall, "req_per_s": bsz / wall,
+            "dtype": dtype_name(dtype), "wall_s": wall,
+            "req_per_s": bsz / wall,
             "launches": launches,
             "library_s": lib_wall, "library_req_per_s": bsz / lib_wall,
             "per_request_sample": PER_REQUEST_SAMPLE,
@@ -2253,21 +2342,25 @@ def small_session_run(torch, stt, ho, op, mats, rhs, fault=None):
     return out, xs, infos
 
 
-def small_phase(torch, stt, ho, gen):
+def small_phase(torch, stt, ho, gen, dtype=None,
+                verb_names=("gesv", "posv", "gels")):
     """The batched verbs at both ends of bench_batched and the Session's
-    small ops at n = 256, B = 1000, with their fault runs."""
+    small ops at n = 256, B = 1000, with their fault runs, in float32
+    unless ``dtype`` is given."""
     import numpy as np
-    verbs = [small_verb_run(torch, stt, ho, verb, n, bsz, gen)
-             for n, bsz in SMALL_RUNS for verb in ("gesv", "posv", "gels")]
+    dtype = dtype or torch.float32
+    verbs = [small_verb_run(torch, stt, ho, verb, n, bsz, gen, dtype)
+             for n, bsz in SMALL_RUNS for verb in verb_names]
     sessions = []
     item, col = SESSION_FAULT
     for op in ("lu_small", "chol_small"):
         a = torch.randn((SESSION_B, SESSION_N, SESSION_N), generator=gen,
-                        device="cuda")
+                        device="cuda", dtype=dtype)
         if op == "chol_small":
-            a = a @ a.mT / SESSION_N + torch.eye(SESSION_N, device="cuda")
+            a = a @ a.mH / SESSION_N + torch.eye(SESSION_N, device="cuda",
+                                                 dtype=dtype)
         b = torch.randn((SESSION_B, SESSION_N, SMALL_RHS), generator=gen,
-                        device="cuda")
+                        device="cuda", dtype=dtype)
         rhs = list(b)
         run, xs, infos = small_session_run(torch, stt, ho, op, list(a), rhs)
         check(not any(infos), f"session {op}: infos {set(infos)}")
@@ -2296,8 +2389,322 @@ def small_phase(torch, stt, ho, gen):
         run["fault"] = {"item": item, "info": finfos[item],
                         "neighbours_bitwise": True, "cold_s": frun["cold_s"],
                         "counters": frun["counters"]}
+        run["dtype"] = dtype_name(dtype)
         sessions.append(run)
     return {"verbs": verbs, "sessions": sessions}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: complex64 and complex128 through the LU and Cholesky paths
+# ---------------------------------------------------------------------------
+
+def complex_kernel_rows(torch, ho, gen, n):
+    """The complex instances of K1, K2, P2, P3 and P4 against their plain
+    versions at the real rows' shapes, in complex64 and complex128, each
+    with the fault cases of its real rows (one "kernel" line per kernel,
+    "dtype": "complex"). Returns each kernel's timed rows for the kernels
+    line, under "at_<dtype>_<shape>"."""
+    c64, c128 = torch.complex64, torch.complex128
+    keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "plan")
+    out = {}
+
+    def keep(name, rows, shape):
+        out[name] = {f"at_{r['dtype']}_" + "x".join(str(r[k]) for k in shape):
+                     {k: r[k] for k in keys if k in r}
+                     for r in rows if "ms" in r}
+
+    # K1 at b = 128 and 512 (one CTA or a resident cluster in complex64,
+    # a resident and a streaming cluster in complex128), non-positive
+    # real pivots with an imaginary part on them
+    rows = [chol_case(torch, ho, b, dt, gen, timed=True)
+            for dt in (c64, c128) for b in (128, 512)]
+    rows += [chol_case(torch, ho, b, dt, gen, timed=False)
+             for b, dt in ((33, c64), (1024, c64), (200, c128))]
+    keep("chol_tile", rows, ("b",))
+    emit("kernel", name="chol_tile", dtype="complex", cases=rows,
+         nan_cases=[chol_nan_case(torch, ho, gen, c64, [(512, 300),
+                                                         (128, 0)]),
+                    chol_nan_case(torch, ho, gen, c128, [(512, 20),
+                                                          (128, 70)])])
+    # K2 at the main path's tallest base (resident slabs in complex64,
+    # streaming in complex128), a zero column, ragged slabs, and the tie
+    # and inf + nan·i across slabs
+    rows = [lu_case(torch, ho, n, 128, dt, gen, timed=True)
+            for dt in (c64, c128)]
+    rows += [lu_case(torch, ho, hh, w, dt, gen, timed=False)
+             for hh, w, dt in ((1000, 100, c64), (4096, 128, c128),
+                               (256, 4, c128))]
+    rows.append(lu_case(torch, ho, 1024, 64, c64, gen, False, zero_col=10))
+    keep("lu_panel_base", rows, ("H", "w"))
+    emit("kernel", name="lu_panel_base", dtype="complex", cases=rows,
+         edge_cases=[lu_edge_case(torch, ho, gen, dt) for dt in (c64, c128)])
+    # P2 at 64² (timed), a zero pivot at step 20, a NaN, in place on a
+    # strided and a transposed view with signed zeros
+    rows = [lu_nopiv_case(torch, ho, 64, dt, gen, timed=True)
+            for dt in (c64, c128)]
+    rows += [lu_nopiv_case(torch, ho, 64, dt, gen, zero_at=20)
+             for dt in (c64, c128)]
+    rows += [lu_nopiv_case(torch, ho, 33, c128, gen, nan_at=(5, 3)),
+             lu_nopiv_case(torch, ho, 64, c64, gen, view="strided",
+                           signed_zeros=True),
+             lu_nopiv_case(torch, ho, 17, c128, gen, view="t",
+                           signed_zeros=True)]
+    keep("lu_nopiv_base", rows, ("s", "s"))
+    emit("kernel", name="lu_nopiv_base", dtype="complex", cases=rows)
+    # P3 at the CALU round (32, 512, 512) (resident in complex64,
+    # streaming in complex128) and the engine's (10000, 32, 32), timed;
+    # the faults
+    rows = [lu_batched_case(torch, ho, bsz, hh, w_, dt, gen, timed=True)
+            for bsz, hh, w_ in ((32, 512, 512), (10000, 32, 32))
+            for dt in (c64, c128)]
+    rows += [lu_batched_case(torch, ho, bsz, hh, w_, dt, gen, fault=fault)
+             for bsz, hh, w_, dt, fault in (
+                 (3, 777, 129, c128, None),
+                 (8, 512, 512, c64, "zero_column"),
+                 (4, 1000, 64, c128, "nan"), (4, 1000, 64, c64, "nan"),
+                 (4, 300, 40, c64, "tie"), (4, 300, 40, c128, "tie"))]
+    keep("lu_panel_batched", rows, ("B", "H", "w"))
+    emit("kernel", name="lu_panel_batched", dtype="complex", cases=rows)
+    # P4 at the engine's tiles (timed): the diagonal blocks of a
+    # (1000, 256, 256) stack and (10000, 32, 32); non-positive pivots,
+    # s = 48 and 64 (complex128 at 64 holds 96 entries a lane: it spills)
+    rows = [chol_batched_case(torch, ho, bsz, 32, dt, gen, timed=True,
+                              n_big=n_big)
+            for bsz, n_big in ((1000, 256), (10000, None))
+            for dt in (c64, c128)]
+    rows += [chol_batched_case(torch, ho, bsz, s_, dt, gen, n_big=n_big,
+                               faults=faults)
+             for bsz, s_, dt, n_big, faults in (
+                 (1000, 32, c128, 256, (0, 20, 31)),
+                 (1000, 32, c64, None, (0, 20, 31)),
+                 (64, 64, c128, 128, (0, 20, 63)),
+                 (5, 48, c64, None, (47,)), (7, 16, c128, None, (3,)),
+                 (3, 1, c64, None, (0,)))]
+    keep("chol_tile_batched", rows, ("B", "s", "s"))
+    emit("kernel", name="chol_tile_batched", dtype="complex", cases=rows)
+    return out
+
+
+# the order of the complex128 operators and of the complex64 CALU and
+# no-pivot ones (the complex64 chol and lu operators take the main path's)
+COMPLEX_SMALL_N = 4096
+
+
+def launch_snapshot(ho):
+    """The launch counts by kernel and by element type, copied."""
+    return dict(ho.LAUNCHES), {k: dict(v) for k, v in
+                               ho.TYPE_LAUNCHES.items()}
+
+
+def complex_phase(torch, stt, ho, n, nb, gen):
+    """A Session serving complex operators through the LU and Cholesky
+    paths: Hermitian positive definite (chol) and general (lu) complex64
+    operators at the main path's n and nb, the same two in complex128 at
+    COMPLEX_SMALL_N, general ones there in complex64 and complex128 with
+    MethodLU.CALU, and a diagonally dominant complex64 one with
+    MethodLU.NoPiv; each factored once and serving
+    8 requests of 1 and 16 columns. Every served column's scaled residual
+    ≤ 30 in complex128; potri and getri of the complex128 factors held to
+    ‖I − A·X‖₁ / (n·ε·‖A‖₁·‖X‖₁) ≤ 30; torch.linalg.cholesky and
+    lu_factor on the complex64 operators timed beside the factors. The
+    factors launch the complex instances of K1 (chol), K2 (lu), P3 and
+    P2 (CALU), P2 (NoPiv) and P1, and no K3, K4, K5 or P5."""
+    from slate_tpu_torch.obs import flops
+    from slate_tpu_torch.runtime.metrics import Histogram
+    dev = "cuda"
+    c64, c128 = torch.complex64, torch.complex128
+    n2 = min(n, COMPLEX_SMALL_N)
+
+    def hpd(m, dt):
+        x = torch.randn((m, m), generator=gen, device=dev, dtype=dt)
+        a = x @ x.mH / m
+        a.diagonal().add_(1.0)
+        return a
+
+    def general(m, dt):
+        return torch.randn((m, m), generator=gen, device=dev, dtype=dt)
+
+    lu_opts = {"calu": stt.Options(method_lu=stt.MethodLU.CALU),
+               "nopiv": stt.Options(method_lu=stt.MethodLU.NoPiv)}
+    # name: (operator, op, options)
+    operators = {"chol_c64": (hpd(n, c64), "chol", None),
+                 "lu_c64": (general(n, c64), "lu", None),
+                 "chol_c128": (hpd(n2, c128), "chol", None),
+                 "lu_c128": (general(n2, c128), "lu", None),
+                 "lu_calu_c64": (general(n2, c64), "lu", lu_opts["calu"]),
+                 "lu_calu_c128": (general(n2, c128), "lu", lu_opts["calu"]),
+                 "nopiv_c64": (dominant(torch, n2, gen, c64), "lu",
+                               lu_opts["nopiv"])}
+    widths = (1, 16, 1, 16, 1, 16, 1, 16)
+    rhs = {name: [torch.randn((a.shape[0], k), generator=gen, device=dev,
+                              dtype=a.dtype) for k in widths]
+           for name, (a, _, _) in operators.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sess = stt.Session(hbm_budget=16 << 30, device=dev)
+    handles = {}
+    for name, (a, op, opts) in operators.items():
+        A = (stt.hermitian(a, nb, stt.Uplo.Lower, device=dev) if op == "chol"
+             else stt.from_dense(a, nb, device=dev))
+        handles[name] = sess.register(A, op=op, opts=opts)
+    factor_s, info, factor_launches = {}, {}, {}
+    for name, h in handles.items():
+        before = dict(ho.LAUNCHES)
+        t0 = time.perf_counter()
+        info[name] = sess.factor_info(h)
+        torch.cuda.synchronize()
+        factor_s[name] = time.perf_counter() - t0
+        factor_launches[name] = {k: ho.LAUNCHES[k] - before[k]
+                                 for k in ho.LAUNCHES}
+    latency = {name: Histogram() for name in handles}
+    served = {name: [] for name in handles}
+    for name, h in handles.items():
+        for b in rhs[name]:
+            t0 = time.perf_counter()
+            xs = torch.from_numpy(sess.solve(h, b)).to(dev)
+            latency[name].observe(time.perf_counter() - t0)
+            served[name].append(xs)
+    peak = torch.cuda.max_memory_allocated()
+    inverse = {}
+    for name, key, fn in (("potri", "chol_c128",
+                           stt.chol_inverse_using_factor),
+                          ("getri", "lu_c128", stt.lu_inverse_using_factor)):
+        before = dict(ho.LAUNCHES)
+        t0 = time.perf_counter()
+        X = fn(*sess.factor(handles[key]).payload)
+        torch.cuda.synchronize()
+        inverse[name] = {"operator": key,
+                         "seconds": time.perf_counter() - t0,
+                         "launches": {k: ho.LAUNCHES[k] - before[k]
+                                      for k in ho.LAUNCHES
+                                      if ho.LAUNCHES[k] != before[k]}}
+        r = inverse_residual(torch, operators[key][0], X.dense()[:n2, :n2])
+        inverse[name]["inverse_residual"] = r
+        check(math.isfinite(r) and r <= RESIDUAL_BOUND,
+              f"complex {name}: ‖I − A·X‖₁ / (n·ε·‖A‖₁·‖X‖₁) = {r}")
+        del X
+    # the library yardsticks on the complex64 operators (a warm call first)
+    library = {}
+    for name, key, fn in (("cholesky", "chol_c64", torch.linalg.cholesky),
+                          ("lu_factor", "lu_c64", torch.linalg.lu_factor)):
+        a = operators[key][0]
+        fn(a)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(a)
+        torch.cuda.synchronize()
+        library[f"{name}_s"] = time.perf_counter() - t0
+        del out
+    res = {name: [] for name in handles}
+    for name, (a, _, _) in operators.items():
+        for xs, b in zip(served[name], rhs[name]):
+            res[name] += scaled_residuals(torch, a, xs, b, in_wide=True)
+    check(all(v == 0 for v in info.values()), f"complex factor info {info}")
+    worst = max(max(v) for v in res.values())
+    check(math.isfinite(worst) and worst <= RESIDUAL_BOUND,
+          f"complex scaled residual {worst} > {RESIDUAL_BOUND}: "
+          f"{ {k: max(v) for k, v in res.items()} }")
+    fl = factor_launches
+    nt = -(-n // nb)
+    check(fl["chol_c64"]["chol_tile"] >= nt,
+          f"complex chol launched chol_tile {fl['chol_c64']['chol_tile']} "
+          f"< {nt} times")
+    k2 = fl["lu_c64"]["lu_panel_base"]
+    check(k2 == 4 * nt if nb == 512 else k2 >= nt,
+          f"complex lu launched lu_panel_base {k2} times for {nt} panels")
+    check(fl["chol_c128"]["chol_tile"] > 0
+          and fl["lu_c128"]["lu_panel_base"] > 0,
+          f"complex128 factors launched {fl['chol_c128']}, {fl['lu_c128']}")
+    for name in ("lu_calu_c64", "lu_calu_c128"):
+        calu = fl[name]
+        check(calu["lu_panel_batched"] > 0 and calu["lu_nopiv_base"] > 0
+              and calu["lu_panel_base"] == 0,
+              f"the complex CALU factor {name} launched {calu}")
+    nopiv = fl["nopiv_c64"]
+    check(nopiv["lu_nopiv_base"] > 0 and nopiv["lu_panel_base"] == 0
+          and nopiv["lu_panel_batched"] == 0,
+          f"the complex no-pivot factor launched {nopiv}")
+    launches, type_launches = launch_snapshot(ho)
+    check(not any(launches[k] for k in ("qr_panel_base", "qr_panel_base_wide",
+                                        "herk_lower_update",
+                                        "qr_panel_batched")),
+          f"the complex phase launched a real-only kernel: {launches}")
+    for k in ("chol_tile", "lu_panel_base", "lu_nopiv_base",
+              "lu_panel_batched", "trtri_leaves"):
+        check(set(type_launches[k]) <= {"complex64", "complex128"}
+              and type_launches[k], f"{k} launched {type_launches[k]}")
+    per = {name: {"p50": h.percentile(50), "p99": h.percentile(99)}
+           for name, h in latency.items()}
+    solve_hist = sess.metrics.histogram("solve_latency")
+    four = {"chol": 4 * flops.potrf(n), "lu": 4 * flops.getrf(n)}
+    return {
+        "n": n, "nb": nb, "n_small": n2, "requests_per_operator": len(widths),
+        "operators": {name: {"n": a.shape[0], "dtype": dtype_name(a.dtype),
+                             "op": op, "method": (opts.method_lu.name
+                                                  if opts else "default")}
+                      for name, (a, op, opts) in operators.items()},
+        "factor_s": factor_s,
+        # LAWN 41's complex counts in real operations: potrf 4n³/3,
+        # getrf 8n³/3
+        "chol_c64_gflops": four["chol"] / factor_s["chol_c64"] / 1e9,
+        "lu_c64_gflops": four["lu"] / factor_s["lu_c64"] / 1e9,
+        "library": {**library,
+                    "cholesky_gflops": four["chol"] / library["cholesky_s"]
+                    / 1e9,
+                    "lu_factor_gflops": four["lu"] / library["lu_factor_s"]
+                    / 1e9},
+        "solve_latency_s": per,
+        "solve_p50_s": solve_hist["p50"], "solve_p99_s": solve_hist["p99"],
+        "solves": solve_hist["count"],
+        "max_memory_allocated": peak,
+        "inverse": inverse,
+        "scaled_residual_max": {k: max(v) for k, v in res.items()},
+        "residuals_checked": {k: len(v) for k, v in res.items()},
+        "gate": RESIDUAL_BOUND,
+        "launches_factor": {k: {kk: vv for kk, vv in v.items() if vv}
+                            for k, v in factor_launches.items()},
+        "launches": launches, "launches_by_dtype": type_launches,
+    }
+
+
+def complex_spills(_build):
+    """ptxas's registers and spill stores for every complex instance (Cx
+    in the mangled name) of the sources this run built, from the build
+    log; names demangled by c++filt where it is installed."""
+    import re
+    import shutil
+    rows = []
+    for src, log in sorted(_build.BUILD_LOG.items()):
+        fn, spill = None, 0
+        for line in log["ptxas"].splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                fn = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                spill = int(m.group(1))
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn is not None:
+                if "2CxI" in fn:
+                    rows.append({"source": src, "function": fn,
+                                 "registers": int(m.group(1)),
+                                 "spill_stores": spill})
+                fn, spill = None, 0
+    cxxfilt = shutil.which("c++filt")
+    if cxxfilt and rows:
+        out = subprocess.run([cxxfilt], input="\n".join(
+            r["function"] for r in rows), capture_output=True, text=True,
+            timeout=60)
+        names = out.stdout.splitlines()
+        if out.returncode == 0 and len(names) == len(rows):
+            for r, name in zip(rows, names):
+                r["function"] = name
+    check(rows or not _build.BUILD_LOG,
+          "the build log shows no complex instance")
+    return rows
 
 
 def main(argv=None) -> int:
@@ -2333,6 +2740,7 @@ def main(argv=None) -> int:
                                    if "registers" in ln or "spill" in ln]}
                      for k, v in log.items()})
     emit("sass", herk_lower_update=herk_sass_counts(_build))
+    emit("spills", complex_instances=complex_spills(_build))
 
     # the library yardsticks (torch.linalg) run on cuSOLVER
     torch.backends.cuda.preferred_linalg_library("cusolver")
@@ -2553,6 +2961,7 @@ def main(argv=None) -> int:
               and {r["plan"]["team"] for r in p5_rows} == {"warp", "cta"},
               "qr_panel_batched: the cases did not cover every plan")
         emit("kernel", name="qr_panel_batched", cases=p5_rows)
+        cx_rows = complex_kernel_rows(torch, ho, gen, args.n)
         # counted paths: the check phase, then the main phase
         ho.reset_launches()
         small = small_check(torch, stt, gen)
@@ -2562,16 +2971,30 @@ def main(argv=None) -> int:
         blas3 = blas3_check(torch, stt, gen)
         inverse = inverse_verbs_check(torch, stt, gen)
         calu = calu_check(torch, stt, ho, gen)
-        check_launches = dict(ho.LAUNCHES)
+        check_launches, check_types = launch_snapshot(ho)
         emit("check", **small, **gels, gels_cholqr=gels_cholqr, tsqr=tsqr,
              blas3=blas3, inverse_and_nopiv=inverse, calu=calu,
              launches=check_launches)
         main = main_path(torch, stt, ho, args.n, args.nb, gen)
+        main_types = {k: dict(v) for k, v in ho.TYPE_LAUNCHES.items()}
         emit("main", **main)
         ho.reset_launches()
         small = small_phase(torch, stt, ho, gen)
-        small_launches = dict(ho.LAUNCHES)
-    emit("small", **small, launches=small_launches)
+        small_launches, small_types = launch_snapshot(ho)
+        emit("small", **small, launches=small_launches)
+        ho.reset_launches()
+        cx = complex_phase(torch, stt, ho, args.n, args.nb, gen)
+        emit("complex", **cx)
+        ho.reset_launches()
+        cx_small = small_phase(torch, stt, ho, gen, torch.complex64,
+                               ("gesv", "posv"))
+        # the complex128 instances of P3 and P4 at the engine's n = 32
+        cx_small["verbs"] += [small_verb_run(torch, stt, ho, verb, 32, 10000,
+                                             gen, torch.complex128)
+                              for verb in ("gesv", "posv")]
+        cx_small_launches, cx_small_types = launch_snapshot(ho)
+    emit("complex_small", **cx_small, launches=cx_small_launches,
+         launches_by_dtype=cx_small_types)
 
     # each kernel's first timed f32 row (K1 at b = nb, the nb = 512
     # factor's tile), and K1 at b = 128 beside it
@@ -2612,12 +3035,19 @@ def main(argv=None) -> int:
              "slate_tpu/ops/blocked.py:1216")):
         row = timed[name]
         launches = (check_launches[name] + main["launches"][name]
-                    + small_launches[name])
+                    + small_launches[name] + cx["launches"][name]
+                    + cx_small_launches[name])
         check(launches > 0, f"{name} was not launched on a counted path")
+        by_type = {}
+        for phase in (check_types, main_types, small_types,
+                      cx["launches_by_dtype"], cx_small_types):
+            for dt, k in phase[name].items():
+                by_type[dt] = by_type.get(dt, 0) + k
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"slate_tpu_torch/csrc/{src}", "replaces": rep,
-            "launches": launches,
+            "launches": launches, "dtypes": sorted(by_type),
+            "launches_by_dtype": by_type,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -2660,6 +3090,10 @@ def main(argv=None) -> int:
         for r in (r for r in rows[1:] if "ms" in r):
             kern["at_" + "x".join(str(r[k]) for k in shape) + "_"
                  + r["dtype"]] = {k: r[k] for k in engine_keys if k in r}
+    # the complex instances at the real rows' shapes
+    for kern in kernels:
+        for key, r in cx_rows.get(kern["name"], {}).items():
+            kern[key] = r
     kernels[0]["at_b128"] = {k: k1_128[k] for k in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "plan")}

@@ -16,7 +16,11 @@ n = 16384), "calu" (the general operator with MethodLU.CALU:
 getrf_tntpiv, 161 P3 launches at n = 16384), or of three that run a kernel in another plan mode: "chol_f64"
 (the SPD operator in float64 at nb, K1 at b = nb f64), "chol_nb1024"
 (in float32 at nb = 1024, K1 at b = 1024) and "qr_f64_nb32" (an
-8n × 64 float64 operator at nb = 32, K3 at (8n, 32) f64). Each runs
+8n × 64 float64 operator at nb = 32, K3 at (8n, 32) f64), or the
+complex64 ones: "chol_c64" and "lu_c64" (Hermitian positive definite
+and general, at nb) and "chol_c64_nb128" (at nb = n/128, where potrf's
+recursion updates its trailing blocks by the complex 2×2 recursion of
+gemms, K5 having no complex instance). Each runs
 through a Session that has factored every kind and type it profiles
 once at n = 1024 (so that one-time set-up of libraries and kernels is
 not in the profile), under torch.profiler (CPU and CUDA activity), then
@@ -29,7 +33,10 @@ twice) and its share of that wall, the count of device events, the
 device time and launches of each of the port's own kernels (by kernel
 name; "qr_panel" is K3 and K4, which share one kernel body), P3's
 launches by (B, H, w) stack shape with the cluster plan each took
-(``p3_rounds``, counted in the unprofiled run), and the top twelve
+(``p3_rounds``, counted in the unprofiled run), the stream time of
+potrf's recursive trailing updates (``herk_lower_rec``: its outermost
+calls between CUDA events in the unprofiled run, and their share of
+that wall), and the top twelve
 device events by device time and host ops by self CPU time. The last line is the card's nvidia-smi name and
 power limit. Exits 2 without a CUDA device. Imports nothing of JAX and
 nothing of slate_tpu.
@@ -59,8 +66,8 @@ KERNEL_FUNCS = {"chol_tile": "chol_tile_kernel",
 
 def register(torch, stt, sess, shape, op, nb, gen, dtype):
     a = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
-    if op == "chol":  # SPD, as chip_smoke.py's main phase makes it
-        a = a @ a.T / shape[0]
+    if op == "chol":  # SPD (HPD), as chip_smoke.py's main phase makes it
+        a = a @ a.mH / shape[0]
         a.diagonal().add_(1.0)
         return sess.register(stt.hermitian(a, nb, stt.Uplo.Lower,
                                            device="cuda"), op=op)
@@ -101,6 +108,43 @@ def p3_rounds():
         ho.lu_panel_batched = launch
 
 
+@contextlib.contextmanager
+def herk_recursion(torch):
+    """The stream time of the outermost ``blocked.herk_lower_rec`` calls
+    made inside the block (CUDA events around each, read after the
+    block): the trailing updates of potrf's 2×2 recursion, one K5 launch
+    in real types, the recursion of gemms in complex ones. Between the
+    events the stream may also wait for the host, so this bounds the
+    device time of those updates from above."""
+    from slate_tpu_torch.ops import blocked
+    rec = blocked.herk_lower_rec
+    events, depth = [], [0]
+
+    def timed(*args, **kw):
+        depth[0] += 1
+        try:
+            if depth[0] > 1:
+                return rec(*args, **kw)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = rec(*args, **kw)
+            ev[1].record()
+            events.append(ev)
+            return out
+        finally:
+            depth[0] -= 1
+
+    out = {}
+    blocked.herk_lower_rec = timed
+    try:
+        yield out
+    finally:
+        blocked.herk_lower_rec = rec
+    torch.cuda.synchronize()
+    out.update(calls=len(events),
+               stream_ms=sum(a.elapsed_time(b) for a, b in events))
+
+
 def profile_factor(torch, stt, sess, shape, op, nb, dtype, gen, top=12):
     from torch.profiler import ProfilerActivity, profile
 
@@ -128,7 +172,7 @@ def profile_factor(torch, stt, sess, shape, op, nb, dtype, gen, top=12):
     # rounds by stack shape with their plans
     h = register(torch, stt, sess, shape, op, nb, gen, dtype)
     torch.cuda.synchronize()
-    with p3_rounds() as rounds:
+    with p3_rounds() as rounds, herk_recursion(torch) as herk:
         t0 = time.perf_counter()
         sess.factor_info(h)
         torch.cuda.synchronize()
@@ -146,6 +190,9 @@ def profile_factor(torch, stt, sess, shape, op, nb, dtype, gen, top=12):
         "device_busy_share": busy_us / 1e6 / wall,
         "device_events": sum(e.count for e in dev),
         "p3_rounds": rounds,
+        # potrf's recursive trailing updates, in the unprofiled run
+        "herk_lower_rec": {**herk, "share_of_unprofiled_wall":
+                           herk["stream_ms"] / 1e3 / unprofiled},
         "port_kernels": {
             k: {"device_ms": sum(dev_us(e) for e in mine) / 1e3,
                 "count": sum(e.count for e in mine)}
@@ -168,7 +215,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--factors", default="chol,lu,qr,chol_nb128",
                     help="which factors to profile, comma-separated (also "
-                    "nopiv, calu, chol_f64, chol_nb1024, qr_f64_nb32)")
+                    "nopiv, calu, chol_f64, chol_nb1024, qr_f64_nb32, "
+                    "chol_c64, lu_c64, chol_c64_nb128)")
     args = ap.parse_args(argv)
 
     import torch
@@ -183,7 +231,7 @@ def main(argv=None) -> int:
     _build.build_all()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
-    n, f32, f64 = args.n, torch.float32, torch.float64
+    n, f32, f64, c64 = args.n, torch.float32, torch.float64, torch.complex64
     factors = {"chol": ((n, n), "chol", args.nb, f32),
                "lu": ((n, n), "lu", args.nb, f32),
                "qr": ((2 * n, n // 2), "qr", args.nb, f32),
@@ -192,7 +240,10 @@ def main(argv=None) -> int:
                "calu": ((n, n), "calu", args.nb, f32),
                "chol_f64": ((n, n), "chol", args.nb, f64),
                "chol_nb1024": ((n, n), "chol", 1024, f32),
-               "qr_f64_nb32": ((8 * n, 64), "qr", 32, f64)}
+               "qr_f64_nb32": ((8 * n, 64), "qr", 32, f64),
+               "chol_c64": ((n, n), "chol", args.nb, c64),
+               "lu_c64": ((n, n), "lu", args.nb, c64),
+               "chol_c64_nb128": ((n, n), "chol", n // 128, c64)}
     chosen = args.factors.split(",")
     if not set(chosen) <= set(factors):
         ap.error(f"--factors: choose from {sorted(factors)}")

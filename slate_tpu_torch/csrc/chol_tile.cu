@@ -3,10 +3,14 @@
 //
 // Replaces the TPU kernel slate_tpu/ops/pallas_ops.py::chol_tile (body
 // _chol_tile_kernel, the pallas_call in chol_tile): out = L with
-// A = L·Lᵀ, strict upper triangle zeroed. Only the LOWER triangle of the
-// input is read (potrf hands over raw lower storage; the upper may be
-// garbage). A non-positive or NaN pivot puts NaN on the diagonal from
-// that column on: potrf reads failure off isnan(diag(L)).
+// A = L·Lᴴ, strict upper triangle zeroed, in float32, float64, complex64
+// and complex128 (the complex arm is the reference's _chol_unrolled /
+// chol_tile_blocked, slate_tpu/ops/blocked.py:464-545). Only the LOWER
+// triangle of the input is read (potrf hands over raw lower storage; the
+// upper may be garbage). The pivot is the real part of the diagonal entry
+// (its imaginary part is ignored), so L's diagonal is real. A non-positive
+// or NaN pivot puts NaN on the diagonal from that column on: potrf reads
+// failure off isnan(diag(L)).
 //
 // What bounds it on this card: not bytes (1 MiB at b = 512 f32) and not
 // the b³/3 flops (0.7 µs on the whole card, about 0.1 ms on one SM), but
@@ -60,11 +64,17 @@
 // factorization of each diagonal block, the copy over distributed shared
 // memory and the waits at the barriers.
 //
+// Complex types run the same steps in csrc/cx.cuh's arithmetic: the
+// products take conj of the second factor (L21 = A21·L11⁻ᴴ,
+// A22 −= L21·L21ᴴ) and a row divides by the real diagonal part by part.
+//
 // Built with nvcc for sm_90a WITHOUT --use_fast_math: the NaN contract
 // needs IEEE sqrt and division.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "cx.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -81,7 +91,7 @@ constexpr int kCopy = 8;           // loads in flight per thread in a copy
 
 enum Mode { kWhole = 0, kResident = 1, kStream = 2 };
 
-template <typename T> __device__ __forceinline__ T quiet_nan();
+template <typename R> __device__ __forceinline__ R quiet_nan();
 template <> __device__ __forceinline__ float quiet_nan<float>() {
   return __int_as_float(0x7fc00000);
 }
@@ -93,32 +103,33 @@ template <> __device__ __forceinline__ double quiet_nan<double>() {
 // writes), else a plain load (own or distributed shared memory)
 template <int M, typename T>
 __device__ __forceinline__ T ld(const T* p) {
-  if (M == kStream) return __ldcg(p);
+  if (M == kStream) return cx::ldcg(p);
   return *p;
 }
 
 // Cholesky of the identity-padded 32 × 32 block in d11 (row stride kLD),
-// in place, by one warp: lane t keeps row t in registers and its own
-// diagonal entry apart, so the pivot chain from column to column is one
-// shuffle, a sqrt, a division and an FMA; the multipliers reach the
-// other lanes by shuffles.
+// in place, by one warp: lane t keeps row t in registers and the real
+// part of its own diagonal entry apart, so the pivot chain from column to
+// column is one shuffle, a sqrt, a division and an FMA; the multipliers
+// reach the other lanes by shuffles.
 template <typename T>
 __device__ void factor_diag(T* d11, int t) {
+  using R = real_t<T>;
   T r[kNB];
 #pragma unroll
   for (int c = 0; c < kNB; ++c) r[c] = d11[t * kLD + c];
-  T diag = d11[t * kLD + t];
+  R diag = cx::real_part(d11[t * kLD + t]);
 #pragma unroll
   for (int c = 0; c < kNB; ++c) {
-    const T d = __shfl_sync(0xffffffffu, diag, c);
-    const T s = d > T(0) ? sqrt(d) : quiet_nan<T>();
-    const T l = t > c ? r[c] / s : (t == c ? s : T(0));
+    const R d = __shfl_sync(0xffffffffu, diag, c);
+    const R s = d > R(0) ? sqrt(d) : quiet_nan<R>();
+    const T l = t > c ? cx::div_real_rn(r[c], s) : (t == c ? T(s) : T(0));
     r[c] = l;
-    if (t > c) diag -= l * l;
+    if (t > c) diag -= cx::abs2(l);
 #pragma unroll
     for (int c2 = c + 1; c2 < kNB; ++c2) {
-      const T lc = __shfl_sync(0xffffffffu, l, c2);
-      if (t > c2) r[c2] -= l * lc;
+      const T lc = cx::shfl(l, c2);
+      if (t > c2) r[c2] -= l * cx::conj(lc);
     }
   }
 #pragma unroll
@@ -206,7 +217,9 @@ chol_tile_kernel(const T* __restrict__ a, T* __restrict__ out, int b) {
     // 2. L21 = A21·L11⁻ᵀ on this CTA's rows below the diagonal block, by
     // the reciprocals of L11's diagonal
     if (below) {
-      if (tid < kNB) d11[tid * kLD + kNB] = T(1) / d11[tid * kLD + tid];
+      if (tid < kNB)
+        d11[tid * kLD + kNB] =
+            T(real_t<T>(1) / cx::real_part(d11[tid * kLD + tid]));
       __syncthreads();
       for (int e = tid; e < (nq - q0) * kNB; e += kThreads) {
         const int i = (r + (q0 + e / kNB) * C) * kNB + e % kNB;
@@ -217,9 +230,10 @@ chol_tile_kernel(const T* __restrict__ a, T* __restrict__ out, int b) {
         for (int c = 0; c < kNB; ++c) x[c] = ld<M>(p + c);
 #pragma unroll
         for (int c = 0; c < kNB; ++c) {
-          x[c] *= d11[c * kLD + kNB];
+          x[c] = cx::scale(x[c], cx::real_part(d11[c * kLD + kNB]));
 #pragma unroll
-          for (int c2 = c + 1; c2 < kNB; ++c2) x[c2] -= x[c] * d11[c2 * kLD + c];
+          for (int c2 = c + 1; c2 < kNB; ++c2)
+            x[c2] -= x[c] * cx::conj(d11[c2 * kLD + c]);
         }
 #pragma unroll
         for (int c = 0; c < kNB; ++c) p[c] = x[c];
@@ -305,7 +319,8 @@ chol_tile_kernel(const T* __restrict__ a, T* __restrict__ out, int b) {
 #pragma unroll
           for (int m = 0; m < 4; ++m)
 #pragma unroll
-            for (int n = 0; n < 4; ++n) acc[m][n] += av[m] * bv[n];
+            for (int n = 0; n < 4; ++n)
+              acc[m][n] = cx::fma_conj(av[m], bv[n], acc[m][n]);
         }
 #pragma unroll
         for (int m = 0; m < 4; ++m) {
@@ -423,6 +438,16 @@ int slate_chol_tile_f32(const void* a, void* out, int b, int C, int resident,
 int slate_chol_tile_f64(const void* a, void* out, int b, int C, int resident,
                         void* stream) {
   return chol_tile<double>(a, out, b, C, resident, stream);
+}
+
+int slate_chol_tile_c64(const void* a, void* out, int b, int C, int resident,
+                        void* stream) {
+  return chol_tile<Cx<float>>(a, out, b, C, resident, stream);
+}
+
+int slate_chol_tile_c128(const void* a, void* out, int b, int C, int resident,
+                         void* stream) {
+  return chol_tile<Cx<double>>(a, out, b, C, resident, stream);
 }
 
 // the shared memory per CTA that the launcher sizes a plan with, so the

@@ -1,5 +1,6 @@
-// Guarded Cholesky of every item of a (B, s, s) stack, s ≤ 64, in float32
-// and float64: L_b lower triangular with L_b·L_bᵀ = A_b, read from the
+// Guarded Cholesky of every item of a (B, s, s) stack, s ≤ 64, in float32,
+// float64, complex64 and complex128: L_b lower triangular with
+// L_b·L_bᴴ = A_b, read from the
 // lower triangle of each item through its batch, row and column strides,
 // written to a contiguous (B, s, s) stack whose strict upper triangles are
 // zero. info[b]: the 1-based index of item b's first non-positive or NaN
@@ -11,12 +12,15 @@
 // python-unrolled column steps that XLA fuses into one program), with the
 // contract of the plain version hopper_ops.chol_tile_batched_plain. Step j
 // computes, on every item at once,
-//     bad  = isnan(d[j][j]) || d[j][j] <= 0,  root = sqrt(bad ? 1 : d[j][j]),
+//     dj = re(d[j][j]),  bad = isnan(dj) || dj <= 0,
+//     root = sqrt(bad ? 1 : dj),
 //     col  = d[:, j] / root below j,  d[j][j] = root,
-//     d[r][c] = d[r][c] − col[r]·col[c]   for r > j and c > j,
+//     d[r][c] = d[r][c] − col[r]·conj(col[c])   for r > j and c > j,
 // with the product and the difference rounded separately (no FMA
-// contraction), an IEEE square root and an IEEE division, so the kernel is
-// bitwise its plain version.
+// contraction; in complex types csrc/cx.cuh's product, and the division
+// by the real root part by part), an IEEE square root and an IEEE
+// division, so the kernel is bitwise its plain version. The imaginary part
+// of a diagonal entry is never read.
 //
 // What bounds it. An item is s³/3 multiply-adds and at most 32 KB: at the
 // engine's shapes (B up to 10000 tiles of 32 × 32) the stack crosses HBM
@@ -24,7 +28,9 @@
 // items; each item alone is a chain of s dependent steps (a pivot, a
 // square root, a division).
 //
-// Design: one warp per item, four items per CTA, the item in registers,
+// Design: one warp per item, four items per CTA (two in complex128, whose
+// staging tiles would not fit 48 KB of static shared memory four times),
+// the item in registers,
 // padded to kS = 16, 32 or 64 rows so that every register index is fixed
 // at compile time and the steps are one straight block of code. Lane l
 // holds row l (columns 0 … 31) and, for kS = 64, row l + 32 (columns
@@ -43,10 +49,14 @@
 // 3. A lookahead step: step j updates column j + 1 first, then takes the
 //    pivot of step j + 1 (a shuffle from its lane) and starts its square
 //    root and division, and only then finishes the rest of step j's
-//    trailing update, so the next pivot's chain overlaps that work (all
-//    instances but float64 with s > 32, where the registers do not allow
-//    it). Every entry still takes the same sub_rn(x, mul_rn(col_r, col_c))
-//    in increasing j. A lane updates its whole row: the entries of a row
+//    trailing update, so the next pivot's chain overlaps that work where
+//    a lane's item takes at most 384 bytes of registers (float32 at any
+//    s, float64 and complex64 at s ≤ 32, complex128 at s ≤ 16); the
+//    others keep the plain order, where fewer values are live at the
+//    pivot. complex128 with s > 32 holds 96 entries (1,536 bytes) a lane
+//    and spills whatever the order (chip_smoke.py prints ptxas's counts).
+//    Every entry still takes the same sub_rn(x, mul_rn(col_r,
+//    conj(col_c))) in increasing j. A lane updates its whole row: the entries of a row
 //    above the diagonal are never read and are stored as zeros, so no
 //    branch splits a step.
 //
@@ -55,33 +65,50 @@
 
 #include <cuda_runtime.h>
 
+#include "cx.cuh"
+
 namespace {
 
-constexpr int kItems = 4;              // warps, so items, per CTA
-constexpr int kThreads = 32 * kItems;  // 128
+// warps, so items, per CTA
+template <typename T>
+__host__ __device__ constexpr int items_per_cta() {
+  return sizeof(T) == 16 ? 2 : 4;
+}
 constexpr int kMaxS = 64;
 constexpr int kLd = 33;                // the staging tile's row length
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-__device__ __forceinline__ float mul_rn(float x, float y) { return __fmul_rn(x, y); }
-__device__ __forceinline__ double mul_rn(double x, double y) { return __dmul_rn(x, y); }
-__device__ __forceinline__ float sub_rn(float x, float y) { return __fsub_rn(x, y); }
-__device__ __forceinline__ double sub_rn(double x, double y) { return __dsub_rn(x, y); }
-__device__ __forceinline__ float div_rn(float x, float y) { return __fdiv_rn(x, y); }
-__device__ __forceinline__ double div_rn(double x, double y) { return __ddiv_rn(x, y); }
-__device__ __forceinline__ float sqrt_rn(float x) { return __fsqrt_rn(x); }
-__device__ __forceinline__ double sqrt_rn(double x) { return __dsqrt_rn(x); }
+using cx::mul_rn;
+using cx::sub_rn;
+using cx::sqrt_rn;
 
 // 16 bytes of entries, for the column buffer's vector loads
 template <typename T> struct Vec16;
 template <> struct Vec16<float> { using type = float4; };
 template <> struct Vec16<double> { using type = double2; };
-__device__ __forceinline__ float part(const float4& v, int k) {
-  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
-}
-__device__ __forceinline__ double part(const double2& v, int k) {
-  return k == 0 ? v.x : v.y;
-}
+template <> struct Vec16<Cx<float>> { using type = float4; };
+template <> struct Vec16<Cx<double>> { using type = double2; };
+template <typename T> struct Part;
+template <> struct Part<float> {
+  __device__ static float get(const float4& v, int k) {
+    return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+  }
+};
+template <> struct Part<double> {
+  __device__ static double get(const double2& v, int k) {
+    return k == 0 ? v.x : v.y;
+  }
+};
+template <> struct Part<Cx<float>> {
+  __device__ static Cx<float> get(const float4& v, int k) {
+    return k == 0 ? Cx<float>(v.x, v.y) : Cx<float>(v.z, v.w);
+  }
+};
+template <> struct Part<Cx<double>> {
+  __device__ static Cx<double> get(const double2& v, int) {
+    return Cx<double>(v.x, v.y);
+  }
+};
 
 // one warp's shared memory: the staging tile and two column buffers
 template <typename T, int kS>
@@ -137,40 +164,45 @@ __device__ __forceinline__ void store_quadrant(T* tile, T* dst, int s, int rb,
   __syncwarp();
 }
 
-// step k's pivot d[k][k] (a shuffle from lane k mod 32), its guard, root
-// and column at rows r0 and r1
+// step k's pivot re(d[k][k]) (a shuffle from lane k mod 32), its guard,
+// root and column at rows r0 and r1
 template <typename T, int kS>
 __device__ __forceinline__ void pivot(const Item<T, kS>& it, int k, int s,
                                       int r0, int r1, int& first_bad, T& c0,
                                       T& c1) {
   using It = Item<T, kS>;
-  const T d = k < 32 ? __shfl_sync(kFull, it.m0[k < It::kQ ? k : 0], k)
-                     : __shfl_sync(kFull, it.m1[It::kHalves == 2 ? k : 0],
-                                   k - 32);
-  const bool bad = isnan(d) || d <= T(0);
+  using R = real_t<T>;
+  const R d = k < 32
+      ? __shfl_sync(kFull, cx::real_part(it.m0[k < It::kQ ? k : 0]), k)
+      : __shfl_sync(kFull, cx::real_part(it.m1[It::kHalves == 2 ? k : 0]),
+                    k - 32);
+  const bool bad = isnan(d) || d <= R(0);
   if (bad && first_bad == 0 && k < s) first_bad = k + 1;
-  const T root = sqrt_rn(bad ? T(1) : d);
-  c0 = k < It::kQ ? (r0 > k ? div_rn(it.m0[k < It::kQ ? k : 0], root)
-                            : (r0 == k ? root : T(0)))
+  const R root = sqrt_rn(bad ? R(1) : d);
+  c0 = k < It::kQ ? (r0 > k ? cx::div_real_rn(it.m0[k < It::kQ ? k : 0], root)
+                            : (r0 == k ? T(root) : T(0)))
                   : T(0);  // rows r0 < 32 ≤ k
   if (It::kHalves == 2)
-    c1 = r1 > k ? div_rn(it.m1[It::kHalves == 2 ? k : 0], root)
-                : (r1 == k ? root : T(0));
+    c1 = r1 > k ? cx::div_real_rn(it.m1[It::kHalves == 2 ? k : 0], root)
+                : (r1 == k ? T(root) : T(0));
 }
 
 template <typename T, int kS>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32 * items_per_cta<T>())
 chol_tile_batched_kernel(const T* __restrict__ a, T* __restrict__ l,
                          int* __restrict__ info, int B, int s, long long bs,
                          long long rs, long long cs) {
   using It = Item<T, kS>;
   constexpr int kH = It::kHalves, kQ = It::kQ;
   constexpr int kV = 16 / sizeof(T);
-  // the f64 kS = 64 instance holds 96 doubles a lane: there step j + 1's
-  // pivot waits for the end of step j, where fewer values are live, so it
-  // does not spill (ptxas: 255 registers, no spill; with the lookahead
-  // it spills 480 bytes)
-  constexpr bool kLookahead = !(kH == 2 && sizeof(T) == 8);
+  constexpr int kItems = items_per_cta<T>();
+  // the lookahead where a lane's item takes at most 384 bytes: the f64
+  // kS = 64 instance holds 96 doubles a lane, and there step j + 1's pivot
+  // waits for the end of step j, where fewer values are live, so it does
+  // not spill (ptxas: 255 registers, no spill; with the lookahead it
+  // spills 480 bytes)
+  constexpr bool kLookahead =
+      (kQ + (kH == 2 ? kS : 0)) * sizeof(T) <= 384;
   using V = typename Vec16<T>::type;
   __shared__ WarpSmem<T, kS> smem[kItems];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -206,7 +238,7 @@ chol_tile_batched_kernel(const T* __restrict__ a, T* __restrict__ l,
       // on a row r ≤ j these are entries above the diagonal, which no
       // step reads and the store replaces by zeros, and no branch splits
       // the step
-      const T ck = buf[k];
+      const T ck = cx::conj(buf[k]);
       if (k < kQ)
         it.m0[k < kQ ? k : 0] = sub_rn(it.m0[k < kQ ? k : 0], mul_rn(col0, ck));
       if (kH == 2)
@@ -223,7 +255,7 @@ chol_tile_batched_kernel(const T* __restrict__ a, T* __restrict__ l,
         for (int e = 0; e < kV; ++e) {
           const int c = g * kV + e;
           if (c < j + 2) continue;
-          const T cc = part(v, e);
+          const T cc = cx::conj(Part<T>::get(v, e));
           if (c < kQ)
             it.m0[c < kQ ? c : 0] = sub_rn(it.m0[c < kQ ? c : 0],
                                            mul_rn(col0, cc));
@@ -254,6 +286,7 @@ int chol_tile_batched(const void* a, void* l, void* info, int B, int s,
                       long long bs, long long rs, long long cs,
                       void* stream) {
   if (B < 1 || s < 1 || s > kMaxS) return (int)cudaErrorInvalidValue;
+  constexpr int kItems = items_per_cta<T>(), kThreads = 32 * kItems;
   const unsigned grid = (unsigned)((B + kItems - 1) / kItems);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* x = static_cast<const T*>(a);
@@ -285,6 +318,18 @@ int slate_chol_tile_batched_f64(const void* a, void* l, void* info, int B,
                                 int s, long long bs, long long rs,
                                 long long cs, void* stream) {
   return chol_tile_batched<double>(a, l, info, B, s, bs, rs, cs, stream);
+}
+
+int slate_chol_tile_batched_c64(const void* a, void* l, void* info, int B,
+                                int s, long long bs, long long rs,
+                                long long cs, void* stream) {
+  return chol_tile_batched<Cx<float>>(a, l, info, B, s, bs, rs, cs, stream);
+}
+
+int slate_chol_tile_batched_c128(const void* a, void* l, void* info, int B,
+                                 int s, long long bs, long long rs,
+                                 long long cs, void* stream) {
+  return chol_tile_batched<Cx<double>>(a, l, info, B, s, bs, rs, cs, stream);
 }
 
 const char* slate_chol_tile_batched_error_string(int e) {

@@ -1,7 +1,9 @@
-// LU without pivoting of one square s × s leaf, s ≤ 64, in float32 and
-// float64, IN PLACE: the leaf is read through its row and column strides
-// and L\U (unit lower L implied) is written back into the same view. info:
-// the 1-based first step whose pivot is 0 or NaN; that step goes on with
+// LU without pivoting of one square s × s leaf, s ≤ 64, in float32,
+// float64, complex64 and complex128, IN PLACE: the leaf is read through
+// its row and column strides and L\U (unit lower L implied) is written
+// back into the same view. info: the 1-based first step whose pivot is
+// bad (isnan(|d|) or |d| == 0, the reference's test; in complex types |d|
+// is cx.cuh's modulus: hypot, NaN with a NaN part); that step goes on with
 // the pivot taken as 1. The kernel writes offset + that step into a 0-d
 // int32 slot only if the slot still reads 0, so the leaves of a factor,
 // launched in diagonal order on one stream, leave the first bad pivot of
@@ -20,7 +22,9 @@
 // The kernel replays exactly that formula for every entry at every step,
 // the 0·x terms included (throughput, off the chain): products and
 // differences are rounded separately (no FMA contraction) and the scale is
-// an IEEE division, so the result is bitwise the plain version's.
+// an IEEE division (in complex types csrc/cx.cuh's products and Smith
+// quotient, the pivot's ratio and scale made once per step), so the result
+// is bitwise the plain version's.
 //
 // What bounds it. A leaf is 16–32 KB and 2s³/3 operations: neither bytes
 // nor the operation rate. Step i + 1 needs column i + 1 and row i + 1 after
@@ -53,6 +57,9 @@
 //   step crosses warps. The other warps trail behind, off the chain. The
 //   steps run in two halves, so the register set (m0 or m1) that holds
 //   row i is known at compile time.
+// - The tile lives in dynamic shared memory (64 × 65 entries: 66,560 bytes
+//   in complex128, above the 48 KB of static shared memory), its limit
+//   raised once per element type and device.
 // - Loads and stores go through a shared tile with lanes along the unit
 //   stride, so a row-major or a transposed view is read and written
 //   coalesced, every load in flight before the first store; the block
@@ -64,7 +71,10 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
+
+#include "cx.cuh"
 
 namespace {
 
@@ -76,12 +86,13 @@ constexpr int kLoads = kMaxLeaf * kMaxLeaf / kThreads;  // per thread
 constexpr int kTile = kMaxLeaf + 1;          // the load/store tile's row stride
 constexpr int kLd = kMaxLeaf;                // col of step k at sh + k·kLd
 
-__device__ __forceinline__ float mul_rn(float x, float y) { return __fmul_rn(x, y); }
-__device__ __forceinline__ double mul_rn(double x, double y) { return __dmul_rn(x, y); }
-__device__ __forceinline__ float sub_rn(float x, float y) { return __fsub_rn(x, y); }
-__device__ __forceinline__ double sub_rn(double x, double y) { return __dsub_rn(x, y); }
-__device__ __forceinline__ float div_rn(float x, float y) { return __fdiv_rn(x, y); }
-__device__ __forceinline__ double div_rn(double x, double y) { return __ddiv_rn(x, y); }
+using cx::mul_rn;
+using cx::sub_rn;
+
+template <typename T>
+constexpr size_t smem_bytes() {
+  return sizeof(T) * kMaxLeaf * kTile;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -117,7 +128,8 @@ __global__ void __launch_bounds__(kThreads)
 lu_nopiv_kernel(T* __restrict__ a, long long rs, long long cs, int s,
                 int* __restrict__ info, int offset) {
   // the load/store tile (stride kTile), then col of step k at k·kLd
-  __shared__ T sh[kMaxLeaf * kTile];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sh = reinterpret_cast<T*>(smem_raw);
   __shared__ uint64_t bar[kMaxLeaf];  // col of step k published
   __shared__ int bad_w[kWarps];       // each warp's first bad step
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
@@ -158,14 +170,14 @@ lu_nopiv_kernel(T* __restrict__ a, long long rs, long long cs, int s,
   T nxt0 = T(0), nxt1 = T(0);  // the col this warp made last
   // col of step k from column k (register jk), after step k − 1
   auto make_col = [&](int k, int jk, bool low) {
-    const T d = __shfl_sync(0xFFFFFFFFu, k & 32 ? m1[jk] : m0[jk], k & 31);
-    const bool bad = isnan(d) || d == T(0);
+    const T d = cx::shfl(k & 32 ? m1[jk] : m0[jk], k & 31);
+    const bool bad = cx::bad_pivot(d);
     if (bad && first_bad == 0) first_bad = k + 1;
-    const T ds = bad ? T(1) : d;
-    const T q1 = div_rn(m1[jk], ds);
+    const cx::Divisor<T> ds = cx::make_divisor(bad ? T(1) : d);
+    const T q1 = cx::divide(m1[jk], ds);
     nxt0 = T(0);
     if (low) {  // rows r0 < 32 lie below the pivot only while k < 31
-      const T q0 = div_rn(m0[jk], ds);
+      const T q0 = cx::divide(m0[jk], ds);
       nxt0 = r0 > k ? q0 : T(0);
     }
     nxt1 = r1 > k ? q1 : T(0);
@@ -194,7 +206,7 @@ lu_nopiv_kernel(T* __restrict__ a, long long rs, long long cs, int s,
       if (w >= wi) {
 #pragma unroll
         for (int j = 0; j < kCols; ++j) {
-          const T u = __shfl_sync(0xFFFFFFFFu, h ? m1[j] : m0[j], i - 32 * h);
+          const T u = cx::shfl(h ? m1[j] : m0[j], i - 32 * h);
           ur[j] = w > wi || j > ii ? u : T(0);
         }
       }
@@ -240,11 +252,30 @@ lu_nopiv_kernel(T* __restrict__ a, long long rs, long long cs, int s,
   }
 }
 
+// The dynamic shared memory limit, raised once per element type and
+// device to the tile's size.
+template <typename T>
+cudaError_t allow_smem() {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(lu_nopiv_kernel<T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem_bytes<T>());
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return e;
+}
+
 template <typename T>
 int lu_nopiv(void* a, long long rs, long long cs, int s, void* info, int offset,
              void* stream) {
   if (s < 1 || s > kMaxLeaf) return (int)cudaErrorInvalidValue;
-  lu_nopiv_kernel<T><<<1, kThreads, 0, (cudaStream_t)stream>>>(
+  const cudaError_t e = allow_smem<T>();
+  if (e != cudaSuccess) return (int)e;
+  lu_nopiv_kernel<T><<<1, kThreads, smem_bytes<T>(), (cudaStream_t)stream>>>(
       static_cast<T*>(a), rs, cs, s, static_cast<int*>(info), offset);
   return (int)cudaGetLastError();
 }
@@ -261,6 +292,16 @@ int slate_lu_nopiv_f32(void* a, long long rs, long long cs, int s, void* info,
 int slate_lu_nopiv_f64(void* a, long long rs, long long cs, int s, void* info,
                        int offset, void* stream) {
   return lu_nopiv<double>(a, rs, cs, s, info, offset, stream);
+}
+
+int slate_lu_nopiv_c64(void* a, long long rs, long long cs, int s, void* info,
+                       int offset, void* stream) {
+  return lu_nopiv<Cx<float>>(a, rs, cs, s, info, offset, stream);
+}
+
+int slate_lu_nopiv_c128(void* a, long long rs, long long cs, int s, void* info,
+                        int offset, void* stream) {
+  return lu_nopiv<Cx<double>>(a, rs, cs, s, info, offset, stream);
 }
 
 const char* slate_lu_nopiv_error_string(int e) {

@@ -1,12 +1,15 @@
 // Partial-pivot LU of one tall (H × w) row-major panel, w ≤ 128, as one
-// cooperative launch of G blocks with the panel spread over the SMs.
+// cooperative launch of G blocks with the panel spread over the SMs, in
+// float32, float64, complex64 and complex128.
 //
 // Replaces the TPU kernel slate_tpu/ops/pallas_ops.py::lu_panel_base
 // (body _lu_panel_kernel) with the contract of
 // slate_tpu/ops/blocked.py::_panel_getrf_base: returns lu (L below the
 // diagonal with unit diagonal implied, U on and above), a gather perm
 // with a[perm] = L·U, and info = 1-based index of the first zero or NaN
-// pivot (0 if none; that column divides by 1 instead).
+// pivot (0 if none; that column divides by 1 instead). A pivot is the
+// first argmax of the modulus |a| (hypot for a complex entry, as jnp.abs)
+// and it is bad when isnan(|d|) or |d| == 0, the reference's test.
 //
 // Design. Block b owns the row slab [b·R, min(H, (b+1)·R)) (grid_panel.cuh;
 // the host plans G and R). In the resident mode the slab is loaded once
@@ -30,8 +33,11 @@
 //  (6) each block scales its rows below j and applies their rank-1
 //      update, one warp per row.
 // Products and differences are rounded separately (mul_rn/sub_rn, no FMA
-// contraction) and the scale is an IEEE division, so the result is
-// bitwise the plain PyTorch version's (hopper_ops.lu_panel_base_plain).
+// contraction) and the scale is an IEEE division (in complex types
+// csrc/cx.cuh's products and Smith quotient, the divisor's ratio and scale
+// made once per column), so the result is bitwise the plain PyTorch
+// version's (hopper_ops.lu_panel_base_plain). Every block computes each
+// candidate's modulus with the same function, so all take the same pivot.
 //
 // What bounds it: the w serial steps, each a grid barrier and a handful
 // of block barriers, and not the panel's bytes, which cross HBM once each
@@ -48,6 +54,7 @@
 #include <cuda_runtime.h>
 #include <climits>
 
+#include "cx.cuh"
 #include "grid_panel.cuh"
 
 namespace {
@@ -56,12 +63,8 @@ using grid_panel::grid_barrier;
 using grid_panel::kThreads;
 using grid_panel::kWarps;
 
-__device__ __forceinline__ float mul_rn(float x, float y) { return __fmul_rn(x, y); }
-__device__ __forceinline__ double mul_rn(double x, double y) { return __dmul_rn(x, y); }
-__device__ __forceinline__ float sub_rn(float x, float y) { return __fsub_rn(x, y); }
-__device__ __forceinline__ double sub_rn(double x, double y) { return __dsub_rn(x, y); }
-__device__ __forceinline__ float div_rn(float x, float y) { return __fdiv_rn(x, y); }
-__device__ __forceinline__ double div_rn(double x, double y) { return __ddiv_rn(x, y); }
+using cx::mul_rn;
+using cx::sub_rn;
 
 // does candidate (va, ia) beat (vb, ib) under jnp.argmax's rule?
 template <typename T>
@@ -82,19 +85,20 @@ __device__ __forceinline__ void warp_argmax(T& v, int& i) {
   }
 }
 
-// One scratch slot: w row entries, then the value, the row index and the
-// perm entry. Slots 0..G−1 hold the blocks' candidates, slot G row j.
-template <typename T>
-__host__ __device__ inline size_t slot_bytes(int w) {
-  return ((size_t)w * sizeof(T) + 16 + 15) / 16 * 16;
+// One scratch slot: w row entries, then the value (a modulus, real), the
+// row index and the perm entry. Slots 0..G−1 hold the blocks' candidates,
+// slot G row j.
+__host__ __device__ inline size_t slot_bytes(int w, int itemsize) {
+  return ((size_t)w * itemsize + 16 + 15) / 16 * 16;
 }
 
 template <typename T>
 struct Slot {
+  using R = real_t<T>;
   unsigned char* p;
   int w;
   __device__ T* row() const { return reinterpret_cast<T*>(p); }
-  __device__ T* value() const { return reinterpret_cast<T*>(p + w * sizeof(T)); }
+  __device__ R* value() const { return reinterpret_cast<R*>(p + w * sizeof(T)); }
   __device__ int* index() const { return reinterpret_cast<int*>(p + w * sizeof(T) + 8); }
   __device__ int* perm() const { return reinterpret_cast<int*>(p + w * sizeof(T) + 12); }
 };
@@ -103,8 +107,9 @@ template <typename T, bool kResident>
 __global__ void __launch_bounds__(kThreads, 1)
 lu_panel_kernel(const T* __restrict__ a, T* lu, int* perm, int* info, int H,
                 int w, int R, unsigned char* scratch, unsigned int* bar) {
+  using RT = real_t<T>;  // a modulus (R is the rows per block)
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ T red_v[kWarps];
+  __shared__ RT red_v[kWarps];
   __shared__ int red_i[kWarps];
   __shared__ int s_p;
   const int G = gridDim.x, b = blockIdx.x;
@@ -112,7 +117,7 @@ lu_panel_kernel(const T* __restrict__ a, T* lu, int* perm, int* info, int H,
   const int r0 = b * R, r1 = min(H, r0 + R);
   T* urow = reinterpret_cast<T*>(smem_raw);  // the U row of column j
   T* slab = kResident ? urow + w : lu + (size_t)r0 * w;
-  const size_t sb = slot_bytes<T>(w);
+  const size_t sb = slot_bytes(w, sizeof(T));
   int first_bad = 0;
 
   const size_t cells = (size_t)(r1 - r0) * w;
@@ -124,17 +129,17 @@ lu_panel_kernel(const T* __restrict__ a, T* lu, int* perm, int* info, int H,
     unsigned char* base = scratch + (size_t)(j & 1) * (G + 1) * sb;
     const Slot<T> mine{base + b * sb, w}, jslot{base + G * sb, w};
     // (1) this block's candidate
-    T bv = T(-1);
+    RT bv = RT(-1);
     int bi = INT_MAX;
     for (int i = max(j, r0) + tid; i < r1; i += kThreads) {
-      const T v = fabs(slab[(size_t)(i - r0) * w + j]);
+      const RT v = cx::modulus(slab[(size_t)(i - r0) * w + j]);
       if (beats(v, i, bv, bi)) { bv = v; bi = i; }
     }
     warp_argmax(bv, bi);
     if (lane == 0) { red_v[warp] = bv; red_i[warp] = bi; }
     __syncthreads();
     if (warp == 0) {
-      bv = lane < kWarps ? red_v[lane] : T(-1);
+      bv = lane < kWarps ? red_v[lane] : RT(-1);
       bi = lane < kWarps ? red_i[lane] : INT_MAX;
       warp_argmax(bv, bi);
       if (lane == 0) {
@@ -160,11 +165,11 @@ lu_panel_kernel(const T* __restrict__ a, T* lu, int* perm, int* info, int H,
     grid_barrier(bar, (unsigned int)(j + 1) * G);
     // (4) the same p in every block
     if (warp == 0) {
-      T v = T(-1);
+      RT v = RT(-1);
       int i = INT_MAX;
       for (int g = lane; g < G; g += 32) {
         const Slot<T> s{base + g * sb, w};
-        const T gv = __ldcg(s.value());
+        const RT gv = __ldcg(s.value());
         const int gi = __ldcg(s.index());
         if (beats(gv, gi, v, i)) { v = gv; i = gi; }
       }
@@ -175,12 +180,12 @@ lu_panel_kernel(const T* __restrict__ a, T* lu, int* perm, int* info, int H,
     const int p = s_p;
     const Slot<T> win{base + (p / R) * sb, w};
     for (int c = tid; c < w; c += kThreads) {
-      const T u = __ldcg(win.row() + c);
+      const T u = cx::ldcg(win.row() + c);
       urow[c] = u;
       // (5) the swap: U row to j, old row j to p
       if (own_j) slab[(size_t)(j - r0) * w + c] = u;
       if (r0 <= p && p < r1)
-        slab[(size_t)(p - r0) * w + c] = __ldcg(jslot.row() + c);
+        slab[(size_t)(p - r0) * w + c] = cx::ldcg(jslot.row() + c);
     }
     if (tid == 0) {
       if (own_j) perm[j] = __ldcg(win.perm());
@@ -189,12 +194,12 @@ lu_panel_kernel(const T* __restrict__ a, T* lu, int* perm, int* info, int H,
     __syncthreads();
     // (6) info, the safe divisor, scale and rank-1 update of the rows below j
     const T d = urow[j];
-    const bool bad = isnan(d) || d == T(0);
+    const bool bad = cx::bad_pivot(d);
     if (bad && first_bad == 0) first_bad = j + 1;
-    const T dsafe = bad ? T(1) : d;
+    const cx::Divisor<T> dsafe = cx::make_divisor(bad ? T(1) : d);
     for (int i = max(j + 1, r0) + warp; i < r1; i += kWarps) {
       T* row = slab + (size_t)(i - r0) * w;
-      const T l = div_rn(row[j], dsafe);
+      const T l = cx::divide(row[j], dsafe);
       for (int c = j + 1 + lane; c < w; c += 32)
         row[c] = sub_rn(row[c], mul_rn(l, urow[c]));
       __syncwarp();
@@ -229,8 +234,7 @@ extern "C" {
 
 // bytes of global scratch one launch needs (two parities of G + 1 slots)
 long long slate_lu_panel_scratch_bytes(int G, int w, int itemsize) {
-  const size_t sb = itemsize == 8 ? slot_bytes<double>(w) : slot_bytes<float>(w);
-  return (long long)(2 * (size_t)(G + 1) * sb);
+  return (long long)(2 * (size_t)(G + 1) * slot_bytes(w, itemsize));
 }
 
 int slate_lu_panel_f32(const void* a, void* lu, void* perm, void* info, int H,
@@ -245,6 +249,20 @@ int slate_lu_panel_f64(const void* a, void* lu, void* perm, void* info, int H,
                        void* bar, void* stream) {
   return lu_panel<double>(a, lu, perm, info, H, w, G, R, resident, scratch,
                           bar, stream);
+}
+
+int slate_lu_panel_c64(const void* a, void* lu, void* perm, void* info, int H,
+                       int w, int G, int R, int resident, void* scratch,
+                       void* bar, void* stream) {
+  return lu_panel<Cx<float>>(a, lu, perm, info, H, w, G, R, resident, scratch,
+                             bar, stream);
+}
+
+int slate_lu_panel_c128(const void* a, void* lu, void* perm, void* info, int H,
+                        int w, int G, int R, int resident, void* scratch,
+                        void* bar, void* stream) {
+  return lu_panel<Cx<double>>(a, lu, perm, info, H, w, G, R, resident,
+                              scratch, bar, stream);
 }
 
 const char* slate_lu_error_string(int e) {

@@ -1,5 +1,6 @@
 // Partial-pivot LU of every (H × w) chunk of a contiguous row-major
-// (B, H, w) stack, w ≤ H: P3 lu_panel_batched, one thread-block cluster
+// (B, H, w) stack, w ≤ H, in float32, float64, complex64 and complex128:
+// P3 lu_panel_batched, one thread-block cluster
 // of C CTAs per chunk and every chunk in one launch, so one launch is one
 // round of the CALU tournament.
 //
@@ -10,7 +11,9 @@
 // _panel_getrf_base's: lu (L below the diagonal with unit diagonal
 // implied, U on and above), a gather perm with chunk[perm] = L·U, and
 // info = 1-based index of the first zero or NaN pivot (0 if none; that
-// column divides by 1 instead).
+// column divides by 1 instead). The pivot and the bad-pivot test are
+// lu_panel.cu's: the first argmax of the modulus (hypot for a complex
+// entry), bad when isnan(|d|) or |d| == 0.
 //
 // What bounds it: not the card's operations or HBM bytes (a round's
 // stack is at most 32 MB in f32 at nb = 512) but the w serial column
@@ -60,7 +63,8 @@
 //      owner never writes it again, and the last wait keeps every CTA
 //      alive until the others have read its slots.
 // Products and differences are rounded separately (mul_rn/sub_rn, no FMA
-// contraction) and the scale is an IEEE division, so lu, perm and info
+// contraction) and the scale is an IEEE division (in complex types
+// csrc/cx.cuh's products and Smith quotient), so lu, perm and info
 // are bitwise the plain PyTorch version's
 // (hopper_ops.lu_panel_batched_plain) on the same input: every entry
 // takes the same operations in the same order, only at other times.
@@ -81,6 +85,8 @@
 #include <climits>
 #include <cstring>
 
+#include "cx.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -95,23 +101,19 @@ constexpr int kCandLoads = kMaxCluster * kWarps / 32;
 
 enum Mode { kResident = 0, kStream = 1 };
 
-__device__ __forceinline__ float mul_rn(float x, float y) { return __fmul_rn(x, y); }
-__device__ __forceinline__ double mul_rn(double x, double y) { return __dmul_rn(x, y); }
-__device__ __forceinline__ float sub_rn(float x, float y) { return __fsub_rn(x, y); }
-__device__ __forceinline__ double sub_rn(double x, double y) { return __dsub_rn(x, y); }
-__device__ __forceinline__ float div_rn(float x, float y) { return __fdiv_rn(x, y); }
-__device__ __forceinline__ double div_rn(double x, double y) { return __ddiv_rn(x, y); }
+using cx::mul_rn;
+using cx::sub_rn;
 
 // a read of another CTA's slot: through L2 when streaming, else a plain
 // load (distributed shared memory)
 template <int M, typename T>
 __device__ __forceinline__ T ld(const T* p) {
-  if (M == kStream) return __ldcg(p);
+  if (M == kStream) return cx::ldcg(p);
   return *p;
 }
 
-// a pivot candidate: |value| at its row's position and that row's slot
-// (the chunk's row index, which the row keeps for good)
+// a pivot candidate: |value| (real) at its row's position and that row's
+// slot (the chunk's row index, which the row keeps for good)
 template <typename T>
 struct __align__(16) Cand {
   T v;
@@ -228,6 +230,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 lu_panel_batched_kernel(const T* __restrict__ a, T* __restrict__ lu_all,
                         int* __restrict__ perm_all, int* __restrict__ info,
                         T* __restrict__ scratch, int H, int w) {
+  using R = real_t<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), r = (int)cluster.block_rank();
@@ -237,7 +240,7 @@ lu_panel_batched_kernel(const T* __restrict__ a, T* __restrict__ lu_all,
   const int nrows = (H - r + C - 1) / C;  // slots r, r + C, ... < H
   // every warp's best candidate for column j, pushed by that warp into
   // every CTA: [((j & 1) * C + rank) * kWarps + warp]
-  Cand<T>* cand = reinterpret_cast<Cand<T>*>(smem_raw);
+  Cand<R>* cand = reinterpret_cast<Cand<R>*>(smem_raw);
   int2* piv = reinterpret_cast<int2*>(cand + 2 * C * kWarps);  // (p, its slot)
   int* slot_pos = reinterpret_cast<int*>(cand + 2 * C * kWarps + 1);
   // the U rows of columns j (even and odd), each ulen elements
@@ -252,7 +255,7 @@ lu_panel_batched_kernel(const T* __restrict__ a, T* __restrict__ lu_all,
 
   // lane d < C stores this warp's candidate into CTA d's shared memory
   // (posted stores; the next cluster barrier's release orders them)
-  auto push = [&](const Cand<T>& c, int buf) {
+  auto push = [&](const Cand<R>& c, int buf) {
     if (lane < C)
       store_cand(cluster.map_shared_rank(
                      cand + ((size_t)buf * C + r) * kWarps + warp, lane),
@@ -260,7 +263,7 @@ lu_panel_batched_kernel(const T* __restrict__ a, T* __restrict__ lu_all,
   };
 
   // load: one warp per slot, lanes along the row; column 0's candidates
-  Cand<T> best = no_cand<T>();
+  Cand<R> best = no_cand<R>();
   for (int l = warp; l < nrows; l += kWarps) {
     const int s = r + l * C;
     const T* in = src + (size_t)s * w;
@@ -268,8 +271,8 @@ lu_panel_batched_kernel(const T* __restrict__ a, T* __restrict__ lu_all,
     for (int c = lane; c < w; c += 32) row[c] = in[c];
     if (lane == 0) {
       slot_pos[l] = s;
-      const T v = fabs(in[0]);
-      if (beats(v, s, best.v, best.pos)) best = Cand<T>{v, s, s};
+      const R v = cx::modulus(in[0]);
+      if (beats(v, s, best.v, best.pos)) best = Cand<R>{v, s, s};
     }
   }
   warp_argmax(best);
@@ -287,14 +290,14 @@ lu_panel_batched_kernel(const T* __restrict__ a, T* __restrict__ lu_all,
     // (1) warp 0: the pivot from the C·kWarps candidates (pushed here),
     // then (2) the U row, columns j.. of its slot, from its owner
     if (warp == 0) {
-      Cand<T> got[kCandLoads];
+      Cand<R> got[kCandLoads];
 #pragma unroll
       for (int i = 0; i < kCandLoads; ++i) {
         const int q = lane + 32 * i;
         got[i] = q < C * kWarps ? cand[(j & 1) * C * kWarps + q]
-                                : no_cand<T>();
+                                : no_cand<R>();
       }
-      Cand<T> pc = got[0];
+      Cand<R> pc = got[0];
 #pragma unroll
       for (int i = 1; i < kCandLoads; ++i)
         if (beats(got[i].v, got[i].pos, pc.v, pc.pos)) pc = got[i];
@@ -309,13 +312,13 @@ lu_panel_batched_kernel(const T* __restrict__ a, T* __restrict__ lu_all,
     __syncthreads();
     const int p = piv->x, sp = piv->y;
     const T d = ub[j];
-    const bool bad = isnan(d) || d == T(0);
+    const bool bad = cx::bad_pivot(d);
     if (bad && first_bad == 0) first_bad = j + 1;
-    const T dsafe = bad ? T(1) : d;
+    const cx::Divisor<T> dsafe = cx::make_divisor(bad ? T(1) : d);
 
     // (3a) one lane per slot of this warp: the swap of positions, the
     // multiplier, and column j + 1 with the slot's candidate for it
-    best = no_cand<T>();
+    best = no_cand<R>();
     for (int i0 = 0; warp + i0 * kWarps < nrows; i0 += 32) {
       const int l = warp + (i0 + lane) * kWarps;
       if (l >= nrows) continue;
@@ -324,13 +327,13 @@ lu_panel_batched_kernel(const T* __restrict__ a, T* __restrict__ lu_all,
       slot_pos[l] = np;
       if (np <= j) continue;  // a U row, or the new one
       T* row = store + (size_t)l * w;
-      const T lj = div_rn(row[j], dsafe);
+      const T lj = cx::divide(row[j], dsafe);
       row[j] = lj;
       if (j + 1 < w) {
         const T x = sub_rn(row[j + 1], mul_rn(lj, ub[j + 1]));
         row[j + 1] = x;
-        const T v = fabs(x);
-        if (beats(v, np, best.v, best.pos)) best = Cand<T>{v, np, s};
+        const R v = cx::modulus(x);
+        if (beats(v, np, best.v, best.pos)) best = Cand<R>{v, np, s};
       }
     }
     warp_argmax(best);
@@ -515,6 +518,20 @@ int slate_lu_panel_batched_f64(const void* a, void* lu, void* perm, void* info,
                                   resident, stream);
 }
 
+int slate_lu_panel_batched_c64(const void* a, void* lu, void* perm, void* info,
+                               void* scratch, int B, int H, int w, int C,
+                               int resident, void* stream) {
+  return lu_panel_batched<Cx<float>>(a, lu, perm, info, scratch, B, H, w, C,
+                                     resident, stream);
+}
+
+int slate_lu_panel_batched_c128(const void* a, void* lu, void* perm,
+                                void* info, void* scratch, int B, int H, int w,
+                                int C, int resident, void* stream) {
+  return lu_panel_batched<Cx<double>>(a, lu, perm, info, scratch, B, H, w, C,
+                                      resident, stream);
+}
+
 // the shared memory per CTA that the launcher sizes a plan with, so the
 // plan's copy of the formula (hopper_ops.lu_panel_batched_smem_bytes) can
 // be held against it
@@ -534,6 +551,17 @@ int slate_lu_panel_batched_f32_clusters(int B, int H, int w, int C,
 int slate_lu_panel_batched_f64_clusters(int B, int H, int w, int C,
                                         int resident, int* clusters) {
   return lu_panel_batched_clusters<double>(B, H, w, C, resident, clusters);
+}
+
+int slate_lu_panel_batched_c64_clusters(int B, int H, int w, int C,
+                                        int resident, int* clusters) {
+  return lu_panel_batched_clusters<Cx<float>>(B, H, w, C, resident, clusters);
+}
+
+int slate_lu_panel_batched_c128_clusters(int B, int H, int w, int C,
+                                         int resident, int* clusters) {
+  return lu_panel_batched_clusters<Cx<double>>(B, H, w, C, resident,
+                                               clusters);
 }
 
 const char* slate_lu_panel_batched_error_string(int e) {

@@ -55,6 +55,10 @@
 // The dynamic shared memory attribute is set once per element type and
 // device, for the largest leaf, not on every launch.
 //
+// Complex types take csrc/cx.cuh's arithmetic (the products may contract
+// to FMAs; the division is Smith's scaled form, so a large |L[i][i]| does
+// not overflow the way a·conj(b)/|b|² does).
+//
 // Built with nvcc for sm_90a WITHOUT --use_fast_math (IEEE division, no
 // TF32: every product is a full-precision FMA).
 
@@ -62,12 +66,9 @@
 
 #include <atomic>
 
-namespace {
+#include "cx.cuh"
 
-template <typename R>
-struct alignas(2 * sizeof(R)) Cx {  // torch's complex layout
-  R re, im;
-};
+namespace {
 
 template <typename T>
 struct Ops {
@@ -75,22 +76,7 @@ struct Ops {
   __device__ static T one() { return T(1); }
   __device__ static T fma(T a, T b, T c) { return a * b + c; }
   __device__ static T neg(T a) { return -a; }
-  __device__ static T div(T a, T b) { return a / b; }
-};
-
-template <typename R>
-struct Ops<Cx<R>> {
-  using T = Cx<R>;
-  __device__ static T zero() { return {R(0), R(0)}; }
-  __device__ static T one() { return {R(1), R(0)}; }
-  __device__ static T fma(T a, T b, T c) {
-    return {a.re * b.re - a.im * b.im + c.re, a.re * b.im + a.im * b.re + c.im};
-  }
-  __device__ static T neg(T a) { return {-a.re, -a.im}; }
-  __device__ static T div(T a, T b) {  // a·conj(b) / |b|²
-    const R d = b.re * b.re + b.im * b.im;
-    return {(a.re * b.re + a.im * b.im) / d, (a.im * b.re - a.re * b.im) / d};
-  }
+  __device__ static T div(T a, T b) { return cx::div(a, b); }
 };
 
 constexpr int kMaxLeaf = 64;

@@ -282,7 +282,7 @@ def _lu_nopiv_leaf(a: torch.Tensor, info: torch.Tensor, offset: int):
     if m > s:
         d = lu.diagonal()
         u11 = torch.triu(lu)
-        u11.diagonal().copy_(torch.where(torch.isnan(d) | (d == 0),
+        u11.diagonal().copy_(torch.where(hopper_ops.bad_pivot(d),
                                          torch.ones_like(d), d))
         a[s:, :s] = blocked.trsm_rec(u11, a[s:, :s], left=False, lower=False)
     if n > s:
@@ -325,8 +325,9 @@ def getrf_nopiv(A: TiledMatrix, opts: Options = DEFAULT_OPTIONS
                 ) -> Tuple[TiledMatrix, torch.Tensor]:
     """LU without pivoting, A = L·U, for diagonally dominant or
     butterfly-preconditioned matrices. Returns (LU packed, info 0-d
-    int32: the 1-based first zero or NaN pivot). Padded rows/cols carry an
-    identity diagonal. Real float32/float64 (P2 takes no complex)."""
+    int32: the 1-based first zero or NaN pivot, |d| as the reference's
+    ``jnp.abs``). Padded rows/cols carry an identity diagonal. float32,
+    float64, complex64 and complex128 (P2 has all four)."""
     m, n = A.shape
     # the one working copy of this call: every update below writes it
     a = A.dense_canonical().clone(memory_format=torch.contiguous_format)

@@ -237,8 +237,9 @@ def herk_trailing_inplace(a: torch.Tensor, pan: torch.Tensor, k1: int,
 
 def chol_tile_blocked(a: torch.Tensor) -> torch.Tensor:
     """Cholesky of one diagonal tile: the K1 kernel on the card (its
-    plain version on the CPU). Strict upper zeroed; NaN on the diagonal
-    from the first non-positive pivot on."""
+    plain version on the CPU), A = L·Lᴴ from the real part of the
+    diagonal. Strict upper zeroed; NaN on the diagonal from the first
+    non-positive pivot on."""
     return hopper_ops.chol_tile(a.contiguous())
 
 
@@ -449,16 +450,17 @@ def chol_tile_b(d: torch.Tensor, ib: int = CHOL_B_IB
         d[:, j0:j1, j0:j1] = l8
         if j1 >= b:
             continue
-        col = d[:, j1:, j0:j1] @ hopper_ops.trtri_leaves(l8).mT
+        col = d[:, j1:, j0:j1] @ hopper_ops.trtri_leaves(l8).mH
         d[:, j1:, j0:j1] = col
-        d[:, j1:, j1:] -= col @ col.mT
+        d[:, j1:, j1:] -= col @ col.mH
     return torch.tril(d), info
 
 
 def potrf_batched(a: torch.Tensor, nb: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched blocked lower Cholesky of a (B, n, n) stack → (tril L,
-    info (B,)): per nb-wide block column the tile factor (``chol_tile_b``),
+    info (B,)), A = L·Lᴴ: per nb-wide block column the tile factor
+    (``chol_tile_b``),
     the panel by the tile's batched inverse, and the trailing update one
     nb-wide column slab at a time. Reads only the lower triangles; one
     non-SPD item flags its own info (1-based) and changes no other."""
@@ -472,12 +474,12 @@ def potrf_batched(a: torch.Tensor, nb: int
         a[:, k0:k1, k0:k1] = lkk
         if k1 >= n:
             continue
-        pan = a[:, k1:, k0:k1] @ trtri_lower_b(lkk).mT
+        pan = a[:, k1:, k0:k1] @ trtri_lower_b(lkk).mH
         a[:, k1:, k0:k1] = pan
         for j0 in range(k1, n, nb):
             jw = min(nb, n - j0)
             a[:, j0:, j0:j0 + jw] -= (pan[:, j0 - k1:]
-                                      @ pan[:, j0 - k1:j0 - k1 + jw].mT)
+                                      @ pan[:, j0 - k1:j0 - k1 + jw].mH)
     return torch.tril(a), info
 
 
@@ -579,8 +581,8 @@ def getrs_batched(lu: torch.Tensor, perm: torch.Tensor,
 
 
 def potrs_batched(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched A·X = B from ``potrf_batched`` factors: L, then Lᵀ."""
-    return trsm_upper_b(l.mT, trsm_lower_b(l, b))
+    """Batched A·X = B from ``potrf_batched`` factors: L, then Lᴴ."""
+    return trsm_upper_b(l.mH, trsm_lower_b(l, b))
 
 
 def gels_qr_solve_batched(vr: torch.Tensor, ts: torch.Tensor,

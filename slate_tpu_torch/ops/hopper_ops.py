@@ -15,17 +15,27 @@ one. Dispatch is by the tensor's device and nothing else:
   the kernel against on the card.
 
 ``LAUNCHES`` counts kernel launches (plain runs are not counted), so a
-run can show that its main path went through the kernels.
+run can show that its main path went through the kernels;
+``TYPE_LAUNCHES`` splits each count by the element type launched.
 
-The reference's TPU gates (VMEM size, the 8-row sublane floor) do not carry
-over: every real f32/f64 potrf tile goes through ``chol_tile``, every
-panel base of width 1..128 (any height) goes through ``lu_panel_base``,
+The reference's TPU gates (VMEM size, the 8-row sublane floor, real
+float32 only) do not carry over: every potrf tile goes through
+``chol_tile``, every panel base of width 1..128 (any height) goes through
+``lu_panel_base``,
 every ``panel_geqrf`` base goes through ``qr_panel_base`` (w ≤ 32) or
 ``qr_panel_base_wide`` (32 < w ≤ 128, w % 32 == 0), at any height, and
 every real f32/f64 ``herk_lower_rec(c, a)`` without ``b`` goes through
 ``herk_lower_update`` at any n ≥ 1 and k ≥ 1, in one launch (the
 reference's divisibility gates and its k-chunking at 1024 are TPU
-limits).
+limits). The LU and Cholesky kernels (K1, K2, P2, P3, P4) and P1 take
+float32, float64, complex64 and complex128; the Householder kernels
+(K3, K4, P5) and K5 take the real types only and raise on a complex
+tensor (ROADMAP Queue 1 item 3, parts (b) and (c)). The complex plain
+versions do their arithmetic on the real and imaginary parts through
+``cx_mul``, ``cx_div`` (Smith's scaled quotient), ``cx_div_real`` and
+``cx_abs`` (hypot, NaN with a NaN part), and the kernels replay the same
+formulas (csrc/cx.cuh), so K2, P2, P3 and P4 stay bitwise equal to their
+plain versions in every type.
 
 Two multi-block designs carry the serial kernels across SMs. The panel
 kernels K2 (``lu_panel_base``), K3 (``qr_panel_base``) and K4
@@ -76,14 +86,34 @@ LAUNCHES: Dict[str, int] = {"chol_tile": 0, "lu_panel_base": 0,
                             "lu_nopiv_base": 0, "lu_panel_batched": 0,
                             "chol_tile_batched": 0, "qr_panel_batched": 0}
 
+TYPE_LAUNCHES: Dict[str, Dict[str, int]] = {k: {} for k in LAUNCHES}
+
 _REAL = (torch.float32, torch.float64)
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# the element types of the kernels' C entry points; the Householder
+# kernels and K5 have only the first two
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
+           torch.complex64: "c64", torch.complex128: "c128"}
+# where the complex instances of the real-only kernels are queued
+_COMPLEX_LATER = {
+    "qr_panel_base": "ROADMAP Queue 1 item 3(b)",
+    "qr_panel_base_wide": "ROADMAP Queue 1 item 3(b)",
+    "qr_panel_batched": "ROADMAP Queue 1 item 3(b)",
+    "herk_lower_update": "ROADMAP Queue 1 item 3(c)"}
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 
 
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        TYPE_LAUNCHES[k] = {}
+
+
+def _count(name: str, x: torch.Tensor):
+    """One launch of kernel ``name`` on ``x``'s element type."""
+    LAUNCHES[name] += 1
+    by_type = TYPE_LAUNCHES[name]
+    dt = str(x.dtype).split(".")[1]
+    by_type[dt] = by_type.get(dt, 0) + 1
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -110,10 +140,108 @@ def _check_cuda_args(name: str, a: torch.Tensor):
 
 
 def _check_real(name: str, x: torch.Tensor):
+    """The gate of the real-only kernels (K3, K4, K5, P5)."""
     if x.dtype not in _REAL:
         raise NotImplementedError(
             f"{name}: real float32/float64 only, got {x.dtype} "
-            "(complex: ROADMAP Queue 1 item 3)")
+            f"(complex: {_COMPLEX_LATER[name]})")
+
+
+def _check_type(name: str, x: torch.Tensor):
+    """The gate of the kernels with complex instances (K1, K2, P1-P4)."""
+    if x.dtype not in _SUFFIX:
+        raise NotImplementedError(
+            f"{name}: float32/float64/complex64/complex128 only, got "
+            f"{x.dtype}")
+
+
+def _resolved(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with a conjugate or negative view's bits written out, as the
+    kernels read raw memory."""
+    return x.resolve_conj().resolve_neg()
+
+
+# ---------------------------------------------------------------------------
+# Complex arithmetic of the plain versions, part by part
+# ---------------------------------------------------------------------------
+# Torch's complex product and quotient do not fix their rounding (its CPU
+# and CUDA paths differ, and nvcc contracts c10::complex's products into
+# FMAs), so the complex plain versions spell out every real operation on
+# the parts, each rounded apart, and the kernels replay them
+# (csrc/cx.cuh). On a real tensor each helper is the one torch operation
+# it replaces.
+
+def _parts(x: torch.Tensor):
+    v = torch.view_as_real(x.resolve_conj())
+    return v[..., 0], v[..., 1]
+
+
+def cx_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a·b (broadcast): (ar·br − ai·bi) + i·(ar·bi + ai·br). A conjugate
+    view is read with its imaginary part negated."""
+    if not a.is_complex():
+        return a * b
+    ar, ai = _parts(a)
+    br, bi = _parts(b)
+    return torch.complex(ar * br - ai * bi, ar * bi + ai * br)
+
+
+def cx_abs(x: torch.Tensor) -> torch.Tensor:
+    """|x|: abs, and for a complex x hypot(re, im), NaN where either part
+    is NaN. That is the reference's ``jnp.abs`` (XLA's complex abs), whose
+    |inf + nan·i| is NaN where IEEE hypot gives inf."""
+    if not x.is_complex():
+        return x.abs()
+    re, im = _parts(x)
+    return torch.where(torch.isnan(re) | torch.isnan(im),
+                       torch.full_like(re, math.nan), torch.hypot(re, im))
+
+
+def bad_pivot(d: torch.Tensor) -> torch.Tensor:
+    """The LU kernels' bad pivot, the reference's isnan(|d|) | (|d| == 0)
+    with ``cx_abs``'s modulus (inf + nan·i is bad)."""
+    m = cx_abs(d)
+    return torch.isnan(m) | (m == 0)
+
+
+def cx_divisor(d: torch.Tensor):
+    """Smith's ratio and scale of the divisors ``d``, made once per
+    divisor as c10::complex's operator/= (and numpy) does:
+    |re| ≥ |im|: rat = im/re, scl = 1/(re + im·rat); otherwise rat =
+    re/im, scl = 1/(im + re·rat); both parts zero is its own case. A real
+    ``d`` is its own divisor."""
+    if not d.is_complex():
+        return d
+    c, e = _parts(d)
+    ac, ae = c.abs(), e.abs()
+    big = ac >= ae
+    one = torch.ones_like(c)
+    rat = torch.where(big, e / c, c / e)
+    scl = one / torch.where(big, c + e * rat, e + c * rat)
+    return big, (ac == 0) & (ae == 0), rat, scl, ac, ae
+
+
+def cx_div(a: torch.Tensor, dv) -> torch.Tensor:
+    """a / d for ``dv = cx_divisor(d)`` (broadcast), Smith's form:
+    (ar + ai·rat)·scl + i·(ai − ar·rat)·scl where |re d| ≥ |im d|,
+    (ar·rat + ai)·scl + i·(ai·rat − ar)·scl otherwise, and ar/|re d| +
+    i·ai/|im d| for d = 0."""
+    if not a.is_complex():
+        return a / dv
+    big, zero, rat, scl, ac, ae = dv
+    ar, ai = _parts(a)
+    re = torch.where(big, (ar + ai * rat) * scl, (ar * rat + ai) * scl)
+    im = torch.where(big, (ai - ar * rat) * scl, (ai * rat - ar) * scl)
+    return torch.complex(torch.where(zero, ar / ac, re),
+                         torch.where(zero, ai / ae, im))
+
+
+def cx_div_real(a: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """a / r for a real r (broadcast), the parts divided apart."""
+    if not a.is_complex():
+        return a / r
+    ar, ai = _parts(a)
+    return torch.complex(ar / r, ai / r)
 
 
 def _raise_on(rc: int, lib: str, err_sym: str, what: str):
@@ -205,20 +333,23 @@ def _grid_launch(lib: str, sym: str, err_sym: str, scratch_bytes: int,
 
 def chol_tile_plain(a: torch.Tensor) -> torch.Tensor:
     """Plain version of K1: right-looking column loop over the LOWER
-    triangle of ``a``; strict upper of the result zeroed; a non-positive
-    or NaN pivot makes that diagonal entry NaN and poisons everything
-    right of and below it. No host sync."""
+    triangle of ``a`` (A = L·Lᴴ); strict upper of the result zeroed. The
+    pivot is the real part of the diagonal entry, as the reference's
+    ``jnp.real(d[j, j])``, so L's diagonal is real; a non-positive or NaN
+    pivot makes that diagonal entry NaN and poisons everything right of
+    and below it. No host sync."""
     b = a.shape[0]
-    l = torch.tril(a)
-    nan = torch.full((), math.nan, dtype=a.dtype, device=a.device)
+    l = torch.tril(_resolved(a))
+    rdt = l.real.dtype
+    nan = torch.full((), math.nan, dtype=rdt, device=a.device)
     for j in range(b):
-        d = l[j, j]
+        d = l[j, j].real
         s = torch.where(d > 0, d.sqrt(), nan)
         l[j, j] = s
         if j + 1 < b:
-            l[j + 1:, j] /= s
+            l[j + 1:, j] = cx_div_real(l[j + 1:, j], s)
             col = l[j + 1:, j]
-            l[j + 1:, j + 1:] -= torch.outer(col, col)
+            l[j + 1:, j + 1:] -= torch.outer(col, col.conj())
     return torch.tril(l)
 
 
@@ -299,15 +430,17 @@ def chol_tile(a: torch.Tensor) -> torch.Tensor:
     (or streamed through L2), every CTA factoring the diagonal block
     redundantly, two cluster barriers per step. It is bound by those
     b/32 serial steps. Any b ≥ 1 goes through it; a plan the card cannot
-    schedule raises. Reads only the lower triangle."""
-    if a.dtype not in _REAL:
-        raise NotImplementedError(
-            f"chol_tile: real float32/float64 only, got {a.dtype}")
+    schedule raises. Reads only the lower triangle. Types: float32,
+    float64, complex64 and complex128 (the complex instances take L21 =
+    A21·L11⁻ᴴ and A22 −= L21·L21ᴴ); equal to the plain version up to the
+    order of its sums."""
+    _check_type("chol_tile", a)
     if a.ndim != 2 or a.shape[0] != a.shape[1]:
         raise SlateError(f"chol_tile: expects a square tile, got "
                          f"{tuple(a.shape)}")
     if a.device.type == "cpu":
         return chol_tile_plain(a)
+    a = _resolved(a)
     _check_cuda_args("chol_tile", a)
     b = a.shape[0]
     plan = chol_tile_plan(b, a.element_size())
@@ -319,7 +452,7 @@ def chol_tile(a: torch.Tensor) -> torch.Tensor:
                torch.cuda.current_stream(a.device).cuda_stream)
     _raise_on(rc, "chol_tile", "slate_chol_error_string",
               f"chol_tile (b={b}, plan {plan})")
-    LAUNCHES["chol_tile"] += 1
+    _count("chol_tile", out)
     return out
 
 
@@ -351,32 +484,33 @@ def _first_argmax(v: torch.Tensor) -> torch.Tensor:
 def lu_panel_base_plain(a: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of K2 (= ``blocked._panel_getrf_base``): column
-    loop with argmax pivot, row + perm swap, first-bad-pivot info (that
-    column divides by 1), scale, rank-1 update of the trailing block.
-    Returns (lu, perm int32 with a[perm] = L·U, info int32 0-d). No host
-    sync: the pivot index stays on the device."""
+    loop with argmax pivot on the modulus, row + perm swap,
+    first-bad-pivot info (``bad_pivot``; that column divides by 1),
+    scale, rank-1 update of the trailing block. Returns (lu, perm int32
+    with a[perm] = L·U, info int32 0-d). No host sync: the pivot index
+    stays on the device."""
     hh, w = a.shape
     dev = a.device
-    lu = a.clone()
+    lu = _resolved(a).clone()
     perm = torch.arange(hh, dtype=torch.int32, device=dev)
     info = torch.zeros((), dtype=torch.int32, device=dev)
     one = torch.ones((), dtype=a.dtype, device=dev)
     for j in range(w):
-        p = _first_argmax(lu[j:, j].abs()) + j
+        p = _first_argmax(cx_abs(lu[j:, j])) + j
         jt = torch.full((), j, dtype=p.dtype, device=dev)
         src, dst = torch.stack([jt, p]), torch.stack([p, jt])
         lu.index_copy_(0, dst, lu.index_select(0, src))
         perm.index_copy_(0, dst, perm.index_select(0, src))
         d = lu[j, j]
-        bad = torch.isnan(d) | (d == 0)
+        bad = bad_pivot(d)
         info = torch.where((info == 0) & bad,
                            torch.full_like(info, j + 1), info)
-        dsafe = torch.where(bad, one, d)
+        dsafe = cx_divisor(torch.where(bad, one, d))
         if j + 1 < hh:
-            lu[j + 1:, j] /= dsafe
+            lu[j + 1:, j] = cx_div(lu[j + 1:, j], dsafe)
             if j + 1 < w:
-                lu[j + 1:, j + 1:] -= torch.outer(lu[j + 1:, j],
-                                                  lu[j, j + 1:])
+                lu[j + 1:, j + 1:] -= cx_mul(lu[j + 1:, j, None],
+                                             lu[j, None, j + 1:])
     return lu, perm, info
 
 
@@ -390,17 +524,17 @@ def lu_panel_base(a: torch.Tensor):
     or streamed, with one grid barrier per column: it is bound by those
     w serial steps, not by the panel's bytes, which cross HBM once each
     way (PERF.md has its times beside the one-block design's). Bitwise
-    equal to the plain version on the same input: lu, perm and info."""
+    equal to the plain version on the same input: lu, perm and info, in
+    float32, float64, complex64 and complex128."""
     if a.ndim != 2:
         raise SlateError("lu_panel_base: expects a 2-D panel")
-    if a.dtype not in _REAL:
-        raise NotImplementedError(
-            f"lu_panel_base: real float32/float64 only, got {a.dtype}")
+    _check_type("lu_panel_base", a)
     hh, w = a.shape
     if w > hh or w == 0:
         raise SlateError(f"lu_panel_base: needs 0 < w ≤ H, got {(hh, w)}")
     if a.device.type == "cpu":
         return lu_panel_base_plain(a)
+    a = _resolved(a)
     _check_cuda_args("lu_panel_base", a)
     plan = panel_plan_for(a)
     lu = torch.empty_like(a)
@@ -411,7 +545,7 @@ def lu_panel_base(a: torch.Tensor):
     _grid_launch("lu_panel", f"slate_lu_panel_{_SUFFIX[a.dtype]}",
                  "slate_lu_error_string", nbytes, a, (lu, perm, info), plan,
                  "lu_panel_base")
-    LAUNCHES["lu_panel_base"] += 1
+    _count("lu_panel_base", lu)
     return lu, perm, info
 
 
@@ -518,9 +652,7 @@ def qr_panel_base_wide_plain(a: torch.Tensor
 def _check_qr_panel(name: str, a: torch.Tensor, ok_width):
     if a.ndim != 2:
         raise SlateError(f"{name}: expects a 2-D panel")
-    if a.dtype not in _REAL:
-        raise NotImplementedError(
-            f"{name}: real float32/float64 only, got {a.dtype}")
+    _check_real(name, a)
     hh, w = a.shape
     if w > hh or not ok_width(w):
         raise SlateError(f"{name}: width {w} out of range for an "
@@ -538,7 +670,7 @@ def _qr_panel_launch(a: torch.Tensor, name: str):
                  ctypes.c_longlong)(plan.blocks, a.shape[1], a.element_size())
     _grid_launch("qr_panel", f"slate_qr_panel_{_SUFFIX[a.dtype]}",
                  "slate_qr_error_string", nbytes, a, (vr, taus), plan, name)
-    LAUNCHES[name] += 1
+    _count(name, vr)
     return vr, taus
 
 
@@ -694,9 +826,7 @@ def herk_lower_update(c: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     a larger matrix. Equal to the plain version up to the order of its
     k-long sums and, in float32, the 3×TF32 split's error (about 2⁻²²
     of |a|·|b| per product)."""
-    if c.dtype not in _REAL:
-        raise NotImplementedError(
-            f"herk_lower_update: real float32/float64 only, got {c.dtype}")
+    _check_real("herk_lower_update", c)
     if a.dtype != c.dtype:
         raise SlateError(f"herk_lower_update: dtypes differ ({c.dtype}, "
                          f"{a.dtype})")
@@ -723,7 +853,7 @@ def herk_lower_update(c: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
                _row_stride(a), torch.cuda.current_stream(c.device).cuda_stream)
     _raise_on(rc, "herk_lower", "slate_herk_error_string",
               f"herk_lower_update (n={n}, k={k})")
-    LAUNCHES["herk_lower_update"] += 1
+    _count("herk_lower_update", c)
     return c
 
 
@@ -732,8 +862,6 @@ def herk_lower_update(c: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 LEAF_MAX = 64  # the widest leaf P1 and P2 take
-_LEAF_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
-                torch.complex64: "c64", torch.complex128: "c128"}
 # P1's and P2's entrywise check against their plain versions
 # (chip_smoke.py): |X − X_plain|ᵢⱼ ≤ LEAF_ENTRY_C·s·ε·(|X_plain|·|L|·
 # |X_plain|)ᵢⱼ, s·ε the forward-error bound of triangular inversion, which
@@ -778,10 +906,7 @@ def trtri_leaves(l: torch.Tensor, unit: bool = False) -> torch.Tensor:
     order of its sums (within
     LEAF_ENTRY_C·s·ε·(|X|·|L|·|X|)ᵢⱼ), with non-finite entries in the same
     places."""
-    if l.dtype not in _LEAF_SUFFIX:
-        raise NotImplementedError(
-            f"trtri_leaves: float32/float64/complex64/complex128 only, got "
-            f"{l.dtype}")
+    _check_type("trtri_leaves", l)
     if l.ndim != 3 or l.shape[1] != l.shape[2] or not (
             1 <= l.shape[1] <= LEAF_MAX):
         raise SlateError(f"trtri_leaves: expects a (B, s, s) stack with "
@@ -790,19 +915,19 @@ def trtri_leaves(l: torch.Tensor, unit: bool = False) -> torch.Tensor:
         return trtri_leaves_plain(l, unit)
     if l.device.type != "cuda":
         raise SlateError(f"trtri_leaves: unsupported device {l.device}")
-    l = l.resolve_conj().resolve_neg()
+    l = _resolved(l)
     nblk, s, _ = l.shape
     x = torch.empty((nblk, s, s), dtype=l.dtype, device=l.device)
     if nblk == 0:
         return x
-    f = _fn("trtri_leaves", f"slate_trtri_leaves_{_LEAF_SUFFIX[l.dtype]}",
+    f = _fn("trtri_leaves", f"slate_trtri_leaves_{_SUFFIX[l.dtype]}",
             [_P, _P, _I, _I, _L, _L, _L, _I, _P])
     with torch.cuda.device(l.device):
         rc = f(l.data_ptr(), x.data_ptr(), nblk, s, *l.stride(), int(unit),
                torch.cuda.current_stream(l.device).cuda_stream)
     _raise_on(rc, "trtri_leaves", "slate_trtri_error_string",
               f"trtri_leaves (B={nblk}, s={s})")
-    LAUNCHES["trtri_leaves"] += 1
+    _count("trtri_leaves", x)
     return x
 
 
@@ -816,12 +941,13 @@ def lu_nopiv_base_plain(a: torch.Tensor
     any (m, n)): min(m, n) steps, each scaling column i below the
     diagonal by the pivot and subtracting col ⊗ urow from the WHOLE
     matrix (col zero on and above row i, urow zero left of and at column
-    i), so a non-finite entry spreads as in the reference. A zero or NaN
-    pivot sets info (1-based, the first) and that step divides by 1.
-    Returns (L\\U packed, info int32 0-d). No host sync."""
+    i), so a non-finite entry spreads as in the reference. A bad pivot
+    (``bad_pivot``: |d| zero or NaN) sets info (1-based, the first) and
+    that step divides by 1. Returns (L\\U packed, info int32 0-d). No host
+    sync."""
     m, n = a.shape
     dev = a.device
-    mat = a.clone()
+    mat = _resolved(a).clone()
     info = torch.zeros((), dtype=torch.int32, device=dev)
     one = torch.ones((), dtype=a.dtype, device=dev)
     zero = torch.zeros((), dtype=a.dtype, device=dev)
@@ -829,20 +955,20 @@ def lu_nopiv_base_plain(a: torch.Tensor
     cols = torch.arange(n, device=dev)
     for i in range(min(m, n)):
         d = mat[i, i]
-        bad = torch.isnan(d.abs()) | (d.abs() == 0)
+        bad = bad_pivot(d)
         info = torch.where((info == 0) & bad,
                            torch.full_like(info, i + 1), info)
-        dsafe = torch.where(bad, one, d)
+        dsafe = cx_divisor(torch.where(bad, one, d))
         below = rows > i
-        col = torch.where(below, mat[:, i] / dsafe, zero)
+        col = torch.where(below, cx_div(mat[:, i], dsafe), zero)
         mat[:, i] = torch.where(below, col, mat[:, i])
         urow = torch.where(cols > i, mat[i, :], zero)
-        mat -= torch.outer(col, urow)
+        mat -= cx_mul(col[:, None], urow[None, :])
     return mat, info
 
 
 def _check_nopiv_leaf(name: str, a: torch.Tensor):
-    _check_real(name, a)
+    _check_type(name, a)
     if a.ndim != 2 or a.shape[0] != a.shape[1] or not (
             1 <= a.shape[0] <= LEAF_MAX):
         raise SlateError(f"{name}: expects a square (s, s) leaf "
@@ -857,11 +983,12 @@ def lu_nopiv_base(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     Counterpart of ``_lu_nopiv_unblocked`` (slate_tpu/linalg/lu.py:463-482;
     no Pallas kernel). On a CUDA tensor: ``lu_nopiv_base_inplace`` on a
     copy. Bitwise equal to the plain version on the same input (products
-    and differences rounded separately). Real float32/float64 only."""
+    and differences rounded separately), in float32, float64, complex64
+    and complex128."""
     _check_nopiv_leaf("lu_nopiv_base", a)
     if a.device.type == "cpu":
         return lu_nopiv_base_plain(a)
-    lu = a.clone(memory_format=torch.contiguous_format)
+    lu = _resolved(a).clone(memory_format=torch.contiguous_format)
     info = torch.zeros((), dtype=torch.int32, device=a.device)
     lu_nopiv_base_inplace(lu, info)
     return lu, info
@@ -900,6 +1027,9 @@ def lu_nopiv_base_inplace(a: torch.Tensor, info: torch.Tensor,
         return
     if a.device.type != "cuda":
         raise SlateError(f"{name}: unsupported device {a.device}")
+    if a.is_conj() or a.is_neg():
+        raise SlateError(f"{name}: a conjugate or negative view cannot be "
+                         "factored in place")
     f = _fn("lu_nopiv", f"slate_lu_nopiv_{_SUFFIX[a.dtype]}",
             [_P, _L, _L, _I, _P, _I, _P])
     with torch.cuda.device(a.device):
@@ -907,7 +1037,7 @@ def lu_nopiv_base_inplace(a: torch.Tensor, info: torch.Tensor,
                torch.cuda.current_stream(a.device).cuda_stream)
     _raise_on(rc, "lu_nopiv", "slate_lu_nopiv_error_string",
               f"{name} (s={s})")
-    LAUNCHES["lu_nopiv_base"] += 1
+    _count("lu_nopiv_base", a)
 
 
 # ---------------------------------------------------------------------------
@@ -918,8 +1048,9 @@ def lu_panel_batched_plain(stack: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of P3 (= the reference's ``_panel_getrf_batched_impl``,
     written out over the batch): per chunk, ``lu_panel_base_plain``'s
-    column loop — argmax pivot under jnp.argmax's rule (NaN is the
-    maximum, ties go to the lowest row, rows above j are not candidates),
+    column loop — argmax pivot on the modulus under jnp.argmax's rule
+    (NaN is the maximum, ties go to the lowest row, rows above j are not
+    candidates),
     row and perm swap, first-bad-pivot info (that column divides by 1),
     scale, and the rank-1 update of the trailing block as a rounded
     product and a separate difference. Every step runs on all B chunks at
@@ -927,13 +1058,13 @@ def lu_panel_batched_plain(stack: torch.Tensor
     with stack[b][perm[b]] = L·U, info int32 (B,)). No host sync."""
     bsz, hh, w = stack.shape
     dev = stack.device
-    lu = stack.clone()
+    lu = _resolved(stack).clone()
     perm = torch.arange(hh, dtype=torch.int32, device=dev).repeat(bsz, 1)
     info = torch.zeros(bsz, dtype=torch.int32, device=dev)
     one = torch.ones((), dtype=stack.dtype, device=dev)
     batch = torch.arange(bsz, device=dev)
     for j in range(w):
-        col = lu[:, j:, j].abs()
+        col = cx_abs(lu[:, j:, j])
         nanmask = torch.isnan(col)
         finite = torch.where(nanmask, torch.full_like(col, -1.0), col)
         cand = torch.where(nanmask.any(1, keepdim=True), nanmask,
@@ -947,15 +1078,15 @@ def lu_panel_batched_plain(stack: torch.Tensor
         perm[batch, p] = perm_j
         perm[batch, j] = perm_p
         d = lu[:, j, j]
-        bad = torch.isnan(d) | (d == 0)
+        bad = bad_pivot(d)
         info = torch.where((info == 0) & bad,
                            torch.full_like(info, j + 1), info)
-        dsafe = torch.where(bad, one, d)
+        dsafe = cx_divisor(torch.where(bad, one, d)[:, None])
         if j + 1 < hh:
-            lu[:, j + 1:, j] /= dsafe[:, None]
+            lu[:, j + 1:, j] = cx_div(lu[:, j + 1:, j], dsafe)
             if j + 1 < w:
-                lu[:, j + 1:, j + 1:] -= (lu[:, j + 1:, j, None]
-                                          * lu[:, j, None, j + 1:])
+                lu[:, j + 1:, j + 1:] -= cx_mul(lu[:, j + 1:, j, None],
+                                                lu[:, j, None, j + 1:])
     return lu, perm, info
 
 
@@ -1102,9 +1233,10 @@ def lu_panel_batched(stack: torch.Tensor):
     streamed), row positions swapped instead of rows, one cluster barrier
     per column. It is bound by the w serial column steps. The stack must
     be contiguous (``blocked.panel_getrf_batched`` makes it so). Bitwise
-    equal to the plain version on the same input: lu, perm and info. A
-    plan the card cannot schedule raises. Real float32/float64 only."""
-    _check_real("lu_panel_batched", stack)
+    equal to the plain version on the same input: lu, perm and info, in
+    float32, float64, complex64 and complex128. A plan the card cannot
+    schedule raises."""
+    _check_type("lu_panel_batched", stack)
     if stack.ndim != 3:
         raise SlateError(f"lu_panel_batched: expects a (B, H, w) stack, got "
                          f"{tuple(stack.shape)}")
@@ -1114,6 +1246,7 @@ def lu_panel_batched(stack: torch.Tensor):
                          f"{(hh, w)}")
     if stack.device.type == "cpu":
         return lu_panel_batched_plain(stack)
+    stack = _resolved(stack)
     _check_cuda_args("lu_panel_batched", stack)
     if bsz == 0:
         return (torch.empty_like(stack),
@@ -1144,7 +1277,7 @@ def lu_panel_batched_launch(stack: torch.Tensor, plan: P3Plan):
                torch.cuda.current_stream(stack.device).cuda_stream)
     _raise_on(rc, "lu_panel_batched", "slate_lu_panel_batched_error_string",
               f"lu_panel_batched (B={bsz}, H={hh}, w={w}, plan {plan})")
-    LAUNCHES["lu_panel_batched"] += 1
+    _count("lu_panel_batched", lu)
     return lu, perm, info
 
 
@@ -1155,26 +1288,28 @@ def lu_panel_batched_launch(stack: torch.Tensor, plan: P3Plan):
 def chol_tile_batched_plain(d: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of P4 (= the reference's ``_chol_unrolled_b``): per
-    column j, on every item at once, the guarded pivot (a NaN or
-    non-positive d[j, j] sets info to j + 1 if it is still 0, and the
-    column divides by sqrt(1)), col = d[j+1:, j] / root, then
-    d[j+1:, j+1:] −= col·colᵀ, the product and the difference rounded
-    separately. Only the lower triangle reaches the result. Returns
-    (tril L, info int32 (B,)). No host sync."""
+    column j, on every item at once, the guarded pivot dj = re(d[j, j])
+    (a NaN or non-positive dj sets info to j + 1 if it is still 0, and the
+    column divides by sqrt(1)), col = d[j+1:, j] / root (the parts
+    divided apart), then d[j+1:, j+1:] −= col·colᴴ, the product
+    (``cx_mul``) and the difference rounded separately. Only the lower
+    triangle reaches the result; the imaginary part of a diagonal entry
+    is never read. Returns (tril L, info int32 (B,)). No host sync."""
     bsz, s, _ = d.shape
-    a = d.clone(memory_format=torch.contiguous_format)
+    a = _resolved(d).clone(memory_format=torch.contiguous_format)
     info = torch.zeros(bsz, dtype=torch.int32, device=d.device)
-    one = torch.ones((), dtype=d.dtype, device=d.device)
+    one = torch.ones((), dtype=a.real.dtype, device=d.device)
     for j in range(s):
-        dj = a[:, j, j]
+        dj = a[:, j, j].real
         bad = torch.isnan(dj) | (dj <= 0)
         info = torch.where((info == 0) & bad,
                            torch.full_like(info, j + 1), info)
         root = torch.sqrt(torch.where(bad, one, dj))
         if j + 1 < s:
-            col = a[:, j + 1:, j] / root[:, None]
+            col = cx_div_real(a[:, j + 1:, j], root[:, None])
             a[:, j + 1:, j] = col
-            a[:, j + 1:, j + 1:] -= col[:, :, None] * col[:, None, :]
+            a[:, j + 1:, j + 1:] -= cx_mul(col[:, :, None],
+                                           col.conj()[:, None, :])
         a[:, j, j] = root
     return torch.tril(a), info
 
@@ -1197,9 +1332,9 @@ def chol_tile_batched(d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     columns broadcast through shared memory, each step's trailing update
     finished after the next pivot's square root and division are under
     way. Bitwise equal to the plain version (IEEE square root and
-    division, products and differences rounded separately). Real
-    float32/float64 only."""
-    _check_real("chol_tile_batched", d)
+    division, products and differences rounded separately), in float32,
+    float64, complex64 and complex128 (two items a CTA in complex128)."""
+    _check_type("chol_tile_batched", d)
     if d.ndim != 3 or d.shape[1] != d.shape[2] or not (
             1 <= d.shape[1] <= LEAF_MAX):
         raise SlateError(f"chol_tile_batched: expects a (B, s, s) stack with "
@@ -1208,7 +1343,7 @@ def chol_tile_batched(d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return chol_tile_batched_plain(d)
     if d.device.type != "cuda":
         raise SlateError(f"chol_tile_batched: unsupported device {d.device}")
-    d = d.resolve_neg()
+    d = _resolved(d)
     bsz, s, _ = d.shape
     l = torch.empty((bsz, s, s), dtype=d.dtype, device=d.device)
     info = torch.empty(bsz, dtype=torch.int32, device=d.device)
@@ -1223,7 +1358,7 @@ def chol_tile_batched(d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         _raise_on(rc, "chol_tile_batched",
                   "slate_chol_tile_batched_error_string",
                   f"chol_tile_batched (B={bsz}, s={s})")
-    LAUNCHES["chol_tile_batched"] += 1
+    _count("chol_tile_batched", l)
     return l, info
 
 
@@ -1372,7 +1507,7 @@ def qr_panel_batched(stack: torch.Tensor
     if stack.device.type != "cuda":
         raise SlateError(f"qr_panel_batched: unsupported device "
                          f"{stack.device}")
-    stack = stack.resolve_neg()
+    stack = _resolved(stack)
     vr = torch.empty((bsz, hh, w), dtype=stack.dtype, device=stack.device)
     taus = torch.empty((bsz, w), dtype=stack.dtype, device=stack.device)
     if bsz == 0:
@@ -1387,5 +1522,5 @@ def qr_panel_batched(stack: torch.Tensor
         _raise_on(rc, "qr_panel_batched",
                   "slate_qr_panel_batched_error_string",
                   f"qr_panel_batched (B={bsz}, H={hh}, w={w}, plan {plan})")
-    LAUNCHES["qr_panel_batched"] += 1
+    _count("qr_panel_batched", vr)
     return vr, taus

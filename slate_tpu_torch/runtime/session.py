@@ -170,8 +170,8 @@ class Session:
         square general → lu, non-square → qr). A "qr" operator must be
         tall (m ≥ n); the others need a square one. The dense ops take a
         ``TiledMatrix`` on the session's device; the small ops a plain
-        (n, n) numpy array or tensor of a real type, which the session
-        puts on its device."""
+        (n, n) numpy array or tensor of a float or complex type, which
+        the session puts on its device."""
         if op == "auto":
             op = self._infer_op(A)
         if op in LATER_OPS:
@@ -187,6 +187,10 @@ class Session:
                              f"{want} operand, got {type(A).__name__}")
         if op in SMALL_OPS:
             A = self._small_operand(A)
+        elif op == "qr" and A.dtype.is_complex:
+            raise NotImplementedError(
+                f"Session.register: a {A.dtype} qr operator needs the "
+                "complex Householder kernels (ROADMAP Queue 1 item 3(b))")
         elif A.device != self.device:
             raise SlateError(f"Session.register: operand on {A.device}, "
                              f"session on {self.device}")
@@ -215,21 +219,18 @@ class Session:
         return handle
 
     def _small_operand(self, A) -> torch.Tensor:
-        """A small operator as a square real tensor on the session's
-        device (the reference's validation: square, plain dense)."""
+        """A small operator as a square floating-point or complex tensor
+        on the session's device (the reference's validation: square, plain
+        dense)."""
         t = A if isinstance(A, torch.Tensor) else torch.as_tensor(
             np.ascontiguousarray(A))
         if t.ndim != 2 or t.shape[0] != t.shape[1]:
             raise SlateError("Session.register: small-problem operators "
                              f"must be square, got {tuple(t.shape)}")
-        if t.is_complex():
-            raise NotImplementedError(
-                f"Session.register: small-problem operators are real "
-                f"float32/float64 only, got {t.dtype} (complex: ROADMAP "
-                "Queue 1 item 3)")
-        if not t.is_floating_point():
+        if not (t.is_floating_point() or t.is_complex()):
             raise SlateError("Session.register: small-problem operators "
-                             f"need a floating-point type, got {t.dtype}")
+                             f"need a floating-point or complex type, got "
+                             f"{t.dtype}")
         return t.to(self.device)
 
     def unregister(self, handle: Hashable):

@@ -211,6 +211,12 @@ def test_verbs_validate_shapes_and_types():
                          device="cpu")
     with pytest.raises(SlateError, match="m >= n"):
         stt.geqrf_batched(np.zeros((2, 3, 4)), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        stt.gesv_batched(np.zeros((2, 4, 4), np.complex128),
-                         np.zeros((2, 4, 1)), device="cpu")
+    x, info = stt.gesv_batched(np.eye(4, dtype=np.complex128)[None] * 2j,
+                               np.ones((1, 4, 1)), device="cpu")
+    assert x.dtype == torch.complex128 and info.tolist() == [0]
+    np.testing.assert_allclose(x.numpy(), -0.5j * np.ones((1, 4, 1)))
+    for verb in (stt.gels_batched, stt.geqrf_batched):
+        with pytest.raises(NotImplementedError, match=r"item 3\(b\)"):
+            verb(np.zeros((2, 4, 4), np.complex128),
+                 *([np.zeros((2, 4, 1))] if verb is stt.gels_batched
+                   else []), device="cpu")

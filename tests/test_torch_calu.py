@@ -167,8 +167,9 @@ def test_p3_chunks_do_not_mix():
 
 def test_p3_dispatch_and_refusals():
     """A CPU stack runs the plain version and counts no launch; a stack on
-    another device reaches the launcher, which raises; complex, w > H and
-    a 2-D input are refused; ``blocked.panel_getrf_batched`` hands P3 a
+    another device reaches the launcher, which raises; a complex stack runs
+    its complex plain version; half precision, w > H and a 2-D input are
+    refused; ``blocked.panel_getrf_batched`` hands P3 a
     contiguous stack."""
     hopper_ops.reset_launches()
     s = torch.from_numpy(_stack((2, 24, 8), np.float64, 1))
@@ -182,8 +183,12 @@ def test_p3_dispatch_and_refusals():
     assert not any(hopper_ops.LAUNCHES.values())
     with pytest.raises(SlateError, match="unsupported device"):
         hopper_ops.lu_panel_batched(torch.empty((2, 24, 8), device="meta"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        hopper_ops.lu_panel_batched(s.to(torch.complex128))
+    sc = s.to(torch.complex128)
+    assert all(torch.equal(x, y) for x, y in
+               zip(hopper_ops.lu_panel_batched(sc),
+                   hopper_ops.lu_panel_batched_plain(sc)))
+    with pytest.raises(NotImplementedError, match="complex128"):
+        hopper_ops.lu_panel_batched(s.to(torch.float16))
     with pytest.raises(SlateError):
         hopper_ops.lu_panel_batched(s.mT)  # w > H
     with pytest.raises(SlateError):

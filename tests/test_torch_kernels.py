@@ -156,15 +156,28 @@ def test_cpu_dispatch_counts_no_launch_and_rejects_complex():
                                         "chol_tile_batched",
                                         "qr_panel_batched"}
     assert not any(hopper_ops.LAUNCHES.values())
-    with pytest.raises(NotImplementedError):
-        hopper_ops.chol_tile(a.to(torch.complex128))
-    with pytest.raises(NotImplementedError):
+    # complex: K1 and K2 take it (their plain versions here, no launch);
+    # K3, K4 and K5 raise and name the ROADMAP part that brings them
+    ac = a.to(torch.complex128)
+    torch.testing.assert_close(hopper_ops.chol_tile(ac),
+                               hopper_ops.chol_tile_plain(ac), rtol=0, atol=0)
+    torch.testing.assert_close(hopper_ops.chol_tile(ac).real,
+                               hopper_ops.chol_tile(a), rtol=1e-14,
+                               atol=1e-14)
+    pc = p.to(torch.complex128)
+    assert all(torch.equal(x, y) for x, y in
+               zip(hopper_ops.lu_panel_base(pc),
+                   hopper_ops.lu_panel_base_plain(pc)))
+    assert not any(hopper_ops.LAUNCHES.values())
+    with pytest.raises(NotImplementedError, match=r"item 3\(c\)"):
         hopper_ops.herk_lower_update(c.to(torch.complex128),
                                      h.to(torch.complex128))
-    for launcher in (hopper_ops.lu_panel_base, hopper_ops.qr_panel_base,
-                     hopper_ops.qr_panel_base_wide):
-        with pytest.raises(NotImplementedError):
+    for launcher in (hopper_ops.qr_panel_base, hopper_ops.qr_panel_base_wide):
+        with pytest.raises(NotImplementedError, match=r"item 3\(b\)"):
             launcher(torch.zeros((64, 64), dtype=torch.complex128))
+    for launcher in (hopper_ops.chol_tile, hopper_ops.lu_panel_base):
+        with pytest.raises(NotImplementedError, match="complex64"):
+            launcher(torch.zeros((8, 8), dtype=torch.float16))
     with pytest.raises(SlateError):
         hopper_ops.lu_panel_base(p.T)   # w > H
     with pytest.raises(SlateError):

@@ -416,8 +416,8 @@ def test_leaf_launchers_refuse_bad_input():
     for shape in ((4, 4), (1, 4, 5), (1, 65, 65), (1, 0, 0)):
         with pytest.raises(SlateError, match="trtri_leaves"):
             hopper_ops.trtri_leaves(torch.zeros(shape))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        hopper_ops.lu_nopiv_base(torch.zeros((4, 4), dtype=torch.complex128))
+    with pytest.raises(NotImplementedError, match="lu_nopiv_base"):
+        hopper_ops.lu_nopiv_base(torch.zeros((4, 4), dtype=torch.int32))
     for shape in ((4, 5), (65, 65), (2, 4, 4)):
         with pytest.raises(SlateError, match="lu_nopiv_base"):
             hopper_ops.lu_nopiv_base(torch.zeros(shape))
@@ -501,7 +501,7 @@ def _p2_constants():
     src = open(f"{_build.CSRC_DIR}/lu_nopiv.cu").read()
     for decl in ("kMaxLeaf = 64;", "kWarps = kMaxLeaf / kCols;",
                  "kThreads = 32 * kWarps;", "kTile = kMaxLeaf + 1;",
-                 "kLd = kMaxLeaf;", "sh[kMaxLeaf * kTile];",
+                 "kLd = kMaxLeaf;", "sizeof(T) * kMaxLeaf * kTile;",
                  "bar[kMaxLeaf];", "bad_w[kWarps];",
                  "cw = w * kCols;", "r0 = lane, r1 = lane + 32;",
                  "if (threadIdx.x < s) mbar_init(bar0 + 8 * threadIdx.x, 32);",

@@ -258,6 +258,11 @@ def test_session_serves_a_nopiv_operator():
 
 
 def test_nopiv_complex_names_the_roadmap():
-    a = np.eye(8, dtype=np.complex128)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        stt.getrf_nopiv(stt.from_dense(a, 4, device="cpu"))
+    """getrf_nopiv takes complex (P2 has complex instances); the verbs
+    that still lack them name their ROADMAP part."""
+    a = np.eye(8, dtype=np.complex128) * (2 - 1j)
+    LU, info = stt.getrf_nopiv(stt.from_dense(a, 4, device="cpu"))
+    assert int(info) == 0
+    np.testing.assert_array_equal(LU.to_numpy(), a)
+    with pytest.raises(NotImplementedError, match=r"Queue 1 item 3\(b\)"):
+        stt.geqrf(stt.from_dense(a, 4, device="cpu"))

@@ -91,8 +91,13 @@ def test_register_small_validation():
                       op="lu_small")
     with pytest.raises(SlateError):
         sess.register(np.zeros((2, 4, 4)), op="chol_small")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        sess.register(np.eye(4, dtype=np.complex64))
+    hc = sess.register(np.eye(4, dtype=np.complex64))
+    assert sess.small_group_key(hc) == ("lu_small", 4, "complex64")
+    with pytest.raises(SlateError, match="floating-point or complex"):
+        sess.register(np.eye(4, dtype=np.int32))
+    with pytest.raises(NotImplementedError, match=r"item 3\(b\)"):
+        sess.register(stt.from_dense(np.eye(8, 4, dtype=np.complex64), 4,
+                                     device="cpu"), op="qr")
     h = sess.register(torch.eye(4, dtype=torch.float64), op="chol_small")
     assert sess.small_group_key(h) == ("chol_small", 4, "float64")
     assert sess._ops[h].A.device == sess.device

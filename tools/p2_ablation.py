@@ -41,12 +41,14 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+# the sources' headers (csrc/cx.cuh), for the variants built elsewhere
+CSRC = os.path.join(ROOT, "slate_tpu_torch", "csrc")
 
 CUTS = {
-    "no_division": [("const T q1 = div_rn(m1[jk], ds);",
-                     "const T q1 = mul_rn(m1[jk], ds);"),
-                    ("const T q0 = div_rn(m0[jk], ds);",
-                     "const T q0 = mul_rn(m0[jk], ds);")],
+    "no_division": [("const T q1 = cx::divide(m1[jk], ds);",
+                     "const T q1 = m1[jk];"),
+                    ("const T q0 = cx::divide(m0[jk], ds);",
+                     "const T q0 = m0[jk];")],
     "no_handoff": [("        mbar_wait0(bar0 + 8 * i);\n", ""),
                    ("    mbar_arrive(bar0 + 8 * k);", "")],
     "no_steps": [("for (int ib = 32 * h; ib < min(s, 32 * h + 32); ib += kCols)",
@@ -59,7 +61,7 @@ def build(src: str, name: str, out_dir: str, nvcc: str, flags) -> str:
     with open(path, "w") as f:
         f.write(src)
     lib = os.path.join(out_dir, f"lib{name}.so")
-    proc = subprocess.run([nvcc, *flags, "-o", lib, path],
+    proc = subprocess.run([nvcc, *flags, "-I", CSRC, "-o", lib, path],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")

@@ -39,6 +39,8 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+# the sources' headers (csrc/cx.cuh), for the variants built elsewhere
+CSRC = os.path.join(ROOT, "slate_tpu_torch", "csrc")
 
 REMOTE = [("cluster.map_shared_rank(\n                     cand + ((size_t)"
             "buf * C + r) * kWarps + warp, lane)",
@@ -58,7 +60,7 @@ CUTS = {
     "no_cluster": REMOTE + BARRIER,
     "no_update": [("for (int c = j + 2 + lane; c < w; c += 64) {",
                    "for (int c = w + lane; c < w; c += 64) {")],
-    "no_division": [("div_rn(row[j], dsafe)", "mul_rn(row[j], dsafe)")],
+    "no_division": [("cx::divide(row[j], dsafe)", "row[j]")],
     "threads_128": [(THREADS, THREADS.replace("256", "128")),
                     (BOUNDS, BOUNDS.replace("2)", "4)"))],
     "threads_512": [(THREADS, THREADS.replace("256", "512")),
@@ -76,7 +78,7 @@ def build(src: str, name: str, out_dir: str, nvcc: str, flags) -> str:
     with open(path, "w") as f:
         f.write(src)
     lib = os.path.join(out_dir, f"lib{name}.so")
-    proc = subprocess.run([nvcc, *flags, "-o", lib, path],
+    proc = subprocess.run([nvcc, *flags, "-I", CSRC, "-o", lib, path],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")

@@ -54,6 +54,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+# the sources' headers (csrc/cx.cuh), for the variants built elsewhere
+CSRC = os.path.join(ROOT, "slate_tpu_torch", "csrc")
 
 SQRT_DIV = [
     ("float div_rn(float x, float y) { return __fdiv_rn(x, y); }",
@@ -74,7 +76,11 @@ CUTS = {
             # coalesced staging, lookahead step
             [("  if (s > 0) {  // the column steps",
               "  if (s < 0) {  // the column steps")]],
-        "no_sqrt_div": [SQRT_DIV],
+        # each design's square roots and divisions (csrc/cx.cuh's since
+        # the complex instances)
+        "no_sqrt_div": [SQRT_DIV,
+                        [("sqrt_rn(bad ? R(1) : d)", "(bad ? R(1) : d)"),
+                         ("cx::div_real_rn(", "cx::scale(")]],
     },
     "qr_panel_batched": {
         "load_store": [
@@ -128,7 +134,7 @@ def build(src: str, tag: str, out_dir: str, nvcc: str, flags) -> str:
     with open(path, "w") as f:
         f.write(src)
     lib = os.path.join(out_dir, f"lib{tag}.so")
-    proc = subprocess.run([nvcc, *flags, "-o", lib, path],
+    proc = subprocess.run([nvcc, *flags, "-I", CSRC, "-o", lib, path],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {tag}:\n{proc.stderr}")
