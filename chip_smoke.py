@@ -158,27 +158,34 @@ Phases, one JSON line each:
            one bad operator (a zero column, a non-positive pivot) among
            the same ones: info on that item only, every other answer bit
            for bit as without it.
-7. complex the complex64 and complex128 LU and Cholesky paths
+7. complex the complex64 and complex128 LU, Cholesky and QR paths
            (complex_phase): a Session with complex64 Hermitian positive
-           definite (chol) and general (lu) operators at n, nb (16384,
-           512 by default) beside torch.linalg.cholesky and lu_factor on
-           the same operators (factor times and GFLOP/s by LAWN 41's
-           complex counts, 4n³/3 and 8n³/3), complex128 chol and lu
-           operators and complex64 and complex128 CALU ones at
-           n = 4096, a diagonally dominant complex64 NoPiv one, 8
-           requests each, every served column under the residual gate in
-           complex128, potri/getri of the complex128 factors; the factors
-           launch the complex instances of K1, K2, P2, P3 and P1 and no
-           K3, K4, K5 or P5;
-   complex_small  the small phase's gesv/posv_batched and Sessions in
-           complex64, and gesv/posv_batched at (32, 10000) in
-           complex128 (P3 and P4's complex instances).
-The kernel phase also holds the complex instances of K1, K2, P2, P3 and
-P4 against their plain versions at the real rows' shapes (kernel lines
-with "dtype": "complex"; K2, P2, P3 and P4 bit for bit), with their
-fault cases (a negative real pivot with an imaginary part, a zero
-column or pivot, a NaN, inf + nan·i, ties in modulus), and a "spills"
-line gives ptxas's registers and spill stores for every complex
+           definite (chol), general (lu) and tall (2n × n/2, qr)
+           operators at n, nb (16384, 512 by default) beside
+           torch.linalg.cholesky, lu_factor and torch.geqrf on the same
+           operators (factor times and GFLOP/s by LAWN 41's complex
+           counts, 4n³/3, 8n³/3 and 4·(2mn² − 2n³/3)), complex128 chol,
+           lu and (8192 × 2048) qr operators and complex64 and
+           complex128 CALU ones at n = 4096, a diagonally dominant
+           complex64 NoPiv one, 8 requests each, every served column
+           under the residual gate in complex128 (qr: within
+           QR_REL_LIMIT of a complex128 solve), potri/getri of the
+           complex128 factors, complex gels at nb = 32 (K3) in both
+           types and a wide one by LQ, each against a complex128 solve;
+           the factors launch the complex instances of K1, K2, K3, K4,
+           P2, P3 and P1 and no K5 or P5;
+   complex_small  the small phase's gesv/posv/gels_batched and Sessions
+           in complex64, and gesv/posv/gels_batched at (32, 10000) in
+           complex128 (P3, P4 and P5's complex instances).
+The kernel phase also holds the complex instances of K1-K4 and P2-P5
+against their plain versions at the real rows' shapes (kernel lines
+with "dtype": "complex"; K2, P2, P3 and P4 bit for bit, K1, K3, K4 and
+P5 within their tolerances), with their fault cases (a negative real
+pivot with an imaginary part, a zero column or pivot, a NaN, inf + nan·i,
+ties in modulus; for the Householder kernels a zero column (tau = 0,
+alpha kept), zero tails under an alpha with an imaginary part (tau ≠ 0)
+and a NaN), K4 at (10000, 128) complex128, which streams, and a
+"spills" line gives ptxas's registers and spill stores for every complex
 instance.
 
 The kernels' launch counters are zeroed just before the check phase,
@@ -194,7 +201,7 @@ for herk_lower_update at 2048² float64 under "at_f64_2048", for
 lu_panel_batched at (16, 1024, 512) and (1, 1024, 512) f32 under
 "at_16x1024x512" and "at_1x1024x512", and at the engine's shapes; P1,
 P4 and P5 at the engine's other shapes under "at_..."; the complex
-instances of K1, K2, P2, P3 and P4 under "at_complex64_..." and
+instances of K1-K4 and P2-P5 under "at_complex64_..." and
 "at_complex128_..."), the nvidia-smi line,
 and last
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
@@ -218,13 +225,16 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # NVIDIA H100 SXM data sheet (dense, 700 W): HBM3 3.35 TB/s; FP32 67
-# TFLOP/s and FP64 34 TFLOP/s outside the tensor cores
+# TFLOP/s and FP64 34 TFLOP/s outside the tensor cores (FMA_FLOPS); FP64
+# 67 TFLOP/s on them (DMMA). A bound takes the type's top rate, so that
+# no kernel's bound is laxer than the card allows
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12,
-              "complex64": 67e12, "complex128": 34e12}
-# herk_lower_update runs on the tensor cores (same data sheet): FP64
-# 67 TFLOP/s (DMMA), TF32 495 TFLOP/s of which 3×TF32 gets a third
-HERK_PEAK_FLOPS = {"float32": 495e12 / 3, "float64": 67e12}
+FMA_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_FLOPS = {"float32": 67e12, "float64": 67e12,
+              "complex64": 67e12, "complex128": 67e12}
+# herk_lower_update runs on the tensor cores: TF32 495 TFLOP/s (same data
+# sheet), of which 3×TF32 gets a third
+HERK_PEAK_FLOPS = {**PEAK_FLOPS, "float32": 495e12 / 3}
 # device_ms's sleep: about 10 ms at the H100's clocks, longer than the
 # host takes to queue 50 small launches
 SLEEP_CYCLES = 20_000_000
@@ -444,12 +454,16 @@ def chol_nan_case(torch, ho, gen, dtype=None, cases=None):
             "nan_from_pivot_on": True}
 
 
-def plan_row(ho, a):
-    """The grid plan K2/K4 launch with for ``a``, and the rows of the
-    ragged last slab."""
-    plan = ho.panel_plan_for(a)
+def plan_row(ho, a, reserve):
+    """The grid plan a panel kernel with ``reserve`` bytes of its own
+    shared memory launches with for ``a``, the rows of the ragged last
+    slab and the shared memory a block takes."""
+    plan = ho.panel_plan_for(a, reserve)
     return {"blocks": plan.blocks, "rows": plan.rows, "mode": plan.mode,
-            "last_rows": a.shape[0] - (plan.blocks - 1) * plan.rows}
+            "last_rows": a.shape[0] - (plan.blocks - 1) * plan.rows,
+            "smem_bytes": reserve + (plan.rows * a.shape[1]
+                                     * a.element_size()
+                                     if plan.resident else 0)}
 
 
 def lu_case(torch, ho, hh, w, dtype, gen, timed: bool, zero_col=None):
@@ -470,7 +484,7 @@ def lu_case(torch, ho, hh, w, dtype, gen, timed: bool, zero_col=None):
     check(torch.equal(lk, lp), f"lu_panel_base {(hh, w)} {dtype}: lu not "
           f"bitwise equal to the plain version (max |diff| {err})")
     row = {"H": hh, "w": w, "dtype": str(dtype).split(".")[1],
-           "plan": plan_row(ho, a),
+           "plan": plan_row(ho, a, ho.PANEL_SMEM_RESERVE),
            "max_abs_err": err, "bitwise_equal": True, "info": int(ik)}
     if timed:
         row["ms"] = cuda_ms(lambda: ho.lu_panel_base(a))
@@ -524,22 +538,25 @@ def lu_edge_case(torch, ho, gen, dtype=None):
     check(torch.equal(nan_k, nan_p) and torch.equal(lk[~nan_k], lp[~nan_p]),
           "lu_panel_base edge case: lu differs from the plain version")
     return {"H": hh, "w": w, "dtype": dtype_name(dtype),
-            "plan": plan_row(ho, a), "tie_rows": [33, 70],
+            "plan": plan_row(ho, a, ho.PANEL_SMEM_RESERVE),
+            "tie_rows": [33, 70],
             "pivot_0": int(pk[0]), "nan_at": [600, 5], "info": int(ik),
             "bitwise_equal_off_nan": True}
 
 
 def qr_reconstruction(torch, a, vr, taus):
-    """‖A − Q·R‖₁ / (H·ε·‖A‖₁) in float64 from the packed reflectors, ε of
-    the panel's type."""
+    """‖A − Q·R‖₁ / (H·ε·‖A‖₁) in float64 (complex128 for a complex panel)
+    from the packed reflectors, ε of the panel's type."""
     hh, w = a.shape
-    v = torch.tril(vr.double(), -1)
+    v = torch.tril(wide(torch, vr), -1)
     v.diagonal().fill_(1)
-    qr = torch.zeros((hh, w), dtype=torch.float64, device=a.device)
-    qr[:w] = torch.triu(vr.double()[:w])
-    for j in range(w - 1, -1, -1):  # Q·[R; 0] = H₀·…·H_{w−1}·[R; 0]
-        qr -= taus[j].double() * torch.outer(v[:, j], v[:, j] @ qr)
-    a64 = a.double()
+    qr = torch.zeros((hh, w), dtype=v.dtype, device=a.device)
+    qr[:w] = torch.triu(wide(torch, vr)[:w])
+    tw = wide(torch, taus)
+    # Q·[R; 0] = H₀·…·H_{w−1}·[R; 0], H = I − τ·v·vᴴ
+    for j in range(w - 1, -1, -1):
+        qr -= tw[j] * torch.outer(v[:, j], v[:, j].conj() @ qr)
+    a64 = wide(torch, a)
     norm1 = lambda x: x.abs().sum(dim=0).max().item()  # noqa: E731
     return norm1(a64 - qr) / (hh * torch.finfo(a.dtype).eps * norm1(a64))
 
@@ -575,15 +592,18 @@ def qr_case(torch, ho, hh, w, dtype, gen, timed: bool, zero_col=None):
     row = {"H": hh, "w": w, "dtype": str(dtype).split(".")[1],
            "max_abs_err": max(err_v, err_t, err_r * vp.abs().max().item()),
            "err_r_rel": err_r, "err_v": err_v, "err_tau": err_t, "tol": tol}
-    row["plan"] = plan_row(ho, a)
+    row["plan"] = plan_row(
+        ho, a, ho.QR_PANEL_FIXED_ELEMS * a.element_size())
     if zero_col is not None:
-        row["zero_col"], row["tau_zero_col"] = zero_col, tk[zero_col].item()
+        row["zero_col"] = zero_col
+        row["tau_zero_col"] = abs(tk[zero_col].item())
     if timed:
         rec = qr_reconstruction(torch, a, vk, tk)
         check(rec <= RESIDUAL_BOUND, f"{name} {(hh, w)}: ‖A − QR‖ / "
               f"(H·ε·‖A‖) = {rec} > {RESIDUAL_BOUND}")
         row["reconstruction"] = rec
         row["ms"] = cuda_ms(lambda: kern(a))
+        row["device_ms"] = device_ms(lambda: kern(a), launches=20)
         row["plain_ms"] = cuda_ms(lambda: plain(a), reps=5)
         row["library_ms"] = cuda_ms(lambda: torch.geqrf(a))
         s = a.element_size()
@@ -593,12 +613,14 @@ def qr_case(torch, ho, hh, w, dtype, gen, timed: bool, zero_col=None):
     return row
 
 
-def qr_nan_case(torch, ho, gen):
+def qr_nan_case(torch, ho, gen, dtype=None):
     """A NaN in column 5 poisons that column's tau and every later one
-    (no masking) in both QR kernels; the columns before stay finite."""
+    (no masking) in both QR kernels; the columns before stay finite.
+    float32 unless ``dtype`` is given."""
     out = {}
     for name, w in (("qr_panel_base", 32), ("qr_panel_base_wide", 64)):
-        a = torch.randn((1024, w), generator=gen, device="cuda")
+        a = torch.randn((1024, w), generator=gen, device="cuda",
+                        dtype=dtype or torch.float32)
         a[50, 5] = math.nan
         vr, taus = getattr(ho, name)(a)
         check(bool(torch.isfinite(taus[:5]).all())
@@ -607,6 +629,41 @@ def qr_nan_case(torch, ho, gen):
               f"{name}: NaN contract broken")
         out[name] = {"H": 1024, "w": w, "nan_at": [50, 5],
                      "nan_from_col_on": True}
+    return out
+
+
+def qr_zero_tail_case(torch, ho, gen, dtype):
+    """Complex: an upper-triangular panel, so every column's tail is zero.
+    Where the diagonal entry has an imaginary part the column is not
+    degenerate (tau ≠ 0; R's diagonal real, beta = −sign(re α)·|α|);
+    where it is real (column 3, set to 2.5) it is (tau = 0, alpha kept).
+    K3 (1024, 32), K4 (1024, 64) and P5 (4, 256, 32), each also within
+    8·ε of its plain version."""
+    out = {}
+    eps = torch.finfo(dtype).eps
+    for name, shape in (("qr_panel_base", (1024, 32)),
+                        ("qr_panel_base_wide", (1024, 64)),
+                        ("qr_panel_batched", (4, 256, 32))):
+        a = torch.randn(shape, generator=gen, device="cuda",
+                        dtype=dtype).triu()
+        a[..., 3, 3] = 2.5
+        vk, tk = getattr(ho, name)(a)
+        vp, tp = getattr(ho, name + "_plain")(a)
+        d = a.diagonal(dim1=-2, dim2=-1)
+        dk = vk.diagonal(dim1=-2, dim2=-1)
+        live = torch.arange(shape[-1], device="cuda") != 3
+        want = torch.where(d.real > 0, -d.abs(), d.abs())
+        ok = (bool((tk[..., 3] == 0).all()) and bool((dk[..., 3] == 2.5).all())
+              and bool((tk[..., live] != 0).all())
+              and bool((dk.imag[..., live] == 0).all())
+              and bool(((dk.real - want).abs()[..., live]
+                        <= 8 * eps * d.abs()[..., live]).all()))
+        err = max((vk - vp).abs().max().item(), (tk - tp).abs().max().item())
+        check(ok and err <= 8 * eps * a.abs().max().item(),
+              f"{name} {shape} {dtype}: zero-tail contract broken "
+              f"(taus {tk[..., :5].tolist()}, |kernel − plain| {err})")
+        out[name] = {"shape": list(shape), "degenerate_col": 3,
+                     "taus_nonzero_elsewhere": True, "max_abs_err": err}
     return out
 
 
@@ -718,7 +775,8 @@ def herk_case(torch, ho, blocked, n, k, dtype, gen, timed: bool,
         nbytes, flops = n * (n + 1) * s + n * k * s, float(n) * (n + 1) * k
         row["bound_ms"], row["bound_by"] = bound(nbytes, flops, row["dtype"],
                                                  HERK_PEAK_FLOPS)
-        row["bound_fma_ms"] = bound(nbytes, flops, row["dtype"])[0]
+        row["bound_fma_ms"] = bound(nbytes, flops, row["dtype"],
+                                    FMA_FLOPS)[0]
     return row
 
 
@@ -1349,15 +1407,16 @@ def p5_plan_row(ho, a):
             "ctas": -(-bsz // plan.items_per_cta), "launches_per_call": 1}
 
 
-def p5_boundary_shapes(torch, ho):
+def p5_boundary_shapes(torch, ho, dtypes=None):
     """(H, w, dtype) on each side of every boundary of P5's plan, in
-    float32 and float64: warp ↔ CTA team and registers ↔ shared by
-    height, registers ↔ shared by width, shared ↔ streaming, each height
-    found by searching the plan at w = 32. Each pair is checked to
-    straddle its boundary."""
+    float32 and float64 unless ``dtypes`` is given: warp ↔ CTA team and
+    registers ↔ shared by height, registers ↔ shared by width, shared ↔
+    streaming, each height found by searching the plan at w = 32 (a type
+    without a registers plan, complex128, has only the last). Each pair
+    is checked to straddle its boundary."""
     shapes = []
-    for dt in (torch.float32, torch.float64):
-        it = torch.finfo(dt).bits // 8
+    for dt in dtypes or (torch.float32, torch.float64):
+        it = torch.empty(0, dtype=dt).element_size()
 
         def plan(hh, w):
             return ho.qr_panel_batched_plan(hh, w, it)
@@ -1369,13 +1428,15 @@ def p5_boundary_shapes(torch, ho):
                 lo, hi = (mid, hi) if keep(plan(mid, 32)) else (lo, mid)
             return lo
 
-        for h0, (w0, w1), key in (
-                (last(lambda p: p.team == "warp"), (32, 32), "team"),
-                (last(lambda p: p.storage == "registers"), (32, 32),
-                 "storage"),
-                (100, (32, 33), "storage"),
+        bounds = ((last(lambda p: p.team == "warp"), (32, 32), "team"),
+                  (last(lambda p: p.storage == "registers"), (32, 32),
+                   "storage"),
+                  (100, (32, 33), "storage"))
+        if plan(32, 32).storage != "registers":
+            bounds = ()
+        for h0, (w0, w1), key in bounds + (
                 (last(lambda p: p.storage != "streaming"), (32, 32),
-                 "storage")):
+                 "storage"),):
             h1 = h0 if w1 != w0 else h0 + 1
             check(getattr(plan(h0, w0), key) != getattr(plan(h1, w1), key),
                   f"p5 boundary {(h0, w0)} | {(h1, w1)} {dt}: the same "
@@ -1881,17 +1942,18 @@ def calu_check(torch, stt, ho, gen):
 
 
 def lstsq_normal64(torch, a64, B):
-    """Least-squares solutions of the float64 ``a64`` for the columns of
-    ``B`` by the float64 normal equations (accurate to about κ(A)²·ε₆₄;
-    κ ≈ 3 for a 2:1 Gaussian)."""
-    gram = a64.T @ a64
+    """Least-squares solutions of the float64 (or complex128) ``a64`` for
+    the columns of ``B`` by the normal equations in that type (accurate
+    to about κ(A)²·ε₆₄; κ ≈ 3 for a 2:1 Gaussian)."""
+    gram = a64.mH @ a64
     chol = torch.linalg.cholesky(gram)
-    return torch.cholesky_solve(a64.T @ B.double(), chol)
+    return torch.cholesky_solve(a64.mH @ wide(torch, B), chol)
 
 
 def rel_errors(torch, X, ref):
-    """Per column ‖x − x_ref‖∞ / ‖x_ref‖∞, x_ref in float64."""
-    d = (X.double() - ref).abs().max(dim=0).values
+    """Per column ‖x − x_ref‖∞ / ‖x_ref‖∞, x_ref in float64 (complex128
+    for a complex X)."""
+    d = (wide(torch, X) - ref).abs().max(dim=0).values
     return (d / ref.abs().max(dim=0).values).tolist()
 
 
@@ -2221,12 +2283,12 @@ def batched_residuals(torch, a, x, b):
 
 def batched_lstsq_rel(torch, a, x, b):
     """Per item max over columns of ‖x − x₆₄‖∞ / ‖x₆₄‖∞, x₆₄ the float64
-    normal-equations solution (κ ≈ 3 for a 2:1 Gaussian), as the main
-    path's qr check."""
-    a64 = a.double()
-    chol = torch.linalg.cholesky(a64.mT @ a64)
-    ref = torch.cholesky_solve(a64.mT @ b.double(), chol)
-    return ((x.double() - ref).abs().amax(dim=1)
+    (complex128 for complex items) normal-equations solution (κ ≈ 3 for a
+    2:1 Gaussian), as the main path's qr check."""
+    a64 = wide(torch, a)
+    chol = torch.linalg.cholesky(a64.mH @ a64)
+    ref = torch.cholesky_solve(a64.mH @ wide(torch, b), chol)
+    return ((wide(torch, x) - ref).abs().amax(dim=1)
             / ref.abs().amax(dim=1)).amax(dim=1)
 
 
@@ -2399,7 +2461,7 @@ def small_phase(torch, stt, ho, gen, dtype=None,
 # ---------------------------------------------------------------------------
 
 def complex_kernel_rows(torch, ho, gen, n):
-    """The complex instances of K1, K2, P2, P3 and P4 against their plain
+    """The complex instances of K1-K4 and P2-P5 against their plain
     versions at the real rows' shapes, in complex64 and complex128, each
     with the fault cases of its real rows (one "kernel" line per kernel,
     "dtype": "complex"). Returns each kernel's timed rows for the kernels
@@ -2483,6 +2545,55 @@ def complex_kernel_rows(torch, ho, gen, n):
                  (3, 1, c64, None, (0,)))]
     keep("chol_tile_batched", rows, ("B", "s", "s"))
     emit("kernel", name="chol_tile_batched", dtype="complex", cases=rows)
+    # K3 at gels' nb = 32 panel (2n, 32), resident in both types; K4 at
+    # the qr operator's first base (2n, 128), streaming in both, at
+    # (8192, 128), resident in both, and in complex128 at (10000, 128),
+    # which streams (its slab and K4's own 91,776 B exceed a block's
+    # shared memory); ragged panels, a zero column, the zero tails under
+    # an alpha with an imaginary part, a NaN
+    rows = [qr_case(torch, ho, 2 * n, 32, dt, gen, timed=True)
+            for dt in (c64, c128)]
+    rows += [qr_case(torch, ho, hh, w_, dt, gen, timed=False)
+             for hh, w_, dt in ((1000, 20, c64), (4096, 32, c128),
+                                (256, 4, c64), (20000, 32, c128))]
+    rows.append(qr_case(torch, ho, 1024, 32, c128, gen, False, zero_col=10))
+    keep("qr_panel_base", rows, ("H", "w"))
+    emit("kernel", name="qr_panel_base", dtype="complex", cases=rows)
+    rows = [qr_case(torch, ho, hh, 128, dt, gen, timed=True)
+            for hh, dt in ((2 * n, c64), (2 * n, c128), (8192, c64),
+                           (8192, c128), (10000, c128))]
+    rows += [qr_case(torch, ho, hh, w_, dt, gen, timed=False)
+             for hh, w_, dt in ((1000, 96, c64), (20000, 64, c128),
+                                (256, 128, c128))]
+    rows.append(qr_case(torch, ho, 1024, 128, c64, gen, False, zero_col=37))
+    check_plan_modes("qr_panel_base_wide", rows)
+    keep("qr_panel_base_wide", rows, ("H", "w"))
+    emit("kernel", name="qr_panel_base_wide", dtype="complex", cases=rows,
+         nan_cases=[qr_nan_case(torch, ho, gen, dt) for dt in (c64, c128)],
+         zero_tail_cases=[qr_zero_tail_case(torch, ho, gen, dt)
+                          for dt in (c64, c128)])
+    # P5 at the engine's panels (timed): the first of gels at
+    # (1000, 512, 256) as a strided view, (10000, 64, 32), and the
+    # streaming (8, 2000, 128); complex64 takes float64's plans, complex128
+    # never registers; the faults and each side of every plan boundary
+    rows = [qr_batched_case(torch, ho, bsz, hh, w_, dt, gen, timed=True,
+                            strided=bsz == 1000)
+            for bsz, hh, w_ in ((1000, 512, 32), (10000, 64, 32),
+                                (8, 2000, 128))
+            for dt in (c64, c128)]
+    rows += [qr_batched_case(torch, ho, bsz, hh, w_, dt, gen, fault=fault)
+             for bsz, hh, w_, dt, fault in (
+                 (16, 256, 32, c64, "zero_column"),
+                 (16, 256, 32, c128, "zero_column"),
+                 (16, 256, 32, c64, "nan"), (4, 40, 40, c128, "nan"),
+                 (5, 7, 7, c128, None), (3, 100, 1, c64, None))]
+    rows += [qr_batched_case(torch, ho, 6, hh, w_, dt, gen)
+             for hh, w_, dt in p5_boundary_shapes(torch, ho, (c64, c128))]
+    check({r["plan"]["storage"] for r in rows}
+          == {"registers", "shared", "streaming"},
+          "complex qr_panel_batched: the cases did not cover every plan")
+    keep("qr_panel_batched", rows, ("B", "H", "w"))
+    emit("kernel", name="qr_panel_batched", dtype="complex", cases=rows)
     return out
 
 
@@ -2497,19 +2608,61 @@ def launch_snapshot(ho):
                                ho.TYPE_LAUNCHES.items()}
 
 
+def complex_gels_check(torch, stt, ho, gen):
+    """gels on the card in complex against a complex128 solve by the
+    normal equations (the minimum-norm one for m < n): (1500, 1000) at
+    nb = 32 in complex64 and complex128 (K3 in every panel), and the
+    underdetermined (1000, 1500) complex64 at nb = 128 (gelqf: K4)."""
+    out = {}
+    for name, (m, n_), nb, dt in (
+            ("gels_c64_nb32", (1500, 1000), 32, torch.complex64),
+            ("gels_c128_nb32", (1500, 1000), 32, torch.complex128),
+            ("gels_c64_wide", (1000, 1500), 128, torch.complex64)):
+        a = torch.randn((m, n_), generator=gen, device="cuda", dtype=dt)
+        b = torch.randn((m, 2), generator=gen, device="cuda", dtype=dt)
+        before = dict(ho.LAUNCHES)
+        X = stt.gels(stt.from_dense(a, nb, device="cuda"),
+                     stt.from_dense(b, nb, device="cuda"))
+        torch.cuda.synchronize()
+        launches = {k: ho.LAUNCHES[k] - before[k]
+                    for k in ("qr_panel_base", "qr_panel_base_wide")}
+        x = X.dense()[:n_, :2]
+        a64 = wide(torch, a)
+        if m >= n_:
+            ref = lstsq_normal64(torch, a64, b)
+        else:
+            ref = a64.mH @ torch.linalg.solve(a64 @ a64.mH, wide(torch, b))
+        rel = max(rel_errors(torch, x, ref))
+        check(x.shape == (n_, 2) and math.isfinite(rel) and rel <= 1e-3,
+              f"{name}: relative error {rel} vs a complex128 solve")
+        out[name] = {"m": m, "n": n_, "nb": nb, "dtype": dtype_name(dt),
+                     "rel_err": rel, "launches": launches}
+    for name in ("gels_c64_nb32", "gels_c128_nb32"):
+        k3 = out[name]["launches"]["qr_panel_base"]
+        check(k3 >= 32, f"{name} launched qr_panel_base {k3} < 32 times")
+    check(out["gels_c64_wide"]["launches"]["qr_panel_base_wide"] > 0,
+          "the complex LQ gels did not launch qr_panel_base_wide")
+    return out
+
+
 def complex_phase(torch, stt, ho, n, nb, gen):
-    """A Session serving complex operators through the LU and Cholesky
-    paths: Hermitian positive definite (chol) and general (lu) complex64
-    operators at the main path's n and nb, the same two in complex128 at
-    COMPLEX_SMALL_N, general ones there in complex64 and complex128 with
-    MethodLU.CALU, and a diagonally dominant complex64 one with
-    MethodLU.NoPiv; each factored once and serving
-    8 requests of 1 and 16 columns. Every served column's scaled residual
-    ≤ 30 in complex128; potri and getri of the complex128 factors held to
-    ‖I − A·X‖₁ / (n·ε·‖A‖₁·‖X‖₁) ≤ 30; torch.linalg.cholesky and
-    lu_factor on the complex64 operators timed beside the factors. The
-    factors launch the complex instances of K1 (chol), K2 (lu), P3 and
-    P2 (CALU), P2 (NoPiv) and P1, and no K3, K4, K5 or P5."""
+    """A Session serving complex operators through the LU, Cholesky and
+    QR paths: Hermitian positive definite (chol) and general (lu)
+    complex64 operators at the main path's n and nb, a tall complex64
+    (2n × n/2) qr operator at the main path's qr shape, the chol and lu
+    ones in complex128 at COMPLEX_SMALL_N and a complex128 qr one at
+    (2·COMPLEX_SMALL_N, COMPLEX_SMALL_N/2), general ones there in
+    complex64 and complex128 with MethodLU.CALU, and a diagonally
+    dominant complex64 one with MethodLU.NoPiv; each factored once and
+    serving 8 requests of 1 and 16 columns. Every served column's scaled
+    residual ≤ 30 in complex128 (qr: within QR_REL_LIMIT of a complex128
+    solve, as the main path's qr); potri and getri of the complex128
+    factors held to ‖I − A·X‖₁ / (n·ε·‖A‖₁·‖X‖₁) ≤ 30;
+    torch.linalg.cholesky, lu_factor and torch.geqrf on the complex64
+    operators timed beside the factors; complex gels at nb = 32 (K3) and
+    by LQ (complex_gels_check). The factors launch the complex instances
+    of K1 (chol), K2 (lu), K3/K4 (qr), P3 and P2 (CALU), P2 (NoPiv) and
+    P1, and no K5 or P5."""
     from slate_tpu_torch.obs import flops
     from slate_tpu_torch.runtime.metrics import Histogram
     dev = "cuda"
@@ -2522,16 +2675,19 @@ def complex_phase(torch, stt, ho, n, nb, gen):
         a.diagonal().add_(1.0)
         return a
 
-    def general(m, dt):
-        return torch.randn((m, m), generator=gen, device=dev, dtype=dt)
+    def general(m, dt, cols=None):
+        return torch.randn((m, cols or m), generator=gen, device=dev,
+                           dtype=dt)
 
     lu_opts = {"calu": stt.Options(method_lu=stt.MethodLU.CALU),
                "nopiv": stt.Options(method_lu=stt.MethodLU.NoPiv)}
     # name: (operator, op, options)
     operators = {"chol_c64": (hpd(n, c64), "chol", None),
                  "lu_c64": (general(n, c64), "lu", None),
+                 "qr_c64": (general(2 * n, c64, n // 2), "qr", None),
                  "chol_c128": (hpd(n2, c128), "chol", None),
                  "lu_c128": (general(n2, c128), "lu", None),
+                 "qr_c128": (general(2 * n2, c128, n2 // 2), "qr", None),
                  "lu_calu_c64": (general(n2, c64), "lu", lu_opts["calu"]),
                  "lu_calu_c128": (general(n2, c128), "lu", lu_opts["calu"]),
                  "nopiv_c64": (dominant(torch, n2, gen, c64), "lu",
@@ -2587,7 +2743,8 @@ def complex_phase(torch, stt, ho, n, nb, gen):
     # the library yardsticks on the complex64 operators (a warm call first)
     library = {}
     for name, key, fn in (("cholesky", "chol_c64", torch.linalg.cholesky),
-                          ("lu_factor", "lu_c64", torch.linalg.lu_factor)):
+                          ("lu_factor", "lu_c64", torch.linalg.lu_factor),
+                          ("geqrf", "qr_c64", torch.geqrf)):
         a = operators[key][0]
         fn(a)
         torch.cuda.synchronize()
@@ -2596,10 +2753,24 @@ def complex_phase(torch, stt, ho, n, nb, gen):
         torch.cuda.synchronize()
         library[f"{name}_s"] = time.perf_counter() - t0
         del out
-    res = {name: [] for name in handles}
-    for name, (a, _, _) in operators.items():
+    res = {name: [] for name in handles if not name.startswith("qr")}
+    qr_rel = {}
+    for name, (a, op, _) in operators.items():
+        if op == "qr":  # every served column against a complex128 solve
+            b_all = torch.cat(rhs[name], dim=1)
+            x_all = torch.cat(served[name], dim=1)
+            check(x_all.shape == (a.shape[1], b_all.shape[1]),
+                  f"complex {name}: solve shape {tuple(x_all.shape)}")
+            qr_rel[name] = max(rel_errors(torch, x_all, lstsq_normal64(
+                torch, wide(torch, a), b_all)))
+            continue
         for xs, b in zip(served[name], rhs[name]):
             res[name] += scaled_residuals(torch, a, xs, b, in_wide=True)
+    check(all(math.isfinite(v) and v <= QR_REL_LIMIT
+              for v in qr_rel.values()),
+          f"complex qr solves: relative error {qr_rel} vs complex128 > "
+          f"{QR_REL_LIMIT}")
+    gels = complex_gels_check(torch, stt, ho, gen)
     check(all(v == 0 for v in info.values()), f"complex factor info {info}")
     worst = max(max(v) for v in res.values())
     check(math.isfinite(worst) and worst <= RESIDUAL_BOUND,
@@ -2616,6 +2787,12 @@ def complex_phase(torch, stt, ho, n, nb, gen):
     check(fl["chol_c128"]["chol_tile"] > 0
           and fl["lu_c128"]["lu_panel_base"] > 0,
           f"complex128 factors launched {fl['chol_c128']}, {fl['lu_c128']}")
+    kt = -(-(n // 2) // nb)
+    k3, k4 = fl["qr_c64"]["qr_panel_base"], fl["qr_c64"]["qr_panel_base_wide"]
+    check(k4 == 4 * kt and k3 == 0 if nb == 512 else k3 + k4 >= kt,
+          f"the complex64 qr factor launched {fl['qr_c64']} for {kt} panels")
+    check(fl["qr_c128"]["qr_panel_base_wide"] > 0,
+          f"the complex128 qr factor launched {fl['qr_c128']}")
     for name in ("lu_calu_c64", "lu_calu_c128"):
         calu = fl[name]
         check(calu["lu_panel_batched"] > 0 and calu["lu_nopiv_base"] > 0
@@ -2626,18 +2803,20 @@ def complex_phase(torch, stt, ho, n, nb, gen):
           and nopiv["lu_panel_batched"] == 0,
           f"the complex no-pivot factor launched {nopiv}")
     launches, type_launches = launch_snapshot(ho)
-    check(not any(launches[k] for k in ("qr_panel_base", "qr_panel_base_wide",
-                                        "herk_lower_update",
-                                        "qr_panel_batched")),
-          f"the complex phase launched a real-only kernel: {launches}")
+    check(not launches["herk_lower_update"],
+          f"the complex phase launched the real-only K5: {launches}")
+    check(not launches["qr_panel_batched"],
+          f"the complex phase launched the batched engine's P5: {launches}")
     for k in ("chol_tile", "lu_panel_base", "lu_nopiv_base",
-              "lu_panel_batched", "trtri_leaves"):
+              "lu_panel_batched", "trtri_leaves", "qr_panel_base",
+              "qr_panel_base_wide"):
         check(set(type_launches[k]) <= {"complex64", "complex128"}
               and type_launches[k], f"{k} launched {type_launches[k]}")
     per = {name: {"p50": h.percentile(50), "p99": h.percentile(99)}
            for name, h in latency.items()}
     solve_hist = sess.metrics.histogram("solve_latency")
-    four = {"chol": 4 * flops.potrf(n), "lu": 4 * flops.getrf(n)}
+    four = {"chol": 4 * flops.potrf(n), "lu": 4 * flops.getrf(n),
+            "qr": 4 * flops.geqrf(2 * n, n // 2)}
     return {
         "n": n, "nb": nb, "n_small": n2, "requests_per_operator": len(widths),
         "operators": {name: {"n": a.shape[0], "dtype": dtype_name(a.dtype),
@@ -2649,11 +2828,17 @@ def complex_phase(torch, stt, ho, n, nb, gen):
         # getrf 8n³/3
         "chol_c64_gflops": four["chol"] / factor_s["chol_c64"] / 1e9,
         "lu_c64_gflops": four["lu"] / factor_s["lu_c64"] / 1e9,
+        # geqrf: 4·(2mn² − 2n³/3) real operations
+        "qr_c64_shape": [2 * n, n // 2],
+        "qr_c64_gflops": four["qr"] / factor_s["qr_c64"] / 1e9,
         "library": {**library,
                     "cholesky_gflops": four["chol"] / library["cholesky_s"]
                     / 1e9,
                     "lu_factor_gflops": four["lu"] / library["lu_factor_s"]
-                    / 1e9},
+                    / 1e9,
+                    "geqrf_gflops": four["qr"] / library["geqrf_s"] / 1e9},
+        "qr_rel_err_max": qr_rel, "qr_rel_err_limit": QR_REL_LIMIT,
+        "gels": gels,
         "solve_latency_s": per,
         "solve_p50_s": solve_hist["p50"], "solve_p99_s": solve_hist["p99"],
         "solves": solve_hist["count"],
@@ -2986,12 +3171,11 @@ def main(argv=None) -> int:
         cx = complex_phase(torch, stt, ho, args.n, args.nb, gen)
         emit("complex", **cx)
         ho.reset_launches()
-        cx_small = small_phase(torch, stt, ho, gen, torch.complex64,
-                               ("gesv", "posv"))
-        # the complex128 instances of P3 and P4 at the engine's n = 32
+        cx_small = small_phase(torch, stt, ho, gen, torch.complex64)
+        # the complex128 instances of P3, P4 and P5 at the engine's n = 32
         cx_small["verbs"] += [small_verb_run(torch, stt, ho, verb, 32, 10000,
                                              gen, torch.complex128)
-                              for verb in ("gesv", "posv")]
+                              for verb in ("gesv", "posv", "gels")]
         cx_small_launches, cx_small_types = launch_snapshot(ho)
     emit("complex_small", **cx_small, launches=cx_small_launches,
          launches_by_dtype=cx_small_types)

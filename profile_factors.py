@@ -18,9 +18,10 @@ getrf_tntpiv, 161 P3 launches at n = 16384), or of three that run a kernel in an
 (in float32 at nb = 1024, K1 at b = 1024) and "qr_f64_nb32" (an
 8n × 64 float64 operator at nb = 32, K3 at (8n, 32) f64), or the
 complex64 ones: "chol_c64" and "lu_c64" (Hermitian positive definite
-and general, at nb) and "chol_c64_nb128" (at nb = n/128, where potrf's
+and general, at nb), "chol_c64_nb128" (at nb = n/128, where potrf's
 recursion updates its trailing blocks by the complex 2×2 recursion of
-gemms, K5 having no complex instance). Each runs
+gemms, K5 having no complex instance) and "qr_c64" (the tall 2n × n/2
+operator at nb: K4's complex64 instance and the trailing CGEMMs). Each runs
 through a Session that has factored every kind and type it profiles
 once at n = 1024 (so that one-time set-up of libraries and kernels is
 not in the profile), under torch.profiler (CPU and CUDA activity), then
@@ -36,7 +37,9 @@ launches by (B, H, w) stack shape with the cluster plan each took
 (``p3_rounds``, counted in the unprofiled run), the stream time of
 potrf's recursive trailing updates (``herk_lower_rec``: its outermost
 calls between CUDA events in the unprofiled run, and their share of
-that wall), and the top twelve
+that wall), the device time of the cuBLAS gemm kernels (every device
+event whose name holds "gemm") and its share of the busy time beside the
+port's kernels' shares (``shares``), and the top twelve
 device events by device time and host ops by self CPU time. The last line is the card's nvidia-smi name and
 power limit. Exits 2 without a CUDA device. Imports nothing of JAX and
 nothing of slate_tpu.
@@ -182,6 +185,12 @@ def profile_factor(torch, stt, sess, shape, op, nb, dtype, gen, top=12):
     dev = [e for e in events if on_device(e)]
     host = [e for e in events if not on_device(e)]
     busy_us = sum(dev_us(e) for e in dev)
+    port = {k: {"device_ms": sum(dev_us(e) for e in mine) / 1e3,
+                "count": sum(e.count for e in mine)}
+            for k, func in KERNEL_FUNCS.items()
+            for mine in [[e for e in dev if func in e.key]]}
+    gemm = [e for e in dev if "gemm" in e.key.lower()]
+    gemm_ms = sum(dev_us(e) for e in gemm) / 1e3
     return {
         "op": op, "shape": list(shape), "nb": nb,
         "dtype": str(dtype).split(".")[1], "wall_s": wall,
@@ -193,11 +202,12 @@ def profile_factor(torch, stt, sess, shape, op, nb, dtype, gen, top=12):
         # potrf's recursive trailing updates, in the unprofiled run
         "herk_lower_rec": {**herk, "share_of_unprofiled_wall":
                            herk["stream_ms"] / 1e3 / unprofiled},
-        "port_kernels": {
-            k: {"device_ms": sum(dev_us(e) for e in mine) / 1e3,
-                "count": sum(e.count for e in mine)}
-            for k, func in KERNEL_FUNCS.items()
-            for mine in [[e for e in dev if func in e.key]]},
+        "port_kernels": port,
+        "gemm": {"device_ms": gemm_ms, "count": sum(e.count for e in gemm)},
+        # shares of the device busy time
+        "shares": {"gemm": gemm_ms * 1e3 / busy_us if busy_us else None,
+                   **{k: v["device_ms"] * 1e3 / busy_us if busy_us else None
+                      for k, v in port.items() if v["count"]}},
         "top_device": [{"name": e.key[:80], "count": e.count,
                         "device_ms": dev_us(e) / 1e3}
                        for e in sorted(dev, key=lambda e: -dev_us(e))[:top]],
@@ -216,7 +226,7 @@ def main(argv=None) -> int:
     ap.add_argument("--factors", default="chol,lu,qr,chol_nb128",
                     help="which factors to profile, comma-separated (also "
                     "nopiv, calu, chol_f64, chol_nb1024, qr_f64_nb32, "
-                    "chol_c64, lu_c64, chol_c64_nb128)")
+                    "chol_c64, lu_c64, chol_c64_nb128, qr_c64)")
     args = ap.parse_args(argv)
 
     import torch
@@ -243,7 +253,8 @@ def main(argv=None) -> int:
                "qr_f64_nb32": ((8 * n, 64), "qr", 32, f64),
                "chol_c64": ((n, n), "chol", args.nb, c64),
                "lu_c64": ((n, n), "lu", args.nb, c64),
-               "chol_c64_nb128": ((n, n), "chol", n // 128, c64)}
+               "chol_c64_nb128": ((n, n), "chol", n // 128, c64),
+               "qr_c64": ((2 * n, n // 2), "qr", args.nb, c64)}
     chosen = args.factors.split(",")
     if not set(chosen) <= set(factors):
         ap.error(f"--factors: choose from {sorted(factors)}")

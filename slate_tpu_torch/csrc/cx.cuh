@@ -1,8 +1,8 @@
 // Complex arithmetic of the kernels: one element type Cx<R> in torch's
 // interleaved layout (complex64 = Cx<float>, complex128 = Cx<double>) and
-// the few operations the LU and Cholesky kernels and P1 need, each written
-// for the real types too, so one kernel body serves float, double and
-// both complex types.
+// the few operations the LU, Cholesky and Householder kernels and P1 need,
+// each written for the real types too, so one kernel body serves float,
+// double and both complex types.
 //
 // Two families:
 // - cx::mul_rn, add_rn, sub_rn, divide, div_real_rn, sqrt_rn: every real
@@ -16,7 +16,8 @@
 //   torch.hypot computes it on the card, and NaN where either part is NaN
 //   (the reference's jnp.abs: XLA's |inf + nan·i| is NaN, hypot's inf).
 // - the operators + − * and cx::fma_conj, conj, abs2, scale for kernels
-//   held to a tolerance (K1, P1), where the compiler may contract.
+//   held to a tolerance (K1, P1, K3, K4, P5), where the compiler may
+//   contract.
 
 #pragma once
 
@@ -100,6 +101,17 @@ template <typename R> __device__ __forceinline__ Cx<R> conj(Cx<R> a) {
 template <typename R> __device__ __forceinline__ R real_part(R a) { return a; }
 template <typename R> __device__ __forceinline__ R real_part(Cx<R> a) {
   return a.re;
+}
+template <typename R> __device__ __forceinline__ R imag_part(R) { return R(0); }
+template <typename R> __device__ __forceinline__ R imag_part(Cx<R> a) {
+  return a.im;
+}
+// |a|², each product and the sum rounded apart
+template <typename R> __device__ __forceinline__ R abs2_rn(R a) {
+  return mul_rn(a, a);
+}
+template <typename R> __device__ __forceinline__ R abs2_rn(Cx<R> a) {
+  return add_rn(mul_rn(a.re, a.re), mul_rn(a.im, a.im));
 }
 
 // |a|: fabs, and for a complex a hypot (torch.hypot's function), NaN
@@ -198,6 +210,17 @@ template <typename R>
 __device__ __forceinline__ Cx<R> shfl(Cx<R> v, int src,
                                       unsigned mask = 0xffffffffu) {
   return {__shfl_sync(mask, v.re, src), __shfl_sync(mask, v.im, src)};
+}
+template <typename R>
+__device__ __forceinline__ R shfl_xor(R v, int lane_mask,
+                                      unsigned mask = 0xffffffffu) {
+  return __shfl_xor_sync(mask, v, lane_mask);
+}
+template <typename R>
+__device__ __forceinline__ Cx<R> shfl_xor(Cx<R> v, int lane_mask,
+                                          unsigned mask = 0xffffffffu) {
+  return {__shfl_xor_sync(mask, v.re, lane_mask),
+          __shfl_xor_sync(mask, v.im, lane_mask)};
 }
 
 template <typename R>

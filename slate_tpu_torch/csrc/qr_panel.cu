@@ -1,13 +1,16 @@
 // Householder QR of one tall (H × w) row-major panel, one kernel body for
 // K3 qr_panel_base (1 <= w <= 32) and K4 qr_panel_base_wide
-// (32 < w <= 128, w % 32 == 0): one cooperative launch of G blocks.
+// (32 < w <= 128, w % 32 == 0): one cooperative launch of G blocks, in
+// float32, float64, complex64 and complex128 (cx.cuh's Cx<R>).
 //
 // Replaces the TPU kernels slate_tpu/ops/pallas_ops.py::qr_panel_base
 // (body _qr_panel_kernel) and ::qr_panel_base_wide (bodies
 // _qr_panel_wide_kernel, _qr_wide_micro_fori), with the contract of
 // slate_tpu/ops/blocked.py::_panel_geqrf_base: returns vr (R on and above
 // the diagonal, beta on it, the Householder tails v below) and the w
-// LAPACK taus, H_j = I − tau_j·v_j·v_jᵀ, Q = H_0·H_1·…
+// LAPACK taus, H_j = I − tau_j·v_j·v_jᴴ, Q = H_0·H_1·…, each column
+// eliminated by H_jᴴ = I − conj(tau_j)·v_j·v_jᴴ (in a real type conj is
+// the identity and ᴴ is ᵀ).
 //
 // The panel is spread over the SMs (grid_panel.cuh): block b owns a row
 // slab, held in shared memory (resident mode) or, when it does not fit,
@@ -18,28 +21,32 @@
 //  (A) one pass over each block's rows i > j, one warp per row so that
 //      each row is read coalesced (lane l holds a[i, j + l]; x = a[i, j]
 //      is lane 0's and reaches the others by a shuffle): the block's
-//      sigma = Σ x² (lane 0) and p[c] = Σ x·a[i,c], per-warp partials
-//      summed in a fixed order; each block publishes its 32 partials, the
-//      owner of row j publishes row j's micro lanes, one grid barrier;
+//      p[c] = Σ conj(x)·a[i,c], lane 0's being sigma = Σ |x|² (its real
+//      part), per-warp partials summed in a fixed order; each block
+//      publishes its 32 partials, the owner of row j publishes row j's
+//      micro lanes, one grid barrier;
 //  (B) every block sums the G partials in the same fixed order, with no
 //      float atomics, so every block takes bitwise the same larfg scalars
 //      and w_row: IEEE sqrt and division with each product and sum
-//      rounded on its own (no FMA contraction), beta = +‖x‖ if
-//      alpha <= 0 else −‖x‖, tau = (beta − alpha)/beta,
-//      scale = 1/(alpha − beta); a zero tail (sigma == 0) gives tau = 0,
-//      scale = 0 and alpha kept on the diagonal; NaN propagates;
-//      w_row[c] = a[j,c] + scale·p[c] (= vᵀ·A[:, c] with v_j = 1);
+//      rounded on its own (no FMA contraction; the complex quotient is
+//      cx.cuh's Smith form), anorm = √(|alpha|² + sigma), beta = +anorm
+//      if real(alpha) <= 0 else −anorm (real), tau = (beta − alpha)/beta,
+//      scale = 1/(alpha − beta); a degenerate column (sigma == 0 and
+//      imag(alpha) == 0) gives tau = 0, scale = 0 and alpha kept on the
+//      diagonal; NaN propagates; w_row[c] = a[j,c] + conj(scale)·p[c]
+//      (= vᴴ·A[:, c] with v_j = 1);
 //  (C) on each block's own rows i >= j: v_i = a[i,j]·scale (v_j = 1),
-//      a[i,c] −= (tau·v_i)·w_row[c], column j ← v (beta on the diagonal).
+//      a[i,c] −= (conj(tau)·v_i)·w_row[c], column j ← v (beta on the
+//      diagonal).
 // A panel of w <= 32 (K3) ends there. After each micro-block of a wider
 // one (K4) but the last, the lanes to its right get the compact-WY update
-// C ← C − V·(Tᵀ·(Vᵀ·C)): each block's partial E = Vᵀ·[V | C] over its
+// C ← C − V·(Tᴴ·(Vᴴ·C)): each block's partial E = Vᴴ·[V | C] over its
 // rows (32 × 128), a barrier, block b sums a slice of E's entries over
 // the G partials in a fixed order, a second barrier; then every block
-// reads G = VᵀV and Y = VᵀC, takes T by LAPACK's forward column
+// reads G = VᴴV and Y = VᴴC, takes T by LAPACK's forward column
 // recurrence T[:i,i] = −tau_i·(T[:i,:i]·G[:i,i]), T[i,i] = tau_i (the
 // reference's _larft_base; the TPU kernel reaches the same T by a
-// nilpotent fixed point) and Z = TᵀY, and applies C −= V·Z to its own
+// nilpotent fixed point) and Z = TᴴY, and applies C −= V·Z to its own
 // rows. T sees only the micro-block's own columns, as in
 // hopper_ops.qr_panel_base_wide_plain.
 //
@@ -52,13 +59,17 @@
 // 249 rows), against 62.5 ms for the one-block version before it; K3 at
 // 32768 × 32 f32 took 13.1 ms as one block re-reading the panel through
 // one SM twice per column. PERF.md keeps the times of each run. FMA loops
-// in the element type; tensor cores come later.
+// in the element type (four real multiply-adds to a complex one); tensor
+// cores come later. Its own shared memory beside a resident slab is
+// kFixed elements (91,776 B in complex128), which the plan reserves
+// (hopper_ops.QR_PANEL_FIXED_ELEMS, held to kFixed by a CPU test).
 //
 // Built with nvcc for sm_90a WITHOUT --use_fast_math (IEEE sqrt, division
 // and NaN propagation are part of the contract).
 
 #include <cuda_runtime.h>
 
+#include "cx.cuh"
 #include "grid_panel.cuh"
 
 namespace {
@@ -67,15 +78,6 @@ constexpr int kMaxW = 128;              // widest (K4) panel
 constexpr int kMB = 32;                 // K3's widest panel, K4's micro-block
 constexpr int kMaxTrail = kMaxW - kMB;  // lanes right of a micro-block
 constexpr int kTS = kMB + 1;            // padded row stride of T
-
-__device__ __forceinline__ float mul_rn(float x, float y) { return __fmul_rn(x, y); }
-__device__ __forceinline__ double mul_rn(double x, double y) { return __dmul_rn(x, y); }
-__device__ __forceinline__ float add_rn(float x, float y) { return __fadd_rn(x, y); }
-__device__ __forceinline__ double add_rn(double x, double y) { return __dadd_rn(x, y); }
-__device__ __forceinline__ float sub_rn(float x, float y) { return __fsub_rn(x, y); }
-__device__ __forceinline__ double sub_rn(double x, double y) { return __dsub_rn(x, y); }
-__device__ __forceinline__ float div_rn(float x, float y) { return __fdiv_rn(x, y); }
-__device__ __forceinline__ double div_rn(double x, double y) { return __ddiv_rn(x, y); }
 
 constexpr int kThreads = grid_panel::kThreads;
 constexpr int kWarps = grid_panel::kWarps;
@@ -140,7 +142,7 @@ qr_panel_kernel(const T* __restrict__ a, T* vr, T* taus, int H, int w, int R,
 #pragma unroll 4
       for (int i = max(j + 1, r0) + warp; i < r1; i += kWarps) {
         const T r = in ? slab[(size_t)(i - r0) * w + c] : T(0);
-        acc += __shfl_sync(0xffffffffu, r, 0) * r;
+        acc = cx::fma_conj(r, cx::shfl(r, 0), acc);  // acc + conj(x)·r
       }
       red[warp * kMB + lane] = acc;
       __syncthreads();
@@ -156,55 +158,59 @@ qr_panel_kernel(const T* __restrict__ a, T* vr, T* taus, int H, int w, int R,
       // the same larfg scalars and w_row
       {
         T s = T(0);
-        for (int g = warp; g < G; g += kWarps) s += __ldcg(cp + g * kMB + lane);
+        for (int g = warp; g < G; g += kWarps) s += cx::ldcg(cp + g * kMB + lane);
         red[warp * kMB + lane] = s;
       }
       __syncthreads();
       if (warp == 0) {
         T t = T(0);
         for (int k = 0; k < kWarps; ++k) t += red[k * kMB + lane];
-        const T arow = __ldcg(cp + G * kMB + lane);  // a[j, c]
+        const T arow = cx::ldcg(cp + G * kMB + lane);  // a[j, c]
         T scale = T(0);
         if (lane == 0) {
+          using R = real_t<T>;
           const T alpha = arow;
-          const T anorm = sqrt(add_rn(mul_rn(alpha, alpha), t));
-          const T beta = alpha <= T(0) ? anorm : -anorm;
-          const bool degen = t == T(0);
-          const T beta_safe = (degen || beta == T(0)) ? T(1) : beta;
-          const T denom_safe = degen ? T(1) : sub_rn(alpha, beta);
-          const T tau = degen ? T(0) : div_rn(sub_rn(beta, alpha), beta_safe);
-          scale = degen ? T(0) : div_rn(T(1), denom_safe);
+          const R sig = cx::real_part(t);
+          const R anorm = cx::sqrt_rn(cx::add_rn(cx::abs2_rn(alpha), sig));
+          const R beta = cx::real_part(alpha) <= R(0) ? anorm : -anorm;
+          const bool degen = sig == R(0) && cx::imag_part(alpha) == R(0);
+          const R beta_safe = (degen || beta == R(0)) ? R(1) : beta;
+          const T denom_safe = degen ? T(1) : cx::sub_rn(alpha, T(beta));
+          const T tau = degen ? T(0)
+                              : cx::div_real_rn(cx::sub_rn(T(beta), alpha),
+                                                beta_safe);
+          scale = degen ? T(0) : cx::div(T(1), denom_safe);
           scal[0] = tau;
           scal[1] = scale;
-          scal[2] = degen ? alpha : beta;
+          scal[2] = degen ? alpha : T(beta);
           mtau[j - m0] = tau;
         }
-        scale = __shfl_sync(0xffffffffu, scale, 0);
-        if (lane > 0 && in) wrow[lane] = arow + scale * t;
+        scale = cx::shfl(scale, 0);
+        if (lane > 0 && in) wrow[lane] = arow + cx::conj(scale) * t;
       }
       __syncthreads();
-      const T tau = scal[0], scale = scal[1], beta_out = scal[2];
+      const T ctau = cx::conj(scal[0]), scale = scal[1], beta_out = scal[2];
       // (C) the reflector on this block's rows i >= j, v into column j
       for (int i = max(j, r0) + warp; i < r1; i += kWarps) {
         T* row = slab + (size_t)(i - r0) * w;
         const T r = in ? row[c] : T(0);
-        const T x = __shfl_sync(0xffffffffu, r, 0);
-        const T v = i == j ? T(1) : mul_rn(x, scale);
-        const T tv = mul_rn(tau, v);
+        const T x = cx::shfl(r, 0);
+        const T v = i == j ? T(1) : cx::mul_rn(x, scale);
+        const T tv = cx::mul_rn(ctau, v);
         if (lane > 0 && in)
-          row[c] = sub_rn(r, mul_rn(tv, wrow[lane]));
+          row[c] = cx::sub_rn(r, cx::mul_rn(tv, wrow[lane]));
         else if (lane == 0)
           row[j] = i == j ? beta_out : v;
       }
-      if (b == 0 && tid == 0) taus[j] = tau;
+      if (b == 0 && tid == 0) taus[j] = scal[0];
       __syncthreads();
     }
     if (hi >= w) break;
 
     // compact-WY update of the lanes right of the micro-block:
-    // C ← C − V·(Tᵀ·(Vᵀ·C)) on the rows >= m0
+    // C ← C − V·(Tᴴ·(Vᴴ·C)) on the rows >= m0
     const int wm = w - m0, nc = w - hi;
-    {  // this block's partial E[k][cc] = Σ V[i, k]·[V | C][i, cc]
+    {  // this block's partial E[k][cc] = Σ conj(V[i, k])·[V | C][i, cc]
       const int cc = tid % kMaxW, k0 = (tid / kMaxW) * 8;
       T acc[8];
 #pragma unroll
@@ -215,7 +221,7 @@ qr_panel_kernel(const T* __restrict__ a, T* vr, T* taus, int H, int w, int R,
                              : (cc < wm ? row[cc] : T(0));
 #pragma unroll
         for (int q = 0; q < 8; ++q)
-          acc[q] += vmask(row[k0 + q], i, m0 + k0 + q) * x;
+          acc[q] = cx::fma_conj(x, vmask(row[k0 + q], i, m0 + k0 + q), acc[q]);
       }
       if (cc < wm) {
         T* mine = part + (size_t)b * kE;
@@ -232,7 +238,7 @@ qr_panel_kernel(const T* __restrict__ a, T* vr, T* taus, int H, int w, int R,
         const int off = e < e_hi ? (e / wm) * kMaxW + e % wm : 0;
         T s = T(0);
         if (e < e_hi)
-          for (int g = warp; g < G; g += kWarps) s += __ldcg(part + (size_t)g * kE + off);
+          for (int g = warp; g < G; g += kWarps) s += cx::ldcg(part + (size_t)g * kE + off);
         red[warp * kMB + lane] = s;
         __syncthreads();
         if (warp == 0 && e < e_hi) {
@@ -245,9 +251,9 @@ qr_panel_kernel(const T* __restrict__ a, T* vr, T* taus, int H, int w, int R,
     }
     grid_panel::grid_barrier(bar, ++n_bar * G);
     for (int e = tid; e < kMB * kMB; e += kThreads)
-      gm[e] = __ldcg(redE + (e / kMB) * kMaxW + e % kMB);
+      gm[e] = cx::ldcg(redE + (e / kMB) * kMaxW + e % kMB);
     for (int e = tid; e < kMB * nc; e += kThreads)
-      yz[e] = __ldcg(redE + (e / nc) * kMaxW + kMB + e % nc);
+      yz[e] = cx::ldcg(redE + (e / nc) * kMaxW + kMB + e % nc);
     for (int e = tid; e < kMB * kTS; e += kThreads) tm[e] = T(0);
     __syncthreads();
     // T by LAPACK's forward column recurrence (larft)
@@ -262,7 +268,7 @@ qr_panel_kernel(const T* __restrict__ a, T* vr, T* taus, int H, int w, int R,
       }
       __syncthreads();
     }
-    {  // Z = TᵀY, in place of Y
+    {  // Z = TᴴY, in place of Y
       T z[kZPer];
 #pragma unroll
       for (int q = 0; q < kZPer; ++q) {
@@ -270,7 +276,8 @@ qr_panel_kernel(const T* __restrict__ a, T* vr, T* taus, int H, int w, int R,
         z[q] = T(0);
         if (e < kMB * nc) {
           const int k = e / nc, cz = e - k * nc;
-          for (int l = 0; l < kMB; ++l) z[q] += tm[l * kTS + k] * yz[l * nc + cz];
+          for (int l = 0; l < kMB; ++l)
+            z[q] = cx::fma_conj(yz[l * nc + cz], tm[l * kTS + k], z[q]);
         }
       }
       __syncthreads();
@@ -288,8 +295,8 @@ qr_panel_kernel(const T* __restrict__ a, T* vr, T* taus, int H, int w, int R,
       for (int cz = lane; cz < nc; cz += 32) {
         T d = T(0);
 #pragma unroll
-        for (int k = 0; k < kMB; ++k) d += __shfl_sync(0xffffffffu, vk, k) * yz[k * nc + cz];
-        row[hi + cz] = sub_rn(row[hi + cz], d);
+        for (int k = 0; k < kMB; ++k) d += cx::shfl(vk, k) * yz[k * nc + cz];
+        row[hi + cz] = cx::sub_rn(row[hi + cz], d);
       }
     }
     __syncthreads();
@@ -336,6 +343,20 @@ int slate_qr_panel_f64(const void* a, void* vr, void* taus, int H, int w,
                        void* stream) {
   return qr_panel<double>(a, vr, taus, H, w, G, R, resident, scratch, bar,
                           stream);
+}
+
+int slate_qr_panel_c64(const void* a, void* vr, void* taus, int H, int w,
+                       int G, int R, int resident, void* scratch, void* bar,
+                       void* stream) {
+  return qr_panel<Cx<float>>(a, vr, taus, H, w, G, R, resident, scratch, bar,
+                             stream);
+}
+
+int slate_qr_panel_c128(const void* a, void* vr, void* taus, int H, int w,
+                        int G, int R, int resident, void* scratch, void* bar,
+                        void* stream) {
+  return qr_panel<Cx<double>>(a, vr, taus, H, w, G, R, resident, scratch,
+                              bar, stream);
 }
 
 const char* slate_qr_error_string(int e) {

@@ -11,11 +11,9 @@ item alone.
 
 Device: a torch tensor stays on its device; anything else (numpy, lists)
 goes to ``device``, "cuda" unless the caller asks for "cpu". The
-right-hand sides and perms follow the factor's device. The LU and
-Cholesky drivers and verbs take float32, float64, complex64 and
-complex128 (Hermitian positive definite items for the Cholesky ones);
-the QR ones (geqrf, gels) take the real types only and raise on a
-complex stack (ROADMAP Queue 1 item 3(b)).
+right-hand sides and perms follow the factor's device. Every driver and
+verb takes float32, float64, complex64 and complex128 (Hermitian
+positive definite items for the Cholesky ones).
 
 Not ported, because they exist for XLA's compile cache: the per-bucket
 program cache and its statistics (``_run_bucket``, ``bucket_stats``,
@@ -63,20 +61,13 @@ def _tensor(x, device, dtype=None) -> torch.Tensor:
     return t if dtype is None else t.to(dtype)
 
 
-def _as_stack(A, what: str, device="cuda", real_only=False) -> torch.Tensor:
-    """A (B, m, n) stack on its device; ``real_only`` for the QR drivers,
-    whose kernel (P5) has no complex instance yet."""
+def _as_stack(A, what: str, device="cuda") -> torch.Tensor:
+    """A (B, m, n) floating-point or complex stack on its device."""
     a = _tensor(A, None if isinstance(A, torch.Tensor) else device)
     if a.ndim != 3:
         raise SlateError(f"{what}: expected a [B, m, n] stack, got "
                          f"shape {tuple(a.shape)}")
-    if a.is_complex():
-        if real_only:
-            raise NotImplementedError(
-                f"{what}: real float32/float64 only, got {a.dtype} "
-                "(complex: ROADMAP Queue 1 item 3(b))")
-        return a
-    if not a.is_floating_point():
+    if not (a.is_floating_point() or a.is_complex()):
         raise SlateError(f"{what}: expected a floating-point stack, got "
                          f"{a.dtype}")
     return a
@@ -133,7 +124,7 @@ def potrf_batched(A, nb: Optional[int] = None, device="cuda"):
 def geqrf_batched(A, nb: Optional[int] = None, device="cuda"):
     """Batched Householder QR of a (B, m, n) stack (m ≥ n) → (packed V\\R,
     taus (B, n), Ts (B, ceil(n/nb), nb, nb))."""
-    a = _as_stack(A, "geqrf_batched", device, real_only=True)
+    a = _as_stack(A, "geqrf_batched", device)
     if a.shape[1] < a.shape[2]:
         raise SlateError("geqrf_batched: items must have m >= n")
     return blocked.geqrf_batched(a, resolved_nb(a.shape[2], nb))
@@ -169,7 +160,7 @@ def gels_batched_using_factor(VR, taus, Ts, B, nb: Optional[int] = None,
     (B, n, k) (or (B, n)) minimizers. ``nb`` defaults to the T factors'
     width; ``taus`` is accepted for the reference's signature (the T
     factors carry them)."""
-    vr = _as_stack(VR, "gels_batched_using_factor", device, real_only=True)
+    vr = _as_stack(VR, "gels_batched_using_factor", device)
     bsz, m, _ = vr.shape
     ts = _tensor(Ts, vr.device, vr.dtype)
     nb = int(ts.shape[-1]) if nb is None else nb
@@ -205,7 +196,7 @@ def posv_batched(A, B, nb: Optional[int] = None, device="cuda"):
 def gels_batched(A, B, nb: Optional[int] = None, device="cuda"):
     """Batched least squares min‖A·X − B‖ (m ≥ n) → (X (B, n, k), info
     (B,), always 0: QR of a full stack never fails structurally)."""
-    a = _as_stack(A, "gels_batched", device, real_only=True)
+    a = _as_stack(A, "gels_batched", device)
     bsz, m, n = a.shape
     if m < n:
         raise SlateError("gels_batched: items must have m >= n")

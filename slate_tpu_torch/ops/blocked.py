@@ -525,11 +525,11 @@ def _split_v_b(vr: torch.Tensor, w: int) -> torch.Tensor:
 
 def larft_b(v: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
     """Batched forward columnwise T factor in closed form,
-    T = D·(I + striu(VᵀV)·D)⁻¹, the inverse by the batched unit-triangular
+    T = D·(I + striu(VᴴV)·D)⁻¹, the inverse by the batched unit-triangular
     ``trtri_lower_b`` (P1) on the transpose. A column with τ = 0 gives a
     zero column of T."""
     w = taus.shape[-1]
-    s = torch.triu(v.mT @ v, 1)
+    s = torch.triu(v.mH @ v, 1)
     m = torch.eye(w, dtype=v.dtype, device=v.device) + s * taus[:, None, :]
     return taus[:, :, None] * trtri_lower_b(m.mT, unit=True).mT
 
@@ -552,7 +552,7 @@ def geqrf_batched(a: torch.Tensor, nb: int
     panel is one P5 launch on the panel's view (``_panel_geqrf_batched``;
     a panel wider than 128 takes one per 128 columns); its T comes from the
     batched ``larft_b`` (zero-padded to nb on a narrower last panel) and
-    the trailing update is three batched gemms."""
+    the trailing update C ← C − V·(Tᴴ·(Vᴴ·C)) is three batched gemms."""
     a = a.clone(memory_format=torch.contiguous_format)
     bsz, m, n = a.shape
     taus = a.new_zeros((bsz, n))
@@ -568,7 +568,7 @@ def geqrf_batched(a: torch.Tensor, nb: int
         ts[:, i, :w, :w] = t
         if k1 < n:
             c = a[:, k0:, k1:]
-            c -= v @ (t.mT @ (v.mT @ c))
+            c -= v @ (t.mH @ (v.mH @ c))
     return a, taus, ts
 
 
@@ -588,8 +588,9 @@ def potrs_batched(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def gels_qr_solve_batched(vr: torch.Tensor, ts: torch.Tensor,
                           b: torch.Tensor, nb: int) -> torch.Tensor:
     """Batched least-squares solve from ``geqrf_batched`` factors:
-    X = R⁻¹·(Qᵀ·B)[:n], Qᵀ applied panel by panel through the stored
-    compact-WY (V, T) pairs, then one batched upper trsm against R."""
+    X = R⁻¹·(Qᴴ·B)[:n], Qᴴ applied panel by panel through the stored
+    compact-WY (V, T) pairs (C ← C − V·(Tᴴ·(Vᴴ·C))), then one batched
+    upper trsm against R."""
     n = vr.shape[2]
     c = b.clone(memory_format=torch.contiguous_format)
     for i, k0 in enumerate(range(0, n, nb)):
@@ -597,5 +598,5 @@ def gels_qr_solve_batched(vr: torch.Tensor, ts: torch.Tensor,
         v = _split_v_b(vr[:, k0:, k0:k0 + w], w)
         t = ts[:, i, :w, :w]
         ck = c[:, k0:]
-        ck -= v @ (t.mT @ (v.mT @ ck))
+        ck -= v @ (t.mH @ (v.mH @ ck))
     return trsm_upper_b(torch.triu(vr[:, :n, :n]), c[:, :n])

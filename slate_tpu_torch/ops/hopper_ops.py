@@ -27,15 +27,17 @@ every ``panel_geqrf`` base goes through ``qr_panel_base`` (w ≤ 32) or
 every real f32/f64 ``herk_lower_rec(c, a)`` without ``b`` goes through
 ``herk_lower_update`` at any n ≥ 1 and k ≥ 1, in one launch (the
 reference's divisibility gates and its k-chunking at 1024 are TPU
-limits). The LU and Cholesky kernels (K1, K2, P2, P3, P4) and P1 take
-float32, float64, complex64 and complex128; the Householder kernels
-(K3, K4, P5) and K5 take the real types only and raise on a complex
-tensor (ROADMAP Queue 1 item 3, parts (b) and (c)). The complex plain
-versions do their arithmetic on the real and imaginary parts through
-``cx_mul``, ``cx_div`` (Smith's scaled quotient), ``cx_div_real`` and
-``cx_abs`` (hypot, NaN with a NaN part), and the kernels replay the same
-formulas (csrc/cx.cuh), so K2, P2, P3 and P4 stay bitwise equal to their
-plain versions in every type.
+limits). Every kernel but K5 takes float32, float64, complex64 and
+complex128; K5 takes the real types only and raises on a complex tensor
+(ROADMAP Queue 1 item 3(c)). The complex plain versions of the LU and
+Cholesky kernels do their arithmetic on the real and imaginary parts
+through ``cx_mul``, ``cx_div`` (Smith's scaled quotient), ``cx_div_real``
+and ``cx_abs`` (hypot, NaN with a NaN part), and the kernels replay the
+same formulas (csrc/cx.cuh), so K2, P2, P3 and P4 stay bitwise equal to
+their plain versions in every type. The Householder kernels (K3, K4, P5)
+are held to their plain versions within a tolerance, and their complex
+plain versions use torch's complex arithmetic: the reflector is
+LAPACK's complex larfg (``larfg``), applied as Hᴴ = I − conj(τ)·v·vᴴ.
 
 Two multi-block designs carry the serial kernels across SMs. The panel
 kernels K2 (``lu_panel_base``), K3 (``qr_panel_base``) and K4
@@ -89,16 +91,12 @@ LAUNCHES: Dict[str, int] = {"chol_tile": 0, "lu_panel_base": 0,
 TYPE_LAUNCHES: Dict[str, Dict[str, int]] = {k: {} for k in LAUNCHES}
 
 _REAL = (torch.float32, torch.float64)
-# the element types of the kernels' C entry points; the Householder
-# kernels and K5 have only the first two
+# the element types of the kernels' C entry points; K5 has only the
+# first two
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
            torch.complex64: "c64", torch.complex128: "c128"}
-# where the complex instances of the real-only kernels are queued
-_COMPLEX_LATER = {
-    "qr_panel_base": "ROADMAP Queue 1 item 3(b)",
-    "qr_panel_base_wide": "ROADMAP Queue 1 item 3(b)",
-    "qr_panel_batched": "ROADMAP Queue 1 item 3(b)",
-    "herk_lower_update": "ROADMAP Queue 1 item 3(c)"}
+# where the complex instances of the real-only kernel are queued
+_COMPLEX_LATER = {"herk_lower_update": "ROADMAP Queue 1 item 3(c)"}
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 
 
@@ -140,7 +138,7 @@ def _check_cuda_args(name: str, a: torch.Tensor):
 
 
 def _check_real(name: str, x: torch.Tensor):
-    """The gate of the real-only kernels (K3, K4, K5, P5)."""
+    """The gate of the real-only kernel (K5)."""
     if x.dtype not in _REAL:
         raise NotImplementedError(
             f"{name}: real float32/float64 only, got {x.dtype} "
@@ -148,7 +146,7 @@ def _check_real(name: str, x: torch.Tensor):
 
 
 def _check_type(name: str, x: torch.Tensor):
-    """The gate of the kernels with complex instances (K1, K2, P1-P4)."""
+    """The gate of the kernels with complex instances (all but K5)."""
     if x.dtype not in _SUFFIX:
         raise NotImplementedError(
             f"{name}: float32/float64/complex64/complex128 only, got "
@@ -268,7 +266,12 @@ def _on_device(x: torch.Tensor, f, *args) -> int:
 
 PANEL_MIN_ROWS = 32          # the fewest rows a block of a tall panel gets
 PANEL_SMEM_LIMIT = 232_448   # 227 KB: the most shared memory a block can have
-PANEL_SMEM_RESERVE = 49_152  # the kernels' own shared memory beside the slab
+PANEL_SMEM_RESERVE = 49_152  # K2's own shared memory beside the slab
+# K3/K4's own shared memory beside the slab, in elements of the panel's
+# type (csrc/qr_panel.cu kFixed: w_row, the taus, the per-warp partials,
+# the larfg scalars, G, T and Y/Z): 45,888 B in float64 and complex64,
+# 91,776 B in complex128
+QR_PANEL_FIXED_ELEMS = 5_736
 
 
 class PanelPlan(NamedTuple):
@@ -284,19 +287,22 @@ class PanelPlan(NamedTuple):
         return "resident" if self.resident else "streaming"
 
 
-def panel_grid_plan(hh: int, w: int, itemsize: int, n_sm: int) -> PanelPlan:
-    """The grid of K2 and K4 for an (hh, w) panel of ``itemsize``-byte
+def panel_grid_plan(hh: int, w: int, itemsize: int, n_sm: int,
+                    reserve: int) -> PanelPlan:
+    """The grid of K2, K3 and K4 for an (hh, w) panel of ``itemsize``-byte
     elements on a card with ``n_sm`` SMs: at most one block per SM, each
     owning a contiguous slab of at least PANEL_MIN_ROWS rows (fewer only
     when the whole panel is shorter), so a small panel takes few blocks.
-    A slab that fits PANEL_SMEM_LIMIT with PANEL_SMEM_RESERVE beside it is
-    resident. Pure: the C launchers check it, the CPU tests hold it."""
+    A slab that fits PANEL_SMEM_LIMIT with the kernel's own ``reserve``
+    bytes beside it is resident (K2's PANEL_SMEM_RESERVE; K3/K4's
+    QR_PANEL_FIXED_ELEMS × itemsize). Pure: the C launchers check it,
+    the CPU tests hold it."""
     if hh < 1 or w < 1 or n_sm < 1:
         raise SlateError(f"panel_grid_plan: bad shape {(hh, w)} or SM count "
                          f"{n_sm}")
     rows = min(hh, max(PANEL_MIN_ROWS, -(-hh // n_sm)))
     blocks = -(-hh // rows)
-    resident = rows * w * itemsize + PANEL_SMEM_RESERVE <= PANEL_SMEM_LIMIT
+    resident = rows * w * itemsize + reserve <= PANEL_SMEM_LIMIT
     return PanelPlan(blocks, rows, resident)
 
 
@@ -305,10 +311,12 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def panel_plan_for(a: torch.Tensor) -> PanelPlan:
-    """The plan K2 or K4 launches with for the CUDA tensor ``a``."""
+def panel_plan_for(a: torch.Tensor, reserve: int) -> PanelPlan:
+    """The plan a panel kernel with ``reserve`` bytes of its own shared
+    memory launches with for the CUDA tensor ``a``."""
     hh, w = a.shape
-    return panel_grid_plan(hh, w, a.element_size(), _sm_count(a.device.index))
+    return panel_grid_plan(hh, w, a.element_size(),
+                           _sm_count(a.device.index), reserve)
 
 
 def _grid_launch(lib: str, sym: str, err_sym: str, scratch_bytes: int,
@@ -536,7 +544,7 @@ def lu_panel_base(a: torch.Tensor):
         return lu_panel_base_plain(a)
     a = _resolved(a)
     _check_cuda_args("lu_panel_base", a)
-    plan = panel_plan_for(a)
+    plan = panel_plan_for(a, PANEL_SMEM_RESERVE)
     lu = torch.empty_like(a)
     perm = torch.empty(hh, dtype=torch.int32, device=a.device)
     info = torch.empty((), dtype=torch.int32, device=a.device)
@@ -564,18 +572,31 @@ def qr_panel_wide_eligible(w: int) -> bool:
     return QR_WIDE_MB < w <= QR_PANEL_MAX_W and w % QR_WIDE_MB == 0
 
 
+def abs2(x: torch.Tensor) -> torch.Tensor:
+    """|x|², real: x·x, and re² + im² for a complex x."""
+    if not x.is_complex():
+        return x * x
+    return x.real * x.real + x.imag * x.imag
+
+
 def larfg(alpha: torch.Tensor, sig: torch.Tensor):
-    """Scalars of the Householder reflector of [alpha; x] with
-    sig = ‖x‖² (the real case of the reference's ``blocked._larfg``):
-    (beta_out, tau, scale) with v = [1; x·scale], beta = +‖·‖ if
-    alpha ≤ 0 else −‖·‖, tau = (beta − alpha)/beta,
-    scale = 1/(alpha − beta). A zero tail gives tau = 0, scale = 0 and
-    alpha kept (H = I). 0-d device tensors, no host sync; NaN
-    propagates."""
+    """Scalars of the Householder reflector of [alpha; x] with the real
+    sig = ‖x‖² (the reference's ``blocked._larfg``): (beta_out, tau,
+    scale) with v = [1; x·scale], H = I − tau·v·vᴴ and Hᴴ·[alpha; x] =
+    [beta; 0]: anorm = √(|alpha|² + sig), beta = +anorm if
+    real(alpha) ≤ 0 else −anorm (real, in alpha's type),
+    tau = (beta − alpha)/beta, scale = 1/(alpha − beta). A column is
+    degenerate when sig = 0 and imag(alpha) = 0 (always so for a real
+    alpha with a zero tail): tau = 0, scale = 0 and alpha kept (H = I).
+    A zero tail under an alpha with an imaginary part is not degenerate:
+    tau ≠ 0 rotates alpha onto the real beta. Works elementwise on
+    batches of scalars; no host sync; NaN propagates."""
     one, zero = torch.ones_like(alpha), torch.zeros_like(alpha)
-    anorm = torch.sqrt(alpha * alpha + sig)
-    beta = torch.where(alpha <= 0, anorm, -anorm)
+    anorm = torch.sqrt(abs2(alpha) + sig)
+    beta = torch.where(alpha.real <= 0, anorm, -anorm).to(alpha.dtype)
     degen = sig == 0
+    if alpha.is_complex():
+        degen = degen & (alpha.imag == 0)
     beta_safe = torch.where(degen | (beta == 0), one, beta)
     denom_safe = torch.where(degen, one, alpha - beta)
     tau = torch.where(degen, zero, (beta - alpha) / beta_safe)
@@ -586,24 +607,24 @@ def larfg(alpha: torch.Tensor, sig: torch.Tensor):
 def _householder_column(vr: torch.Tensor, taus: torch.Tensor, j: int,
                         hi: int):
     """Column j of the panel QR, IN PLACE on ``vr``: larfg of the
-    column, then the reflector applied to the lanes j < c < hi."""
+    column, then Hᴴ = I − conj(τ)·v·vᴴ applied to the lanes j < c < hi
+    (w_row = vᴴ·A)."""
     col = vr[j:, j]
-    tail = col[1:]
-    beta, tau, scale = larfg(col[0], (tail * tail).sum())
+    beta, tau, scale = larfg(col[0], abs2(col[1:]).sum())
     v = col.clone()
     v[1:] *= scale
     v[0] = 1
     if j + 1 < hi:
-        w_row = v @ vr[j:, j + 1:hi]
-        vr[j:, j + 1:hi] -= torch.outer(tau * v, w_row)
+        w_row = v.conj() @ vr[j:, j + 1:hi]
+        vr[j:, j + 1:hi] -= torch.outer(tau.conj() * v, w_row)
     vr[j + 1:, j] = v[1:]
     vr[j, j] = beta
     taus[j] = tau
 
 
 def larft_columnwise(g: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
-    """Upper-triangular T of the compact-WY form I − V·T·Vᵀ from the Gram
-    matrix G = VᵀV and the taus, by LAPACK's forward column recurrence
+    """Upper-triangular T of the compact-WY form I − V·T·Vᴴ from the Gram
+    matrix G = VᴴV and the taus, by LAPACK's forward column recurrence
     T[:i, i] = −τᵢ·(T[:i, :i]·G[:i, i]), T[i, i] = τᵢ (the reference's
     ``_larft_base``; K4 computes its T the same way)."""
     w = taus.shape[0]
@@ -618,8 +639,9 @@ def qr_panel_base_plain(a: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K3 (= ``blocked._panel_geqrf_base``): one larfg
     and one rank-1 reflector update per column. Returns (vr, taus):
-    beta on the diagonal, v tails below, R above; taus (w,)."""
-    vr = a.clone()
+    beta on the diagonal, v tails below, R above; taus (w,). A conjugate
+    view is read with its conjugate."""
+    vr = _resolved(a).clone()
     w = a.shape[1]
     taus = torch.zeros(w, dtype=a.dtype, device=a.device)
     for j in range(w):
@@ -631,9 +653,9 @@ def qr_panel_base_wide_plain(a: torch.Tensor
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K4, with the kernel's association: per 32-column
     micro-block, K3's column loop confined to the micro lanes, then one
-    compact-WY update C ← C − V·(Tᵀ·(Vᵀ·C)) of the lanes to its right,
-    with T = larft_columnwise(VᵀV, taus) of the micro-block alone."""
-    vr = a.clone()
+    compact-WY update C ← C − V·(Tᴴ·(Vᴴ·C)) of the lanes to its right,
+    with T = larft_columnwise(VᴴV, taus) of the micro-block alone."""
+    vr = _resolved(a).clone()
     w = a.shape[1]
     taus = torch.zeros(w, dtype=a.dtype, device=a.device)
     for m0 in range(0, w, QR_WIDE_MB):
@@ -643,16 +665,16 @@ def qr_panel_base_wide_plain(a: torch.Tensor
         if hi < w:
             v = torch.tril(vr[m0:, m0:hi], -1)
             v.diagonal().fill_(1)
-            t = larft_columnwise(v.mT @ v, taus[m0:hi])
+            t = larft_columnwise(v.mH @ v, taus[m0:hi])
             c = vr[m0:, hi:]
-            c -= v @ (t.mT @ (v.mT @ c))
+            c -= v @ (t.mH @ (v.mH @ c))
     return vr, taus
 
 
 def _check_qr_panel(name: str, a: torch.Tensor, ok_width):
     if a.ndim != 2:
         raise SlateError(f"{name}: expects a 2-D panel")
-    _check_real(name, a)
+    _check_type(name, a)
     hh, w = a.shape
     if w > hh or not ok_width(w):
         raise SlateError(f"{name}: width {w} out of range for an "
@@ -661,9 +683,11 @@ def _check_qr_panel(name: str, a: torch.Tensor, ok_width):
 
 def _qr_panel_launch(a: torch.Tensor, name: str):
     """One cooperative launch of csrc/qr_panel.cu's kernel (K3 and K4
-    alike) with K2's plan; a refused launch raises."""
+    alike) with the panel plan at the QR kernels' own shared memory; a
+    refused launch raises."""
+    a = _resolved(a)
     _check_cuda_args(name, a)
-    plan = panel_plan_for(a)
+    plan = panel_plan_for(a, QR_PANEL_FIXED_ELEMS * a.element_size())
     vr = torch.empty_like(a)
     taus = torch.empty(a.shape[1], dtype=a.dtype, device=a.device)
     nbytes = _fn("qr_panel", "slate_qr_panel_scratch_bytes", [_I, _I, _I],
@@ -680,12 +704,13 @@ def qr_panel_base(a: torch.Tensor):
 
     Replaces ``pallas_ops.qr_panel_base`` (pallas_ops.py:682-697). The
     CUDA kernel (csrc/qr_panel.cu) is K4's at one micro-block: one
-    cooperative launch of G blocks with K2's plan, each owning a row slab
+    cooperative launch of G blocks with the panel plan, each owning a row slab
     held in shared memory or streamed, one grid barrier per column (the G
     blocks' partial sums reduced in one fixed order, so every block takes
     the same reflector). It is bound by those w serial steps; the panel
     crosses HBM once each way. Equal to the plain version up to the order
-    of its H-long reductions."""
+    of its H-long reductions, in float32, float64, complex64 and
+    complex128."""
     _check_qr_panel("qr_panel_base", a, lambda w: 0 < w <= QR_WIDE_MB)
     if a.device.type == "cpu":
         return qr_panel_base_plain(a)
@@ -699,13 +724,13 @@ def qr_panel_base_wide(a: torch.Tensor):
 
     Replaces ``pallas_ops.qr_panel_base_wide`` (pallas_ops.py:662-679).
     The CUDA kernel (csrc/qr_panel.cu, K3's) is one cooperative launch of
-    G blocks with K2's plan, each owning a row slab: one grid barrier per
+    G blocks with the panel plan, each owning a row slab: one grid barrier per
     column and two per compact-WY update. It is bound by those serial
     steps; the panel crosses HBM once each way (PERF.md has its times
     beside the one-block design's). Equal to ``qr_panel_base_wide_plain``
     up to the order of its H-long sums, and to the unblocked column loop
     (``qr_panel_base_plain``) to tolerance (reassociated trailing
-    arithmetic)."""
+    arithmetic). Types: K3's."""
     _check_qr_panel("qr_panel_base_wide", a, qr_panel_wide_eligible)
     if a.device.type == "cpu":
         return qr_panel_base_wide_plain(a)
@@ -1366,10 +1391,11 @@ def chol_tile_batched(d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 # P5: Householder QR of every panel of a stack (no Pallas counterpart)
 # ---------------------------------------------------------------------------
 
-P5_THREADS = 256       # csrc/qr_panel_batched.cu kMemThreads: the CTA
-P5_WARPS = P5_THREADS // 32  # team of the shared and streaming plans
+P5_THREADS = 256       # csrc/qr_panel_batched.cu kMemThreads: the largest
+                       # CTA team
 P5_WARP_ITEMS = 4      # kWarpItems: items (warps) a CTA of warp teams
 P5_STORAGE = {"registers": 0, "shared": 1, "streaming": 2}  # enum Storage
+P5_ITEMSIZES = (4, 8, 16)  # float32; float64 and complex64; complex128
 
 
 class P5Plan(NamedTuple):
@@ -1393,16 +1419,16 @@ def qr_panel_batched_smem_bytes(hh: int, w: int, itemsize: int,
     """Shared memory of one P5 CTA (csrc/qr_panel_batched.cu
     ``smem_bytes``, held against it by ``chip_smoke.py``): a warp team's
     row j, double-buffered, per warp; a CTA team's double-buffered
-    partials of every warp and row j (32 columns in registers, w rounded
-    up to 32 otherwise), then, shared, the item in rows of an odd length
-    (w | 1)."""
+    partials of each of its warps and row j (32 columns in registers, w
+    rounded up to 32 otherwise), then, shared, the item in rows of an odd
+    length (w | 1)."""
     if storage == "registers":
         if threads == 32:
             return P5_WARP_ITEMS * 2 * 32 * itemsize
         return (2 * (threads // 32) * 32 + 2 * 32) * itemsize
     wp = -(-w // 32) * 32
     item = hh * (w | 1) if storage == "shared" else 0
-    return (2 * P5_WARPS * wp + 2 * wp + item) * itemsize
+    return (2 * (threads // 32) * wp + 2 * wp + item) * itemsize
 
 
 @functools.lru_cache(maxsize=256)
@@ -1410,26 +1436,27 @@ def qr_panel_batched_plan(hh: int, w: int, itemsize: int) -> P5Plan:
     """P5's plan for items of (hh, w) ``itemsize``-byte entries. It does
     not read B, so an item's bits do not depend on how many items share
     the call. With kR = 8 // itemsize rows a thread (2 in float32, 1 in
-    float64): registers when w ≤ 32 and hh ≤ 256·kR, in a team of
-    32·⌈hh / 32kR⌉ threads (a warp team when that is 32, four items a
-    CTA; else a CTA team); otherwise a CTA team of 256 threads with the
-    item in shared memory when it fits PANEL_SMEM_LIMIT, else streaming.
-    Every shape with 1 ≤ w ≤ min(hh, 128) and hh·w < 2³¹ has one. Pure:
-    the C launcher sizes the same shared memory, the CPU tests hold the
-    plan."""
-    if (w < 1 or w > QR_PANEL_MAX_W or w > hh or itemsize not in (4, 8)
-            or hh * w >= 2 ** 31):
+    float64 and complex64): registers when itemsize ≤ 8, w ≤ 32 and
+    hh ≤ 256·kR, in a team of 32·⌈hh / 32kR⌉ threads (a warp team when
+    that is 32, four items a CTA; else a CTA team); otherwise (complex128
+    always: a row of 32 entries and its 32 partials would fill a thread's
+    registers) a CTA team of 32·⌈hh / 32⌉ threads, at most 256, with the
+    item in shared memory when it fits PANEL_SMEM_LIMIT, else streaming. Every shape with
+    1 ≤ w ≤ min(hh, 128) and hh·w < 2³¹ has one. Pure: the C launcher
+    sizes the same shared memory, the CPU tests hold the plan."""
+    if (w < 1 or w > QR_PANEL_MAX_W or w > hh
+            or itemsize not in P5_ITEMSIZES or hh * w >= 2 ** 31):
         raise SlateError(f"qr_panel_batched_plan: no plan for an item of "
                          f"{(hh, w)}, itemsize {itemsize}")
     kr = 8 // itemsize
-    if w <= 32 and hh <= P5_THREADS * kr:
+    if kr and w <= 32 and hh <= P5_THREADS * kr:
         storage, threads = "registers", 32 * -(-hh // (32 * kr))
     else:
-        threads = P5_THREADS
+        threads = min(P5_THREADS, 32 * -(-hh // 32))
         storage = ("shared" if qr_panel_batched_smem_bytes(
             hh, w, itemsize, "shared", threads) <= PANEL_SMEM_LIMIT
             else "streaming")
-    warp = threads == 32
+    warp = storage == "registers" and threads == 32
     return P5Plan("warp" if warp else "cta", threads,
                   P5_WARP_ITEMS if warp else 1, -(-hh // threads), storage,
                   qr_panel_batched_smem_bytes(hh, w, itemsize, storage,
@@ -1451,21 +1478,20 @@ def qr_panel_batched_plain(stack: torch.Tensor
     written out over the batch, with K3's reflector): per column j, on
     every item at once, ``larfg`` of [alpha; x] = the column on and below
     the diagonal (a degenerate column keeps alpha, tau = 0), v = [1;
-    x·scale], w_row = vᵀ·A[j:, j+1:], A[j:, j+1:] −= (tau·v)·w_row. Returns
-    (vr (B, H, w), taus (B, w)). No host sync."""
+    x·scale], w_row = vᴴ·A[j:, j+1:], A[j:, j+1:] −= (conj(tau)·v)·w_row.
+    Returns (vr (B, H, w), taus (B, w)). No host sync."""
     bsz, hh, w = stack.shape
-    vr = stack.clone(memory_format=torch.contiguous_format)
+    vr = _resolved(stack).clone(memory_format=torch.contiguous_format)
     taus = torch.zeros((bsz, w), dtype=stack.dtype, device=stack.device)
     for j in range(w):
         col = vr[:, j:, j]
-        tail = col[:, 1:]
-        beta, tau, scale = larfg(col[:, 0], (tail * tail).sum(1))
+        beta, tau, scale = larfg(col[:, 0], abs2(col[:, 1:]).sum(1))
         v = col.clone()
         v[:, 1:] *= scale[:, None]
         v[:, 0] = 1
         if j + 1 < w:
-            w_row = (v[:, None, :] @ vr[:, j:, j + 1:])[:, 0, :]
-            vr[:, j:, j + 1:] -= (tau[:, None] * v)[:, :, None] \
+            w_row = (v.conj()[:, None, :] @ vr[:, j:, j + 1:])[:, 0, :]
+            vr[:, j:, j + 1:] -= (tau.conj()[:, None] * v)[:, :, None] \
                 * w_row[:, None, :]
         vr[:, j + 1:, j] = v[:, 1:]
         vr[:, j, j] = beta
@@ -1492,9 +1518,9 @@ def qr_panel_batched(stack: torch.Tensor
     pass over each thread's rows for every trailing column's partial sum,
     one fixed-order reduction (a transposing butterfly in each warp, then
     the warps in order), the larfg scalars, w_row and the rank-1 update.
-    Equal to the plain version up to the order of its H-long sums. Real
-    float32/float64 only."""
-    _check_real("qr_panel_batched", stack)
+    Equal to the plain version up to the order of its H-long sums, in
+    float32, float64, complex64 and complex128."""
+    _check_type("qr_panel_batched", stack)
     if stack.ndim != 3:
         raise SlateError(f"qr_panel_batched: expects a (B, H, w) stack, got "
                          f"{tuple(stack.shape)}")

@@ -187,10 +187,6 @@ class Session:
                              f"{want} operand, got {type(A).__name__}")
         if op in SMALL_OPS:
             A = self._small_operand(A)
-        elif op == "qr" and A.dtype.is_complex:
-            raise NotImplementedError(
-                f"Session.register: a {A.dtype} qr operator needs the "
-                "complex Householder kernels (ROADMAP Queue 1 item 3(b))")
         elif A.device != self.device:
             raise SlateError(f"Session.register: operand on {A.device}, "
                              f"session on {self.device}")

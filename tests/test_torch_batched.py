@@ -283,13 +283,19 @@ def test_qr_panel_batched_plan():
     limit = hopper_ops.PANEL_SMEM_LIMIT
     for w, it in ((32, 4), (32, 8), (128, 4), (128, 8)):
         wp = -(-w // 32) * 32
-        base = 2 * hopper_ops.P5_WARPS * wp + 2 * wp
-        last = (limit // it - base) // (w | 1)
+
+        def base(hh):  # a team of 32·⌈hh/32⌉ threads, at most 256
+            return 2 * min(hopper_ops.P5_THREADS // 32, -(-hh // 32)) * wp \
+                + 2 * wp
+
+        last = max(hh for hh in range(w, limit // it)
+                   if (base(hh) + hh * (w | 1)) * it <= limit)
         p = plan(last, w, it)
         assert p.storage == "shared" and p.smem_bytes == (
-            base + last * (w | 1)) * it <= limit
+            base(last) + last * (w | 1)) * it <= limit
         p = plan(last + 1, w, it)
-        assert p.storage == "streaming" and p.smem_bytes == base * it
+        assert p.storage == "streaming"
+        assert p.smem_bytes == base(last + 1) * it
     # at w ≤ 32 with kR = 8 // itemsize: a warp team up to 32·kR rows,
     # registers up to 256·kR
     for it in (4, 8):
@@ -307,9 +313,8 @@ def test_qr_panel_batched_plan():
 
 def test_kernels_refuse_bad_stacks():
     c = torch.zeros((2, 4, 4), dtype=torch.complex64)
-    with pytest.raises(NotImplementedError, match=r"item 3\(b\)"):
-        hopper_ops.qr_panel_batched(c)
-    for f in (hopper_ops.chol_tile_batched, hopper_ops.lu_panel_batched):
+    for f in (hopper_ops.chol_tile_batched, hopper_ops.lu_panel_batched,
+              hopper_ops.qr_panel_batched):
         f(c)  # complex instances: the plain version here
         with pytest.raises(NotImplementedError, match="complex64"):
             f(c.real.half())

@@ -215,8 +215,14 @@ def test_verbs_validate_shapes_and_types():
                                np.ones((1, 4, 1)), device="cpu")
     assert x.dtype == torch.complex128 and info.tolist() == [0]
     np.testing.assert_allclose(x.numpy(), -0.5j * np.ones((1, 4, 1)))
-    for verb in (stt.gels_batched, stt.geqrf_batched):
-        with pytest.raises(NotImplementedError, match=r"item 3\(b\)"):
-            verb(np.zeros((2, 4, 4), np.complex128),
-                 *([np.zeros((2, 4, 1))] if verb is stt.gels_batched
-                   else []), device="cpu")
+    # complex least squares: (2i)·I·x = 1 → x = −i/2
+    x, info = stt.gels_batched(np.eye(4, dtype=np.complex128)[None] * 2j,
+                               np.ones((1, 4, 1)), device="cpu")
+    assert x.dtype == torch.complex128 and info.tolist() == [0]
+    np.testing.assert_allclose(x.numpy(), -0.5j * np.ones((1, 4, 1)),
+                               atol=1e-15)
+    vr, taus, ts = stt.geqrf_batched(np.eye(4, dtype=np.complex64)[None] * 2j,
+                                     device="cpu")
+    assert vr.dtype == taus.dtype == ts.dtype == torch.complex64
+    with pytest.raises(SlateError, match="floating-point"):
+        stt.geqrf_batched(np.zeros((2, 4, 4), np.int64), device="cpu")

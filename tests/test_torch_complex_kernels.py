@@ -490,10 +490,11 @@ def test_plans_at_itemsize_16():
         if p.resident:
             assert (ho.chol_tile_smem_bytes(b, 16, p.ctas, True)
                     <= ho.PANEL_SMEM_LIMIT)
-    assert ho.panel_grid_plan(16384, 128, 8, n_sm).resident
-    p16 = ho.panel_grid_plan(16384, 128, 16, n_sm)
+    k2 = ho.PANEL_SMEM_RESERVE
+    assert ho.panel_grid_plan(16384, 128, 8, n_sm, k2).resident
+    p16 = ho.panel_grid_plan(16384, 128, 16, n_sm, k2)
     assert not p16.resident and p16.blocks == n_sm
-    assert ho.panel_grid_plan(2000, 64, 16, n_sm).resident
+    assert ho.panel_grid_plan(2000, 64, 16, n_sm, k2).resident
     p = ho.lu_panel_batched_plan(32, 512, 512, 8, n_sm)
     assert p.resident and p.ctas == 16
     p = ho.lu_panel_batched_plan(32, 512, 512, 16, n_sm)
@@ -505,16 +506,19 @@ def test_plans_at_itemsize_16():
 
 
 def test_real_only_kernels_name_their_roadmap_part():
+    """K5 is the one kernel without complex instances and names ROADMAP
+    item 3(c); the Householder kernels (item 3(b)) take complex now and
+    run their plain versions here."""
     c = torch.zeros((64, 64), dtype=torch.complex64)
-    for f, part in ((ho.qr_panel_base, "3(b)"), (ho.qr_panel_base_wide,
-                                                  "3(b)"),
-                    (ho.qr_panel_batched, "3(b)"),
-                    (ho.herk_lower_update, "3(c)")):
-        args = ((c[None],) if f is ho.qr_panel_batched
-                else (c, c) if f is ho.herk_lower_update else (c,))
-        with pytest.raises(NotImplementedError) as e:
-            f(*args)
-        assert part in str(e.value)
+    with pytest.raises(NotImplementedError) as e:
+        ho.herk_lower_update(c, c)
+    assert "3(c)" in str(e.value)
+    assert set(ho._COMPLEX_LATER) == {"herk_lower_update"}
+    for f, arg in ((ho.qr_panel_base, c[:, :32]),
+                   (ho.qr_panel_base_wide, c), (ho.qr_panel_batched, c[None])):
+        vr, taus = f(arg)
+        assert vr.dtype == taus.dtype == torch.complex64
+        assert not taus.abs().any() and not vr.abs().any()
 
 
 def test_complex_cuda_views_reach_the_kernels():

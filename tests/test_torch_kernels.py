@@ -156,8 +156,8 @@ def test_cpu_dispatch_counts_no_launch_and_rejects_complex():
                                         "chol_tile_batched",
                                         "qr_panel_batched"}
     assert not any(hopper_ops.LAUNCHES.values())
-    # complex: K1 and K2 take it (their plain versions here, no launch);
-    # K3, K4 and K5 raise and name the ROADMAP part that brings them
+    # complex: K1-K4 take it (their plain versions here, no launch); K5
+    # raises and names the ROADMAP part that brings it
     ac = a.to(torch.complex128)
     torch.testing.assert_close(hopper_ops.chol_tile(ac),
                                hopper_ops.chol_tile_plain(ac), rtol=0, atol=0)
@@ -172,10 +172,18 @@ def test_cpu_dispatch_counts_no_launch_and_rejects_complex():
     with pytest.raises(NotImplementedError, match=r"item 3\(c\)"):
         hopper_ops.herk_lower_update(c.to(torch.complex128),
                                      h.to(torch.complex128))
-    for launcher in (hopper_ops.qr_panel_base, hopper_ops.qr_panel_base_wide):
-        with pytest.raises(NotImplementedError, match=r"item 3\(b\)"):
-            launcher(torch.zeros((64, 64), dtype=torch.complex128))
-    for launcher in (hopper_ops.chol_tile, hopper_ops.lu_panel_base):
+    for launcher, plain in ((hopper_ops.qr_panel_base,
+                             hopper_ops.qr_panel_base_plain),
+                            (hopper_ops.qr_panel_base_wide,
+                             hopper_ops.qr_panel_base_wide_plain)):
+        qc = torch.from_numpy(RNG.standard_normal((96, 64))
+                              + 1j * RNG.standard_normal((96, 64)))
+        qc = qc[:, :32] if launcher is hopper_ops.qr_panel_base else qc
+        assert all(torch.equal(x, y) for x, y in zip(launcher(qc),
+                                                     plain(qc)))
+    assert not any(hopper_ops.LAUNCHES.values())
+    for launcher in (hopper_ops.chol_tile, hopper_ops.lu_panel_base,
+                     hopper_ops.qr_panel_base):
         with pytest.raises(NotImplementedError, match="complex64"):
             launcher(torch.zeros((8, 8), dtype=torch.float16))
     with pytest.raises(SlateError):

@@ -258,11 +258,16 @@ def test_session_serves_a_nopiv_operator():
 
 
 def test_nopiv_complex_names_the_roadmap():
-    """getrf_nopiv takes complex (P2 has complex instances); the verbs
-    that still lack them name their ROADMAP part."""
+    """getrf_nopiv takes complex (P2 has complex instances), and so does
+    geqrf since the Householder kernels have theirs: the QR of (2 − i)·I
+    is Q = −((2 − i)/√5)·I, R = −√5·I (real diagonal, beta = −|alpha|)."""
     a = np.eye(8, dtype=np.complex128) * (2 - 1j)
     LU, info = stt.getrf_nopiv(stt.from_dense(a, 4, device="cpu"))
     assert int(info) == 0
     np.testing.assert_array_equal(LU.to_numpy(), a)
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 3\(b\)"):
-        stt.geqrf(stt.from_dense(a, 4, device="cpu"))
+    QR = stt.geqrf(stt.from_dense(a, 4, device="cpu"))
+    np.testing.assert_allclose(np.diag(QR.r_matrix.to_numpy()),
+                               -np.sqrt(5.0) * np.ones(8), rtol=1e-15)
+    np.testing.assert_allclose(stt.qr_multiply_explicit(QR).to_numpy(),
+                               -(2 - 1j) / np.sqrt(5.0) * np.eye(8),
+                               rtol=1e-14, atol=1e-15)

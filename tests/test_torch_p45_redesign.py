@@ -100,7 +100,7 @@ def test_p5_plan_every_row_has_one_owner(it):
     ((7, 7, 4), ("warp", 32, 4, 1, "registers")),
     ((100, 1, 8), ("cta", 128, 1, 1, "registers")),
     ((256, 32, 4), ("cta", 128, 1, 2, "registers")),
-    ((40, 40, 8), ("cta", 256, 1, 1, "shared")),
+    ((40, 40, 8), ("cta", 64, 1, 1, "shared")),
     # both sides of every boundary, float32 and float64
     ((65, 32, 4), ("cta", 64, 1, 2, "registers")),
     ((32, 32, 8), ("warp", 32, 4, 1, "registers")),
@@ -108,7 +108,7 @@ def test_p5_plan_every_row_has_one_owner(it):
     ((513, 32, 4), ("cta", 256, 1, 3, "shared")),
     ((256, 32, 8), ("cta", 256, 1, 1, "registers")),
     ((257, 32, 8), ("cta", 256, 1, 2, "shared")),
-    ((100, 33, 4), ("cta", 256, 1, 1, "shared")),
+    ((100, 33, 4), ("cta", 128, 1, 1, "shared")),
     ((1743, 32, 4), ("cta", 256, 1, 7, "shared")),
     ((1744, 32, 4), ("cta", 256, 1, 7, "streaming"))])
 def test_p5_plan_at_the_smoke_shapes(shape, want):

@@ -38,6 +38,7 @@ H100_SMS = 132
 # the plan
 # ---------------------------------------------------------------------------
 
+RESERVE = hopper_ops.PANEL_SMEM_RESERVE  # K2's; rows and blocks ignore it
 PLAN_SHAPES = [(h, w, s) for h in (4, 31, 32, 33, 256, 512, 1000, 4096,
                                    16384, 32768, 65536)
                for w in (4, 64, 128) for s in (4, 8) if w <= h]
@@ -50,7 +51,8 @@ def test_plan_covers_the_panel(hh, w, itemsize, n_sm):
     block; G ≤ n_sm; a resident slab fits the block's shared memory with
     the kernels' own beside it; a block gets at least PANEL_MIN_ROWS rows
     unless the panel is shorter."""
-    plan = hopper_ops.panel_grid_plan(hh, w, itemsize, n_sm)
+    plan = hopper_ops.panel_grid_plan(hh, w, itemsize, n_sm,
+                                      hopper_ops.PANEL_SMEM_RESERVE)
     g, r = plan.blocks, plan.rows
     assert 1 <= g <= n_sm
     assert (g - 1) * r < hh <= g * r
@@ -75,25 +77,30 @@ def test_plan_covers_the_panel(hh, w, itemsize, n_sm):
 def test_plan_modes_at_the_smoke_shapes(hh, w, itemsize, mode):
     """The main path's tallest bases (K2 at 16384 × 128 f32, K3 at
     32768 × 32 f32, K4 at 32768 × 128 f32) spread over all 132 SMs with
-    resident slabs; the smoke's streaming cases stream."""
-    plan = hopper_ops.panel_grid_plan(hh, w, itemsize, H100_SMS)
+    resident slabs; the smoke's streaming cases stream. Each at its
+    kernel's own reserve (K2's at 16384 × 128 f32 and 4096 × 128 f64)."""
+    reserve = (hopper_ops.PANEL_SMEM_RESERVE
+               if (hh, w) in ((16384, 128), (4096, 128))
+               else hopper_ops.QR_PANEL_FIXED_ELEMS * itemsize)
+    plan = hopper_ops.panel_grid_plan(hh, w, itemsize, H100_SMS, reserve)
     assert plan.mode == mode
     if hh >= 16384:
         assert plan.blocks == H100_SMS
 
 
 def test_small_panels_take_few_blocks():
-    plan = hopper_ops.panel_grid_plan(512, 128, 4, H100_SMS)
+    plan = hopper_ops.panel_grid_plan(512, 128, 4, H100_SMS, RESERVE)
     assert plan.blocks < H100_SMS
     assert plan.rows >= hopper_ops.PANEL_MIN_ROWS
-    assert hopper_ops.panel_grid_plan(20, 4, 4, H100_SMS).blocks == 1
+    assert hopper_ops.panel_grid_plan(20, 4, 4, H100_SMS,
+                                      RESERVE).blocks == 1
 
 
 def test_plan_rejects_bad_arguments():
     with pytest.raises(SlateError):
-        hopper_ops.panel_grid_plan(0, 4, 4, H100_SMS)
+        hopper_ops.panel_grid_plan(0, 4, 4, H100_SMS, RESERVE)
     with pytest.raises(SlateError):
-        hopper_ops.panel_grid_plan(64, 4, 4, 0)
+        hopper_ops.panel_grid_plan(64, 4, 4, 0, RESERVE)
 
 
 # ---------------------------------------------------------------------------
@@ -270,7 +277,7 @@ def test_lu_slab_emulation_is_bitwise_the_plain_version(case, dtype):
 def test_lu_slab_emulation_on_the_plan_of_a_taller_panel():
     """The plan's own slabs at 1000 rows (32 blocks of 32, the last of
     8): ties on both sides of slab boundaries above and below j = 40."""
-    plan = hopper_ops.panel_grid_plan(1000, 16, 4, H100_SMS)
+    plan = hopper_ops.panel_grid_plan(1000, 16, 4, H100_SMS, RESERVE)
     assert (plan.blocks, plan.rows) == (32, 32)
     x = np.clip(np.random.default_rng(8).standard_normal(1000),
                 -1, 1).astype(np.float32)
@@ -328,7 +335,8 @@ def test_qr_wide_slab_emulation_within_the_smoke_tolerance(hh, w, rows,
 
 
 def test_qr_wide_plan_rows_match_the_emulation():
-    assert hopper_ops.panel_grid_plan(200, 128, 4, H100_SMS).rows == 32
+    assert hopper_ops.panel_grid_plan(
+        200, 128, 4, H100_SMS, hopper_ops.QR_PANEL_FIXED_ELEMS * 4).rows == 32
 
 
 def test_qr_wide_slab_emulation_nan_in_another_slab():

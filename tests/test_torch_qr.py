@@ -242,9 +242,15 @@ def test_cholqr_gram_above_64_block_columns_runs_k5(monkeypatch):
 
 
 def test_geqrf_complex_reaches_the_kernel_wrapper_and_raises():
+    """A complex geqrf reaches the K3 wrapper, which runs its plain version
+    on the CPU (the kernels have complex instances); a type without an
+    instance still raises there."""
     A = _cpu(np.eye(8, 4).astype(np.complex128), 4)
-    with pytest.raises(NotImplementedError, match="real float32/float64"):
-        port_qr.geqrf(A)
+    QR = port_qr.geqrf(A)
+    np.testing.assert_allclose(np.abs(np.diag(QR.r_matrix.to_numpy())),
+                               np.ones(4), rtol=1e-15)
+    with pytest.raises(NotImplementedError, match="complex128"):
+        port_qr.geqrf(_cpu(np.eye(8, 4).astype(np.float16), 4))
 
 
 @pytest.mark.parametrize("w,bases", [

@@ -95,9 +95,12 @@ def test_register_small_validation():
     assert sess.small_group_key(hc) == ("lu_small", 4, "complex64")
     with pytest.raises(SlateError, match="floating-point or complex"):
         sess.register(np.eye(4, dtype=np.int32))
-    with pytest.raises(NotImplementedError, match=r"item 3\(b\)"):
-        sess.register(stt.from_dense(np.eye(8, 4, dtype=np.complex64), 4,
-                                     device="cpu"), op="qr")
+    hq = sess.register(stt.from_dense(np.eye(8, 4, dtype=np.complex64), 4,
+                                      device="cpu"), op="qr")
+    assert sess.small_group_key(hq) is None
+    np.testing.assert_allclose(
+        sess.solve(hq, np.arange(8, dtype=np.complex64)[:, None] * 1j),
+        np.arange(4)[:, None] * 1j, atol=1e-6)
     h = sess.register(torch.eye(4, dtype=torch.float64), op="chol_small")
     assert sess.small_group_key(h) == ("chol_small", 4, "float64")
     assert sess._ops[h].A.device == sess.device

@@ -99,7 +99,16 @@ CUTS = {
               "for (int i = 32; i < 32; ++i) p[i] += x * row[i];"),
              ("if (r > j1) p[i] += x * val;", "if (r < 0) p[i] += x * val;"),
              ("p[i] = keep + __shfl_xor_sync(kFull, send, O);",
-              "p[i] = keep + send;")]],
+              "p[i] = keep + send;")],
+            # chunks of kC columns, the shuffles through cx.cuh (PR 16)
+            [("for (int c = j; c < 32; ++c) p[c] += x * m[k][c];",
+              "for (int c = 32; c < 32; ++c) p[c] += x * m[k][c];"),
+             ("for (int i = 0; i < kC; ++i) p[i] += x * row[i];",
+              "for (int i = kC; i < kC; ++i) p[i] += x * row[i];"),
+             ("if (r > j1) p[i] += x * val;", "if (r < 0) p[i] += x * val;"),
+             ("p[i] = keep + cx::shfl_xor(send, O);", "p[i] = keep + send;"),
+             ("for (int o = N; o < 32; o *= 2) s += cx::shfl_xor(s, o);",
+              "")]],
         "no_update": [
             [("      for (int e = tid; e < (H - j) * nc; e += kThreads) {",
               "      for (int e = tid; e < 0; e += kThreads) {")],
