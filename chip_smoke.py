@@ -140,6 +140,29 @@ Phases, one JSON line each:
            and P3 launches of every factor, solve and inverse are held to
            fixed numbers at n = 16384 and 2048 (nb = 512). Peak memory is read
            before the inverses and the float64 checks allocate.
+   serve   the serving front end on the main phase's operands: a fresh
+           Session with the chol, lu, qr (2n × n/2) and nb = n/128 chol
+           operators under an Executor (max_batch 32, max_wait 2 ms);
+           Executor.warmup factors each and captures its one-column solve
+           as a CUDA graph (each warmup's wall, aot_compiles and graph
+           bytes printed; its launches must be the main factor's plus two
+           solves' P1 bases: the eager run before the capture and the
+           capture); SERVE_CLIENTS client threads send 32 single-vector and
+           2 16-column requests per operator each (host arrays, every
+           result() under a timeout): every request completes, fewer
+           batches than requests, every dispatch a graph replay that
+           launches nothing, every served column under the residual gate
+           (qr: within QR_REL_LIMIT of a float64 solve), request p50/p99
+           per operator; a few served answers and 16 graph-replayed
+           solves against eager *_solve_using_factor calls on the same
+           resident factor, bit for bit (printed), and their times
+           (p50/p99); a fault drill (the first SERVE_DRILL_FAULTS
+           dispatches fail: retries, breaker trip, per-request rung;
+           completed + failed = submitted); then 1000 lu_small and 1000
+           chol_small operators at n = 256 (k = 2) served through an
+           Executor by 4 threads, one singular lu_small operator failing
+           alone with its info, requests per second, batches, the gate,
+           and grouped against per-request bits (printed, not required).
 6. small   the batched small-problem engine at both ends of the
            reference's bench_batched (float32, 2 right-hand sides):
            gesv/posv_batched at (n, B) = (256, 1000) and (32, 10000),
@@ -189,7 +212,7 @@ and a NaN), K4 at (10000, 128) complex128, which streams, and a
 instance.
 
 The kernels' launch counters are zeroed just before the check phase,
-the main phase, the small phase, the complex phase and the
+the main phase, the serve phase, the small phase, the complex phase and the
 complex_small phase and read just after each (also by element type:
 each kernel's "dtypes" and "launches_by_dtype" in the kernels line);
 the launches made to compare a kernel with its plain version are not
@@ -2226,7 +2249,384 @@ def main_path(torch, stt, ho, n, nb, gen):
         "launches_solves": solve_launches,
         "launches": launches,
         "metrics": sess.metrics.snapshot()["counters"],
+        # for the serve phase, not printed
+        "operands": {"spd": spd, "gen_m": gen_m, "tall": tall},
     }
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the serving front end (Executor, Batcher, solve graphs, faults)
+# ---------------------------------------------------------------------------
+
+SERVE_CLIENTS = 4
+# per client and dense operator: single-vector requests, then 16-column
+# blocks
+SERVE_SINGLES, SERVE_BLOCKS, SERVE_BLOCK_COLS = 32, 2, 16
+SERVE_TIMED = 16        # eager and graph-replayed solves timed per operator
+SERVE_BIT_SAMPLE = 4    # served single-vector answers re-solved eagerly
+SERVE_SMALL_OPS = 1000  # lu_small and chol_small operators each
+SERVE_SMALL_BAD = (417, 100)  # (lu_small item, zeroed column)
+SERVE_DRILL_FAULTS, SERVE_DRILL_REQUESTS = 3, 16
+RESULT_TIMEOUT = 600.0  # seconds any one future may take
+
+
+def serve_clients(ex, requests, clients=SERVE_CLIENTS):
+    """``clients`` threads, client c submitting ``requests[c::clients]``
+    ((handle, b) with host arrays) through ``ex`` and then waiting for each
+    result (RESULT_TIMEOUT). Returns, in request order, the answer or the
+    exception of each, the seconds from its submit to its resolution
+    (taken in the resolving thread), and the wall of the whole."""
+    import threading
+    answers = [None] * len(requests)
+    latency = [None] * len(requests)
+    failures = []
+
+    def client(c):
+        try:
+            futs = []
+            for i in range(c, len(requests), clients):
+                t0 = time.perf_counter()
+                f = ex.submit(*requests[i])
+                f.add_done_callback(
+                    lambda _, i=i, t0=t0: latency.__setitem__(
+                        i, time.perf_counter() - t0))
+                futs.append((i, f))
+            for i, f in futs:
+                err = f.exception(timeout=RESULT_TIMEOUT)
+                answers[i] = err if err is not None else f.result()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            failures.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if failures:
+        raise failures[0]
+    return answers, latency, wall
+
+
+def eager_solve(stt, op, payload, B):
+    """The *_solve_using_factor verb of ``op`` on a resident payload."""
+    if op == "lu":
+        return stt.lu_solve_using_factor(*payload, B)
+    if op == "qr":
+        return stt.least_squares_solve_using_factor(payload[0], B)
+    return stt.chol_solve_using_factor(payload[0], B)
+
+
+def serve_dense(torch, stt, ho, main, operands, n, nb, seed):
+    """The dense operators of the main phase under a fresh Session and an
+    Executor: warmup (factor + graph capture) of each, SERVE_CLIENTS
+    client threads of requests, the gate on every served column,
+    graph-replayed against eager bits, eager against graph-replayed solve
+    times, and the fault drill."""
+    import numpy as np
+    from slate_tpu_torch.runtime.metrics import Histogram
+    dev = "cuda"
+    spd, gen_m, tall = operands["spd"], operands["gen_m"], operands["tall"]
+    n_q = tall.shape[1]
+    sess = stt.Session(hbm_budget=16 << 30, device=dev)
+    ops = {"chol": sess.register(stt.hermitian(spd, nb, stt.Uplo.Lower,
+                                               device=dev), op="chol"),
+           "lu": sess.register(stt.from_dense(gen_m, nb, device=dev),
+                               op="lu"),
+           "qr": sess.register(stt.from_dense(tall, nb, device=dev),
+                               op="qr"),
+           "chol_nb128": sess.register(stt.hermitian(
+               spd, n // 128, stt.Uplo.Lower, device=dev), op="chol")}
+    a_of = {"chol": spd, "lu": gen_m, "qr": tall, "chol_nb128": spd}
+    kernels = ("chol_tile", "lu_panel_base", "qr_panel_base",
+               "qr_panel_base_wide", "herk_lower_update")
+    m = sess.metrics
+    out = {"n": n, "nb": nb, "dtype": "float32", "qr_shape": [2 * n, n_q],
+           "clients": SERVE_CLIENTS, "max_batch": 32, "max_wait_s": 2e-3,
+           "warmup": {}}
+    with stt.Executor(sess, max_batch=32, max_wait=2e-3) as ex:
+        for name, h in ops.items():
+            compiles = m.get("aot_compiles")
+            before = dict(ho.LAUNCHES)
+            t0 = time.perf_counter()
+            ex.warmup([h])
+            wall = time.perf_counter() - t0
+            got = {k: ho.LAUNCHES[k] - before[k] for k in ho.LAUNCHES}
+            res = sess.factor(h)
+            out["warmup"][name] = {
+                "wall_s": wall, "aot_compiles": m.get("aot_compiles"),
+                "captured": m.get("aot_compiles") - compiles,
+                "graph_bytes": sum(g.nbytes for g in res.graphs.values()),
+                "launches": {k: v for k, v in got.items() if v}}
+            check(res.info == 0 and len(res.graphs) == 1,
+                  f"serve warmup {name}: info {res.info}, "
+                  f"{len(res.graphs)} graphs")
+            # the factor launches the main phase's factor of the same
+            # operator made; P1: the factor's, the eager run and the capture
+            fl = main["launches_factor"][name]
+            p1 = (fl["trtri_leaves"] + 2 * main["launches_solves"][name]
+                  ["trtri_leaves"] // main["requests_per_operator"])
+            check(all(got[k] == fl[k] for k in kernels)
+                  and got["trtri_leaves"] == p1,
+                  f"serve warmup {name} launched {got}, expected the main "
+                  f"factor's {fl} and {p1} trtri_leaves")
+        check(m.get("aot_compiles") == len(ops),
+              f"serve: {m.get('aot_compiles')} captures for {len(ops)} "
+              "warmed operators")
+
+        # the requests: per client and operator SERVE_SINGLES vectors and
+        # SERVE_BLOCKS 16-column blocks, interleaved across the operators
+        requests, meta = [], []
+        for c in range(SERVE_CLIENTS):
+            rng = np.random.default_rng([seed, c])
+            per_op = []
+            for name, h in ops.items():
+                rows = 2 * n if name == "qr" else n
+                mine = [rng.standard_normal(rows, dtype=np.float32)
+                        for _ in range(SERVE_SINGLES)]
+                mine += [rng.standard_normal((rows, SERVE_BLOCK_COLS),
+                                             dtype=np.float32)
+                         for _ in range(SERVE_BLOCKS)]
+                per_op.append([(name, h, b) for b in mine])
+            for reqs in itertools.zip_longest(*per_op):
+                for r in reqs:
+                    if r is not None:
+                        meta.append(r[0])
+                        requests.append(r[1:])
+        counters0 = dict(m.snapshot()["counters"])
+        before = dict(ho.LAUNCHES)
+        answers, latency, wall = serve_clients(
+            ex, [(h, b) for h, b in requests])
+        counters = m.snapshot()["counters"]
+        delta = {k: v - counters0.get(k, 0) for k, v in counters.items()}
+        req_launches = {k: ho.LAUNCHES[k] - before[k] for k in ho.LAUNCHES}
+    bad = [a for a in answers if isinstance(a, BaseException)]
+    check(not bad, f"serve: {len(bad)} requests failed: {bad[:2]}")
+    check(delta["completed_requests"] == delta["requests_total"]
+          == len(requests)
+          and delta["batches_total"] < delta["requests_total"],
+          f"serve: counters {delta} for {len(requests)} requests")
+    # every batch fits its warmed graph's padded width: each dispatch is a
+    # replay, and a replay launches nothing through the wrappers
+    check(delta.get("graph_replays", 0) == delta["dispatches_total"]
+          and not any(req_launches.values()),
+          f"serve: {delta.get('graph_replays', 0)} replays of "
+          f"{delta['dispatches_total']} dispatches, launches {req_launches}")
+    lat = {name: Histogram() for name in ops}
+    for name, s in zip(meta, latency):
+        lat[name].observe(s)
+    out.update(requests=len(requests), wall_s=wall,
+               requests_per_s=len(requests) / wall,
+               counters=delta,
+               request_latency_s={k: {"p50": v.percentile(50),
+                                      "p99": v.percentile(99),
+                                      "count": v.count}
+                                  for k, v in lat.items()},
+               metrics_request_latency=m.histogram("request_latency"))
+
+    # the gate on every served column, and served answers against eager
+    # solves of their own right-hand side on the same resident factor
+    gate, bits = {}, {}
+    for name, h in ops.items():
+        idx = [i for i, k in enumerate(meta) if k == name]
+        bcols = [requests[i][1].reshape(requests[i][1].shape[0], -1)
+                 for i in idx]
+        xcols = [answers[i].reshape(answers[i].shape[0], -1) for i in idx]
+        B = torch.from_numpy(np.concatenate(bcols, axis=1)).to(dev)
+        X = torch.from_numpy(np.concatenate(xcols, axis=1)).to(dev)
+        if name == "qr":
+            tall64 = tall.double()
+            rel = rel_errors(torch, X, lstsq_normal64(torch, tall64, B))
+            del tall64
+            gate[name] = {"worst_rel_err": max(rel), "limit": QR_REL_LIMIT,
+                          "columns": len(rel)}
+            ok = max(rel) <= QR_REL_LIMIT
+        else:
+            r = scaled_residuals(torch, a_of[name], X, B, in_wide=True)
+            gate[name] = {"worst_scaled_residual": max(r),
+                          "limit": RESIDUAL_BOUND, "columns": len(r)}
+            ok = max(r) <= RESIDUAL_BOUND
+        check(ok, f"serve {name}: {gate[name]}")
+        payload = sess.factor(h).payload
+        same = []
+        for i in idx[:SERVE_BIT_SAMPLE]:
+            b = torch.from_numpy(requests[i][1][:, None]).to(dev)
+            xe = eager_solve(stt, name, payload,
+                             stt.from_dense(b, sess._ops[h].A.nb,
+                                            device=dev)).to_numpy()[:, 0]
+            same.append(bool(np.array_equal(xe.view(np.int32),
+                                            answers[i].view(np.int32))))
+        bits[name] = {"served_vs_eager_bitwise": same}
+    out["gate"] = gate
+
+    # eager against graph-replayed solves of one column, timed, and their
+    # bits; the replays launch nothing through the wrappers
+    timing = {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    for name, h in ops.items():
+        rows = 2 * n if name == "qr" else n
+        B = stt.from_dense(torch.randn((rows, 1), generator=gen, device=dev),
+                           sess._ops[h].A.nb, device=dev)
+        payload = sess.factor(h).payload
+        he, hg = Histogram(), Histogram()
+        before = dict(ho.LAUNCHES)
+        for _ in range(SERVE_TIMED):
+            t0 = time.perf_counter()
+            xe = eager_solve(stt, name, payload, B)
+            torch.cuda.synchronize()
+            he.observe(time.perf_counter() - t0)
+        eager_p1 = ho.LAUNCHES["trtri_leaves"] - before["trtri_leaves"]
+        before = dict(ho.LAUNCHES)
+        for _ in range(SERVE_TIMED):
+            t0 = time.perf_counter()
+            xg = sess.solve_matrix(h, B)  # ends in a device sync
+            hg.observe(time.perf_counter() - t0)
+        graph_launches = sum(ho.LAUNCHES[k] - before[k] for k in ho.LAUNCHES)
+        p1 = SERVE_TIMED * main["launches_solves"][name]["trtri_leaves"] \
+            // main["requests_per_operator"]
+        check(eager_p1 == p1 and graph_launches == 0,
+              f"serve {name}: the eager solves launched {eager_p1} "
+              f"trtri_leaves (expected {p1}), the replays {graph_launches} "
+              "kernels")
+        equal = torch.equal(xe.dense(), xg.dense())
+        bits[name]["graph_vs_eager_bitwise"] = equal
+        if not equal:
+            bits[name]["max_abs_diff"] = float(
+                (xe.dense() - xg.dense()).abs().max())
+        timing[name] = {"eager_p50_s": he.percentile(50),
+                        "eager_p99_s": he.percentile(99),
+                        "graph_p50_s": hg.percentile(50),
+                        "graph_p99_s": hg.percentile(99),
+                        "eager_p1_launches": eager_p1}
+    out["solve_timing"] = timing
+    out["bits"] = bits
+    out["graph_equals_eager_bitwise"] = all(
+        v["graph_vs_eager_bitwise"] and all(v["served_vs_eager_bitwise"])
+        for v in bits.values())
+    check(out["graph_equals_eager_bitwise"],
+          f"serve: graph-replayed or served answers differ from the eager "
+          f"*_solve_using_factor bits: {bits}")
+
+    # the fault drill: the first SERVE_DRILL_FAULTS dispatches fail
+    # (requests against the chol operator only), one retry each bucket,
+    # the breaker opens at the first exhausted bucket
+    sess.enable_faults(stt.FaultPlan(seed=seed, specs=(stt.FaultSpec(
+        "dispatch_error", rate=1.0, count=SERVE_DRILL_FAULTS),)))
+    rng = np.random.default_rng([seed, 99])
+    drill_b = [rng.standard_normal(n, dtype=np.float32)
+               for _ in range(SERVE_DRILL_REQUESTS)]
+    counters0 = dict(m.snapshot()["counters"])
+    with stt.Executor(sess, max_batch=8, max_wait=2e-3, retries=1,
+                      backoff_base=1e-3, breaker_threshold=1,
+                      breaker_cooldown=0.05) as ex:
+        answers, _, _ = serve_clients(
+            ex, [(ops["chol"], b) for b in drill_b], clients=1)
+    sess.faults = None
+    counters = m.snapshot()["counters"]
+    delta = {k: v - counters0.get(k, 0) for k, v in counters.items()}
+    failed = [a for a in answers if isinstance(a, BaseException)]
+    served = [(a, b) for a, b in zip(answers, drill_b)
+              if not isinstance(a, BaseException)]
+    if served:
+        X = torch.from_numpy(np.stack([a for a, _ in served], 1)).to(dev)
+        B = torch.from_numpy(np.stack([b for _, b in served], 1)).to(dev)
+        worst = max(scaled_residuals(torch, spd, X, B, in_wide=True))
+        check(worst <= RESIDUAL_BOUND, f"serve drill: residual {worst}")
+    drill = {"submitted": len(drill_b), "completed": len(served),
+             "failed": len(failed),
+             "errors": sorted({type(e).__name__ for e in failed}),
+             **{k: delta.get(k, 0) for k in (
+                 "faults_injected_total", "retries", "breaker_trips_total",
+                 "degraded_dispatches_total", "breaker_short_circuits",
+                 "breaker_probes_total", "breaker_closes_total",
+                 "completed_requests", "failed_requests_total",
+                 "requests_total")}}
+    check(drill["completed"] + drill["failed"] == drill["submitted"]
+          == drill["completed_requests"] + drill["failed_requests_total"]
+          == drill["requests_total"]
+          and drill["faults_injected_total"] == SERVE_DRILL_FAULTS
+          and drill["breaker_trips_total"] >= 1
+          and drill["degraded_dispatches_total"] >= 1,
+          f"serve fault drill: {drill}")
+    out["fault_drill"] = drill
+    out["metrics"] = m.snapshot()["counters"]
+    return out
+
+
+def serve_small(torch, stt, gen, seed):
+    """SERVE_SMALL_OPS lu_small and as many chol_small operators at
+    n = 256 (k = 2, float32) under one Session, each served one request
+    through an Executor by SERVE_CLIENTS client threads; one lu_small
+    operator is singular (a zero column) and must fail alone."""
+    import numpy as np
+    dev, n, k = "cuda", SESSION_N, SMALL_RHS
+    item, col = SERVE_SMALL_BAD
+    a_lu = torch.randn((SERVE_SMALL_OPS, n, n), generator=gen, device=dev)
+    a_lu[item, :, col] = 0
+    a_ch = torch.randn((SERVE_SMALL_OPS, n, n), generator=gen, device=dev)
+    a_ch = a_ch @ a_ch.mT / n + torch.eye(n, device=dev)
+    sess = stt.Session(device=dev)
+    hs = ([sess.register(a, op="lu_small") for a in a_lu]
+          + [sess.register(a, op="chol_small") for a in a_ch])
+    rhs = np.random.default_rng([seed, 7]).standard_normal(
+        (len(hs), n, k), dtype=np.float32)
+    # lu and chol requests interleaved
+    order = [i for pair in zip(range(SERVE_SMALL_OPS),
+                               range(SERVE_SMALL_OPS, len(hs)))
+             for i in pair]
+    with stt.Executor(sess, max_batch=32, max_wait=2e-3) as ex:
+        answers, latency, wall = serve_clients(
+            ex, [(hs[i], rhs[i]) for i in order])
+    by_op = dict(zip(order, answers))
+    lat = dict(zip(order, latency))
+    err = by_op[item]
+    check(isinstance(err, stt.SlateError) and f"info={col + 1}" in str(err),
+          f"serve small: the singular operator gave {err!r}")
+    others = [i for i in range(len(hs)) if i != item]
+    bad = [i for i in others if isinstance(by_op[i], BaseException)]
+    check(not bad, f"serve small: operators {bad[:4]} failed too")
+    worst = {}
+    for name, a, ids in (("lu_small", a_lu, range(SERVE_SMALL_OPS)),
+                         ("chol_small", a_ch,
+                          range(SERVE_SMALL_OPS, len(hs)))):
+        keep = [i for i in ids if i != item]
+        x = torch.from_numpy(np.stack([by_op[i] for i in keep])).to(dev)
+        b = torch.from_numpy(rhs[keep]).to(dev)
+        worst[name] = batched_residuals(
+            torch, a[[i - ids[0] for i in keep]], x, b).max().item()
+        check(worst[name] <= RESIDUAL_BOUND,
+              f"serve small {name}: worst scaled residual {worst[name]}")
+    # grouped against per-request bits, printed (ROADMAP queue 3: the
+    # batched gemms differ on the card)
+    sample = [i for i in range(8) if i != item] + list(
+        range(SERVE_SMALL_OPS, SERVE_SMALL_OPS + 8))
+    same = [bool(np.array_equal(sess.solve(hs[i], rhs[i]).view(np.int32),
+                                by_op[i].view(np.int32))) for i in sample]
+    c = sess.metrics.snapshot()["counters"]
+    lh = sorted(lat.values())
+    return {"n": n, "k": k, "operators": len(hs), "requests": len(hs),
+            "wall_s": wall, "requests_per_s": len(hs) / wall,
+            "request_latency_p50_s": lh[len(lh) // 2],
+            "request_latency_p99_s": lh[min(len(lh) - 1,
+                                            round(0.99 * (len(lh) - 1)))],
+            "batches_total": c["batches_total"],
+            "worst_scaled_residual": worst, "gate": RESIDUAL_BOUND,
+            "singular": {"item": item, "error": str(err)},
+            "grouped_equals_per_request_bitwise": same,
+            "counters": c}
+
+
+def serve_phase(torch, stt, ho, main, operands, n, nb, seed, gen):
+    """The serving front end on the card: ``serve_dense`` on the main
+    phase's operators and ``serve_small``."""
+    t0 = time.perf_counter()
+    out = serve_dense(torch, stt, ho, main, operands, n, nb, seed)
+    out["small"] = serve_small(torch, stt, gen, seed)
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3161,8 +3561,15 @@ def main(argv=None) -> int:
              blas3=blas3, inverse_and_nopiv=inverse, calu=calu,
              launches=check_launches)
         main = main_path(torch, stt, ho, args.n, args.nb, gen)
+        operands = main.pop("operands")
         main_types = {k: dict(v) for k, v in ho.TYPE_LAUNCHES.items()}
         emit("main", **main)
+        ho.reset_launches()
+        serve = serve_phase(torch, stt, ho, main, operands, args.n, args.nb,
+                            args.seed, gen)
+        del operands
+        serve_launches, serve_types = launch_snapshot(ho)
+        emit("serve", **serve, launches=serve_launches)
         ho.reset_launches()
         small = small_phase(torch, stt, ho, gen)
         small_launches, small_types = launch_snapshot(ho)
@@ -3219,11 +3626,11 @@ def main(argv=None) -> int:
              "slate_tpu/ops/blocked.py:1216")):
         row = timed[name]
         launches = (check_launches[name] + main["launches"][name]
-                    + small_launches[name] + cx["launches"][name]
-                    + cx_small_launches[name])
+                    + serve_launches[name] + small_launches[name]
+                    + cx["launches"][name] + cx_small_launches[name])
         check(launches > 0, f"{name} was not launched on a counted path")
         by_type = {}
-        for phase in (check_types, main_types, small_types,
+        for phase in (check_types, main_types, serve_types, small_types,
                       cx["launches_by_dtype"], cx_small_types):
             for dt, k in phase[name].items():
                 by_type[dt] = by_type.get(dt, 0) + k

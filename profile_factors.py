@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Where the port's Cholesky, LU and QR factors spend their time, on one
-NVIDIA GPU.
+"""Where the port's Cholesky, LU and QR factors and solves spend their
+time, on one NVIDIA GPU.
 
     python3 profile_factors.py            # n=16384, nb=512, float32
     python3 profile_factors.py --n 2048   # a shorter run
     python3 profile_factors.py --factors chol,chol_f64   # only these
+    python3 profile_factors.py --solves chol,lu,qr,chol_nb128  # solves only
 
 By default factors the SPD (n × n, op "chol", at nb and at nb = n/128,
 where potrf takes its recursion and K1 runs at b = n/128), the general
@@ -40,7 +41,17 @@ calls between CUDA events in the unprofiled run, and their share of
 that wall), the device time of the cuBLAS gemm kernels (every device
 event whose name holds "gemm") and its share of the busy time beside the
 port's kernels' shares (``shares``), and the top twelve
-device events by device time and host ops by self CPU time. The last line is the card's nvidia-smi name and
+device events by device time and host ops by self CPU time.
+
+``--solves`` (alone it runs no factor) profiles one-column solves
+against the resident factors of the same operators (names as above:
+chol, lu, qr, chol_nb128, at chip_smoke.py's serve phase's shapes),
+eager and replayed from the CUDA graph ``Session.warmup`` captures, on
+the same factor and right-hand side: for each, one solve under the
+profiler (device events, busy ms, the port's kernels) and the
+unprofiled wall of SOLVE_REPS more (median, min, max; host clock ending
+in a sync), the capture's wall and bytes, and whether the two answers
+are equal bit for bit. The last line is the card's nvidia-smi name and
 power limit. Exits 2 without a CUDA device. Imports nothing of JAX and
 nothing of slate_tpu.
 """
@@ -148,17 +159,28 @@ def herk_recursion(torch):
                stream_ms=sum(a.elapsed_time(b) for a, b in events))
 
 
+def dev_us(e):
+    for k in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(e, k):
+            return getattr(e, k)
+    return 0.0
+
+
+def on_device(e):  # a kernel, copy or set on the card, not a host op
+    return str(e.device_type).endswith("CUDA")
+
+
+def port_kernels(dev):
+    """Device ms and launches of each of the port's kernels among the
+    device events ``dev``."""
+    return {k: {"device_ms": sum(dev_us(e) for e in mine) / 1e3,
+                "count": sum(e.count for e in mine)}
+            for k, func in KERNEL_FUNCS.items()
+            for mine in [[e for e in dev if func in e.key]]}
+
+
 def profile_factor(torch, stt, sess, shape, op, nb, dtype, gen, top=12):
     from torch.profiler import ProfilerActivity, profile
-
-    def dev_us(e):
-        for k in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(e, k):
-                return getattr(e, k)
-        return 0.0
-
-    def on_device(e):  # a kernel, copy or set on the card, not a host op
-        return str(e.device_type).endswith("CUDA")
 
     h = register(torch, stt, sess, shape, op, nb, gen, dtype)
     torch.cuda.synchronize()
@@ -185,10 +207,7 @@ def profile_factor(torch, stt, sess, shape, op, nb, dtype, gen, top=12):
     dev = [e for e in events if on_device(e)]
     host = [e for e in events if not on_device(e)]
     busy_us = sum(dev_us(e) for e in dev)
-    port = {k: {"device_ms": sum(dev_us(e) for e in mine) / 1e3,
-                "count": sum(e.count for e in mine)}
-            for k, func in KERNEL_FUNCS.items()
-            for mine in [[e for e in dev if func in e.key]]}
+    port = port_kernels(dev)
     gemm = [e for e in dev if "gemm" in e.key.lower()]
     gemm_ms = sum(dev_us(e) for e in gemm) / 1e3
     return {
@@ -218,16 +237,84 @@ def profile_factor(torch, stt, sess, shape, op, nb, dtype, gen, top=12):
                      [:top]]}
 
 
+SOLVE_REPS = 16
+
+
+def profile_solve(torch, stt, sess, shape, op, nb, gen, top=8):
+    """One-column solves against a resident factor, eager and replayed
+    from the graph that ``Session.warmup`` captures (see the module
+    docstring). The eager arm runs before the warmup on the same
+    Session and factor, so both read the same payload."""
+    from torch.profiler import ProfilerActivity, profile
+
+    h = register(torch, stt, sess, shape, op, nb, gen, torch.float32)
+    if sess.factor_info(h) != 0:
+        raise AssertionError(f"{op} factor failed")
+    b = torch.randn((shape[0], 1), generator=gen, device="cuda")
+    B = stt.from_dense(b, nb, device="cuda")
+
+    def arm():
+        X = sess.solve_matrix(h, B)  # ends in a device sync
+        for _ in range(2):
+            sess.solve_matrix(h, B)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sess.solve_matrix(h, B)
+        walls = []
+        for _ in range(SOLVE_REPS):
+            t0 = time.perf_counter()
+            sess.solve_matrix(h, B)
+            walls.append(time.perf_counter() - t0)
+        dev = [e for e in prof.key_averages() if on_device(e)]
+        walls.sort()
+        return X.dense().clone(), {
+            "unprofiled_wall_s": {"median": walls[len(walls) // 2],
+                                  "min": walls[0], "max": walls[-1]},
+            "device_busy_ms": sum(dev_us(e) for e in dev) / 1e3,
+            "device_events": sum(e.count for e in dev),
+            "port_kernels": {k: v for k, v in port_kernels(dev).items()
+                             if v["count"]},
+            "top_device": [{"name": e.key[:80], "count": e.count,
+                            "device_ms": dev_us(e) / 1e3}
+                           for e in sorted(dev, key=lambda e: -dev_us(e))
+                           [:top]]}
+
+    x_eager, eager = arm()
+    compiles = sess.metrics.get("aot_compiles")
+    t0 = time.perf_counter()
+    sess.warmup(h)
+    capture_s = time.perf_counter() - t0
+    if sess.metrics.get("aot_compiles") != compiles + 1:
+        raise AssertionError(f"{op}: warmup captured no graph")
+    res = sess.factor(h)
+    x_graph, graph = arm()
+    out = {"op": op, "shape": list(shape), "nb": nb, "dtype": "float32",
+           "rhs_cols": 1, "eager": eager, "graph": graph,
+           "capture_s": capture_s,
+           "graph_bytes": sum(g.nbytes for g in res.graphs.values()),
+           "bit_equal": bool(torch.equal(x_eager, x_graph)),
+           "max_abs_diff": float((x_eager - x_graph).abs().max())}
+    sess.unregister(h)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=16384)
     ap.add_argument("--nb", type=int, default=512)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--factors", default="chol,lu,qr,chol_nb128",
-                    help="which factors to profile, comma-separated (also "
-                    "nopiv, calu, chol_f64, chol_nb1024, qr_f64_nb32, "
-                    "chol_c64, lu_c64, chol_c64_nb128, qr_c64)")
+    ap.add_argument("--factors", default=None,
+                    help="which factors to profile, comma-separated "
+                    "(default chol,lu,qr,chol_nb128 unless --solves is "
+                    "given; also nopiv, calu, chol_f64, chol_nb1024, "
+                    "qr_f64_nb32, chol_c64, lu_c64, chol_c64_nb128, "
+                    "qr_c64)")
+    ap.add_argument("--solves", default="",
+                    help="which solves to profile eager and graph-replayed, "
+                    "comma-separated: chol, lu, qr, chol_nb128")
     args = ap.parse_args(argv)
+    if args.factors is None:
+        args.factors = "" if args.solves else "chol,lu,qr,chol_nb128"
 
     import torch
     if not torch.cuda.is_available():
@@ -255,11 +342,14 @@ def main(argv=None) -> int:
                "lu_c64": ((n, n), "lu", args.nb, c64),
                "chol_c64_nb128": ((n, n), "chol", n // 128, c64),
                "qr_c64": ((2 * n, n // 2), "qr", args.nb, c64)}
-    chosen = args.factors.split(",")
+    chosen = [c for c in args.factors.split(",") if c]
+    solves = [c for c in args.solves.split(",") if c]
     if not set(chosen) <= set(factors):
         ap.error(f"--factors: choose from {sorted(factors)}")
+    if not set(solves) <= {"chol", "lu", "qr", "chol_nb128"}:
+        ap.error("--solves: choose from chol, lu, qr, chol_nb128")
     warm = {((1024, 1024) if op != "qr" else (2048, 512), op, dt)
-            for _, op, _, dt in (factors[c] for c in chosen)}
+            for _, op, _, dt in (factors[c] for c in chosen + solves)}
     sess = stt.Session(hbm_budget=8 << 30, device="cuda")
     with full_precision():
         for shape, op, dt in sorted(warm, key=str):
@@ -272,6 +362,10 @@ def main(argv=None) -> int:
             shape, op, nb, dt = factors[name]
             print(json.dumps({"factor": name, **profile_factor(
                 torch, stt, sess, shape, op, nb, dt, gen)}), flush=True)
+        for name in solves:
+            shape, op, nb, _ = factors[name]
+            print(json.dumps({"solve": name, **profile_solve(
+                torch, stt, sess, shape, op, nb, gen)}), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,

@@ -29,6 +29,11 @@ from .linalg.lu import (gerbt, gesv, gesv_nopiv, gesv_rbt, getrf,
 from .linalg.norms import col_norms, norm
 from .linalg.qr import (QRFactors, cholqr, gelqf, gels, gels_using_factor,
                         geqrf, qr_multiply_explicit, tsqr, unmlq, unmqr)
+from .runtime import (DEGRADATION_LADDER, Batcher, DeadlineExceeded,
+                      Executor, FaultInjector, FaultPlan, FaultSpec,
+                      Histogram, Metrics, QuotaExceeded, RequestShed,
+                      ShedPolicy, TransientDispatchError, default_plan,
+                      default_session)
 from .runtime.session import Session
 
 __all__ = [
@@ -52,4 +57,8 @@ __all__ = [
     "getri", "getri_oop", "getrs",
     "QRFactors", "cholqr", "gelqf", "gels", "gels_using_factor", "geqrf",
     "qr_multiply_explicit", "tsqr", "unmlq", "unmqr", "Session",
+    "Batcher", "Executor", "Histogram", "Metrics", "ShedPolicy",
+    "default_session", "DEGRADATION_LADDER", "DeadlineExceeded",
+    "FaultInjector", "FaultPlan", "FaultSpec", "QuotaExceeded",
+    "RequestShed", "TransientDispatchError", "default_plan",
 ]

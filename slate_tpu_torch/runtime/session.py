@@ -9,17 +9,26 @@ least-squares operators: ``solve`` takes m-row right-hand sides and
 returns n-row solutions) and the small-problem operators "lu_small" and
 "chol_small": a plain dense (n, n) numpy array or tensor, factored and
 solved by the batched engine (``linalg/batched.py``) at B = 1 per
-request, or many requests at once through ``solve_small_batched``. The
-reference's Batcher, Executor, refinement, meshes, band operators,
-tracing and fault injection are later slices: registering such an
-operator raises ``NotImplementedError``.
+request, or many requests at once through ``solve_small_batched``.
+
+``warmup`` factors an operator off the request path and, on a CUDA
+device, captures its dense solve as a ``torch.cuda.CUDAGraph`` (the
+card's counterpart of the reference's AOT-compiled solve program):
+``solve_matrix`` replays it whenever a request's padded right-hand side
+matches. The Batcher and Executor (``batching.py``, ``executor.py``) sit
+above this class; ``faults`` injects failures at its seams. Refinement,
+meshes, band and spectral operators, tenants, SLOs, attribution, the
+recorder and tracing are later slices: they raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 import time
+import traceback
 from collections import OrderedDict
 from typing import Dict, Hashable, List, Optional, Tuple
 
@@ -29,7 +38,8 @@ import torch
 from .. import api
 from ..core.exceptions import SlateError
 from ..linalg.qr import QRFactors
-from ..core.tiled_matrix import TiledMatrix, from_dense, resolve_device
+from ..core.tiled_matrix import (TiledMatrix, from_dense, num_tiles,
+                                 resolve_device)
 from ..core.types import MatrixKind, Options, DEFAULT_OPTIONS
 from ..linalg import batched as _batched
 from ..obs import flops as _flops
@@ -39,6 +49,10 @@ SMALL_OPS = ("lu_small", "chol_small")
 OPS = ("lu", "chol", "qr") + SMALL_OPS
 # op kinds of the reference Session that later slices port
 LATER_OPS = ("band_lu", "band_chol", "eig", "svd")
+# where the reference Session's other serving features are queued
+_TENANTS_LATER = "tenants and tenant policies are not ported yet (ROADMAP " \
+                 "Queue 1 item 11)"
+_OBS_LATER = "is not ported yet (observability: ROADMAP Queue 1 item 10)"
 
 
 @dataclasses.dataclass
@@ -51,10 +65,26 @@ class _Operator:
 
 
 @dataclasses.dataclass
+class _SolveGraph:
+    """One captured dense solve: replaying ``graph`` solves the static
+    right-hand side ``b`` into the static solution ``x`` (a TiledMatrix
+    whose storage lives in the graph's memory pool). ``nbytes``: ``b``
+    plus the pool the capture reserved."""
+    graph: object
+    b: torch.Tensor
+    x: TiledMatrix
+    nbytes: int
+
+
+@dataclasses.dataclass
 class _Resident:
     payload: Tuple  # the *_solve_using_factor arguments
     info: int
-    nbytes: int
+    nbytes: int  # the payload's bytes plus its graphs'
+    # the CUDA graphs of the warmed solves on this factor, by padded
+    # right-hand side (rows, cols, dtype); they go with the factor
+    graphs: Dict[Tuple, _SolveGraph] = dataclasses.field(
+        default_factory=dict)
 
 
 def _payload_nbytes(payload) -> int:
@@ -127,27 +157,49 @@ def _make_solve_fn(op: str, opts: Options):
     return solve
 
 
+def _failing_call(e: BaseException) -> str:
+    """The innermost frame of ``e``'s traceback as "function (file:line)"."""
+    frames = traceback.extract_tb(e.__traceback__)
+    if not frames:
+        return "?"
+    f = frames[-1]
+    return f"{f.name} ({os.path.basename(f.filename)}:{f.lineno})"
+
+
 class Session:
     """Resident-factorization solve service with a byte-budget LRU cache.
 
-    ``hbm_budget`` bounds the device bytes of CACHED FACTORS (the
-    registered operators are the caller's and are not charged); ``None``
-    is unbounded. A factor larger than the whole budget is kept (serving
-    needs it) and counted in ``budget_overflows``. ``device`` defaults to
-    "cuda" and raises without a card unless "cpu" is asked for.
-    Public methods are thread-safe (one lock)."""
+    ``hbm_budget`` bounds the device bytes of CACHED FACTORS and their
+    solve graphs (the registered operators are the caller's and are not
+    charged); ``None`` is unbounded. A factor larger than the whole
+    budget is kept (serving needs it) and counted in
+    ``budget_overflows``. ``device`` defaults to "cuda" and raises
+    without a card unless "cpu" is asked for. Public methods are
+    thread-safe (one lock, held across device work); ``op_meta``,
+    ``degrade_class``, ``small_group_key`` and ``recompute_cost`` read
+    without it, so an enqueue never waits on a solve."""
 
     def __init__(self, hbm_budget: Optional[int] = None,
                  opts: Options = DEFAULT_OPTIONS,
-                 metrics: Optional[Metrics] = None, device="cuda"):
+                 metrics: Optional[Metrics] = None, device="cuda",
+                 tenant_policies=None, tracer=None):
+        if tenant_policies is not None:
+            raise NotImplementedError(f"Session: {_TENANTS_LATER}")
+        if tracer is not None:
+            raise NotImplementedError(f"Session: tracing {_OBS_LATER}")
         self.hbm_budget = hbm_budget
         self.opts = opts
         self.device = resolve_device(device)
         self.metrics = metrics or Metrics()
+        # a FaultInjector (enable_faults); None: every seam is one check
+        self.faults = None
         self._lock = threading.RLock()
         self._ops: Dict[Hashable, _Operator] = {}
         self._cache: "OrderedDict[Hashable, _Resident]" = OrderedDict()
-        self._cached_total = 0  # the bytes of the factors in _cache
+        self._cached_total = 0  # the bytes of the residents in _cache
+        # the graph keys warmup asked for, per handle: a refactored
+        # resident captures them again on its first matching solve
+        self._warm: Dict[Hashable, set] = {}
         self._seq = 0
 
     # -- registration ------------------------------------------------------
@@ -163,7 +215,8 @@ class Session:
 
     def register(self, A, op: str = "auto",
                  handle: Optional[Hashable] = None,
-                 opts: Optional[Options] = None) -> Hashable:
+                 opts: Optional[Options] = None,
+                 tenant: Optional[str] = None) -> Hashable:
         """Register an operator; returns its handle (an int unless
         given). ``op`` is "chol", "lu", "qr", "lu_small", "chol_small" or
         "auto" (a plain array → lu_small; Hermitian/Symmetric → chol,
@@ -172,6 +225,8 @@ class Session:
         ``TiledMatrix`` on the session's device; the small ops a plain
         (n, n) numpy array or tensor of a float or complex type, which
         the session puts on its device."""
+        if tenant is not None:
+            raise NotImplementedError(f"Session.register: {_TENANTS_LATER}")
         if op == "auto":
             op = self._infer_op(A)
         if op in LATER_OPS:
@@ -230,9 +285,11 @@ class Session:
         return t.to(self.device)
 
     def unregister(self, handle: Hashable):
-        """Drop an operator and its cached factor (no error if absent)."""
+        """Drop an operator, its cached factor and its graphs (no error
+        if absent)."""
         with self._lock:
             self._ops.pop(handle, None)
+            self._warm.pop(handle, None)
             self._drop(handle)
 
     def __contains__(self, handle: Hashable) -> bool:
@@ -242,6 +299,21 @@ class Session:
     def handles(self):
         with self._lock:
             return list(self._ops)
+
+    def op_meta(self, handle: Hashable) -> Optional[Tuple[str, int]]:
+        """(op, n) of a registered handle, or None. Lock-free (a dict
+        read is atomic under the GIL; entries are immutable after
+        register): the Batcher and Executor call it on the request path,
+        and the session lock is held across device work."""
+        entry = self._ops.get(handle)
+        return None if entry is None else (entry.op, entry.n)
+
+    def degrade_class(self, handle: Hashable) -> Optional[str]:
+        """The ``faults.DEGRADATION_LADDER`` family of a handle's serving
+        path, None for unknown handles. Every ported op serves "dense"
+        ("mixed" and "mesh" arrive with ROADMAP items 6 and 12; grouped
+        small buckets classify themselves). Lock-free, as ``op_meta``."""
+        return None if self._ops.get(handle) is None else "dense"
 
     # -- cache -------------------------------------------------------------
     @property
@@ -257,6 +329,7 @@ class Session:
     def _drop(self, handle) -> bool:
         res = self._cache.pop(handle, None)
         if res is not None:
+            res.graphs.clear()  # the graphs' pools go with the factor
             self._cached_total -= res.nbytes
             self.metrics.inc("evictions")
             self.metrics.inc("evicted_bytes", res.nbytes)
@@ -264,9 +337,23 @@ class Session:
         return res is not None
 
     def evict(self, handle: Hashable) -> bool:
-        """Drop a cached factor (the operator stays registered)."""
+        """Drop a cached factor and its graphs (the operator stays
+        registered; a warmed one captures again after its refactor)."""
         with self._lock:
             return self._drop(handle)
+
+    def clear_cache(self):
+        """Drop every cached factor and its graphs (counted as
+        evictions)."""
+        with self._lock:
+            n, nbytes = len(self._cache), self._cached_total
+            for res in self._cache.values():
+                res.graphs.clear()
+            self._cache.clear()
+            self._cached_total = 0
+            self.metrics.set_gauge("resident_bytes", 0)
+        self.metrics.inc("evictions", n)
+        self.metrics.inc("evicted_bytes", nbytes)
 
     def _insert(self, handle: Hashable, res: _Resident):
         """Cache a new factor (MRU), then evict to the budget."""
@@ -276,6 +363,11 @@ class Session:
 
     def _evict_to_budget(self, keep: Hashable):
         budget = self.hbm_budget
+        if self.faults is not None and self._fault("hbm"):
+            # injected HBM exhaustion: the budget collapses to zero for
+            # this insert, so eviction under pressure runs for real and
+            # ``keep`` counts a budget overflow
+            budget = 0
         if budget is not None:
             used = self.cached_bytes
             for h in list(self._cache):
@@ -287,6 +379,20 @@ class Session:
             if used > budget:
                 self.metrics.inc("budget_overflows")
         self.metrics.set_gauge("resident_bytes", self.cached_bytes)
+
+    def recompute_cost(self, handle: Hashable, ncols: int = 1) -> float:
+        """Model flops paid again if a request is shed and retried: one
+        solve against a resident factor, factor + solve otherwise (the
+        load shedder's cheapest-first key). Lock-free, as ``op_meta``:
+        the Batcher calls it under its own lock."""
+        entry = self._ops.get(handle)
+        if entry is None:
+            return 0.0
+        cost = _flops.solve_flops(entry.op, entry.m, entry.n,
+                                  max(ncols, 1))
+        if handle not in self._cache:
+            cost += _flops.factor_flops(entry.op, entry.m, entry.n)
+        return cost
 
     def factor(self, handle: Hashable) -> _Resident:
         """Resident factor for ``handle``: cache hit, or factor on miss
@@ -316,6 +422,47 @@ class Session:
             res = self._cache.get(handle)
             return res.info if res is not None else self.factor(handle).info
 
+    # -- faults ------------------------------------------------------------
+    def enable_faults(self, plan=None, seed: int = 1):
+        """Attach a ``FaultInjector`` built from ``plan`` (a FaultPlan or
+        its dict; default ``faults.default_plan(seed)``) and return it. A
+        second call replaces the injector."""
+        from .faults import FaultInjector, FaultPlan, default_plan
+        if plan is None:
+            plan = default_plan(seed)
+        elif isinstance(plan, dict):
+            plan = FaultPlan.from_dict(plan)
+        self.faults = FaultInjector(plan)
+        return self.faults
+
+    def _fault(self, site: str):
+        """One fault opportunity at ``site`` (the caller checked
+        ``self.faults is not None``): count what fired, sleep the
+        latency-shaped kinds first, then raise for ``dispatch_error``.
+        Returns the fired specs (the hbm seam branches on them)."""
+        from .faults import TransientDispatchError
+        fired = self.faults.fire(site)
+        for spec in fired:
+            self.metrics.inc("faults_injected_total")
+            self.metrics.inc("fault:" + spec.kind)
+            if spec.latency_s:
+                time.sleep(spec.latency_s)
+        for spec in fired:
+            if spec.kind == "dispatch_error":
+                raise TransientDispatchError(
+                    f"injected transient dispatch failure at {site!r}")
+        return fired
+
+    # -- observability: later slices -----------------------------------------
+    def enable_slo(self, *args, **kwargs):
+        raise NotImplementedError(f"Session.enable_slo {_OBS_LATER}")
+
+    def enable_attribution(self, *args, **kwargs):
+        raise NotImplementedError(f"Session.enable_attribution {_OBS_LATER}")
+
+    def enable_recorder(self, *args, **kwargs):
+        raise NotImplementedError(f"Session.enable_recorder {_OBS_LATER}")
+
     # -- solves ------------------------------------------------------------
     def _entry(self, handle: Hashable) -> _Operator:
         entry = self._ops.get(handle)
@@ -323,27 +470,43 @@ class Session:
             raise SlateError(f"Session: unknown handle {handle!r}")
         return entry
 
-    def solve_matrix(self, handle: Hashable, B: TiledMatrix) -> TiledMatrix:
+    def solve_matrix(self, handle: Hashable, B: TiledMatrix,
+                     tenant: Optional[str] = None) -> TiledMatrix:
         """Solve with the resident factor; B is a TiledMatrix on the
         session's device. Raises on factorization failure (info > 0).
-        ``solve_latency`` ends when the device has finished."""
+        A warmed operator replays its captured graph when B's padded
+        shape and type match it. ``solve_latency`` ends when the
+        device has finished."""
+        if tenant is not None:
+            raise NotImplementedError(
+                f"Session.solve_matrix: {_TENANTS_LATER}")
         with self._lock:
             entry = self._entry(handle)
             if entry.op in SMALL_OPS:
                 raise SlateError("Session.solve_matrix: small-problem "
                                  "operators take arrays; use solve")
             res = self._factored(handle)
+            graph = self._graph_for(handle, entry, res, B)
+            if self.faults is not None:
+                self._fault("dispatch")
             t0 = time.perf_counter()
-            X = _make_solve_fn(entry.op, entry.opts)(res.payload, B)
+            if graph is None:
+                X = _make_solve_fn(entry.op, entry.opts)(res.payload, B)
+            else:
+                X = self._replay(graph, B)
+                self.metrics.inc("graph_replays")
             self._sync()
             self._count_solve(entry.op, entry.m, entry.n, int(B.shape[1]),
                               time.perf_counter() - t0)
             return X
 
-    def solve(self, handle: Hashable, b) -> np.ndarray:
+    def solve(self, handle: Hashable, b,
+              tenant: Optional[str] = None) -> np.ndarray:
         """Array in, array out: ``b`` of shape (m,) or (m, k) (numpy or
         tensor); returns the solution as numpy with the same rank (n
         rows; m = n except for "qr" operators)."""
+        if tenant is not None:
+            raise NotImplementedError(f"Session.solve: {_TENANTS_LATER}")
         with self._lock:
             entry = self._entry(handle)
             bt = self._rhs(entry, b)
@@ -381,11 +544,122 @@ class Session:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # -- warmup and the solve graphs -----------------------------------------
+    def warmup(self, handle: Hashable, nrhs: int = 1,
+               update_k: Optional[int] = None):
+        """Factor ``handle`` now, off the request path. Small ops then
+        run one zero right-hand-side solve at B = 1 (not counted as a
+        solve). Dense ops on a CUDA device capture the solve of an
+        (m, nrhs) right-hand side as a CUDA graph (``aot_compiles``,
+        ``warmup_compile_latency``): right-hand sides are tile-padded,
+        so nrhs = 1 covers every width up to the operator's nb. The
+        graph belongs to the resident factor; its bytes join the
+        factor's in the budget. A CPU session captures nothing. A failed
+        capture raises SlateError naming the op and the failing call."""
+        if update_k is not None:
+            raise NotImplementedError(
+                "Session.warmup: update_k (incremental updates) is not "
+                "ported yet (ROADMAP Queue 1 item 7)")
+        with self._lock:
+            entry = self._entry(handle)
+            res = self.factor(handle)
+            if entry.op in SMALL_OPS:
+                if res.info == 0:
+                    b0 = torch.zeros((1, entry.n, nrhs),
+                                     dtype=entry.A.dtype, device=self.device)
+                    _small_solve(entry.op, [res.payload], b0)
+                    self._sync()
+                return
+            if self.device.type != "cuda" or res.info != 0:
+                return
+            nb = entry.A.nb
+            key = (num_tiles(entry.m, nb) * nb, num_tiles(nrhs, nb) * nb,
+                   entry.A.dtype)
+            self._warm.setdefault(handle, set()).add(key)
+            if key not in res.graphs:
+                self._capture(handle, entry, res, key)
+
+    def _graph_for(self, handle, entry: _Operator, res: _Resident,
+                   B: TiledMatrix) -> Optional[_SolveGraph]:
+        """The graph that serves B on this resident factor, captured now
+        (counted) when warmup asked for B's padded shape and the factor
+        was refactored since; None: the eager solve."""
+        keys = self._warm.get(handle)
+        if not keys or B.shape[0] != entry.m or B.device != self.device:
+            return None
+        b = B.dense_canonical()
+        key = (int(b.shape[0]), int(b.shape[1]), b.dtype)
+        if key not in keys:
+            return None
+        graph = res.graphs.get(key)
+        return graph if graph is not None else self._capture(
+            handle, entry, res, key)
+
+    def _capture(self, handle, entry: _Operator, res: _Resident,
+                 key: Tuple) -> _SolveGraph:
+        """Capture the solve of a static (rows, cols) right-hand side on
+        ``res`` (caller holds the lock). One eager run on a side stream
+        first loads the kernel libraries and creates the cuBLAS handles;
+        the capture's private pool is measured as the growth of the
+        reserved bytes across it."""
+        rows, cols, dtype = key
+        if self.faults is not None:
+            self._fault("compile")
+        solve = _make_solve_fn(entry.op, entry.opts)
+        dev = self.device
+        t0 = time.perf_counter()
+        b = torch.zeros((rows, cols), dtype=dtype, device=dev)
+        B = TiledMatrix(b, entry.m, cols, entry.A.nb)
+        try:
+            # CUDAGraph and torch.cuda.graph take the current device's
+            # capture stream: make it the session's device
+            with torch.cuda.device(dev):
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    solve(res.payload, B)
+                torch.cuda.current_stream(dev).wait_stream(side)
+                torch.cuda.synchronize(dev)
+                torch.cuda.empty_cache()
+                before = torch.cuda.memory_reserved(dev)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph,
+                                      capture_error_mode="thread_local"):
+                    X = solve(res.payload, B)
+                torch.cuda.synchronize(dev)
+                pool = max(torch.cuda.memory_reserved(dev) - before, 0)
+        except Exception as e:
+            raise SlateError(
+                f"Session.warmup: capturing the {entry.op} solve of "
+                f"operator {handle!r} at ({rows}, {cols}) {dtype} failed "
+                f"in {_failing_call(e)}: {type(e).__name__}: {e}") from e
+        sg = _SolveGraph(graph, b, X, b.numel() * b.element_size() + pool)
+        res.graphs[key] = sg
+        res.nbytes += sg.nbytes
+        self._cached_total += sg.nbytes  # ``res`` is the cached factor
+        self._evict_to_budget(keep=handle)
+        self.metrics.inc("aot_compiles")
+        self.metrics.observe("warmup_compile_latency",
+                             time.perf_counter() - t0)
+        return sg
+
+    @staticmethod
+    def _replay(sg: _SolveGraph, B: TiledMatrix) -> TiledMatrix:
+        """Copy B in, replay, and return a copy of the solution cut to
+        B's columns (the padded columns zero, as the eager solve's)."""
+        sg.b.copy_(B.dense_canonical())
+        sg.graph.replay()
+        x = sg.x.data.clone()
+        k = int(B.shape[1])
+        if k < sg.x.n:
+            x[:, k:] = 0
+        return dataclasses.replace(sg.x, data=x, n=k)
+
     # -- the small-problem engine -------------------------------------------
     def small_group_key(self, handle: Hashable) -> Optional[Tuple]:
         """(op, n, dtype) for a small-problem operator, None otherwise:
         requests whose keys match can be served by one batched solve
-        whichever operator each targets."""
+        whichever operator each targets. Lock-free, as ``op_meta``."""
         entry = self._ops.get(handle)
         if entry is None or entry.op not in SMALL_OPS:
             return None
@@ -396,6 +670,8 @@ class Session:
         """Caller holds the lock. The per-request arm: the B = 1 run of
         the batched solve against the resident factor."""
         res = self._factored(handle)
+        if self.faults is not None:
+            self._fault("dispatch")
         t0 = time.perf_counter()
         x = _small_solve(entry.op, [res.payload], b2[None])[0]
         self._sync()
@@ -428,6 +704,8 @@ class Session:
             if len({self.small_group_key(h) for h in handles}) != 1:
                 raise SlateError("solve_small_batched: mixed bucket "
                                  "(op/n/dtype must agree across the batch)")
+            if self.faults is not None:
+                self._fault("dispatch")
             op, n = entries[0].op, entries[0].n
             t0 = time.perf_counter()
             programs = 0
@@ -470,3 +748,42 @@ class Session:
                               time.perf_counter() - t0)
             self.metrics.inc("batched_programs", programs)
             return x.cpu().numpy(), [factors[h].info for h in handles]
+
+    # -- lifetime ------------------------------------------------------------
+    def close(self):
+        """Release the resident factors and their graphs (``clear_cache``)
+        so their device memory returns to the allocator. The session
+        stays usable: a later solve refactors. Idempotent."""
+        self.clear_cache()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+# -- the process-wide session ------------------------------------------------
+
+_DEFAULT: Optional[Session] = None
+_DEFAULT_LOCK = threading.Lock()
+# its resident budget, in bytes, overridable through the environment (the
+# reference's variable and default)
+_DEFAULT_BUDGET_ENV = "SLATE_TPU_SERVE_HBM_BUDGET"
+_DEFAULT_BUDGET = 4 << 30
+
+
+def default_session(device="cuda") -> Session:
+    """The process-wide Session, created on the first call on ``device``
+    with the budget above. A later call for another device raises."""
+    global _DEFAULT
+    with _DEFAULT_LOCK:
+        if _DEFAULT is None:
+            budget = int(os.environ.get(_DEFAULT_BUDGET_ENV,
+                                        _DEFAULT_BUDGET))
+            _DEFAULT = Session(hbm_budget=budget, device=device)
+        elif _DEFAULT.device != resolve_device(device):
+            raise SlateError(f"default_session: the process-wide session "
+                             f"is on {_DEFAULT.device}, not {device}")
+        return _DEFAULT
