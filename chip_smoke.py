@@ -200,6 +200,42 @@ Phases, one JSON line each:
    complex_small  the small phase's gesv/posv/gels_batched and Sessions
            in complex64, and gesv/posv/gels_batched at (32, 10000) in
            complex128 (P3, P4 and P5's complex instances).
+8. mixed   mixed-precision refinement (mixed_phase): one Session with
+           refined operators at n, nb — an f32 SPD chol and an f32
+           diagonally dominant lu from bf16 factors, an f64 SPD chol and
+           an f64 Gaussian lu from f32 factors, the f32 SPD one again at
+           nb = n/128 (a bf16 potrf through the recursion: its bf16 K5
+           launches held to REC_POTRF_LAUNCHES), complex128 chol and lu
+           from complex64 factors at n = 4096 — each with its κ₁, its
+           low-precision factor's wall, resident bytes and launches by
+           type beside the unrefined working-precision factor's wall and
+           bytes, Executor.warmup (wall, the two captured graphs, their
+           bytes), 8 requests (vectors and 16-column blocks) with their
+           iterations and p50/p99, every served column under the gate in
+           float64 (complex128), and the replayed refined solves against
+           the eager refine-engine drive on the same resident, bit for
+           bit; an f32 Gaussian lu from a bf16 factor, which IR must not
+           converge on (the counted fallback, answer gated), and the same
+           operator under GMRES-IR (converged or not, iterations); a fault
+           drill (refine_no_converge: the counted fallback; a breaker trip
+           on a mixed bucket: the working_precision rung, one demotion,
+           later solves unrefined); gesv/posv_mixed_batched at (256, 1000)
+           and (32, 10000), f32 ← bf16 and f64 ← f32, 2 right-hand sides
+           (wall, requests per second, launches by type, every item under
+           the gate, the iteration histogram, the plain batched verb
+           timed beside); and 1000 refined lu_small operators at n = 256
+           through solve_small_batched, cold and warm (counters, gate,
+           grouped against per-request bits printed, not required).
+The kernel phase also holds K5's bfloat16 instance against its plain
+version (HERK_BF16_ULPS bfloat16 units of |C| + |A·Aᵀ| plus the float32
+sums' difference, entry by entry; the strict upper triangle unchanged;
+its plan the C launcher's) at 8192² × 1024 and 2048² × 512 (CUDA-event
+and device times, its bound at the bf16 tensor rate, torch.addmm in
+bf16), a strided view with an unaligned row stride and a NaN row, and
+the bf16 routes of K1, K2, P1, P3 and P4 (their float32 instance on a
+float32 copy, rounded back: K2, P3 and P4 bit for bit their plain
+versions' route, K1 and P1 within one bfloat16 unit; the route's time
+beside the float32 instance's, their difference the copies').
 The kernel phase also holds the complex instances of K1-K4 and P2-P5
 against their plain versions at the real rows' shapes (kernel lines
 with "dtype": "complex"; K2, P2, P3 and P4 bit for bit, K1, K3, K4 and
@@ -212,8 +248,8 @@ and a NaN), K4 at (10000, 128) complex128, which streams, and a
 instance.
 
 The kernels' launch counters are zeroed just before the check phase,
-the main phase, the serve phase, the small phase, the complex phase and the
-complex_small phase and read just after each (also by element type:
+the main phase, the serve phase, the small phase, the complex phase, the
+complex_small phase and the mixed phase and read just after each (also by element type:
 each kernel's "dtypes" and "launches_by_dtype" in the kernels line);
 the launches made to compare a kernel with its plain version are not
 counted.
@@ -3253,6 +3289,566 @@ def complex_phase(torch, stt, ho, n, nb, gen):
     }
 
 
+# ---------------------------------------------------------------------------
+# the mixed-precision slice: bf16 kernel rows and the mixed phase
+
+# NVIDIA H100 SXM data sheet (dense, 700 W): BF16 tensor cores 989 TFLOP/s
+BF16_PEAK_FLOPS = 989e12
+# K5 bf16 against its plain version, entry by entry on the lower triangle:
+# both round the float32 k-long product to bfloat16 and subtract in
+# bfloat16, so where their float32 sums (apart by at most
+# 2k·2⁻²⁴·(|A|·|A|ᵀ)ᵢⱼ) straddle a rounding boundary the rounded product
+# moves one unit of |A·Aᵀ| and the difference rounds once more on the
+# result's grid: two bfloat16 units in the last place of |C| + |A·Aᵀ|
+HERK_BF16_ULPS = 2
+MIXED_WIDTHS = (1, 16, 1, 16, 1, 16, 1, 16)
+MIXED_COMPLEX_N = 4096
+MIXED_SMALL_RUNS = ((256, 1000), (32, 10000))
+MIXED_SMALL_OPS = 1000
+MIXED_BITS_SAMPLE = 2  # replayed refined solves compared with eager drive
+
+
+def ulp_bf16(torch, v):
+    """One bfloat16 unit in the last place of |v| (8 significant bits)."""
+    v = v.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(v)) - 7)
+
+
+def herk_bf16_case(torch, ho, n, k, gen, timed=False, strided=False,
+                   nan_row=None):
+    """K5's bfloat16 instance against its plain version (the TPU
+    kernel's rounding: the float32 product rounded to bfloat16, then
+    subtracted in bfloat16) entry by entry within HERK_BF16_ULPS units of
+    |C| + |A·Aᵀ| plus 2k·2⁻²⁴·(|A|·|A|ᵀ); the strict upper triangle of C
+    bitwise unchanged; its plan the C launcher's. ``strided``: C and A
+    are views of one (n + k)² tensor whose row stride is not 16-byte
+    aligned when k is odd (A staged one element at a time).
+    ``nan_row``: a NaN in that row of A poisons that row and column of
+    the lower result in both, and nothing else."""
+    bf = torch.bfloat16
+    if strided:
+        big = torch.randn((n + k, n + k), generator=gen, device="cuda").to(bf)
+        bk, bp = big.clone(), big.clone()
+        ck, ak, cp, ap = bk[k:, k:], bk[k:, :k], bp[k:, k:], bp[k:, :k]
+    else:
+        c = torch.randn((n, n), generator=gen, device="cuda").to(bf)
+        ak = ap = torch.randn((n, k), generator=gen, device="cuda").to(bf)
+        if nan_row is not None:
+            ak = ap = ak.clone()
+            ak[nan_row, k // 2] = math.nan
+        ck, cp = c.clone(), c.clone()
+    c0 = ck.clone()
+    plan = herk_plan_row(ho, ck)
+    ho.herk_lower_update(ck, ak)
+    ho.herk_lower_update_plain(cp, ap, tile=plan["tile"])
+    torch.cuda.synchronize()
+    low = torch.ones((n, n), dtype=torch.bool, device="cuda").tril()
+    a64, c64 = ak.double(), c0.double()
+    prod = a64 @ a64.mT
+    tol = (HERK_BF16_ULPS * ulp_bf16(torch, c64.abs() + prod.abs())
+           + 2 * k * 2.0 ** -24 * (a64.abs() @ a64.abs().mT))
+    diff = (ck.double() - cp.double()).abs()
+    name = f"herk_lower_update bf16 {(n, k)}"
+    if nan_row is not None:
+        bad = torch.zeros_like(low)
+        bad[nan_row, :] = bad[:, nan_row] = True
+        check(torch.equal(torch.isnan(ck) & low, bad & low)
+              and torch.equal(torch.isnan(cp) & low, bad & low),
+              f"{name}: the NaN row poisoned other entries")
+        keep = low & ~bad
+    else:
+        keep = low
+    ratio = (diff / tol)[keep].max().item()
+    check(math.isfinite(ratio) and ratio <= 1.0,
+          f"{name}: |kernel - plain| {ratio}× the tolerance")
+    check(torch.equal(ck[~low], c0[~low]), f"{name}: strict upper changed")
+    if strided:
+        keep_big = torch.ones_like(bk, dtype=torch.bool)
+        keep_big[k:, k:] = ~low
+        check(torch.equal(bk[keep_big], big[keep_big]),
+              f"{name}: wrote outside the lower triangle of the view")
+    row = {"n": n, "k": k, "dtype": "bfloat16", "strided": strided,
+           "nan_row": nan_row, "plan": plan,
+           "max_abs_err": diff[keep].max().item(), "tol_ratio_max": ratio,
+           "entries_differing": int((ck != cp)[keep].sum().item()),
+           "upper_unchanged": True}
+    if timed:
+        work = c0.clone()
+        row["ms"] = cuda_ms(lambda: ho.herk_lower_update(work, ak))
+        row["device_ms"] = device_ms(lambda: ho.herk_lower_update(work, ak))
+        row["plain_ms"] = cuda_ms(
+            lambda: ho.herk_lower_update_plain(work, ak, tile=plan["tile"]),
+            reps=5)
+        row["library_ms"] = cuda_ms(
+            lambda: torch.addmm(c0, ak, ak.mT, alpha=-1))
+        nbytes, flops = n * (n + 1) * 2 + n * k * 2, float(n) * (n + 1) * k
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_PEAK_FLOPS * 1e3
+        row["bound_ms"] = max(t_bytes, t_ops)
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        row["tflops"] = flops / row["ms"] / 1e9
+    return row
+
+
+def bf16_route_case(torch, ho, name, launcher, plain, x, f32_tol=None,
+                    timed=True):
+    """One kernel's bf16 route (its float32 instance on a float32 copy,
+    rounded back) against its plain version's route on the same input.
+    K2, P3 and P4 are bitwise their plain versions in float32, so their
+    routes must be too (``f32_tol`` None); K1 and P1 differ from theirs
+    by the order of their sums, within ``f32_tol(want, x)`` entry by
+    entry in float32 (their own tolerances), so theirs may differ by that
+    plus one bfloat16 unit where the two float32 results straddle a
+    rounding boundary. Timed: the route beside the float32 instance on
+    the upcast (the copies' cost)."""
+    got = launcher(x)
+    want = plain(x)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    check(got[0].dtype == torch.bfloat16, f"{name} bf16: {got[0].dtype} out")
+    bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+    w64 = want[0].double()
+    d = (got[0].double() - w64).abs()
+    fin = torch.isfinite(want[0])
+    ratio = None
+    if f32_tol is None:
+        check(bitwise, f"{name} bf16 route: not bitwise its plain version")
+    else:
+        tol = ulp_bf16(torch, w64) + f32_tol(w64, x.double())
+        ratio = (d / tol)[fin].max().item()
+        check(ratio <= 1.0 and torch.equal(fin, torch.isfinite(got[0])),
+              f"{name} bf16 route: {ratio}× its tolerance from its plain "
+              "version")
+    row = {"name": name, "shape": list(x.shape), "dtype": "bfloat16",
+           "route": "float32 instance on a float32 copy",
+           "bitwise": bitwise, "tol_ratio_max": ratio,
+           "max_abs_err": d[fin].max().item()}
+    if timed:
+        x32 = x.float()
+        row["ms"] = cuda_ms(lambda: launcher(x))
+        row["f32_instance_ms"] = cuda_ms(lambda: launcher(x32))
+        row["copy_ms"] = row["ms"] - row["f32_instance_ms"]
+        row["plain_ms"] = cuda_ms(lambda: plain(x), reps=3)
+        # the copies move 2 + 4 bytes in and 4 + 2 out per entry
+        row["copy_bound_ms"] = 12 * x.numel() / PEAK_BYTES_PER_S * 1e3
+    return row
+
+
+def bf16_kernel_rows(torch, ho, gen, n, nb):
+    """The kernel phase's bfloat16 rows: K5's instance at the shapes the
+    mixed phase's nb = 128 bf16 potrf gives it (its recursion's trailing
+    updates, (n/2)², (n/4)² and (n/8)² at k = the same, the widest timed),
+    at 8192² × 1024 and 2048² × 512 (timed), strided views whose row
+    stride is and is not 16-byte aligned (A staged 16 bytes or one
+    element at a time) and a NaN row; the bf16 routes of K1, K2, P1, P3
+    and P4 at the main path's and the engine's shapes."""
+    bf = torch.bfloat16
+    rec = [(n // d, n // d) for d in (2, 4, 8)]
+    k5 = [herk_bf16_case(torch, ho, hn, hk, gen, timed=i == 0)
+          for i, (hn, hk) in enumerate(rec)]
+    k5 += [herk_bf16_case(torch, ho, hn, hk, gen, timed=True)
+           for hn, hk in ((min(8192, n // 2), 1024), (2048, 512))
+           if (hn, hk) not in rec]
+    k5 += [herk_bf16_case(torch, ho, 1000, 301, gen, strided=True),
+           herk_bf16_case(torch, ho, 2000, 704, gen, strided=True),
+           herk_bf16_case(torch, ho, 512, 128, gen, nan_row=37)]
+    spd = spd_tile(torch, nb, torch.float32, gen).to(bf)
+    leaves = torch.tril(torch.randn((256, 64, 64), generator=gen,
+                                    device="cuda"))
+    leaves.diagonal(dim1=1, dim2=2).add_(8.0)
+    p4 = torch.randn((1000, 32, 32), generator=gen, device="cuda")
+    p4 = p4 @ p4.mT / 32
+    p4.diagonal(dim1=1, dim2=2).add_(1.0)
+    eps32 = torch.finfo(torch.float32).eps
+
+    def k1_tol(w, _):  # chol_case's float32 tolerance
+        return 1e-5 * w.abs().max()
+
+    def p1_tol(w, leaf):  # LEAF_ENTRY_C·s·ε·(|X|·|L|·|X|), as trtri_case
+        s_ = leaf.shape[-1]
+        return ho.LEAF_ENTRY_C * s_ * eps32 * (
+            w.abs() @ torch.tril(leaf).abs() @ w.abs())
+
+    routes = [
+        bf16_route_case(torch, ho, "chol_tile", ho.chol_tile,
+                        ho.chol_tile_plain, spd, k1_tol),
+        bf16_route_case(torch, ho, "lu_panel_base", ho.lu_panel_base,
+                        ho.lu_panel_base_plain,
+                        torch.randn((n, 128), generator=gen,
+                                    device="cuda").to(bf)),
+        bf16_route_case(torch, ho, "trtri_leaves", ho.trtri_leaves,
+                        ho.trtri_leaves_plain, leaves.to(bf), p1_tol),
+        bf16_route_case(torch, ho, "lu_panel_batched", ho.lu_panel_batched,
+                        ho.lu_panel_batched_plain,
+                        torch.randn((1000, 256, 32), generator=gen,
+                                    device="cuda").to(bf)),
+        bf16_route_case(torch, ho, "chol_tile_batched", ho.chol_tile_batched,
+                        ho.chol_tile_batched_plain, p4.to(bf))]
+    return k5, routes
+
+
+def _request_stream(torch, gen, n, dtype, count):
+    return [torch.randn((n, MIXED_WIDTHS[i % len(MIXED_WIDTHS)]),
+                        generator=gen, device="cuda", dtype=dtype)
+            for i in range(count)]
+
+
+def mixed_operand(torch, kind, n, dtype, gen):
+    """spd: X·Xᴴ/n + I; dom: X/√n + 2I; gauss: X (κ about 10⁴·n)."""
+    x = torch.randn((n, n), generator=gen, device="cuda", dtype=dtype)
+    if kind == "spd":
+        a = x @ x.mH / n
+        a.diagonal().add_(1.0)
+        return a
+    if kind == "dom":
+        x /= math.sqrt(n)
+        x.diagonal().add_(2.0)
+    return x
+
+
+def mixed_serve_operator(torch, stt, ho, sess, ex, name, a, op, nb, policy,
+                         gen):
+    """One refined operator: its low-precision factor (wall, resident
+    bytes, launches by type) beside the unrefined working-precision
+    factor of the same operator, Executor.warmup (wall, aot_compiles,
+    graph bytes), 8 requests (vectors and 16-column blocks) one at a
+    time with their iterations and latency, every served column under the
+    gate, and the replayed refined solves against the eager drive on the
+    same resident, bit for bit."""
+    from slate_tpu_torch.refine import engine
+    from slate_tpu_torch.runtime.metrics import Histogram
+    dev = "cuda"
+    A = (stt.hermitian(a, nb, stt.Uplo.Lower, device=dev) if op == "chol"
+         else stt.from_dense(a, nb, device=dev))
+    m = sess.metrics
+    # the unrefined factor of the same operator, for its wall and bytes
+    plain = stt.Session(device=dev)
+    hp = plain.register(A, op=op)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain.factor(hp)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    plain_bytes = plain.cached_bytes
+    plain.close()
+    del plain
+    h = sess.register(A, op=op, refine=policy)
+    snap0 = launch_snapshot(ho)
+    t0 = time.perf_counter()
+    res = sess.factor(h)
+    torch.cuda.synchronize()
+    factor_wall = time.perf_counter() - t0
+    snap1 = launch_snapshot(ho)
+    check(res.info == 0 and sess.degrade_class(h) == "mixed",
+          f"mixed {name}: low-precision factor info {res.info}")
+    lo = str(res.payload[0].dtype).split(".")[1]
+    check(lo == policy.factor_dtype, f"mixed {name}: resident is {lo}")
+    resident = res.nbytes
+    compiles = m.get("aot_compiles")
+    t0 = time.perf_counter()
+    ex.warmup([h])
+    warm_wall = time.perf_counter() - t0
+    graph_bytes = sum(g.nbytes for g in res.graphs.values())
+    captured = m.get("aot_compiles") - compiles
+    graphs = policy.strategy == "ir"
+    check(captured == (2 if graphs else 0),
+          f"mixed {name}: warmup captured {captured}")
+    n = a.shape[0]
+    lat, iters, worst = Histogram(), [], 0.0
+    fallbacks = m.get("refine_fallbacks_total")
+    for b in _request_stream(torch, gen, n, a.dtype, 8):
+        h0 = m.histogram("refine_iterations")
+        t0 = time.perf_counter()
+        x = ex.submit(h, b.cpu().numpy()).result(timeout=RESULT_TIMEOUT)
+        lat.observe(time.perf_counter() - t0)
+        h1 = m.histogram("refine_iterations")
+        iters.append(h1["sum"] - h0["sum"])
+        xt = torch.from_numpy(x).to(dev)
+        xt = xt[:, None] if xt.ndim == 1 else xt
+        worst = max(worst, max(scaled_residuals(torch, a, xt, b, True)))
+    check(m.get("refine_fallbacks_total") == fallbacks,
+          f"mixed {name}: a served solve fell back")
+    check(math.isfinite(worst) and worst <= RESIDUAL_BOUND,
+          f"mixed {name}: worst scaled residual {worst}")
+    row = {"op": op, "n": n, "nb": nb, "dtype": dtype_name(a.dtype),
+           "factor_dtype": lo, "strategy": policy.strategy,
+           "factor_wall_s": factor_wall,
+           "working_factor_wall_s": plain_wall,
+           "resident_bytes": resident,
+           "working_resident_bytes": plain_bytes,
+           "bytes_ratio": resident / plain_bytes,
+           "factor_launches_by_dtype": {
+               k: {t: c - snap0[1][k].get(t, 0) for t, c in v.items()
+                   if c != snap0[1][k].get(t, 0)}
+               for k, v in snap1[1].items() if v != snap0[1][k]},
+           "warmup_wall_s": warm_wall, "aot_compiles": captured,
+           "graph_bytes": graph_bytes, "requests": len(iters),
+           "iterations": iters, "worst_scaled_residual": worst,
+           "gate": RESIDUAL_BOUND, "request_p50_s": lat.percentile(50),
+           "request_p99_s": lat.percentile(99)}
+    if graphs:
+        # replayed (solve_matrix on the warmed resident) against the eager
+        # drive of the engine's own start and step on the same resident
+        entry = sess._ops[h]
+        res = sess.factor(h)
+        same = []
+        for b in _request_stream(torch, gen, n, a.dtype,
+                                 MIXED_BITS_SAMPLE):
+            B = stt.from_dense(b, nb, device=dev)
+            Xr = sess.solve_matrix(h, B)
+            Xe, _, conv = engine.drive(
+                engine.make_start_fn(op, entry.opts, policy, a.dtype),
+                engine.make_step_fn(op, entry.opts, policy, a.dtype),
+                res.payload, entry.A, B, entry.anorm, policy, a.dtype)
+            same.append(bool(conv) and torch.equal(Xr.data, Xe.data))
+        check(all(same), f"mixed {name}: replayed solves differ from the "
+              f"eager drive ({same})")
+        row["replay_equals_eager_bitwise"] = same
+    return h, row
+
+
+def mixed_batched_run(torch, stt, ho, verb, n, bsz, work, gen):
+    """gesv/posv_mixed_batched at (n, B), 2 right-hand sides: a warm call,
+    then one timed (wall, requests per second, launches by type), every
+    item under the gate, the iteration histogram, and the plain batched
+    verb in the working precision timed beside it."""
+    lo = {torch.float32: "bfloat16", torch.float64: "float32"}[work]
+    a = mixed_operand_stack(torch, verb, bsz, n, work, gen)
+    b = torch.randn((bsz, n, SMALL_RHS), generator=gen, device="cuda",
+                    dtype=work)
+    fn = getattr(stt, f"{verb}_mixed_batched")
+    fn(a, b, factor_dtype=lo)
+    before = launch_snapshot(ho)[1]
+    (x, info, iters), wall, launches = launches_of(
+        ho, lambda: fn(a, b, factor_dtype=lo))
+    after = launch_snapshot(ho)[1]
+    name = f"mixed {verb}_batched (n={n}, B={bsz}, {dtype_name(work)})"
+    check(not info.any(), f"{name}: info on {int(info.count_nonzero())}")
+    gate = batched_residuals(torch, a, x, b)
+    worst = gate.max().item()
+    check(math.isfinite(worst) and worst <= RESIDUAL_BOUND,
+          f"{name}: worst item {worst}")
+    plain = getattr(stt, f"{verb}_batched")
+    plain(a, b)
+    _, plain_wall, _ = launches_of(ho, lambda: plain(a, b))
+    vals, counts = torch.unique(iters, return_counts=True)
+    return {"verb": verb, "n": n, "B": bsz, "k": SMALL_RHS,
+            "dtype": dtype_name(work), "factor_dtype": lo, "wall_s": wall,
+            "req_per_s": bsz / wall, "launches": launches,
+            "launches_by_dtype": {k: {t: c - before[k].get(t, 0)
+                                      for t, c in v.items()
+                                      if c != before[k].get(t, 0)}
+                                  for k, v in after.items()
+                                  if v != before[k]},
+            "worst_scaled_residual": worst, "gate": RESIDUAL_BOUND,
+            "iterations": dict(zip(vals.tolist(), counts.tolist())),
+            "fallback_items": int((iters < 0).sum().item()),
+            "plain_wall_s": plain_wall, "plain_req_per_s": bsz / plain_wall}
+
+
+def mixed_operand_stack(torch, verb, bsz, n, dtype, gen):
+    a = torch.randn((bsz, n, n), generator=gen, device="cuda", dtype=dtype)
+    if verb == "posv":
+        a = a @ a.mT / n
+    else:
+        a /= math.sqrt(n)
+        a.diagonal(dim1=1, dim2=2).add_(1.0)
+    a.diagonal(dim1=1, dim2=2).add_(1.0)
+    return a
+
+
+def mixed_small_session(torch, stt, gen):
+    """MIXED_SMALL_OPS refined lu_small operators at n = 256 (f32 ← bf16)
+    grouped through solve_small_batched: every factor a miss, then every
+    factor resident; counters, the gate, and grouped against per-request
+    bits (printed, not required)."""
+    n = 256
+    mats = mixed_operand_stack(torch, "gesv", MIXED_SMALL_OPS, n,
+                               torch.float32, gen)
+    rhs = torch.randn((MIXED_SMALL_OPS, n), generator=gen, device="cuda")
+    sess = stt.Session(device="cuda")
+    hs = [sess.register(mats[i], op="lu_small", refine=True)
+          for i in range(MIXED_SMALL_OPS)]
+    bs = [rhs[i] for i in range(MIXED_SMALL_OPS)]
+    out = {"ops": MIXED_SMALL_OPS, "n": n, "dtype": "float32",
+           "factor_dtype": "bfloat16"}
+    for label in ("cold", "warm"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xs, infos = sess.solve_small_batched(hs, bs)
+        wall = time.perf_counter() - t0
+        check(not any(infos), f"mixed small {label}: infos")
+        x = torch.from_numpy(xs).to("cuda")[:, :, None]
+        worst = batched_residuals(torch, mats, x, rhs[:, :, None]).max()
+        check(worst.item() <= RESIDUAL_BOUND,
+              f"mixed small {label}: worst {worst.item()}")
+        out[label] = {"wall_s": wall, "req_per_s": MIXED_SMALL_OPS / wall,
+                      "worst_scaled_residual": worst.item()}
+    per = [sess.solve(hs[i], bs[i]) for i in range(8)]
+    out["grouped_equals_per_request_bitwise"] = [
+        bool((per[i] == xs[i]).all()) for i in range(8)]
+    m = sess.metrics
+    out["counters"] = {k: m.get(k) for k in (
+        "cache_hits", "cache_misses", "factors_total", "batched_programs",
+        "refine_converged_total", "refine_fallbacks_total")}
+    out["resident_bytes"] = sess.cached_bytes
+    check(out["counters"]["refine_fallbacks_total"] == 0,
+          "mixed small: a refined item fell back")
+    return out
+
+
+def mixed_phase(torch, stt, ho, n, nb, gen):
+    """The mixed phase (see the module docstring)."""
+    from slate_tpu_torch.runtime import FaultPlan, FaultSpec
+    dev = "cuda"
+    f32, f64 = torch.float32, torch.float64
+    c128 = torch.complex128
+    P = stt.RefinePolicy
+    spd32 = mixed_operand(torch, "spd", n, f32, gen)
+    out = {"n": n, "nb": nb, "operators": {}}
+    sess = stt.Session(device=dev)
+    m = sess.metrics
+    handles = {}
+    with stt.Executor(sess, max_batch=32, max_wait=1e-3) as ex:
+        nb_rec = n // 128
+        plan = [("chol_f32_bf16", spd32, "chol", nb, P("bfloat16")),
+                ("lu_f32_bf16", mixed_operand(torch, "dom", n, f32, gen),
+                 "lu", nb, P("bfloat16")),
+                ("chol_f64_f32", mixed_operand(torch, "spd", n, f64, gen),
+                 "chol", nb, P("float32")),
+                ("lu_f64_f32", mixed_operand(torch, "gauss", n, f64, gen),
+                 "lu", nb, P("float32")),
+                ("chol_f32_bf16_nb128", spd32, "chol", nb_rec,
+                 P("bfloat16"))]
+        nc = min(n, MIXED_COMPLEX_N)
+        plan += [("chol_c128_c64", mixed_operand(torch, "spd", nc, c128,
+                                                 gen), "chol", nb,
+                  P("complex64")),
+                 ("lu_c128_c64", mixed_operand(torch, "gauss", nc, c128,
+                                               gen), "lu", nb,
+                  P("complex64"))]
+        operands = {}
+        for name, a, op, opnb, pol in plan:
+            h, row = mixed_serve_operator(torch, stt, ho, sess, ex, name, a,
+                                          op, opnb, pol, gen)
+            handles[name] = h
+            operands[name] = a
+            out["operators"][name] = row
+        # the recursion's K5 launches in bfloat16: as many as the float32
+        # nb = n/128 factor makes
+        rec = out["operators"]["chol_f32_bf16_nb128"][
+            "factor_launches_by_dtype"]
+        k5 = rec.get("herk_lower_update", {}).get("bfloat16", 0)
+        want = REC_POTRF_LAUNCHES.get(n, (None,))[0]
+        check(k5 > 0 and (want is None or k5 == want),
+              f"mixed: the bf16 nb = n/128 potrf made {k5} bf16 K5 "
+              f"launches, expected {want}")
+        out["k5_bf16_launches_nb128"] = k5
+        # each operator's condition number κ₁ = ‖A‖₁·‖A⁻¹‖₁, the inverse
+        # by torch.linalg in float64 (complex128): a yardstick only
+        kappa = {}
+        for name, a in operands.items():
+            if a.data_ptr() not in kappa:
+                w = wide(torch, a)
+                inv = torch.linalg.inv(w)
+                kappa[a.data_ptr()] = (w.abs().sum(0).max()
+                                       * inv.abs().sum(0).max()).item()
+                del w, inv
+            out["operators"][name]["kappa1"] = kappa[a.data_ptr()]
+        del operands
+        # bf16 IR does not converge on a Gaussian f32 operator: the
+        # counted fallback; then the same operator under GMRES-IR
+        gauss = mixed_operand(torch, "gauss", n, f32, gen)
+        b = torch.randn((n, 1), generator=gen, device=dev)
+        drill = {}
+        for label, pol in (("ir", P("bfloat16")),
+                           ("gmres", P("bfloat16", strategy="gmres"))):
+            h = sess.register(stt.from_dense(gauss, nb, device=dev),
+                              op="lu", refine=pol)
+            sess.factor(h)
+            f0 = m.get("refine_fallbacks_total")
+            h0 = m.histogram("refine_iterations")
+            t0 = time.perf_counter()
+            x = ex.submit(h, b.cpu().numpy()).result(timeout=RESULT_TIMEOUT)
+            wall = time.perf_counter() - t0
+            fell = m.get("refine_fallbacks_total") - f0
+            worst = max(scaled_residuals(
+                torch, gauss, torch.from_numpy(x).to(dev), b, True))
+            check(worst <= RESIDUAL_BOUND,
+                  f"mixed gaussian {label}: residual {worst}")
+            drill[label] = {
+                "converged": fell == 0, "fallbacks": fell,
+                "iterations": m.histogram("refine_iterations")["sum"]
+                - h0["sum"], "wall_s": wall, "worst_scaled_residual": worst,
+                "class_after": sess.degrade_class(h)}
+        check(drill["ir"]["fallbacks"] == 1,
+              "mixed: bf16 IR on the Gaussian f32 operator did not take "
+              "the counted fallback")
+        out["gaussian_f32_bf16"] = drill
+        del gauss
+    # the fault drill: refine_no_converge on a dense mixed operator, then a
+    # breaker trip on a mixed bucket (the working_precision rung)
+    h = handles["lu_f32_bf16"]
+    a = sess._ops[h].A.data
+    f0 = m.get("refine_fallbacks_total")
+    sess.enable_faults(FaultPlan(seed=18, specs=(
+        FaultSpec("refine_no_converge", rate=1.0, count=1),)))
+    b = torch.randn((n, 1), generator=gen, device=dev)
+    x = torch.from_numpy(sess.solve(h, b)).to(dev)
+    worst = max(scaled_residuals(torch, a[:n, :n], x, b, True))
+    check(m.get("refine_fallbacks_total") == f0 + 1
+          and worst <= RESIDUAL_BOUND
+          and sess.degrade_class(h) == "dense",
+          f"mixed fault drill: fallback {m.get('refine_fallbacks_total') - f0}"
+          f", residual {worst}")
+    drill = {"refine_no_converge": {"fallbacks": 1,
+                                    "worst_scaled_residual": worst}}
+    h = handles["chol_f64_f32"]
+    a = sess._ops[h].A.full_dense()[:n, :n]
+    sess.enable_faults(FaultPlan(seed=18, specs=(
+        FaultSpec("dispatch_error", rate=1.0, count=2),)))
+    served, classes = [], []
+    with stt.Executor(sess, max_batch=1, max_wait=1e-3, retries=0,
+                      breaker_threshold=2, breaker_cooldown=60.0) as ex:
+        for i in range(4):
+            b = torch.randn((n, 1), generator=gen, device=dev, dtype=f64)
+            f = ex.submit(h, b.cpu().numpy())
+            err = f.exception(timeout=RESULT_TIMEOUT)
+            served.append(err is None)
+            if err is None:
+                x = torch.from_numpy(f.result()).to(dev)
+                worst = max(scaled_residuals(torch, a, x, b, True))
+                check(worst <= RESIDUAL_BOUND,
+                      f"mixed breaker drill: residual {worst}")
+            classes.append(sess.degrade_class(h))
+    check(served == [False, True, True, True]
+          and m.get("refine_demotions_total") == 1
+          and classes == ["mixed", "dense", "dense", "dense"],
+          f"mixed breaker drill: served {served}, classes {classes}, "
+          f"demotions {m.get('refine_demotions_total')}")
+    drill["breaker"] = {"served": served, "classes": classes,
+                        "refine_demotions_total":
+                            m.get("refine_demotions_total"),
+                        "breaker_trips_total": m.get("breaker_trips_total")}
+    sess.faults = None
+    out["fault_drill"] = drill
+    out["counters"] = {k: m.get(k) for k in (
+        "refine_converged_total", "refine_fallbacks_total",
+        "refine_demotions_total", "refine_flops_total", "aot_compiles",
+        "graph_replays", "cache_hits", "cache_misses")}
+    out["refine_iterations"] = m.histogram("refine_iterations")
+    sess.close()
+    del sess, spd32
+    torch.cuda.empty_cache()
+    out["batched"] = [mixed_batched_run(torch, stt, ho, verb, sn, bsz, work,
+                                        gen)
+                      for sn, bsz in MIXED_SMALL_RUNS
+                      for verb in ("gesv", "posv") for work in (f32, f64)]
+    out["small_session"] = mixed_small_session(torch, stt, gen)
+    return out
+
+
 def complex_spills(_build):
     """ptxas's registers and spill stores for every complex instance (Cx
     in the mangled name) of the sources this run built, from the build
@@ -3547,6 +4143,11 @@ def main(argv=None) -> int:
               "qr_panel_batched: the cases did not cover every plan")
         emit("kernel", name="qr_panel_batched", cases=p5_rows)
         cx_rows = complex_kernel_rows(torch, ho, gen, args.n)
+        t_bf16 = time.perf_counter()
+        k5_bf16_rows, route_rows = bf16_kernel_rows(torch, ho, gen, args.n,
+                                                    args.nb)
+        emit("kernel", name="bfloat16", herk_lower_update=k5_bf16_rows,
+             routes=route_rows, seconds=time.perf_counter() - t_bf16)
         # counted paths: the check phase, then the main phase
         ho.reset_launches()
         small = small_check(torch, stt, gen)
@@ -3584,8 +4185,16 @@ def main(argv=None) -> int:
                                              gen, torch.complex128)
                               for verb in ("gesv", "posv", "gels")]
         cx_small_launches, cx_small_types = launch_snapshot(ho)
-    emit("complex_small", **cx_small, launches=cx_small_launches,
-         launches_by_dtype=cx_small_types)
+        emit("complex_small", **cx_small, launches=cx_small_launches,
+             launches_by_dtype=cx_small_types)
+        torch.cuda.empty_cache()
+        ho.reset_launches()
+        t_mixed = time.perf_counter()
+        mixed = mixed_phase(torch, stt, ho, args.n, args.nb, gen)
+        mixed["seconds"] = time.perf_counter() - t_mixed
+        mixed_launches, mixed_types = launch_snapshot(ho)
+    emit("mixed", **mixed, launches=mixed_launches,
+         launches_by_dtype=mixed_types)
 
     # each kernel's first timed f32 row (K1 at b = nb, the nb = 512
     # factor's tile), and K1 at b = 128 beside it
@@ -3627,11 +4236,12 @@ def main(argv=None) -> int:
         row = timed[name]
         launches = (check_launches[name] + main["launches"][name]
                     + serve_launches[name] + small_launches[name]
-                    + cx["launches"][name] + cx_small_launches[name])
+                    + cx["launches"][name] + cx_small_launches[name]
+                    + mixed_launches[name])
         check(launches > 0, f"{name} was not launched on a counted path")
         by_type = {}
         for phase in (check_types, main_types, serve_types, small_types,
-                      cx["launches_by_dtype"], cx_small_types):
+                      cx["launches_by_dtype"], cx_small_types, mixed_types):
             for dt, k in phase[name].items():
                 by_type[dt] = by_type.get(dt, 0) + k
         kernels.append({
@@ -3697,6 +4307,19 @@ def main(argv=None) -> int:
                "library_ms", "plan")
     kernels[4].update({k: timed["herk_lower_update"][k] for k in k5_keys})
     kernels[4]["at_f64_2048"] = {k: k5_f64[k] for k in k5_keys}
+    # K5's bfloat16 instance at its timed shapes, and the bf16 routes of
+    # K1, K2, P1, P3 and P4
+    check("bfloat16" in kernels[4]["dtypes"],
+          "herk_lower_update: no bfloat16 launch on a counted path")
+    for r in (r for r in k5_bf16_rows if "ms" in r):
+        kernels[4][f"at_bfloat16_{r['n']}x{r['k']}"] = {k: r[k] for k in (
+            "max_abs_err", "tol_ratio_max", "ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "tflops", "plan")}
+    by_name = {kern["name"]: kern for kern in kernels}
+    for r in route_rows:
+        by_name[r["name"]]["at_bfloat16_route"] = r
+        check("bfloat16" in by_name[r["name"]]["dtypes"],
+              f"{r['name']}: no bfloat16 launch on a counted path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

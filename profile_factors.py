@@ -22,7 +22,19 @@ complex64 ones: "chol_c64" and "lu_c64" (Hermitian positive definite
 and general, at nb), "chol_c64_nb128" (at nb = n/128, where potrf's
 recursion updates its trailing blocks by the complex 2×2 recursion of
 gemms, K5 having no complex instance) and "qr_c64" (the tall 2n × n/2
-operator at nb: K4's complex64 instance and the trailing CGEMMs). Each runs
+operator at nb: K4's complex64 instance and the trailing CGEMMs), or
+the low-precision factors of refined float32 operators (Session
+``refine=RefinePolicy("bfloat16")``): "chol_bf16" (the SPD operator at
+nb: K1's and P1's bf16 routes and bf16 gemms), "chol_bf16_nb128" (at
+nb = n/128: a bfloat16 potrf whose recursion's trailing updates are K5's
+bf16 instance, its tiles K1's bf16 route) and "lu_bf16"
+(the general operator at nb: K2's and P1's bf16 routes and bf16 gemms);
+each line of those adds ``route_copies``: the bf16 routes' float32
+copies in and rounded copies out, their count and the device time of the
+kernels launched inside them (each copy under a ``record_function``
+range in the profiled run; the unprofiled run is not timed per copy,
+since CUDA events around a copy in a host-bound factor would time the
+host's launch gap too). Each runs
 through a Session that has factored every kind and type it profiles
 once at n = 1024 (so that one-time set-up of libraries and kernels is
 not in the profile), under torch.profiler (CPU and CUDA activity), then
@@ -39,9 +51,9 @@ launches by (B, H, w) stack shape with the cluster plan each took
 potrf's recursive trailing updates (``herk_lower_rec``: its outermost
 calls between CUDA events in the unprofiled run, and their share of
 that wall), the device time of the cuBLAS gemm kernels (every device
-event whose name holds "gemm") and its share of the busy time beside the
-port's kernels' shares (``shares``), and the top twelve
-device events by device time and host ops by self CPU time.
+event whose name holds "gemm", or "nvjet" in bf16) and its share of the
+busy time beside the port's kernels' shares (``shares``), and the top
+twelve device events by device time and host ops by self CPU time.
 
 ``--solves`` (alone it runs no factor) profiles one-column solves
 against the resident factors of the same operators (names as above:
@@ -79,12 +91,16 @@ KERNEL_FUNCS = {"chol_tile": "chol_tile_kernel",
 
 
 def register(torch, stt, sess, shape, op, nb, gen, dtype):
+    refine = None
+    if op.endswith("_bf16"):  # a refined operator: its bf16 factor
+        op, refine = op[:-len("_bf16")], stt.RefinePolicy("bfloat16")
     a = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
     if op == "chol":  # SPD (HPD), as chip_smoke.py's main phase makes it
         a = a @ a.mH / shape[0]
         a.diagonal().add_(1.0)
         return sess.register(stt.hermitian(a, nb, stt.Uplo.Lower,
-                                           device="cuda"), op=op)
+                                           device="cuda"), op=op,
+                             refine=refine)
     if op == "nopiv":  # diagonally dominant, as chip_smoke.py's
         a = a / math.sqrt(shape[0])
         a.diagonal().add_(2.0)
@@ -93,7 +109,42 @@ def register(torch, stt, sess, shape, op, nb, gen, dtype):
     if op == "calu":  # the general operator, tournament pivoting
         return sess.register(stt.from_dense(a, nb, device="cuda"), op="lu",
                              opts=stt.Options(method_lu=stt.MethodLU.CALU))
-    return sess.register(stt.from_dense(a, nb, device="cuda"), op=op)
+    return sess.register(stt.from_dense(a, nb, device="cuda"), op=op,
+                         refine=refine)
+
+
+ROUTE_RANGE = "bf16_route_copy"
+
+
+@contextlib.contextmanager
+def route_copies():
+    """Each bf16 route copy made inside the block (``hopper_ops._upcast``
+    in, the outermost ``_round_back`` out) under a ``record_function``
+    range named ROUTE_RANGE, whose kernels the profiler attributes to it;
+    yields a dict that counts the copies."""
+    from torch.profiler import record_function
+    from slate_tpu_torch.ops import hopper_ops as ho
+    up, back = ho._upcast, ho._round_back
+    out, depth = {"copies": 0}, [0]
+
+    def ranged(fn):
+        def run(x):
+            depth[0] += 1
+            try:
+                if depth[0] > 1:  # _round_back's own recursion on a tuple
+                    return fn(x)
+                out["copies"] += 1
+                with record_function(ROUTE_RANGE):
+                    return fn(x)
+            finally:
+                depth[0] -= 1
+        return run
+
+    ho._upcast, ho._round_back = ranged(up), ranged(back)
+    try:
+        yield out
+    finally:
+        ho._upcast, ho._round_back = up, back
 
 
 @contextlib.contextmanager
@@ -185,7 +236,8 @@ def profile_factor(torch, stt, sess, shape, op, nb, dtype, gen, top=12):
     h = register(torch, stt, sess, shape, op, nb, gen, dtype)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            route_copies() as copies:
         t0 = time.perf_counter()
         info = sess.factor_info(h)
         torch.cuda.synchronize()
@@ -204,11 +256,17 @@ def profile_factor(torch, stt, sess, shape, op, nb, dtype, gen, top=12):
         unprofiled = time.perf_counter() - t0
     sess.unregister(h)
     events = prof.key_averages()
-    dev = [e for e in events if on_device(e)]
+    ranges = [e for e in events if e.key == ROUTE_RANGE]
+    copies["device_ms"] = max(
+        [0.0] + [getattr(e, "device_time_total",
+                         getattr(e, "cuda_time_total", 0.0)) / 1e3
+                 for e in ranges])
+    dev = [e for e in events if on_device(e) and e.key != ROUTE_RANGE]
     host = [e for e in events if not on_device(e)]
     busy_us = sum(dev_us(e) for e in dev)
     port = port_kernels(dev)
-    gemm = [e for e in dev if "gemm" in e.key.lower()]
+    # cuBLAS's gemm kernels ("nvjet" in its bf16 ones)
+    gemm = [e for e in dev if "gemm" in e.key.lower() or "nvjet" in e.key]
     gemm_ms = sum(dev_us(e) for e in gemm) / 1e3
     return {
         "op": op, "shape": list(shape), "nb": nb,
@@ -222,6 +280,7 @@ def profile_factor(torch, stt, sess, shape, op, nb, dtype, gen, top=12):
         "herk_lower_rec": {**herk, "share_of_unprofiled_wall":
                            herk["stream_ms"] / 1e3 / unprofiled},
         "port_kernels": port,
+        **({"route_copies": copies} if copies["copies"] else {}),
         "gemm": {"device_ms": gemm_ms, "count": sum(e.count for e in gemm)},
         # shares of the device busy time
         "shares": {"gemm": gemm_ms * 1e3 / busy_us if busy_us else None,
@@ -308,7 +367,7 @@ def main(argv=None) -> int:
                     "(default chol,lu,qr,chol_nb128 unless --solves is "
                     "given; also nopiv, calu, chol_f64, chol_nb1024, "
                     "qr_f64_nb32, chol_c64, lu_c64, chol_c64_nb128, "
-                    "qr_c64)")
+                    "qr_c64, chol_bf16, chol_bf16_nb128, lu_bf16)")
     ap.add_argument("--solves", default="",
                     help="which solves to profile eager and graph-replayed, "
                     "comma-separated: chol, lu, qr, chol_nb128")
@@ -341,7 +400,10 @@ def main(argv=None) -> int:
                "chol_c64": ((n, n), "chol", args.nb, c64),
                "lu_c64": ((n, n), "lu", args.nb, c64),
                "chol_c64_nb128": ((n, n), "chol", n // 128, c64),
-               "qr_c64": ((2 * n, n // 2), "qr", args.nb, c64)}
+               "qr_c64": ((2 * n, n // 2), "qr", args.nb, c64),
+               "chol_bf16": ((n, n), "chol_bf16", args.nb, f32),
+               "chol_bf16_nb128": ((n, n), "chol_bf16", n // 128, f32),
+               "lu_bf16": ((n, n), "lu_bf16", args.nb, f32)}
     chosen = [c for c in args.factors.split(",") if c]
     solves = [c for c in args.solves.split(",") if c]
     if not set(chosen) <= set(factors):

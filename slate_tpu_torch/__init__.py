@@ -8,10 +8,12 @@ in ``csrc/`` and are built with nvcc on first use (``ops/_build.py``).
 
 from .api import (chol_factor, chol_inverse_using_factor, chol_solve,
                   chol_solve_using_factor, gels_batched, geqrf_batched,
-                  gesv_batched, least_squares_solve,
+                  gesv_batched, gesv_mixed, gesv_mixed_batched,
+                  gesv_mixed_gmres, least_squares_solve,
                   least_squares_solve_using_factor, lu_factor,
                   lu_inverse_using_factor, lu_solve, lu_solve_using_factor,
-                  multiply, posv_batched, qr_factor, rank_2k_update,
+                  multiply, posv_batched, posv_mixed, posv_mixed_batched,
+                  posv_mixed_gmres, qr_factor, rank_2k_update,
                   rank_k_update, triangular_multiply, triangular_solve)
 from .core.exceptions import SlateError
 from .core.tiled_matrix import (TiledMatrix, from_dense, hermitian, pad_mask,
@@ -34,12 +36,15 @@ from .runtime import (DEGRADATION_LADDER, Batcher, DeadlineExceeded,
                       Histogram, Metrics, QuotaExceeded, RequestShed,
                       ShedPolicy, TransientDispatchError, default_plan,
                       default_session)
+from .refine import PolicyTable, RefinePolicy
 from .runtime.session import Session
 
 __all__ = [
     "chol_factor", "chol_inverse_using_factor", "chol_solve",
     "chol_solve_using_factor", "gels_batched", "geqrf_batched",
-    "gesv_batched", "least_squares_solve",
+    "gesv_batched", "gesv_mixed", "gesv_mixed_batched", "gesv_mixed_gmres",
+    "posv_mixed", "posv_mixed_batched", "posv_mixed_gmres",
+    "PolicyTable", "RefinePolicy", "least_squares_solve",
     "least_squares_solve_using_factor", "lu_factor",
     "lu_inverse_using_factor", "lu_solve", "lu_solve_using_factor",
     "multiply", "posv_batched", "qr_factor",

@@ -172,9 +172,11 @@ class TiledMatrix:
         return self.full_dense()
 
     def to_numpy(self) -> np.ndarray:
-        """Crop padding and return the logical (view-shaped) matrix."""
+        """Crop padding and return the logical (view-shaped) matrix. numpy
+        has no bfloat16: a bfloat16 matrix comes back as float32 (exact)."""
         mm, nn = self.shape
-        return self.dense()[:mm, :nn].detach().resolve_conj().cpu().numpy()
+        x = self.dense()[:mm, :nn].detach().resolve_conj()
+        return (x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy()
 
 
 def from_dense(a, nb: int, *, kind: MatrixKind = MatrixKind.General,

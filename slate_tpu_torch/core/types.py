@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+from typing import Optional
 
 class Uplo(enum.Enum):
     """Which triangle of a matrix is stored/referenced."""
@@ -107,9 +108,10 @@ class Options:
 
     ``method_lu``, ``pivot_threshold`` and ``method_gels`` are read, and
     ``method_gemm`` for SUMMA (the unported methods raise); so are
-    ``max_iterations`` and ``use_fallback_solver`` (gesv_rbt's refinement
-    steps and its partial-pivot fallback) and ``depth`` (the butterfly
-    depth of gerbt). The others are
+    ``max_iterations`` and ``use_fallback_solver`` (gesv_rbt's and the
+    mixed-precision drivers' refinement steps and their fallbacks),
+    ``tolerance`` (GMRES-IR's) and ``depth`` (the butterfly depth of
+    gerbt). The others are
     accepted for parity and ignored: ``method_hemm`` and ``method_gemm``'s
     A and C because they pick the reference's data placement on a grid,
     which one device does not have; ``method_trsm`` because trsm runs one
@@ -134,6 +136,8 @@ class Options:
     method_gels: MethodGels = MethodGels.Auto
     max_iterations: int = 30
     use_fallback_solver: bool = True
+    # GMRES-IR convergence tolerance; None = eps(working)·√n
+    tolerance: Optional[float] = None
     depth: int = 2  # RBT butterfly depth
 
     def replace(self, **kw) -> "Options":

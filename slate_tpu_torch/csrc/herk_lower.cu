@@ -1,6 +1,6 @@
 // Lower-triangle rank-k update C ← C − A·Aᵀ, in place, one thread block
 // per lower tile pair, on Hopper's tensor cores through warp-level
-// mma.sync.
+// mma.sync, in float64, float32 and bfloat16.
 //
 // Replaces the TPU kernel slate_tpu/ops/pallas_ops.py::herk_lower_update
 // (body in _herk_lower_call): the Pallas grid walks only the
@@ -22,12 +22,13 @@
 // What bounds it: n(n+1)·k flops against n(n+1) + n·k elements moved,
 // so at the sizes the recursive potrf gives it (n = k ≥ 2048) it is
 // bound by the tensor cores. The design:
-// - one block body for both element types, templated on the tile edge
-//   and on a warp-level m16n8k8 atom (struct Mma): the two row panels
-//   Aᵢ (the atom's row-major A) and Aⱼ (its column-major B) are staged
-//   as [row][k-chunk] in shared memory, k contiguous, each row padded
-//   by 4 elements so the fragment reads hit 32 different banks, with
-//   no transpose;
+// - one block body for the three element types, templated on the tile
+//   edge and on a warp-level mma.sync atom (struct Mma): the two row
+//   panels Aᵢ (the atom's row-major A) and Aⱼ (its column-major B) are
+//   staged as [row][k-chunk] in shared memory, k contiguous, each row
+//   padded by 4 elements or 16 bytes, whichever is more (kPadOf), so
+//   the fragment reads hit 32 different banks and a row stays 16-byte
+//   aligned, with no transpose;
 // - global → shared by cp.async in a ring of `stages` 128-byte-deep
 //   chunks (16-byte copies where A's pointer and row stride are
 //   16-byte aligned, one element per copy otherwise; the ragged edge
@@ -48,7 +49,15 @@
 //   float32 partial, which is then added to the running float32
 //   accumulator (Mma<float>::mma_k16 says why). There is no 1×TF32
 //   path: the precision contract is full f32 (the reference's HIGHEST,
-//   six bf16 passes).
+//   six bf16 passes);
+// - bfloat16: mma.sync m16n8k16 .bf16 with float32 accumulation, its
+//   own fragment layout (two k-adjacent elements per 32-bit register,
+//   lane t at k = 2t), one atom per 16-deep k-step into a fresh float32
+//   partial added to the running float32 accumulator; the epilogue
+//   rounds the k-long product to bfloat16 and subtracts it from C in
+//   bfloat16, the TPU kernel's own rounding (pallas_ops.py:113,
+//   cin − prod.astype(out dtype)). A stage holds 64 k of bfloat16 in
+//   the 128 bytes a float32 stage holds 32 k in.
 // A NaN in row r of A poisons row r and column r of the lower result
 // only, as NaN. An Inf in row r poisons the same entries, not as ±Inf
 // alone: in float32 its small part is Inf − Inf = NaN, so that row and
@@ -58,27 +67,49 @@
 // Built with nvcc for sm_90a WITHOUT --use_fast_math: NaN and Inf
 // propagate.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kChunkBytes = 128;  // k-depth of one staged chunk, in bytes
-constexpr int kPad = 4;           // shared row padding, in elements
+using bf16 = __nv_bfloat16;
 
-// the warp-level m16n8k8 atom: fragments read from the [row][k] panels
-// (lane = 4·g + t holds rows g and g + 8, k columns t and t + 4 of A;
-// row (output column) g, k columns t and t + 4 of B) and the product
-// accumulated into 4 elements: rows g, g + 8 × columns 2t, 2t + 1
+constexpr int kChunkBytes = 128;  // k-depth of one staged chunk, in bytes
+// shared row padding, in elements: 4, or 16 bytes where that is more
+__host__ __device__ constexpr int kPadOf(int size) {
+  return 16 / size > 4 ? 16 / size : 4;
+}
+
+// the warp-level atoms. Each Mma<T> reads the fragments of one 16-deep
+// k-step (AK, BK) from the [row][k] panels at p = the lane's row g and
+// k offset kLaneK·t (lane = 4·g + t), runs them (mma_k16) into Acc
+// accumulators of 4 elements per atom, rows g, g + 8 × columns 2t,
+// 2t + 1, and subtracts an accumulator from C in C's type (sub).
+//
+// float64 and float32: m16n8k8 atoms, two per k-step; a fragment holds
+// rows g and g + 8, k columns t and t + 4 of A; row (output column) g,
+// k columns t and t + 4 of B
 template <typename T> struct Mma;
 
 template <> struct Mma<double> {
+  using Acc = double;
+  static constexpr int kLaneK = 1;
   struct A { double x[4]; };
   struct B { double x[2]; };
+  struct AK { A h[2]; };
+  struct BK { B h[2]; };
   __device__ static A load_a(const double* p, int ld) {
     return {{p[0], p[8 * ld], p[4], p[8 * ld + 4]}};
   }
   __device__ static B load_b(const double* p) { return {{p[0], p[4]}}; }
+  __device__ static AK load_a16(const double* p, int ld) {
+    return {{load_a(p, ld), load_a(p + 8, ld)}};
+  }
+  __device__ static BK load_b16(const double* p) {
+    return {{load_b(p), load_b(p + 8)}};
+  }
+  __device__ static void sub(double& c, double v) { c -= v; }
   __device__ static void atom(double (&d)[4], const A& a, const B& b) {
     asm volatile(
         "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
@@ -93,18 +124,22 @@ template <> struct Mma<double> {
   // DMMA's accumulation error but needs registers that the 64-wide
   // tile's 4 blocks per SM do not leave)
   template <int NT>
-  __device__ static void mma_k16(double (&d)[NT][4], const A (&a)[2],
-                                 const B (&b)[2][NT]) {
+  __device__ static void mma_k16(double (&d)[NT][4], const AK& a,
+                                 const BK (&b)[NT]) {
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int ni = 0; ni < NT; ++ni) atom(d[ni], a[h], b[h][ni]);
+      for (int ni = 0; ni < NT; ++ni) atom(d[ni], a.h[h], b[ni].h[h]);
   }
 };
 
 template <> struct Mma<float> {
+  using Acc = float;
+  static constexpr int kLaneK = 1;
   struct A { uint32_t big[4], small[4]; };
   struct B { uint32_t big[2], small[2]; };
+  struct AK { A h[2]; };
+  struct BK { B h[2]; };
   // x rounded to TF32, to nearest with ties away, by its bits (what
   // cvt.rna.tf32.f32 computes, in two integer operations, fewer than
   // that instruction compiles to); NaN and ±Inf stay NaN and ±Inf
@@ -129,6 +164,13 @@ template <> struct Mma<float> {
     split(p[4], f.big[1], f.small[1]);
     return f;
   }
+  __device__ static AK load_a16(const float* p, int ld) {
+    return {{load_a(p, ld), load_a(p + 8, ld)}};
+  }
+  __device__ static BK load_b16(const float* p) {
+    return {{load_b(p), load_b(p + 8)}};
+  }
+  __device__ static void sub(float& c, float v) { c -= v; }
   template <bool kFresh>
   __device__ static void atom(float (&d)[4], const uint32_t (&a)[4],
                               const uint32_t (&b)[2]) {
@@ -153,30 +195,74 @@ template <> struct Mma<float> {
   // an error that grows with k. Each pass runs over the NT partials
   // before the next, so consecutive atoms are independent.
   template <int NT>
-  __device__ static void mma_k16(float (&d)[NT][4], const A (&a)[2],
-                                 const B (&b)[2][NT]) {
+  __device__ static void mma_k16(float (&d)[NT][4], const AK& a,
+                                 const BK (&b)[NT]) {
     float p[NT][4];
 #pragma unroll
     for (int ni = 0; ni < NT; ++ni)
-      atom<true>(p[ni], a[0].small, b[0][ni].big);
+      atom<true>(p[ni], a.h[0].small, b[ni].h[0].big);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (h) {
 #pragma unroll
         for (int ni = 0; ni < NT; ++ni)
-          atom<false>(p[ni], a[1].small, b[1][ni].big);
+          atom<false>(p[ni], a.h[1].small, b[ni].h[1].big);
       }
 #pragma unroll
       for (int ni = 0; ni < NT; ++ni)
-        atom<false>(p[ni], a[h].big, b[h][ni].small);
+        atom<false>(p[ni], a.h[h].big, b[ni].h[h].small);
 #pragma unroll
       for (int ni = 0; ni < NT; ++ni)
-        atom<false>(p[ni], a[h].big, b[h][ni].big);
+        atom<false>(p[ni], a.h[h].big, b[ni].h[h].big);
     }
 #pragma unroll
     for (int ni = 0; ni < NT; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) d[ni][e] += p[ni][e];
+  }
+};
+
+// bfloat16: one m16n8k16 atom per k-step, float32 accumulation. A
+// 32-bit register holds two k-adjacent elements, the lower k in the low
+// half: A's four are rows g, g + 8 at k = 2t and 2t + 8; B's two are
+// row (output column) g at k = 2t and 2t + 8
+template <> struct Mma<bf16> {
+  using Acc = float;
+  static constexpr int kLaneK = 2;
+  struct AK { uint32_t x[4]; };
+  struct BK { uint32_t x[2]; };
+  __device__ static uint32_t pair(const bf16* p) {
+    return *reinterpret_cast<const uint32_t*>(p);
+  }
+  __device__ static AK load_a16(const bf16* p, int ld) {
+    return {{pair(p), pair(p + 8 * ld), pair(p + 8), pair(p + 8 * ld + 8)}};
+  }
+  __device__ static BK load_b16(const bf16* p) {
+    return {{pair(p), pair(p + 8)}};
+  }
+  // each k-step into a fresh float32 partial, then added to d in float32
+  // (as Mma<float>: a tensor-core accumulator over the whole k would
+  // align and truncate every product to its exponent)
+  template <int NT>
+  __device__ static void mma_k16(float (&d)[NT][4], const AK& a,
+                                 const BK (&b)[NT]) {
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni) {
+      float p[4];
+      asm volatile(
+          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+          "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+          : "=f"(p[0]), "=f"(p[1]), "=f"(p[2]), "=f"(p[3])
+          : "r"(a.x[0]), "r"(a.x[1]), "r"(a.x[2]), "r"(a.x[3]),
+            "r"(b[ni].x[0]), "r"(b[ni].x[1]), "f"(0.f));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[ni][e] += p[e];
+    }
+  }
+  // C −= the product rounded to bfloat16, in bfloat16
+  __device__ static void sub(bf16& c, float v) {
+    c = __float2bfloat16_rn(__bfloat162float(c) -
+                            __bfloat162float(__float2bfloat16_rn(v)));
   }
 };
 
@@ -207,7 +293,7 @@ Plan herk_plan_of(int n, int itemsize, int n_sm) {
   p.stages = wide ? Shape<128>::kStages : Shape<64>::kStages;
   p.blocks_per_sm = wide ? Shape<128>::kMinBlocks : Shape<64>::kMinBlocks;
   const int kc = kChunkBytes / itemsize;
-  p.smem_bytes = p.stages * 2 * p.tile * (kc + kPad) * itemsize;
+  p.smem_bytes = p.stages * 2 * p.tile * (kc + kPadOf(itemsize)) * itemsize;
   return p;
 }
 
@@ -252,9 +338,10 @@ herk_lower_kernel(T* __restrict__ c, const T* __restrict__ a, int n, int k,
                   long long ldc, long long lda, int vec) {
   using S = Shape<TILE>;
   using M = Mma<T>;
+  using Acc = typename M::Acc;
   constexpr int kThreads = S::kWarpsM * S::kWarpsN * 32;
   constexpr int kKC = kChunkBytes / (int)sizeof(T);  // k-chunk, elements
-  constexpr int kLD = kKC + kPad;                     // shared row stride
+  constexpr int kLD = kKC + kPadOf(sizeof(T));        // shared row stride
   constexpr int kPanel = TILE * kLD;                  // one row panel
   constexpr int kWM = TILE / S::kWarpsM, kWN = TILE / S::kWarpsN;
   constexpr int kMT = kWM / 16, kNT = kWN / 8;        // atoms per warp
@@ -298,20 +385,26 @@ herk_lower_kernel(T* __restrict__ c, const T* __restrict__ a, int n, int k,
         const int r = rem / kKC, q = rem % kKC;
         const int row = (p ? c0 : r0) + r, kq = kc0 + q;
         const bool in = row < n && kq < k;
-        cp_async_elem<(int)sizeof(T)>(dst + p * kPanel + r * kLD + q,
-                                 in ? a + row * lda + kq : a,
-                                 in ? (int)sizeof(T) : 0);
+        if constexpr (sizeof(T) >= 4) {
+          cp_async_elem<(int)sizeof(T)>(dst + p * kPanel + r * kLD + q,
+                                        in ? a + row * lda + kq : a,
+                                        in ? (int)sizeof(T) : 0);
+        } else {  // cp.async copies 4 bytes or more: a plain 2-byte store
+          const uint16_t* src = reinterpret_cast<const uint16_t*>(a);
+          reinterpret_cast<uint16_t*>(dst)[p * kPanel + r * kLD + q] =
+              in ? src[row * lda + kq] : uint16_t(0);
+        }
       }
     }
   };
 
-  T acc[kMT][kNT][4];
+  Acc acc[kMT][kNT][4];
 #pragma unroll
   for (int mi = 0; mi < kMT; ++mi)
 #pragma unroll
     for (int ni = 0; ni < kNT; ++ni)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = T(0);
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = Acc(0);
 
   const int nk = (k + kKC - 1) / kKC;
 #pragma unroll
@@ -329,27 +422,25 @@ herk_lower_kernel(T* __restrict__ c, const T* __restrict__ a, int n, int k,
     const T* si = smem + (kt % S::kStages) * 2 * kPanel;
     const T* sj = si + kPanel;
 #pragma unroll
-    for (int kk = 0; kk < kKC; kk += 16) {  // 16-deep steps, two atoms each
-      typename M::B fb[2][kNT];
+    for (int kk = 0; kk < kKC; kk += 16) {  // 16-deep k-steps
+      typename M::BK fb[kNT];
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int ni = 0; ni < kNT; ++ni)
-          fb[h][ni] =
-              M::load_b(sj + (wn * kWN + ni * 8 + g) * kLD + kk + 8 * h + t);
+      for (int ni = 0; ni < kNT; ++ni)
+        fb[ni] = M::load_b16(sj + (wn * kWN + ni * 8 + g) * kLD + kk +
+                             M::kLaneK * t);
 #pragma unroll
       for (int mi = 0; mi < kMT; ++mi) {
-        const T* pa = si + (wm * kWM + mi * 16 + g) * kLD + kk + t;
-        const typename M::A fa[2] = {M::load_a(pa, kLD),
-                                     M::load_a(pa + 8, kLD)};
-        M::mma_k16(acc[mi], fa, fb);
+        const T* pa =
+            si + (wm * kWM + mi * 16 + g) * kLD + kk + M::kLaneK * t;
+        M::mma_k16(acc[mi], M::load_a16(pa, kLD), fb);
       }
     }
   }
   cp_async_wait<0>();
   if (!active) return;
 
-  // C −= acc on the lower triangle only (col ≤ row also keeps col < n)
+  // C −= acc on the lower triangle only (col ≤ row also keeps col < n),
+  // in C's type
 #pragma unroll
   for (int mi = 0; mi < kMT; ++mi)
 #pragma unroll
@@ -362,7 +453,7 @@ herk_lower_kernel(T* __restrict__ c, const T* __restrict__ a, int n, int k,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = c0 + wn * kWN + ni * 8 + 2 * t + e;
-          if (col <= row) crow[col] -= acc[mi][ni][2 * h + e];
+          if (col <= row) M::sub(crow[col], acc[mi][ni][2 * h + e]);
         }
     }
 }
@@ -433,18 +524,26 @@ int slate_herk_lower_f64(void* c, const void* a, int n, int k, long long ldc,
   return herk_lower<double>(c, a, n, k, ldc, lda, stream);
 }
 
+int slate_herk_lower_bf16(void* c, const void* a, int n, int k,
+                          long long ldc, long long lda, void* stream) {
+  return herk_lower<bf16>(c, a, n, k, ldc, lda, stream);
+}
+
 // the plan the launcher takes for (n, itemsize) on this device, and the
 // blocks per SM the card schedules for it, written to out[0..5] as
 // (tile, warps, stages, blocks_per_sm, smem_bytes, resident blocks per
 // SM), so that hopper_ops.herk_plan can be held against it
 int slate_herk_plan(int n, int itemsize, int* out) {
-  if (n <= 0 || (itemsize != 4 && itemsize != 8))
+  if (n <= 0 || (itemsize != 2 && itemsize != 4 && itemsize != 8))
     return (int)cudaErrorInvalidValue;
   int n_sm;
   if (int e = sm_count(&n_sm)) return e;
   const Plan p = herk_plan_of(n, itemsize, n_sm);
   int blocks = 0, e;
-  if (itemsize == 4)
+  if (itemsize == 2)
+    e = p.tile == 128 ? occupancy<bf16, 128>(p.smem_bytes, &blocks)
+                      : occupancy<bf16, 64>(p.smem_bytes, &blocks);
+  else if (itemsize == 4)
     e = p.tile == 128 ? occupancy<float, 128>(p.smem_bytes, &blocks)
                       : occupancy<float, 64>(p.smem_bytes, &blocks);
   else

@@ -3,7 +3,11 @@
 Both functions take numpy arrays only (a ``slate_tpu`` TiledMatrix's
 padded ``data`` and its metadata; a resident factor payload ``(L,)``,
 ``(LU, perm)`` or a ``QRFactors``' ``(vr, t)``) and never import the JAX
-package.
+package. A low-precision payload (a refined operator's bfloat16, float32
+or complex64 factor) is taken as it is: a bfloat16 array, which the
+reference hands out with ``ml_dtypes``' numpy type and torch cannot
+read, is carried by its bits (viewed as uint16, reinterpreted as
+``torch.bfloat16``), so ``ml_dtypes`` is never imported.
 """
 
 from __future__ import annotations
@@ -13,9 +17,20 @@ from typing import Sequence, Tuple
 import numpy as np
 
 from ..core.exceptions import SlateError
+import torch
+
 from ..core.tiled_matrix import TiledMatrix, as_tensor, from_dense
 from ..core.types import Diag, MatrixKind, Uplo
 from ..linalg.qr import QRFactors
+
+
+def _port_tensor(a, device) -> torch.Tensor:
+    """``a`` as a tensor on ``device``; a bfloat16 array by its bits."""
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(arr).view(np.uint16)
+        return as_tensor(bits, device).view(torch.bfloat16)
+    return as_tensor(arr, device)
 
 
 def tiled_from_arrays(data: np.ndarray, *, nb: int,
@@ -24,7 +39,7 @@ def tiled_from_arrays(data: np.ndarray, *, nb: int,
                       logical_shape=None, device="cuda") -> TiledMatrix:
     """A port TiledMatrix from a reference matrix's padded storage and
     metadata (kind, uplo, diag, logical shape)."""
-    data = np.asarray(data)
+    data = _port_tensor(data, device)
     if data.ndim != 2:
         raise SlateError("tiled_from_arrays: data must be 2-D")
     return from_dense(data, nb, kind=kind, uplo=uplo, diag=diag,
@@ -38,7 +53,8 @@ def factor_from_arrays(op: str, arrays: Sequence[np.ndarray], *, nb: int,
     ``op="chol"``: ``(L,)`` → (triangular TiledMatrix,);
     ``op="lu"``: ``(LU, perm)`` → (TiledMatrix, int32 perm tensor);
     ``op="qr"``: ``(vr, t)`` → (QRFactors,) with ``logical_shape``
-    = (m, n)."""
+    = (m, n). The factor keeps its type: a low-precision payload of a
+    refined operator (bf16, f32 or c64) stays in it."""
     if op == "chol":
         (l,) = arrays
         return (tiled_from_arrays(l, nb=nb, kind=MatrixKind.Triangular,

@@ -19,9 +19,18 @@ Not ported, because they exist for XLA's compile cache: the per-bucket
 program cache and its statistics (``_run_bucket``, ``bucket_stats``,
 ``bucket_hlo``, ``clear_programs``, ``suppress_accounting``), the pow2
 batch padding (``batch_bucket`` and the identity/zero pads) and the
-two-column minimum of the right-hand sides. The tuning table behind
-``resolved_nb`` is ROADMAP Queue 1 item 11; the mixed-precision drivers
-are item 6.
+two-column minimum of the right-hand sides, and in the mixed-precision
+drivers ``_lo_cast_up``'s optimization barrier (an XLA fusion
+workaround). The tuning table behind ``resolved_nb`` is ROADMAP Queue 1
+item 11.
+
+The mixed-precision drivers (the reference's ``batched.py:560-800``)
+factor the stack in a lower precision (``getrf/potrf_mixed_batched``: the
+cast, then the batched factor, so the factors come back in the factor
+type) and refine every item to the working precision with the engine's
+per-item-masked loop (``refine/engine.batched_ir_loop``): a converged lane
+is never written again, and a lane that does not converge, or whose low
+factor is singular, flags only itself.
 """
 
 from __future__ import annotations
@@ -35,6 +44,9 @@ from ..core.exceptions import SlateError
 from ..core.precision import accurate_matmuls
 from ..core.tiled_matrix import resolve_device
 from ..ops import blocked
+from ..refine import engine as _refine
+from ..refine.policy import canonical_dtype_name, check_cast_kinds, \
+    torch_dtype
 
 # one panel for n ≤ 32 (the whole factorization is one kernel launch),
 # 32-wide panels above it
@@ -206,3 +218,129 @@ def gels_batched(A, B, nb: Optional[int] = None, device="cuda"):
     x = blocked.gels_qr_solve_batched(vr, ts, b, nb)
     return _out(x, vector), torch.zeros(bsz, dtype=torch.int32,
                                          device=a.device)
+
+
+# -- mixed-precision drivers ------------------------------------------------
+
+
+def _guard_mixed_dtype(work_dtype, lo, what: str) -> torch.dtype:
+    """The factor type of a mixed driver: real with real and complex with
+    complex (a complex→real cast would discard the imaginary part: the
+    factor of Re(A), info = 0, never convergent)."""
+    try:
+        check_cast_kinds(work_dtype, lo, what)
+    except ValueError as e:
+        raise SlateError(str(e))
+    return torch_dtype(canonical_dtype_name(lo))
+
+
+def _herm_full(a: torch.Tensor) -> torch.Tensor:
+    """The full Hermitian stack from lower storage: the residual gemms
+    read all of A (potrf/potrs read only the lower triangles)."""
+    return torch.tril(a) + torch.tril(a, -1).mH
+
+
+def _getrs_refined(a, lu, perm, b, max_iters: int, tol):
+    work = a.dtype
+
+    def apply_lo(r):
+        return blocked.getrs_batched(lu, perm, r.to(lu.dtype)).to(work)
+
+    return _refine.batched_ir_loop(a, b, apply_lo(b), apply_lo,
+                                   _refine.batched_cte(a, tol), max_iters)
+
+
+def _potrs_refined(a, l, b, max_iters: int, tol):
+    work = a.dtype
+    af = _herm_full(a)
+
+    def apply_lo(r):
+        return blocked.potrs_batched(l, r.to(l.dtype)).to(work)
+
+    return _refine.batched_ir_loop(af, b, apply_lo(b), apply_lo,
+                                   _refine.batched_cte(af, tol), max_iters)
+
+
+@accurate_matmuls
+def getrf_mixed_batched(A, factor_dtype="bfloat16", nb: Optional[int] = None,
+                        device="cuda"):
+    """Batched LOW-precision LU of a working-precision (B, n, n) stack →
+    (LU_lo, perm, info (B,)), the factors in ``factor_dtype``: the
+    residents a Session keeps for refined small operators."""
+    a = _as_stack(A, "getrf_mixed_batched", device)
+    n = _square(a, "getrf_mixed_batched")
+    lo = _guard_mixed_dtype(a.dtype, factor_dtype, "getrf_mixed_batched")
+    return blocked.getrf_batched(a.to(lo), resolved_nb(n, nb))
+
+
+@accurate_matmuls
+def potrf_mixed_batched(A, factor_dtype="bfloat16", nb: Optional[int] = None,
+                        device="cuda"):
+    """Batched low-precision lower Cholesky → (L_lo, info (B,))."""
+    a = _as_stack(A, "potrf_mixed_batched", device)
+    n = _square(a, "potrf_mixed_batched")
+    lo = _guard_mixed_dtype(a.dtype, factor_dtype, "potrf_mixed_batched")
+    return blocked.potrf_batched(a.to(lo), resolved_nb(n, nb))
+
+
+@accurate_matmuls
+def getrs_refined_batched(A, LU_lo, perm, B, max_iters: int = 30,
+                          tol: Optional[float] = None, device="cuda"):
+    """Batched refined solve from resident LOW-precision LU factors: the
+    initial low-precision solve and the per-item-masked refinement loop.
+    ``A`` is the working-precision operand stack the residual gemms read.
+    Returns (x, iters (B,), converged (B,)); iters counts each item's
+    residual checks."""
+    a = _as_stack(A, "getrs_refined_batched", device)
+    bsz, n, _ = a.shape
+    lu = _tensor(LU_lo, a.device)
+    b, vector = _rhs_stack(B, bsz, n, a, "getrs_refined_batched")
+    x, iters, conv = _getrs_refined(a, lu, _tensor(perm, a.device), b,
+                                    max_iters, tol)
+    return _out(x, vector), iters, conv
+
+
+@accurate_matmuls
+def potrs_refined_batched(A, L_lo, B, max_iters: int = 30,
+                          tol: Optional[float] = None, device="cuda"):
+    """Batched refined solve from resident low-precision Cholesky factors
+    (``A`` in lower storage) → (x, iters (B,), converged (B,))."""
+    a = _as_stack(A, "potrs_refined_batched", device)
+    bsz, n, _ = a.shape
+    b, vector = _rhs_stack(B, bsz, n, a, "potrs_refined_batched")
+    x, iters, conv = _potrs_refined(a, _tensor(L_lo, a.device), b,
+                                    max_iters, tol)
+    return _out(x, vector), iters, conv
+
+
+@accurate_matmuls
+def gesv_mixed_batched(A, B, nb: Optional[int] = None,
+                       factor_dtype="bfloat16", max_iters: int = 30,
+                       tol: Optional[float] = None, device="cuda"):
+    """Batched mixed-precision A·X = B: low-precision LU and per-item
+    refinement → (X, info (B,), iters (B,)); iters[i] < 0: item i did not
+    converge (its X is the last iterate; the caller owns the fallback,
+    see ``api.gesv_mixed_batched``)."""
+    a = _as_stack(A, "gesv_mixed_batched", device)
+    n = _square(a, "gesv_mixed_batched")
+    lo = _guard_mixed_dtype(a.dtype, factor_dtype, "gesv_mixed_batched")
+    b, vector = _rhs_stack(B, a.shape[0], n, a, "gesv_mixed_batched")
+    lu, perm, info = blocked.getrf_batched(a.to(lo), resolved_nb(n, nb))
+    x, iters, conv = _getrs_refined(a, lu, perm, b, max_iters, tol)
+    return _out(x, vector), info, torch.where(conv, iters, -iters)
+
+
+@accurate_matmuls
+def posv_mixed_batched(A, B, nb: Optional[int] = None,
+                       factor_dtype="bfloat16", max_iters: int = 30,
+                       tol: Optional[float] = None, device="cuda"):
+    """Batched mixed-precision Hermitian positive definite solve (lower
+    storage): low-precision Cholesky and per-item refinement → (X,
+    info (B,), iters (B,)); iters < 0: not converged."""
+    a = _as_stack(A, "posv_mixed_batched", device)
+    n = _square(a, "posv_mixed_batched")
+    lo = _guard_mixed_dtype(a.dtype, factor_dtype, "posv_mixed_batched")
+    b, vector = _rhs_stack(B, a.shape[0], n, a, "posv_mixed_batched")
+    l, info = blocked.potrf_batched(a.to(lo), resolved_nb(n, nb))
+    x, iters, conv = _potrs_refined(a, l, b, max_iters, tol)
+    return _out(x, vector), info, torch.where(conv, iters, -iters)

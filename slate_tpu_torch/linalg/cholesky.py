@@ -1,5 +1,6 @@
-"""Cholesky family: potrf, potrs, posv, and the inverse verbs trtri,
-trtrm and potri (counterpart of ``slate_tpu/linalg/cholesky.py:60-378``).
+"""Cholesky family: potrf, potrs, posv, the inverse verbs trtri, trtrm
+and potri, and the mixed-precision posv_mixed (counterpart of
+``slate_tpu/linalg/cholesky.py:60-426``).
 
 The blocked right-looking loop in its lookahead-1 order is the
 reference's default path; the 2×2 recursion runs only where that loop
@@ -19,6 +20,7 @@ the port accepts and ignores them. Two differences of form:
 
 from __future__ import annotations
 
+import math
 from typing import List, Tuple
 
 import torch
@@ -26,7 +28,7 @@ import torch
 from ..core.exceptions import SlateError
 from ..core.precision import accurate_matmuls
 from ..core.tiled_matrix import TiledMatrix, from_dense, unit_pad_diag
-from ..core.types import (Diag, MatrixKind, Options, Side, Uplo,
+from ..core.types import (Diag, MatrixKind, Norm, Options, Side, Uplo,
                           DEFAULT_OPTIONS)
 from ..ops import blocked, tile_ops
 from . import blas3
@@ -238,3 +240,48 @@ def potri(A_factor: TiledMatrix, opts: Options = DEFAULT_OPTIONS
           ) -> TiledMatrix:
     """A⁻¹ from the Cholesky factor: L⁻ᴴ·L⁻¹ (trtri, then trtrm)."""
     return trtrm(trtri(A_factor, opts), opts)
+
+
+# ---------------------------------------------------------------------------
+# mixed precision
+# ---------------------------------------------------------------------------
+
+@accurate_matmuls
+def posv_mixed(A: TiledMatrix, B: TiledMatrix,
+               opts: Options = DEFAULT_OPTIONS, factor_dtype=torch.float32
+               ) -> Tuple[TiledMatrix, torch.Tensor, int]:
+    """Mixed-precision posv with iterative refinement (slate::posv_mixed,
+    src/posv_mixed.cc:23-77; the reference's ``linalg/cholesky.py:
+    381-426``): potrf of A cast to ``factor_dtype``, then R = B − A·X by
+    hemm (or symm) in the working precision and X += potrs(R) until
+    ‖R‖∞ ≤ ‖X‖∞·‖A‖∞·ε·√n, at most ``opts.max_iterations`` steps.
+    Returns (X, info, iters); iters < 0: the full-precision posv answered
+    (under ``opts.use_fallback_solver``)."""
+    from . import elementwise as ew
+    from .norms import norm
+    if A.dtype == factor_dtype:
+        X, info = posv(A, B, opts)
+        return X, info, 0
+    work = A.dtype
+    L_lo, info = potrf(ew.copy(A, dtype=factor_dtype), opts)
+    cte = norm(A, Norm.Inf) * torch.finfo(work).eps * math.sqrt(A.shape[0])
+    residual = blas3.hemm if A.kind is MatrixKind.Hermitian else blas3.symm
+
+    def lo_solve(R: TiledMatrix) -> TiledMatrix:
+        return ew.copy(potrs(L_lo, ew.copy(R, dtype=factor_dtype), opts),
+                       dtype=work)
+
+    X = lo_solve(B)
+    converged = False
+    iters = 0
+    for it in range(opts.max_iterations):
+        iters = it + 1
+        R = residual(Side.Left, -1.0, A, X, 1.0, B, opts)
+        if bool(norm(R, Norm.Inf) <= norm(X, Norm.Inf) * cte):
+            converged = True
+            break
+        X = ew.add(1.0, lo_solve(R), 1.0, X, opts)
+    if not converged and opts.use_fallback_solver:
+        X, info = posv(A, B, opts)
+        return X, info, -iters
+    return X, info, iters

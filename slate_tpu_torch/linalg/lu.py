@@ -1,8 +1,8 @@
 """LU family: getrf (partial pivot, threshold pivoting, no pivoting and
 tournament pivoting), getrs, gesv, the no-pivot and butterfly solvers
-(getrf_nopiv, gesv_nopiv, gerbt, gesv_rbt), CALU (getrf_tntpiv) and the
-inverse (getri, getri_oop) (counterpart of
-``slate_tpu/linalg/lu.py:52-848``).
+(getrf_nopiv, gesv_nopiv, gerbt, gesv_rbt), CALU (getrf_tntpiv), the
+inverse (getri, getri_oop) and the mixed-precision gesv_mixed
+(counterpart of ``slate_tpu/linalg/lu.py:52-885``).
 
 Pivots are a gather permutation: ``A[perm] = L·U``. The reference's
 default round-6/7 path is the one path here: the pivot-fused iterative
@@ -611,3 +611,45 @@ def gesv_rbt(A: TiledMatrix, B: TiledMatrix,
     LU2, perm2, info2 = getrf(A, opts.replace(
         method_lu=MethodLU.PartialPiv))
     return getrs(LU2, perm2, B, opts), info2
+
+
+# ---------------------------------------------------------------------------
+# mixed precision
+# ---------------------------------------------------------------------------
+
+@accurate_matmuls
+def gesv_mixed(A: TiledMatrix, B: TiledMatrix,
+               opts: Options = DEFAULT_OPTIONS, factor_dtype=torch.float32
+               ) -> Tuple[TiledMatrix, torch.Tensor, int]:
+    """Factor in low precision, refine in the working precision
+    (slate::gesv_mixed, src/gesv_mixed.cc:23-77; the reference's
+    ``linalg/lu.py:851-885``): getrf of A cast to ``factor_dtype``, then
+    at most ``opts.max_iterations`` steps of R = B − A·X (gemm in the
+    working precision), X += getrs(R) until ‖R‖∞ ≤ ‖X‖∞·‖A‖∞·ε·√n.
+    Returns (X, info, iters); iters < 0: no convergence, and with
+    ``opts.use_fallback_solver`` the full-precision gesv answered."""
+    if A.dtype == factor_dtype:
+        X, info = gesv(A, B, opts)
+        return X, info, 0
+    work = A.dtype
+    LU, perm, info = getrf(ew.copy(A, dtype=factor_dtype), opts)
+    cte = norm(A, Norm.Inf) * torch.finfo(work).eps * math.sqrt(A.shape[0])
+
+    def lo_solve(R: TiledMatrix) -> TiledMatrix:
+        return ew.copy(getrs(LU, perm, ew.copy(R, dtype=factor_dtype),
+                             opts), dtype=work)
+
+    X = lo_solve(B)
+    converged = False
+    iters = 0
+    for it in range(opts.max_iterations):
+        iters = it + 1
+        R = blas3.gemm(-1.0, A, X, 1.0, B, opts)
+        if bool(norm(R, Norm.Inf) <= norm(X, Norm.Inf) * cte):
+            converged = True
+            break
+        X = ew.add(1.0, lo_solve(R), 1.0, X, opts)
+    if not converged and opts.use_fallback_solver:
+        X, info = gesv(A, B, opts)
+        return X, info, -iters
+    return X, info, iters

@@ -24,12 +24,18 @@ float32 only) do not carry over: every potrf tile goes through
 ``lu_panel_base``,
 every ``panel_geqrf`` base goes through ``qr_panel_base`` (w ≤ 32) or
 ``qr_panel_base_wide`` (32 < w ≤ 128, w % 32 == 0), at any height, and
-every real f32/f64 ``herk_lower_rec(c, a)`` without ``b`` goes through
-``herk_lower_update`` at any n ≥ 1 and k ≥ 1, in one launch (the
+every real (f32, f64, bf16) ``herk_lower_rec(c, a)`` without ``b`` goes
+through ``herk_lower_update`` at any n ≥ 1 and k ≥ 1, in one launch (the
 reference's divisibility gates and its k-chunking at 1024 are TPU
 limits). Every kernel but K5 takes float32, float64, complex64 and
-complex128; K5 takes the real types only and raises on a complex tensor
-(ROADMAP Queue 1 item 3(c)). The complex plain versions of the LU and
+complex128; K5 takes float32, float64 and bfloat16 (its own bf16
+instance, as the reference's gate admits) and raises on a complex tensor
+(ROADMAP Queue 1 item 3(c)). K1, K2 and P1–P4 also take bfloat16 by one
+route (``_via_f32``): their float32 instance on a float32 copy, the result
+rounded back to bfloat16 (perm and info unchanged) and the launch counted
+under "bfloat16", as the reference factors a bf16 diagonal tile in f32 and
+rounds it back; their plain versions take the same route. K3, K4 and P5
+raise on bfloat16. The complex plain versions of the LU and
 Cholesky kernels do their arithmetic on the real and imaginary parts
 through ``cx_mul``, ``cx_div`` (Smith's scaled quotient), ``cx_div_real``
 and ``cx_abs`` (hypot, NaN with a NaN part), and the kernels replay the
@@ -72,6 +78,8 @@ a warp or a CTA with the plan ``qr_panel_batched_plan``).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import functools
 import math
@@ -90,11 +98,12 @@ LAUNCHES: Dict[str, int] = {"chol_tile": 0, "lu_panel_base": 0,
 
 TYPE_LAUNCHES: Dict[str, Dict[str, int]] = {k: {} for k in LAUNCHES}
 
-_REAL = (torch.float32, torch.float64)
-# the element types of the kernels' C entry points; K5 has only the
-# first two
+# the element types of the kernels' C entry points but K5's
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
            torch.complex64: "c64", torch.complex128: "c128"}
+# K5's own: the real types and bfloat16
+_K5_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
+              torch.bfloat16: "bf16"}
 # where the complex instances of the real-only kernel are queued
 _COMPLEX_LATER = {"herk_lower_update": "ROADMAP Queue 1 item 3(c)"}
 _fns: Dict[str, ctypes._CFuncPtr] = {}
@@ -106,12 +115,62 @@ def reset_launches():
         TYPE_LAUNCHES[k] = {}
 
 
+# the element type a launch is counted under while a bf16 route runs its
+# float32 instance (None: the launched tensor's own)
+_COUNT_AS: contextvars.ContextVar = contextvars.ContextVar("count_as",
+                                                           default=None)
+
+
 def _count(name: str, x: torch.Tensor):
     """One launch of kernel ``name`` on ``x``'s element type."""
     LAUNCHES[name] += 1
     by_type = TYPE_LAUNCHES[name]
-    dt = str(x.dtype).split(".")[1]
+    dt = _COUNT_AS.get() or str(x.dtype).split(".")[1]
     by_type[dt] = by_type.get(dt, 0) + 1
+
+
+def _upcast(x: torch.Tensor) -> torch.Tensor:
+    """A bf16 route's input copy: ``x`` in float32 (exact)."""
+    return x.float()
+
+
+def _round_back(out):
+    """A result of a float32 instance, its floating tensors rounded to
+    bfloat16 (perms and infos unchanged)."""
+    if isinstance(out, tuple):
+        return tuple(_round_back(o) for o in out)
+    return out.to(torch.bfloat16) if out.is_floating_point() else out
+
+
+@contextlib.contextmanager
+def _counted_as_bf16():
+    """Launches inside are counted under "bfloat16" (a bf16 route running
+    its float32 instance)."""
+    token = _COUNT_AS.set("bfloat16")
+    try:
+        yield
+    finally:
+        _COUNT_AS.reset(token)
+
+
+def _via_f32(fn):
+    """The bf16 route of K1, K2, P1, P3 and P4 and of their plain
+    versions: a bfloat16 first argument runs ``fn``'s float32 instance on
+    a float32 copy (exact: every bf16 value is a float32 one) and its
+    result comes back rounded to bfloat16, its launch counted under
+    "bfloat16". These kernels are bound by their serial column steps, not
+    by operations, so a native bf16 body would save only the copies (6
+    bytes per entry); the O(n³) trailing gemms around them stay bf16.
+    Every other type goes to ``fn`` unchanged."""
+
+    @functools.wraps(fn)
+    def wrapped(x, *args, **kwargs):
+        if x.dtype != torch.bfloat16:
+            return fn(x, *args, **kwargs)
+        with _counted_as_bf16():
+            return _round_back(fn(_upcast(x), *args, **kwargs))
+
+    return wrapped
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -138,10 +197,11 @@ def _check_cuda_args(name: str, a: torch.Tensor):
 
 
 def _check_real(name: str, x: torch.Tensor):
-    """The gate of the real-only kernel (K5)."""
-    if x.dtype not in _REAL:
+    """The gate of the real-only kernel (K5): float32, float64 and
+    bfloat16."""
+    if x.dtype not in _K5_SUFFIX:
         raise NotImplementedError(
-            f"{name}: real float32/float64 only, got {x.dtype} "
+            f"{name}: real float32/float64/bfloat16 only, got {x.dtype} "
             f"(complex: {_COMPLEX_LATER[name]})")
 
 
@@ -339,6 +399,7 @@ def _grid_launch(lib: str, sym: str, err_sym: str, scratch_bytes: int,
 # K1: Cholesky of one diagonal tile
 # ---------------------------------------------------------------------------
 
+@_via_f32
 def chol_tile_plain(a: torch.Tensor) -> torch.Tensor:
     """Plain version of K1: right-looking column loop over the LOWER
     triangle of ``a`` (A = L·Lᴴ); strict upper of the result zeroed. The
@@ -428,6 +489,7 @@ def chol_tile_launch_smem(b: int, itemsize: int, plan: CholPlan) -> int:
                ctypes.c_longlong)(b, plan.ctas, int(plan.resident), itemsize)
 
 
+@_via_f32
 def chol_tile(a: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor of one (b, b) tile (strict upper zeroed).
 
@@ -489,6 +551,7 @@ def _first_argmax(v: torch.Tensor) -> torch.Tensor:
     return torch.where(cand, idx, n).min()
 
 
+@_via_f32
 def lu_panel_base_plain(a: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of K2 (= ``blocked._panel_getrf_base``): column
@@ -522,6 +585,7 @@ def lu_panel_base_plain(a: torch.Tensor
     return lu, perm, info
 
 
+@_via_f32
 def lu_panel_base(a: torch.Tensor):
     """Pivoted LU of one (H, w) panel base → (lu, perm, info) with the
     ``_panel_getrf_base`` contract.
@@ -744,7 +808,7 @@ def qr_panel_base_wide(a: torch.Tensor):
 HERK_TILE = 128        # the kernel's widest output tile edge
 HERK_SMALL_TILE = 64   # its edge where 128-wide pairs fill few waves
 HERK_CHUNK_BYTES = 128  # k-depth of one staged chunk, in bytes
-HERK_PAD = 4           # shared row padding, in elements
+HERK_PAD = 4           # shared row padding, in elements, at least 16 bytes
 HERK_WIDE_WAVES = 4    # 128-wide tiles need this many waves of pairs
 # K5's entrywise check (chip_smoke.py): on the lower triangle
 # |K5 − C₆₄|ᵢⱼ ≤ HERK_ENTRY_C·ε·(|C| + |A|·|A|ᵀ)ᵢⱼ, C₆₄ the float64
@@ -778,9 +842,12 @@ def herk_plan(n: int, itemsize: int, n_sm: int) -> HerkPlan:
     HERK_WIDE_WAVES waves, else 64-wide ones (4 warps of 32 × 32, 2
     stages, 4 blocks per SM), so that n = 2048 on 132 SMs is 528 pairs,
     one full wave. Each stage holds the two panels' rows at
-    HERK_CHUNK_BYTES of k plus HERK_PAD elements. Pure: the CPU tests
-    hold it."""
-    if n < 1 or itemsize not in (4, 8) or n_sm < 1:
+    HERK_CHUNK_BYTES of k plus a pad of HERK_PAD elements or 16 bytes,
+    whichever is more (8 bfloat16 elements: a row stays 16-byte aligned
+    for the 16-byte copies and the m16n8k16 fragment reads hit 32
+    banks), so a bfloat16 stage holds twice the k of a float32 one in
+    the same bytes. Pure: the CPU tests hold it."""
+    if n < 1 or itemsize not in (2, 4, 8) or n_sm < 1:
         raise SlateError(f"herk_plan: bad n {n}, itemsize {itemsize} or SM "
                          f"count {n_sm}")
     nt = -(-n // HERK_TILE)
@@ -788,7 +855,8 @@ def herk_plan(n: int, itemsize: int, n_sm: int) -> HerkPlan:
         tile, warps, stages, blocks = HERK_TILE, 8, 3, 1
     else:
         tile, warps, stages, blocks = HERK_SMALL_TILE, 4, 2, 4
-    row = (HERK_CHUNK_BYTES // itemsize + HERK_PAD) * itemsize
+    pad = max(HERK_PAD, 16 // itemsize)
+    row = (HERK_CHUNK_BYTES // itemsize + pad) * itemsize
     return HerkPlan(tile, warps, stages, blocks, stages * 2 * tile * row)
 
 
@@ -817,13 +885,20 @@ def herk_lower_update_plain(c: torch.Tensor, a: torch.Tensor,
     diagonal tiles masked to row ≥ col so the strict upper triangle of
     ``c`` is left bitwise unchanged. Returns ``c``. ``tile`` is the
     kernel's plan tile where the two are compared (``herk_plan``); it
-    changes only which products cuBLAS is handed, not the k-long sums."""
+    changes only which products cuBLAS is handed, not the k-long sums.
+    In bfloat16 the product is taken in float32 and rounded to bfloat16
+    before the bfloat16 subtraction, the TPU kernel's own rounding
+    (pallas_ops.py:113, ``cin − prod.astype(out dtype)``)."""
     n = c.shape[0]
+    low = c.dtype == torch.bfloat16
     for i0 in range(0, n, tile):
-        ai = a[i0:i0 + tile]
+        ai = a[i0:i0 + tile].float() if low else a[i0:i0 + tile]
         for j0 in range(0, i0 + 1, tile):
             ct = c[i0:i0 + tile, j0:j0 + tile]
-            upd = ai @ a[j0:j0 + tile].mT
+            aj = a[j0:j0 + tile]
+            upd = ai @ (aj.float() if low else aj).mT
+            if low:
+                upd = upd.to(c.dtype)
             if i0 == j0:
                 lower = torch.ones_like(ct, dtype=torch.bool).tril()
                 ct.copy_(torch.where(lower, ct - upd, ct))
@@ -845,12 +920,15 @@ def herk_lower_update(c: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     call at 127). The CUDA kernel (csrc/herk_lower.cu) runs one block per
     lower tile pair of ``herk_plan`` (128- or 64-wide) and streams the
     whole k in one launch through the tensor cores (mma.sync: FP64 DMMA
-    in float64, 3×TF32 in float32, no 1×TF32 path); it is bound by
-    operations (n(n+1)·k flops). On the card both tensors need a unit
-    column stride; the row strides are passed, so ``c`` may be a view of
-    a larger matrix. Equal to the plain version up to the order of its
-    k-long sums and, in float32, the 3×TF32 split's error (about 2⁻²²
-    of |a|·|b| per product)."""
+    in float64, 3×TF32 in float32, no 1×TF32 path, and in bfloat16
+    m16n8k16 bf16 atoms with float32 accumulation, the product rounded to
+    bfloat16 before the bfloat16 subtraction); it is bound by operations
+    (n(n+1)·k flops). On the card both tensors need a unit column stride;
+    the row strides are passed, so ``c`` may be a view of a larger
+    matrix. Equal to the plain version up to the order of its k-long sums
+    and, in float32, the 3×TF32 split's error (about 2⁻²² of |a|·|b| per
+    product); in bfloat16 that order can move the rounded product by one
+    bfloat16 unit."""
     _check_real("herk_lower_update", c)
     if a.dtype != c.dtype:
         raise SlateError(f"herk_lower_update: dtypes differ ({c.dtype}, "
@@ -871,7 +949,7 @@ def herk_lower_update(c: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     n, k = a.shape
     if n == 0 or k == 0:
         return c
-    f = _fn("herk_lower", f"slate_herk_lower_{_SUFFIX[c.dtype]}",
+    f = _fn("herk_lower", f"slate_herk_lower_{_K5_SUFFIX[c.dtype]}",
             [_P, _P, _I, _I, _L, _L, _P])
     with torch.cuda.device(c.device):
         rc = f(c.data_ptr(), a.data_ptr(), n, k, _row_stride(c),
@@ -895,6 +973,7 @@ LEAF_MAX = 64  # the widest leaf P1 and P2 take
 LEAF_ENTRY_C = 4.0
 
 
+@_via_f32
 def trtri_leaves_plain(l: torch.Tensor, unit: bool = False) -> torch.Tensor:
     """Plain version of P1: X_b = L_b⁻¹ for a (B, s, s) stack by one row
     substitution loop over the s rows, every leaf at once,
@@ -911,6 +990,7 @@ def trtri_leaves_plain(l: torch.Tensor, unit: bool = False) -> torch.Tensor:
     return x
 
 
+@_via_f32
 def trtri_leaves(l: torch.Tensor, unit: bool = False) -> torch.Tensor:
     """Inverses of a (B, s, s) stack of lower-triangular leaves, s ≤ 64,
     as a new contiguous (B, s, s) tensor whose strict upper triangles are
@@ -960,6 +1040,7 @@ def trtri_leaves(l: torch.Tensor, unit: bool = False) -> torch.Tensor:
 # P2: no-pivot LU of one square leaf (no Pallas counterpart)
 # ---------------------------------------------------------------------------
 
+@_via_f32
 def lu_nopiv_base_plain(a: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of P2 (= the reference's ``_lu_nopiv_unblocked``,
@@ -1000,6 +1081,7 @@ def _check_nopiv_leaf(name: str, a: torch.Tensor):
                          f"with 1 ≤ s ≤ {LEAF_MAX}, got {tuple(a.shape)}")
 
 
+@_via_f32
 def lu_nopiv_base(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """No-pivot LU of one square (s, s) leaf, s ≤ 64 → (L\\U packed,
     info int32 0-d: the 1-based first step whose pivot is 0 or NaN; that
@@ -1034,6 +1116,12 @@ def lu_nopiv_base_inplace(a: torch.Tensor, info: torch.Tensor,
     mbarrier of their own: no block-wide barrier per step. A CPU tensor
     runs ``lu_nopiv_base_plain`` and copies its result in."""
     name = "lu_nopiv_base_inplace"
+    if a.dtype == torch.bfloat16:  # the bf16 route, in place on a copy
+        t = _upcast(a)
+        with _counted_as_bf16():
+            lu_nopiv_base_inplace(t, info, offset)
+        a.copy_(t)
+        return
     _check_nopiv_leaf(name, a)
     if (info.dtype != torch.int32 or info.ndim != 0
             or info.device != a.device):
@@ -1069,6 +1157,7 @@ def lu_nopiv_base_inplace(a: torch.Tensor, info: torch.Tensor,
 # P3: partial-pivot LU of every chunk of a stack (no Pallas counterpart)
 # ---------------------------------------------------------------------------
 
+@_via_f32
 def lu_panel_batched_plain(stack: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of P3 (= the reference's ``_panel_getrf_batched_impl``,
@@ -1242,6 +1331,7 @@ def lu_panel_batched_max_clusters(stack: torch.Tensor, plan: P3Plan) -> int:
     return out.value
 
 
+@_via_f32
 def lu_panel_batched(stack: torch.Tensor):
     """Partial-pivot LU of every (H, w) chunk of a contiguous (B, H, w)
     stack, 0 < w ≤ H → (lu, perm int32 (B, H), info int32 (B,)), each
@@ -1310,6 +1400,7 @@ def lu_panel_batched_launch(stack: torch.Tensor, plan: P3Plan):
 # P4: guarded Cholesky of every tile of a stack (no Pallas counterpart)
 # ---------------------------------------------------------------------------
 
+@_via_f32
 def chol_tile_batched_plain(d: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of P4 (= the reference's ``_chol_unrolled_b``): per
@@ -1339,6 +1430,7 @@ def chol_tile_batched_plain(d: torch.Tensor
     return torch.tril(a), info
 
 
+@_via_f32
 def chol_tile_batched(d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Guarded lower Cholesky of every (s, s) item of a (B, s, s) stack,
     1 ≤ s ≤ 64 → (L, info int32 (B,)): L a new contiguous stack with zero

@@ -12,8 +12,11 @@ Failure reflexes: transient dispatch failures are retried with
 exponential backoff and jitter (deterministic under a FaultInjector); a
 per-(op, n) circuit breaker trips after repeated failures and walks the
 declared degradation ladder (``faults.DEGRADATION_LADDER``): grouped
-and dense buckets replay per request. The ladder's mixed and mesh rungs
-belong to ROADMAP Queue 1 items 6 and 12; no ported op reaches them.
+and dense buckets replay per request; a mixed bucket (a refined
+operator) is demoted to working precision
+(``Session.demote_to_working_precision``) and then replayed per request.
+The ladder's mesh rung belongs to ROADMAP Queue 1 item 12; no ported op
+reaches it.
 The worker also drives the Batcher's load-shedding reflex.
 
 ``warmup`` factors each operator off the request path and, on a card,
@@ -309,12 +312,18 @@ class Executor:
     def _dispatch_degraded(self, key, reqs, err):
         """One rung of ``faults.DEGRADATION_LADDER`` for a bucket whose
         breaker is open: grouped and dense buckets replay per request
-        (``Batcher.run_degraded``). Another family has no ported rung
-        (mixed, mesh: ROADMAP items 6, 12), and an unknown handle's
-        bucket fails with its error."""
+        (``Batcher.run_degraded``); a mixed bucket's operator is demoted
+        to working precision (its low-precision resident evicted, counted
+        in ``refine_demotions_total``), then the bucket replays per
+        request. The mesh family has no ported rung (ROADMAP item 12),
+        and an unknown handle's bucket fails with its error."""
         family = ("grouped" if key and key[0] is _SMALL
                   else self.session.degrade_class(key[0]))
-        if DEGRADATION_LADDER.get(family or "") == "per_request":
+        rung = DEGRADATION_LADDER.get(family or "")
+        if rung == "working_precision":
+            self.session.demote_to_working_precision(key[0])
+            rung = "per_request"
+        if rung == "per_request":
             self.batcher.run_degraded(key, reqs)
             return
         self._fail_batch(reqs, err if err is not None else SlateError(

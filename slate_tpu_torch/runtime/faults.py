@@ -72,7 +72,9 @@ SITES: Dict[str, Tuple[str, ...]] = {
 # always a counted decision.
 #   grouped -> per_request        one batched pass per bucket degrades
 #                                 to B independent solves
-#   mixed   -> working_precision  (mixed precision: ROADMAP item 6)
+#   mixed   -> working_precision  a refined operator is demoted: its
+#                                 low-precision resident evicted, then
+#                                 per-request solves at full precision
 #   dense   -> per_request        a coalesced dense bucket degrades to
 #                                 per-request solves
 #   mesh    -> reject             (multi-device: ROADMAP item 12)

@@ -74,11 +74,17 @@ class Metrics:
     cancelled_requests, which partition requests_total; failed_batches,
     load_sheds_total, degraded_dispatches_total, breaker_trips_total,
     breaker_probes_total, breaker_closes_total, breaker_short_circuits,
-    faults_injected_total and fault:{kind}.
-    Histograms (seconds, except batch_size): factor_latency,
-    solve_latency, request_latency, batch_size,
-    warmup_compile_latency, retry_backoff_s, and the request stages
-    stage_queue_wait, stage_batch_form, stage_reply.
+    faults_injected_total and fault:{kind}; mixed precision:
+    refine_converged_total, refine_fallbacks_total (a low-precision factor
+    that failed, or a refined solve that did not converge, served at
+    working precision), refine_demotions_total (the Executor's
+    working_precision rung) and refine_flops_total (the refinement
+    steps' residual gemms and factor applies, also in flops_total).
+    Histograms (seconds, except batch_size and refine_iterations):
+    factor_latency, solve_latency, request_latency, batch_size,
+    warmup_compile_latency, retry_backoff_s, refine_iterations (residual
+    checks per refined solve), and the request stages stage_queue_wait,
+    stage_batch_form, stage_reply.
     Gauges (set, not incremented): resident_bytes; queue_depth,
     queued_buckets, oldest_request_age_s, max_bucket_backlog (Batcher),
     inflight_batches (Executor), shedding_active,

@@ -16,9 +16,22 @@ device, captures its dense solve as a ``torch.cuda.CUDAGraph`` (the
 card's counterpart of the reference's AOT-compiled solve program):
 ``solve_matrix`` replays it whenever a request's padded right-hand side
 matches. The Batcher and Executor (``batching.py``, ``executor.py``) sit
-above this class; ``faults`` injects failures at its seams. Refinement,
-meshes, band and spectral operators, tenants, SLOs, attribution, the
-recorder and tracing are later slices: they raise
+above this class; ``faults`` injects failures at its seams.
+
+Mixed precision: ``register(..., refine=True | RefinePolicy)`` keeps a
+LOW-precision factor resident for an lu/chol operator (dense or small;
+its bytes are the factor type's, so a bf16 resident of an f32 operator
+costs half) and refines every solve to working accuracy through the
+refine engine (``refine/engine.py``): classic IR or GMRES-IR. A refined
+dense operator's warmup captures the engine's ``start`` and ``step``
+functions as two CUDA graphs, which ``drive`` replays (GMRES-IR stays
+eager). A low-precision factor that fails, or a solve that does not
+converge, takes the counted working-precision fallback
+(``refine_fallbacks_total``; the operator is served unrefined from then
+on), or raises when the policy disables fallback.
+``demote_to_working_precision`` is the Executor's ``working_precision``
+rung. Meshes, band and spectral operators, tenants, SLOs, attribution,
+the recorder and tracing are later slices: they raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -40,13 +53,19 @@ from ..core.exceptions import SlateError
 from ..linalg.qr import QRFactors
 from ..core.tiled_matrix import (TiledMatrix, from_dense, num_tiles,
                                  resolve_device)
-from ..core.types import MatrixKind, Options, DEFAULT_OPTIONS
+from ..core.types import MatrixKind, Norm, Options, DEFAULT_OPTIONS
 from ..linalg import batched as _batched
+from ..linalg.norms import norm
 from ..obs import flops as _flops
+from ..refine import engine as _refine
+from ..refine.policy import (PolicyTable, RefinePolicy,
+                             canonical_dtype_name, default_factor_dtype)
 from .metrics import Metrics
 
 SMALL_OPS = ("lu_small", "chol_small")
 OPS = ("lu", "chol", "qr") + SMALL_OPS
+# the op kinds a refine policy covers
+REFINE_KINDS = _refine.REFINE_OPS + SMALL_OPS
 # op kinds of the reference Session that later slices port
 LATER_OPS = ("band_lu", "band_chol", "eig", "svd")
 # where the reference Session's other serving features are queued
@@ -62,6 +81,10 @@ class _Operator:
     opts: Options
     m: int
     n: int
+    # the refine policy serving this operator; None: working precision
+    # (set to None for good by a refine fallback or a demotion)
+    refine: Optional[RefinePolicy] = None
+    anorm: Optional[float] = None  # ‖A‖∞, taken at the first refined solve
 
 
 @dataclasses.dataclass
@@ -73,6 +96,23 @@ class _SolveGraph:
     graph: object
     b: torch.Tensor
     x: TiledMatrix
+    nbytes: int
+
+
+@dataclasses.dataclass
+class _RefineGraphs:
+    """The two captured programs of a refined dense solve on one resident
+    low-precision factor: replaying ``start`` solves the static right-hand
+    side ``b`` into ``x0``; replaying ``step`` takes ``b`` and the static
+    iterate ``x`` to ``x_new`` and the norm pair ``norms``. ``nbytes``:
+    the static tensors plus the pools the captures reserved."""
+    start: object
+    step: object
+    b: torch.Tensor
+    x: torch.Tensor
+    x0: TiledMatrix
+    x_new: TiledMatrix
+    norms: torch.Tensor
     nbytes: int
 
 
@@ -98,15 +138,20 @@ def _payload_nbytes(payload) -> int:
     return total
 
 
-def _small_factor(op: str, stack: torch.Tensor):
+def _small_factor(op: str, stack: torch.Tensor,
+                  policy: Optional[RefinePolicy] = None):
     """The batched factor of a (B, n, n) stack of small operators →
-    (per-item payloads, info (B,)). Each payload is a copy of its item, not
-    a view: a view would keep the whole stack allocated while any item of
-    it stays cached, and the byte budget counts each item alone."""
+    (per-item payloads, info (B,)), in the refine policy's factor type
+    when one is given. Each payload is a copy of its item, not a view: a
+    view would keep the whole stack allocated while any item of it stays
+    cached, and the byte budget counts each item alone."""
     if op == "lu_small":
-        lus, perms, info = _batched.getrf_batched(stack)
+        lus, perms, info = (
+            _batched.getrf_batched(stack) if policy is None else
+            _batched.getrf_mixed_batched(stack, policy.factor_dtype))
         return [(lu.clone(), p.clone()) for lu, p in zip(lus, perms)], info
-    ls, info = _batched.potrf_batched(stack)
+    ls, info = (_batched.potrf_batched(stack) if policy is None else
+                _batched.potrf_mixed_batched(stack, policy.factor_dtype))
     return [(l.clone(),) for l in ls], info
 
 
@@ -120,13 +165,32 @@ def _small_solve(op: str, payloads, b: torch.Tensor) -> torch.Tensor:
     return _batched.potrs_batched(torch.stack([p[0] for p in payloads]), b)
 
 
-def _make_factor_fn(op: str, opts: Options):
+def _small_refined(op: str, a: torch.Tensor, payloads, b: torch.Tensor,
+                   policy: RefinePolicy):
+    """One batched refined solve of the (B, n, n) working-precision
+    operands ``a`` from their stacked low-precision payloads → (x, iters
+    (B,), converged (B,))."""
+    if op == "lu_small":
+        return _batched.getrs_refined_batched(
+            a, torch.stack([p[0] for p in payloads]),
+            torch.stack([p[1] for p in payloads]), b,
+            max_iters=policy.max_iters, tol=policy.tol)
+    return _batched.potrs_refined_batched(
+        a, torch.stack([p[0] for p in payloads]), b,
+        max_iters=policy.max_iters, tol=policy.tol)
+
+
+def _make_factor_fn(op: str, opts: Options,
+                    policy: Optional[RefinePolicy] = None):
     """The factor verb as an A -> (payload, info) function (the small ops:
-    the B = 1 run of the batched factor)."""
+    the B = 1 run of the batched factor), in the refine policy's factor
+    type when one is given."""
     if op in SMALL_OPS:
         def factor(A):
-            payloads, info = _small_factor(op, A[None])
+            payloads, info = _small_factor(op, A[None], policy)
             return payloads[0], info[0]
+    elif policy is not None:
+        factor = _refine.make_factor_fn(op, opts, policy)
     elif op == "lu":
         def factor(A):
             LU, perm, info = api.lu_factor(A, opts)
@@ -182,6 +246,7 @@ class Session:
     def __init__(self, hbm_budget: Optional[int] = None,
                  opts: Options = DEFAULT_OPTIONS,
                  metrics: Optional[Metrics] = None, device="cuda",
+                 refine_policies: Optional[PolicyTable] = None,
                  tenant_policies=None, tracer=None):
         if tenant_policies is not None:
             raise NotImplementedError(f"Session: {_TENANTS_LATER}")
@@ -189,6 +254,9 @@ class Session:
             raise NotImplementedError(f"Session: tracing {_OBS_LATER}")
         self.hbm_budget = hbm_budget
         self.opts = opts
+        # register(..., refine=True) resolves its RefinePolicy here per
+        # (op, n, working dtype); with no rule, the one-tier-down ladder
+        self.refine_policies = refine_policies or PolicyTable()
         self.device = resolve_device(device)
         self.metrics = metrics or Metrics()
         # a FaultInjector (enable_faults); None: every seam is one check
@@ -216,7 +284,8 @@ class Session:
     def register(self, A, op: str = "auto",
                  handle: Optional[Hashable] = None,
                  opts: Optional[Options] = None,
-                 tenant: Optional[str] = None) -> Hashable:
+                 tenant: Optional[str] = None,
+                 refine=None) -> Hashable:
         """Register an operator; returns its handle (an int unless
         given). ``op`` is "chol", "lu", "qr", "lu_small", "chol_small" or
         "auto" (a plain array → lu_small; Hermitian/Symmetric → chol,
@@ -224,11 +293,24 @@ class Session:
         tall (m ≥ n); the others need a square one. The dense ops take a
         ``TiledMatrix`` on the session's device; the small ops a plain
         (n, n) numpy array or tensor of a float or complex type, which
-        the session puts on its device."""
+        the session puts on its device.
+
+        ``refine`` (lu/chol operators, dense or small): a RefinePolicy,
+        or True to resolve one from ``refine_policies`` by (op, n, dtype)
+        — a matched rule whose policy is None registers the operator
+        unrefined, and with no matching rule the one-tier-down ladder
+        decides (complex64 has no lower type and raises). The factor
+        type must differ from the working one and agree with it in
+        real/complex kind; GMRES-IR covers the dense ops only."""
         if tenant is not None:
             raise NotImplementedError(f"Session.register: {_TENANTS_LATER}")
         if op == "auto":
             op = self._infer_op(A)
+        refining = refine is not None and refine is not False
+        if refining and op not in REFINE_KINDS:
+            raise SlateError(
+                f"Session.register: refine covers lu/chol operators "
+                f"(dense or small), not {op!r}")
         if op in LATER_OPS:
             raise NotImplementedError(
                 f"Session.register: op {op!r} is not ported yet (ROADMAP "
@@ -257,6 +339,8 @@ class Session:
         elif m != n:
             raise SlateError(f"Session.register: {op} needs a square "
                              f"operand, got {(m, n)}")
+        policy = self._resolve_refine(refine, op, n, A.dtype) \
+            if refining else None
         with self._lock:
             if handle is None:
                 self._seq += 1
@@ -266,8 +350,40 @@ class Session:
             if handle in self._ops:
                 raise SlateError(f"Session.register: handle {handle!r} "
                                  "already registered (unregister first)")
-            self._ops[handle] = _Operator(A, op, opts or self.opts, m, n)
+            self._ops[handle] = _Operator(A, op, opts or self.opts, m, n,
+                                          refine=policy)
         return handle
+
+    def _resolve_refine(self, refine, op: str, n: int,
+                        wd) -> Optional[RefinePolicy]:
+        """The policy ``register(refine=...)`` asked for, validated
+        against the working dtype ``wd`` (the reference's rules and
+        messages)."""
+        if refine is True:
+            matched, policy = self.refine_policies.lookup(
+                op.replace("_small", ""), n, wd)
+            if not matched:
+                lo = default_factor_dtype(wd)
+                if lo is None:
+                    raise SlateError(
+                        f"Session.register: no refine policy resolves for "
+                        f"(op={op!r}, n={n}, "
+                        f"dtype={canonical_dtype_name(wd)}) — no lower factor "
+                        "precision exists on the dtype ladder")
+                policy = RefinePolicy(factor_dtype=lo)
+        else:
+            policy = refine
+        if policy is not None:
+            try:
+                policy.validate_for(wd)
+            except ValueError as e:
+                raise SlateError(f"Session.register: {e}")
+            if policy.strategy == "gmres" and op in SMALL_OPS:
+                raise SlateError(
+                    "Session.register: GMRES-IR serving covers "
+                    "single-device dense operators; use strategy='ir' for "
+                    "mesh or small-problem operators")
+        return policy
 
     def _small_operand(self, A) -> torch.Tensor:
         """A small operator as a square floating-point or complex tensor
@@ -310,10 +426,28 @@ class Session:
 
     def degrade_class(self, handle: Hashable) -> Optional[str]:
         """The ``faults.DEGRADATION_LADDER`` family of a handle's serving
-        path, None for unknown handles. Every ported op serves "dense"
-        ("mixed" and "mesh" arrive with ROADMAP items 6 and 12; grouped
+        path: "mixed" while a refine policy serves it, else "dense"; None
+        for unknown handles ("mesh" arrives with ROADMAP item 12; grouped
         small buckets classify themselves). Lock-free, as ``op_meta``."""
-        return None if self._ops.get(handle) is None else "dense"
+        entry = self._ops.get(handle)
+        if entry is None:
+            return None
+        return "mixed" if entry.refine is not None else "dense"
+
+    def demote_to_working_precision(self, handle: Hashable) -> bool:
+        """The mixed → working_precision rung of the degradation ladder
+        (walked by the Executor's circuit breaker): drop the refine policy
+        and evict the low-precision resident, so the next solve refactors
+        at working precision. Counted in ``refine_demotions_total``.
+        False when the handle is unknown or not refined."""
+        with self._lock:
+            entry = self._ops.get(handle)
+            if entry is None or entry.refine is None:
+                return False
+            entry.refine = None
+            self._drop(handle)
+            self.metrics.inc("refine_demotions_total")
+            return True
 
     # -- cache -------------------------------------------------------------
     @property
@@ -406,8 +540,8 @@ class Session:
                 return res
             self.metrics.inc("cache_misses")
             t0 = time.perf_counter()
-            payload, info = _make_factor_fn(entry.op, entry.opts)(entry.A)
-            res = _Resident(payload, int(info), _payload_nbytes(payload))
+            payload, info = self._factor_payload(handle, entry)
+            res = _Resident(payload, info, _payload_nbytes(payload))
             self._sync()  # the QR factor has no info sync
             self.metrics.observe("factor_latency", time.perf_counter() - t0)
             self.metrics.inc("factors_total")
@@ -416,6 +550,30 @@ class Session:
             self.metrics.inc("factor_flops_total", fl)
             self._insert(handle, res)
             return res
+
+    def _factor_payload(self, handle: Hashable, entry: _Operator):
+        """Caller holds the lock. (payload, info) of ``entry``'s factor: in
+        its refine policy's factor type, or — when that factor fails, or
+        the ``refine.lo_factor`` fault fires — the counted
+        working-precision fallback (``refine_fallbacks_total``; the
+        operator is unrefined from then on), or SlateError when the
+        policy disables fallback."""
+        policy = entry.refine
+        payload, info = _make_factor_fn(entry.op, entry.opts,
+                                        policy)(entry.A)
+        info = int(info)
+        if policy is None:
+            return payload, info
+        if (info == 0 and self.faults is not None
+                and self._fault("refine.lo_factor")):
+            info = 1  # an injected failure of the low-precision factor
+        if info == 0:
+            return payload, info
+        self._refine_fallback(
+            handle, entry, policy,
+            f"low-precision factor of {handle!r} failed (info={info})")
+        payload, info = _make_factor_fn(entry.op, entry.opts)(entry.A)
+        return payload, int(info)
 
     def factor_info(self, handle: Hashable) -> int:
         with self._lock:
@@ -474,9 +632,9 @@ class Session:
                      tenant: Optional[str] = None) -> TiledMatrix:
         """Solve with the resident factor; B is a TiledMatrix on the
         session's device. Raises on factorization failure (info > 0).
-        A warmed operator replays its captured graph when B's padded
-        shape and type match it. ``solve_latency`` ends when the
-        device has finished."""
+        A warmed operator replays its captured graph (a refined one: its
+        start and step graphs) when B's padded shape and type match it.
+        ``solve_latency`` ends when the device has finished."""
         if tenant is not None:
             raise NotImplementedError(
                 f"Session.solve_matrix: {_TENANTS_LATER}")
@@ -490,15 +648,81 @@ class Session:
             if self.faults is not None:
                 self._fault("dispatch")
             t0 = time.perf_counter()
-            if graph is None:
-                X = _make_solve_fn(entry.op, entry.opts)(res.payload, B)
+            if entry.refine is not None:
+                X = self._dispatch_refined(handle, entry, res, B, graph)
             else:
-                X = self._replay(graph, B)
-                self.metrics.inc("graph_replays")
+                X = self._dispatch_plain(entry, res, B, graph)
             self._sync()
             self._count_solve(entry.op, entry.m, entry.n, int(B.shape[1]),
                               time.perf_counter() - t0)
             return X
+
+    def _dispatch_plain(self, entry: _Operator, res: _Resident,
+                        B: TiledMatrix, graph) -> TiledMatrix:
+        """The working-precision solve: the captured graph's replay, or
+        the eager ``*_solve_using_factor``."""
+        if graph is None:
+            return _make_solve_fn(entry.op, entry.opts)(res.payload, B)
+        self.metrics.inc("graph_replays")
+        return self._replay(graph, B)
+
+    def _dispatch_refined(self, handle: Hashable, entry: _Operator,
+                          res: _Resident, B: TiledMatrix,
+                          graph) -> TiledMatrix:
+        """Caller holds the lock. One solve from the LOW-precision
+        resident: the refine engine's ``drive`` over the start and step
+        functions (their graph replays when ``graph`` is given), with the
+        ``refine.converge`` fault hook, or GMRES-IR. Observes
+        ``refine_iterations`` and counts ``refine_flops_total`` (each
+        iteration's residual gemm and factor apply). A solve that does
+        not converge is the counted fallback: the low-precision resident
+        is evicted, the operator is refactored at working precision and
+        served unrefined from then on (or SlateError when the policy
+        disables fallback) — never a wrong answer."""
+        policy = entry.refine
+        k = int(B.shape[1])
+        if entry.anorm is None:
+            entry.anorm = float(norm(entry.A, Norm.Inf))
+        if policy.strategy == "gmres":
+            X, iters, converged = _refine.gmres_solve(
+                entry.A, B, res.payload, entry.op, policy, entry.opts)
+        else:
+            if graph is None:
+                start = _refine.make_start_fn(entry.op, entry.opts, policy,
+                                              entry.A.dtype)
+                step = _refine.make_step_fn(entry.op, entry.opts, policy,
+                                            entry.A.dtype)
+            else:
+                start, step = self._refine_replays(graph)
+                self.metrics.inc("graph_replays")
+            X, iters, converged = _refine.drive(
+                start, step, res.payload, entry.A, B, entry.anorm, policy,
+                entry.A.dtype, fault_hook=(
+                    None if self.faults is None else
+                    (lambda: bool(self._fault("refine.converge")))))
+            if graph is not None:
+                X = dataclasses.replace(X, n=k)
+        self._count_refine(entry, iters, k)
+        if converged:
+            self.metrics.inc("refine_converged_total")
+            return X
+        self._refine_fallback(handle, entry, policy)
+        res2 = self.factor(handle)
+        if res2.info != 0:
+            raise SlateError(
+                f"Session: operator {handle!r} working-precision fallback "
+                f"factorization failed (info={res2.info})")
+        return self._dispatch_plain(entry, res2, B, self._graph_for(
+            handle, entry, res2, B))
+
+    def _count_refine(self, entry: _Operator, iters: int, k: int):
+        """The refinement work of one solve: ``iters`` residual gemms and
+        factor applies."""
+        self.metrics.observe("refine_iterations", float(iters))
+        extra = iters * (_flops.gemm(entry.n, k, entry.n)
+                         + _flops.solve_flops(entry.op, entry.m, entry.n, k))
+        self.metrics.inc("refine_flops_total", extra)
+        self.metrics.inc("flops_total", extra)
 
     def solve(self, handle: Hashable, b,
               tenant: Optional[str] = None) -> np.ndarray:
@@ -552,10 +776,13 @@ class Session:
         solve). Dense ops on a CUDA device capture the solve of an
         (m, nrhs) right-hand side as a CUDA graph (``aot_compiles``,
         ``warmup_compile_latency``): right-hand sides are tile-padded,
-        so nrhs = 1 covers every width up to the operator's nb. The
-        graph belongs to the resident factor; its bytes join the
-        factor's in the budget. A CPU session captures nothing. A failed
-        capture raises SlateError naming the op and the failing call."""
+        so nrhs = 1 covers every width up to the operator's nb. A
+        refined dense operator factors its low-precision resident and
+        captures two graphs, the refine engine's ``start`` and ``step``
+        (a GMRES-IR one captures nothing). The graphs belong to the
+        resident factor; their bytes join the factor's in the budget. A
+        CPU session captures nothing. A failed capture raises SlateError
+        naming the op and the failing call."""
         if update_k is not None:
             raise NotImplementedError(
                 "Session.warmup: update_k (incremental updates) is not "
@@ -567,10 +794,16 @@ class Session:
                 if res.info == 0:
                     b0 = torch.zeros((1, entry.n, nrhs),
                                      dtype=entry.A.dtype, device=self.device)
-                    _small_solve(entry.op, [res.payload], b0)
+                    if entry.refine is None:
+                        _small_solve(entry.op, [res.payload], b0)
+                    else:
+                        _small_refined(entry.op, entry.A[None],
+                                       [res.payload], b0, entry.refine)
                     self._sync()
                 return
-            if self.device.type != "cuda" or res.info != 0:
+            if (self.device.type != "cuda" or res.info != 0 or (
+                    entry.refine is not None
+                    and entry.refine.strategy == "gmres")):
                 return
             nb = entry.A.nb
             key = (num_tiles(entry.m, nb) * nb, num_tiles(nrhs, nb) * nb,
@@ -585,7 +818,9 @@ class Session:
         (counted) when warmup asked for B's padded shape and the factor
         was refactored since; None: the eager solve."""
         keys = self._warm.get(handle)
-        if not keys or B.shape[0] != entry.m or B.device != self.device:
+        if not keys or B.shape[0] != entry.m or B.device != self.device or (
+                entry.refine is not None
+                and entry.refine.strategy == "gmres"):
             return None
         b = B.dense_canonical()
         key = (int(b.shape[0]), int(b.shape[1]), b.dtype)
@@ -596,20 +831,55 @@ class Session:
             handle, entry, res, key)
 
     def _capture(self, handle, entry: _Operator, res: _Resident,
-                 key: Tuple) -> _SolveGraph:
+                 key: Tuple):
         """Capture the solve of a static (rows, cols) right-hand side on
-        ``res`` (caller holds the lock). One eager run on a side stream
-        first loads the kernel libraries and creates the cuBLAS handles;
-        the capture's private pool is measured as the growth of the
-        reserved bytes across it."""
+        ``res`` (caller holds the lock): the solve, or for a refined
+        operator the refine engine's ``start`` and ``step`` (each its own
+        graph; ``step`` takes a static iterate too). The static tensors'
+        logical width is the padded one: no column is masked, so one
+        capture serves every width up to ``cols``. Counts one
+        ``aot_compiles`` per graph; their bytes join the resident's."""
         rows, cols, dtype = key
         if self.faults is not None:
             self._fault("compile")
-        solve = _make_solve_fn(entry.op, entry.opts)
-        dev = self.device
         t0 = time.perf_counter()
-        b = torch.zeros((rows, cols), dtype=dtype, device=dev)
+        b = torch.zeros((rows, cols), dtype=dtype, device=self.device)
         B = TiledMatrix(b, entry.m, cols, entry.A.nb)
+        if entry.refine is None:
+            solve = _make_solve_fn(entry.op, entry.opts)
+            (graph,), (X,), pool = self._graphs(
+                handle, entry, key, [lambda: solve(res.payload, B)])
+            sg = _SolveGraph(graph, b, X, b.numel() * b.element_size() + pool)
+        else:
+            start = _refine.make_start_fn(entry.op, entry.opts, entry.refine,
+                                          dtype)
+            step = _refine.make_step_fn(entry.op, entry.opts, entry.refine,
+                                        dtype)
+            x = torch.zeros_like(b)
+            X = TiledMatrix(x, entry.m, cols, entry.A.nb)
+            graphs, (X0, (X_new, norms)), pool = self._graphs(
+                handle, entry, key,
+                [lambda: start(res.payload, B),
+                 lambda: step(res.payload, entry.A, B, X)])
+            sg = _RefineGraphs(*graphs, b, x, X0, X_new, norms,
+                               2 * b.numel() * b.element_size() + pool)
+        res.graphs[key] = sg
+        res.nbytes += sg.nbytes
+        self._cached_total += sg.nbytes  # ``res`` is the cached factor
+        self._evict_to_budget(keep=handle)
+        self.metrics.inc("aot_compiles", 1 if entry.refine is None else 2)
+        self.metrics.observe("warmup_compile_latency",
+                             time.perf_counter() - t0)
+        return sg
+
+    def _graphs(self, handle, entry: _Operator, key: Tuple, calls):
+        """Capture each of ``calls`` (zero-argument functions) as a CUDA
+        graph with a private pool → (graphs, their outputs, the pools'
+        bytes). One eager run of each on a side stream first loads the
+        kernel libraries and creates the cuBLAS handles; the pools are
+        measured as the growth of the reserved bytes across the captures.
+        A failure raises SlateError naming the op and the failing call."""
+        dev = self.device
         try:
             # CUDAGraph and torch.cuda.graph take the current device's
             # capture stream: make it the session's device
@@ -617,31 +887,47 @@ class Session:
                 side = torch.cuda.Stream(dev)
                 side.wait_stream(torch.cuda.current_stream(dev))
                 with torch.cuda.stream(side):
-                    solve(res.payload, B)
+                    for call in calls:
+                        call()
                 torch.cuda.current_stream(dev).wait_stream(side)
                 torch.cuda.synchronize(dev)
                 torch.cuda.empty_cache()
                 before = torch.cuda.memory_reserved(dev)
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph,
-                                      capture_error_mode="thread_local"):
-                    X = solve(res.payload, B)
+                graphs, outs = [], []
+                for call in calls:
+                    graphs.append(torch.cuda.CUDAGraph())
+                    with torch.cuda.graph(graphs[-1],
+                                          capture_error_mode="thread_local"):
+                        outs.append(call())
                 torch.cuda.synchronize(dev)
                 pool = max(torch.cuda.memory_reserved(dev) - before, 0)
         except Exception as e:
+            rows, cols, dtype = key
+            what = "refined " if entry.refine is not None else ""
             raise SlateError(
-                f"Session.warmup: capturing the {entry.op} solve of "
+                f"Session.warmup: capturing the {what}{entry.op} solve of "
                 f"operator {handle!r} at ({rows}, {cols}) {dtype} failed "
                 f"in {_failing_call(e)}: {type(e).__name__}: {e}") from e
-        sg = _SolveGraph(graph, b, X, b.numel() * b.element_size() + pool)
-        res.graphs[key] = sg
-        res.nbytes += sg.nbytes
-        self._cached_total += sg.nbytes  # ``res`` is the cached factor
-        self._evict_to_budget(keep=handle)
-        self.metrics.inc("aot_compiles")
-        self.metrics.observe("warmup_compile_latency",
-                             time.perf_counter() - t0)
-        return sg
+        return graphs, outs, pool
+
+    @staticmethod
+    def _refine_replays(rg: _RefineGraphs):
+        """The start and step functions of ``drive`` as replays of the
+        captured graphs: each copies its input in, replays, and returns
+        copies of the static outputs (the norm pair is read at once)."""
+        def start(payload, B):
+            rg.b.copy_(B.dense_canonical())
+            rg.start.replay()
+            return dataclasses.replace(rg.x0, data=rg.x0.data.clone())
+
+        def step(payload, A, B, X):
+            rg.x.copy_(X.dense_canonical())
+            rg.step.replay()
+            return (dataclasses.replace(rg.x_new,
+                                        data=rg.x_new.data.clone()),
+                    rg.norms)
+
+        return start, step
 
     @staticmethod
     def _replay(sg: _SolveGraph, B: TiledMatrix) -> TiledMatrix:
@@ -657,27 +943,105 @@ class Session:
 
     # -- the small-problem engine -------------------------------------------
     def small_group_key(self, handle: Hashable) -> Optional[Tuple]:
-        """(op, n, dtype) for a small-problem operator, None otherwise:
-        requests whose keys match can be served by one batched solve
-        whichever operator each targets. Lock-free, as ``op_meta``."""
+        """(op, n, dtype) for a small-problem operator, and (op, n, dtype,
+        policy) for a refined one (refined operators group only with
+        operators under the same policy), None otherwise: requests whose
+        keys match can be served by one batched solve whichever operator
+        each targets. Lock-free, as ``op_meta``."""
         entry = self._ops.get(handle)
         if entry is None or entry.op not in SMALL_OPS:
             return None
-        return (entry.op, entry.n, str(entry.A.dtype).split(".")[1])
+        key = (entry.op, entry.n, str(entry.A.dtype).split(".")[1])
+        return key if entry.refine is None else key + (entry.refine,)
 
     def _solve_small(self, handle: Hashable, entry: _Operator,
                      b2: torch.Tensor) -> np.ndarray:
         """Caller holds the lock. The per-request arm: the B = 1 run of
-        the batched solve against the resident factor."""
+        the batched solve against the resident factor (a refined
+        operator's: the B = 1 run of the batched refined solve, and on
+        non-convergence the working-precision refactor and solve)."""
         res = self._factored(handle)
         if self.faults is not None:
             self._fault("dispatch")
         t0 = time.perf_counter()
-        x = _small_solve(entry.op, [res.payload], b2[None])[0]
+        x = None
+        if entry.refine is not None:
+            x = self._solve_small_refined(handle, entry, res, b2)
+            if x is None:
+                res = self.factor(handle)  # the working-precision refactor
+                if res.info != 0:
+                    raise SlateError(
+                        f"Session: operator {handle!r} working-precision "
+                        f"fallback factorization failed (info={res.info})")
+        if x is None:
+            x = _small_solve(entry.op, [res.payload], b2[None])[0]
         self._sync()
         self._count_solve(entry.op, entry.n, entry.n, int(b2.shape[1]),
                           time.perf_counter() - t0)
         return x.cpu().numpy()
+
+    def _solve_small_refined(self, handle: Hashable, entry: _Operator,
+                             res: _Resident, b2: torch.Tensor
+                             ) -> Optional[torch.Tensor]:
+        """Caller holds the lock. One refined B = 1 solve from the
+        resident low-precision factor → the solution, or None after
+        arming the fallback (``refine_fallbacks_total`` counted, the
+        policy dropped, the low-precision resident evicted)."""
+        policy = entry.refine
+        x, its, conv = _small_refined(entry.op, entry.A[None], [res.payload],
+                                      b2[None], policy)
+        iters, ok = torch.stack([its[0].to(torch.int64),
+                                 conv[0].to(torch.int64)]).tolist()
+        self._count_refine(entry, iters, int(b2.shape[1]))
+        if ok:
+            self.metrics.inc("refine_converged_total")
+            return x[0]
+        self._refine_fallback(handle, entry, policy)
+        return None
+
+    def _refine_fallback(self, handle: Hashable, entry: _Operator,
+                         policy: RefinePolicy, failure: Optional[str] = None):
+        """Caller holds the lock. A refined solve did not converge, or the
+        low-precision factor failed (``failure`` says what, for the
+        error): count it, then drop the policy and the low-precision
+        resident (or raise when the policy disables fallback)."""
+        self.metrics.inc("refine_fallbacks_total")
+        if not policy.fallback:
+            if failure is None:
+                failure = (f"refined solve of {handle!r} did not converge "
+                           f"in {policy.max_iters} iterations")
+            raise SlateError(
+                f"Session: {failure} and the refine policy disables "
+                "fallback")
+        if entry.refine is not None:
+            entry.refine = None
+            self._drop(handle)
+
+    def _serve_small_per_request(self, handles: List[Hashable], bs: List
+                                 ) -> Tuple[np.ndarray, List[int]]:
+        """Caller holds the lock. The grouped pass served request by
+        request, where one batched pass is unsafe (the bucket's policies
+        differ after a fallback, or a low-precision batched factor failed
+        and its items must take the per-request fallback instead of being
+        cached): an item whose own solve fails carries its nonzero info
+        and zeros, its neighbours are served normally."""
+        xs, infos = [], []
+        for h, b in zip(handles, bs):
+            e = self._ops[h]
+            b2 = self._rhs(e, b)
+            vector = b2.ndim == 1
+            b2 = b2[:, None] if vector else b2
+            try:
+                x = self._solve_small(h, e, b2)
+                infos.append(0)
+            except SlateError:
+                res = self._cache.get(h)
+                infos.append(int(res.info) if res is not None and res.info
+                             else 1)
+                x = np.zeros(tuple(b2.shape), dtype=str(
+                    b2.dtype).split(".")[1])
+            xs.append(x[:, 0] if vector else x)
+        return np.stack(xs), infos
 
     def solve_small_batched(self, handles: List[Hashable], bs: List
                             ) -> Tuple[np.ndarray, List[int]]:
@@ -690,7 +1054,14 @@ class Session:
         or (B, n) in request order, per-item info): a singular or non-SPD
         item flags itself, its lane holds garbage, and its neighbours are
         served as without it. ``batched_programs`` counts the batched
-        calls (at most 2)."""
+        calls (at most 2).
+
+        A bucket of refined operators (one policy) factors its misses in
+        the policy's factor type and serves every request by one batched
+        refined solve with per-item convergence; an item that does not
+        converge takes the fallback alone (working-precision refactor and
+        solve of that item). A failed low-precision batched factor, or a
+        bucket whose policies differ, is served request by request."""
         if not handles or len(handles) != len(bs):
             raise SlateError("solve_small_batched: handles and bs must be "
                              "equal-length and nonempty")
@@ -704,6 +1075,9 @@ class Session:
             if len({self.small_group_key(h) for h in handles}) != 1:
                 raise SlateError("solve_small_batched: mixed bucket "
                                  "(op/n/dtype must agree across the batch)")
+            pol = entries[0].refine
+            if any(e.refine != pol for e in entries[1:]):
+                return self._serve_small_per_request(handles, bs)
             if self.faults is not None:
                 self._fault("dispatch")
             op, n = entries[0].op, entries[0].n
@@ -718,7 +1092,9 @@ class Session:
             misses = [h for h in unique if h not in factors]
             if misses:
                 payloads, infos = _small_factor(
-                    op, torch.stack([self._ops[h].A for h in misses]))
+                    op, torch.stack([self._ops[h].A for h in misses]), pol)
+                if pol is not None and bool((infos != 0).any()):
+                    return self._serve_small_per_request(handles, bs)
                 fl = _flops.factor_flops(op, n, n)
                 for h, payload, info in zip(misses, payloads,
                                             infos.tolist()):
@@ -739,15 +1115,47 @@ class Session:
                     seen.add(h)
             bstack = torch.stack([self._rhs(e, b)
                                   for e, b in zip(entries, bs)])
-            x = _small_solve(op, [factors[h].payload for h in handles],
-                             bstack)
+            infos = [factors[h].info for h in handles]
+            k = int(bstack.shape[2]) if bstack.ndim == 3 else 1
+            payloads = [factors[h].payload for h in handles]
+            if pol is None:
+                x = _small_solve(op, payloads, bstack)
+            else:
+                x = self._solve_small_grouped_refined(
+                    handles, entries, payloads, bstack, pol, infos, k)
             self._sync()
             programs += 1
-            k = int(bstack.shape[2]) if bstack.ndim == 3 else 1
             self._count_solve(op, n, n, len(handles) * k,
                               time.perf_counter() - t0)
             self.metrics.inc("batched_programs", programs)
-            return x.cpu().numpy(), [factors[h].info for h in handles]
+            return x.cpu().numpy(), infos
+
+    def _solve_small_grouped_refined(self, handles, entries, payloads,
+                                     bstack: torch.Tensor,
+                                     pol: RefinePolicy, infos: List[int],
+                                     k: int) -> torch.Tensor:
+        """Caller holds the lock. The mixed bucket: one batched refined
+        solve of the stacked low-precision residents (the working-precision
+        operands feed the residual gemms), then each item that did not
+        converge alone: its fallback (policy dropped, resident evicted),
+        a working-precision refactor, and its lane solved again (``infos``
+        takes that factor's info)."""
+        op = entries[0].op
+        x, its, conv = _small_refined(op, torch.stack([e.A for e in entries]),
+                                      payloads, bstack, pol)
+        its, conv = its.tolist(), conv.tolist()
+        for e, it in zip(entries, its):
+            self._count_refine(e, it, k)
+        self.metrics.inc("refine_converged_total", sum(conv))
+        for i, h in enumerate(handles):
+            if conv[i] or infos[i] != 0:
+                continue
+            self._refine_fallback(h, entries[i], pol)
+            res = self.factor(h)
+            infos[i] = res.info
+            if res.info == 0:
+                x[i] = _small_solve(op, [res.payload], bstack[i][None])[0]
+        return x
 
     # -- lifetime ------------------------------------------------------------
     def close(self):

@@ -220,7 +220,7 @@ def test_herk_plan_fills_the_card_at_n_2048():
     assert wide.pairs(4096) >= hopper_ops.HERK_WIDE_WAVES * H100_SMS
 
 
-@pytest.mark.parametrize("args", [(0, 4, 132), (64, 2, 132), (64, 4, 0)])
+@pytest.mark.parametrize("args", [(0, 4, 132), (64, 16, 132), (64, 4, 0)])
 def test_herk_plan_rejects_bad_arguments(args):
     with pytest.raises(SlateError, match="herk_plan"):
         hopper_ops.herk_plan(*args)

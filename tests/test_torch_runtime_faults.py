@@ -14,8 +14,9 @@ on the CPU (``slate_tpu_torch.runtime.faults``, ``executor``,
   pressure, the breaker tripping a grouped bucket to per-request solves
   and a half-open probe closing it, cancellation during a backoff and
   during a degraded replay, and a small soak that resolves every future
-  once with the conservation identity holding. The SLO, mixed, mesh,
-  refine and artifact tests wait for their ROADMAP items.
+  once with the conservation identity holding. The mixed and refine
+  tests are in test_torch_refine_session.py; the SLO, mesh and artifact
+  tests wait for their ROADMAP items.
 - Metrics: percentiles, exemplars, gauges, the derived rates, JSON and
   Prometheus text.
 n = 64, nb = 32; every result() has a timeout of 60 s or less.
