@@ -226,7 +226,46 @@ Phases, one JSON line each:
            timed beside); and 1000 refined lu_small operators at n = 256
            through solve_small_batched, cold and warm (counters, gate,
            grouped against per-request bits printed, not required).
-The kernel phase also holds K5's bfloat16 instance against its plain
+9. update  incremental updates (update_phase): a chol operator at n, nb
+           (f32, warmup(nrhs=16, update_k=16)) updated at k = 1, 3 and 16,
+           downdated to undo the k = 3 update, hit by an injected
+           update_abort (a counted refactor; the resident's factor bits
+           untouched) and by a downdate made indefinite on purpose (a
+           counted refactor with reason downdate_indefinite; the next solve
+           refused): after each step 16 columns served by the warmed graph
+           under the residual gate against A' in float64, bit for bit the
+           eager chol_solve_using_factor on the updated resident, with
+           factors_total, aot_compiles and the factor's storage unchanged
+           on the happy path; each update's wall beside the abort's
+           refactor wall; a 2n × n/2 qr operator (warmup(nrhs=16,
+           update_k=16): append slots and the appended solve's graph) with
+           16 appended rows, one appended row deleted and then a base row
+           deleted (a counted refactor), every served column within
+           QR_REL_LIMIT of a float64 normal-equations solve of the mutated
+           operand, the appended solves replayed bit for bit the eager
+           appended_gels with factors_total and aot_compiles unchanged;
+           UPDATE_SMALL_OPS chol_small operators at n = 256 updated at
+           k = 2 by one update_small_batched (wall) and as many B = 1
+           Session.update calls on a second Session (wall), each item's
+           factor bit for bit its B = 1 one and every item under the gate;
+           and a bf16-refined chol operator at n updated at k = 16 (its
+           operand moves to the Session's storage, so its two refine graphs
+           are captured again, counted) with 16 refined columns under the
+           float32 gate.
+The kernel phase also holds the incremental-update kernels P6
+(chol_update_sweep), P7 (qr_append_build) and P8 (qr_append_apply)
+against their plain versions (UPDATE_TOL of max |plain|, bitwise
+printed; on the H100 they have been bit for bit): at the update phase's
+shapes in float32 (P6 on the dense n × n factor at kb = 16 and kb = 1 and
+on a (1000, 256, 256) stack at kb = 2; P7 on the qr operator's n/2 × n/2
+R with 16 appended rows; P8 on its 16-column solve padded to 512
+columns), timed by CUDA events beside the plain version's one call, the
+refactor it replaces (torch.linalg.cholesky of A'; torch.geqrf of
+[R; U]) and the bound; at n = 2000 (2048 rows) in float32, float64,
+complex64 and complex128 (P6 also a failed downdate: info equal, finite);
+and P6's exact contracts (a zero update and bucket 4 against 8 bit for
+bit, each lane of a stack bit for bit its B = 1 run). The kernel phase
+also holds K5's bfloat16 instance against its plain
 version (HERK_BF16_ULPS bfloat16 units of |C| + |A·Aᵀ| plus the float32
 sums' difference, entry by entry; the strict upper triangle unchanged;
 its plan the C launcher's) at 8192² × 1024 and 2048² × 512 (CUDA-event
@@ -249,7 +288,8 @@ instance.
 
 The kernels' launch counters are zeroed just before the check phase,
 the main phase, the serve phase, the small phase, the complex phase, the
-complex_small phase and the mixed phase and read just after each (also by element type:
+complex_small phase, the mixed phase and the update phase and read just
+after each (also by element type:
 each kernel's "dtypes" and "launches_by_dtype" in the kernels line);
 the launches made to compare a kernel with its plain version are not
 counted.
@@ -261,7 +301,9 @@ lu_panel_batched at (16, 1024, 512) and (1, 1024, 512) f32 under
 "at_16x1024x512" and "at_1x1024x512", and at the engine's shapes; P1,
 P4 and P5 at the engine's other shapes under "at_..."; the complex
 instances of K1-K4 and P2-P5 under "at_complex64_..." and
-"at_complex128_..."), the nvidia-smi line,
+"at_complex128_..."; P6-P8 with their update-phase launches, whether
+they equal their plain versions bit for bit, and their other rows
+under "at_..."), the nvidia-smi line,
 and last
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device, or
@@ -1065,7 +1107,7 @@ def same_bits(torch, x, y) -> bool:
     nan = torch.isnan(x)
     if not torch.equal(nan, torch.isnan(y)):
         return False
-    it = torch.int32 if x.dtype == torch.float32 else torch.int64
+    it = {2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]
     return torch.equal(x.view(it)[~nan], y.view(it)[~nan])
 
 
@@ -2347,9 +2389,13 @@ def serve_clients(ex, requests, clients=SERVE_CLIENTS):
 
 
 def eager_solve(stt, op, payload, B):
-    """The *_solve_using_factor verb of ``op`` on a resident payload."""
+    """The *_solve_using_factor verb of ``op`` on a resident payload (an
+    appended qr resident's: ``appended_gels`` of its 5-tuple)."""
     if op == "lu":
         return stt.lu_solve_using_factor(*payload, B)
+    if op == "qr" and len(payload) > 1:
+        from slate_tpu_torch.linalg.update import appended_gels
+        return appended_gels(payload, B)
     if op == "qr":
         return stt.least_squares_solve_using_factor(payload[0], B)
     return stt.chol_solve_using_factor(payload[0], B)
@@ -3849,6 +3895,623 @@ def mixed_phase(torch, stt, ho, n, nb, gen):
     return out
 
 
+# ---------------------------------------------------------------------------
+# P6–P8, the incremental-update kernels, and phase 9: update
+# ---------------------------------------------------------------------------
+
+# a kernel against its plain version: max |kernel − plain| / max |plain|
+UPDATE_TOL = {"float32": 1e-5, "complex64": 1e-5, "float64": 1e-12,
+              "complex128": 1e-12,
+              # one bfloat16 ulp at the largest entry: the float32 results
+              # within 1e-5, rounded apart
+              "bfloat16": 2.0 ** -7}
+UPDATE_SMALL_OPS = 1000  # chol_small operators of the update phase
+UPDATE_SMALL_N = 256
+
+
+def once_ms(torch, fn):
+    """(result, ms) of one call of ``fn`` by CUDA events: for the plain
+    versions at the main path's shapes, whose one call is the comparison
+    itself and takes seconds."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    e1.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def rel_diff(torch, got, want) -> float:
+    scale = want.abs().max().item()
+    return (got - want).abs().max().item() / (scale if scale > 0 else 1.0)
+
+
+def update_factor(torch, n, npad, dtype, gen, bsz=None):
+    """A lower Cholesky factor of x·xᴴ/n + 2I, padded with zeros to npad
+    rows and columns, or a (bsz, n, n) stack of them (factored in float64
+    or complex128 on the card, then cast)."""
+    wide_t = torch.complex128 if dtype.is_complex else torch.float64
+    shape = (n, n) if bsz is None else (bsz, n, n)
+    x = torch.randn(shape, generator=gen, device="cuda", dtype=wide_t)
+    a = x @ x.mH / n
+    a.diagonal(dim1=-2, dim2=-1).add_(2.0)
+    l = torch.linalg.cholesky(a).to(dtype).contiguous()
+    if bsz is not None or npad == n:
+        return l
+    out = torch.zeros((npad, npad), dtype=dtype, device="cuda")
+    out[:n, :n] = l
+    return out
+
+
+def update_vectors(torch, rows, n, kb, k, dtype, gen, scale, bsz=None):
+    """(rows, kb) update vectors (a (bsz, rows, kb) stack), ``scale``
+    times Gaussian in the first n rows and k columns, zero beyond."""
+    shape = (rows, kb) if bsz is None else (bsz, rows, kb)
+    w = torch.zeros(shape, dtype=dtype, device="cuda")
+    draw = (scale * torch.randn(shape, generator=gen, device="cuda",
+                                dtype=torch.float64)).to(dtype)
+    w[..., :n, :k] = draw[..., :n, :k]
+    return w
+
+
+def p6_case(torch, ho, n, kb, dtype, gen, sign=1, scale=0.3, k=None,
+            bsz=None, timed=False):
+    """P6 against its plain version on the same factor and vectors: the
+    factor within UPDATE_TOL (bitwise printed), info equal, finite (also
+    after a failed downdate). Timed rows: the kernel by CUDA events
+    (median of 7, repeated updates of one factor), the plain version's one
+    call, torch.linalg.cholesky of A' (the refactor the update replaces)
+    and the bound."""
+    k = kb if k is None else k
+    npad = n if bsz is not None else -(-n // 512) * 512
+    l = update_factor(torch, n, npad, dtype, gen, bsz)
+    rows = n if bsz is not None else npad
+    w = update_vectors(torch, rows, n, kb, k, dtype, gen, scale, bsz)
+    narg = None if bsz is not None else n
+    lk = l.clone()
+    ik = ho.chol_update_sweep(lk, w, sign, narg)
+    # bfloat16 takes P6's float32 instance on a float32 copy, rounded
+    # back: its plain version is the float32 one on that copy
+    bf16 = dtype == torch.bfloat16
+    lp, wp = (l.float(), w.float()) if bf16 else (l.clone(), w)
+    ip, plain_ms = once_ms(torch, lambda: ho.chol_update_sweep_plain(
+        lp, wp, sign, narg))
+    if bf16:
+        lp = lp.to(dtype)
+    dt = dtype_name(dtype)
+    name = f"chol_update_sweep n={n} kb={kb} B={bsz} {dt} sign={sign}"
+    ik_l, ip_l = ik.reshape(-1).tolist(), ip.reshape(-1).tolist()
+    check(ik_l == ip_l, f"{name}: info {ik_l[:8]} against the plain "
+          f"version's {ip_l[:8]}")
+    check(bool(torch.isfinite(lk).all()), f"{name}: non-finite factor")
+    err = rel_diff(torch, lk, lp)
+    check(err <= UPDATE_TOL[dt], f"{name}: {err} from the plain version")
+    row = {"n": n, "kb": kb, "k": k, "B": bsz, "dtype": dt, "sign": sign,
+           "info_max": max(ik_l), "max_abs_err": err,
+           "bitwise_equal": same_bits(torch, lk, lp),
+           "plan": ho.chol_update_plan(n)._asdict(), "launches_per_call": 1}
+    if timed:
+        lt = l.clone()
+        row["ms"] = cuda_ms(lambda: ho.chol_update_sweep(lt, w, 1, narg))
+        row["device_ms"] = device_ms(
+            lambda: ho.chol_update_sweep(lt, w, 1, narg), launches=5)
+        row["plain_ms"] = plain_ms
+        a2 = l @ l.mH + w @ w.mH
+        if bsz is None:
+            a2 = a2[:n, :n]
+        row["library_ms"] = cuda_ms(lambda: torch.linalg.cholesky(a2))
+        del a2
+        it = l.element_size()
+        items = bsz or 1
+        nbytes = items * (n * (n + 1) * it + n * kb * it + 4)
+        flops = items * 2.0 * n * n * kb
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dt)
+    return row
+
+
+def p6_invariants(torch, ho, gen):
+    """P6's exact contracts on the card: a zero W changes no bit (n = 2048
+    and 16384-row stacks too), k = 3 gives the same bits at buckets 4 and
+    8, and each lane of a (8, 256, 256) stack is bit for bit its B = 1
+    run (one with a failed downdate among them)."""
+    out = {}
+    for dt in (torch.float32, torch.complex128):
+        l = update_factor(torch, 2000, 2048, dt, gen)
+        lz = l.clone()
+        ho.chol_update_sweep(lz, torch.zeros((2048, 4), dtype=dt,
+                                             device="cuda"), 1, 2000)
+        w = update_vectors(torch, 2048, 2000, 8, 3, dt, gen, 0.3)
+        l4, l8 = l.clone(), l.clone()
+        ho.chol_update_sweep(l4, w[:, :4].contiguous(), 1, 2000)
+        ho.chol_update_sweep(l8, w, 1, 2000)
+        ls = update_factor(torch, 256, 256, dt, gen, bsz=8)
+        ws = update_vectors(torch, 256, 256, 2, 2, dt, gen, 0.01, bsz=8)
+        ws[3] *= 1000.0
+        lb = ls.clone()
+        ib = ho.chol_update_sweep(lb, ws, -1)
+        lanes = True
+        for i in range(8):
+            l1 = ls[i:i + 1].clone()
+            i1 = ho.chol_update_sweep(l1, ws[i:i + 1].contiguous(), -1)
+            lanes &= same_bits(torch, l1[0], lb[i]) and int(i1[0]) == int(
+                ib[i])
+        name = dtype_name(dt)
+        check(same_bits(torch, lz, l), f"chol_update_sweep {name}: a zero "
+              "update changed bits")
+        check(same_bits(torch, l4, l8), f"chol_update_sweep {name}: bucket "
+              "4 and 8 differ")
+        check(lanes and int(ib[3]) > 0 and int(ib.count_nonzero()) == 1,
+              f"chol_update_sweep {name}: a lane differs from its B = 1 run "
+              f"(info {ib.tolist()})")
+        out[name] = {"zero_update_bitwise": True, "bucket_4_8_bitwise": True,
+                     "lanes_bitwise_b1": True, "lane_info": ib.tolist()}
+    return out
+
+
+def qr_append_operands(torch, npad, n, P, p_live, dtype, gen):
+    """An upper-triangular R (npad²: Gaussian above the diagonal, √(4n) on
+    it, as the R of a 4n × n Gaussian) and P appended rows, p_live of them
+    Gaussian in the first n columns, the rest zero."""
+    r = torch.triu(torch.randn((npad, npad), generator=gen, device="cuda",
+                               dtype=torch.float64))
+    r.diagonal().fill_(math.sqrt(4 * n))
+    u = torch.zeros((P, npad), dtype=torch.float64, device="cuda")
+    u[:p_live, :n] = torch.randn((p_live, n), generator=gen, device="cuda",
+                                 dtype=torch.float64)
+    if dtype.is_complex:
+        r = r + 1j * torch.triu(torch.randn(
+            (npad, npad), generator=gen, device="cuda",
+            dtype=torch.float64), 1)
+        u = u + 1j * u.flip(0)
+    return r.to(dtype), u.to(dtype)
+
+
+def p7_case(torch, ho, npad, n, P, p_live, dtype, gen, timed=False):
+    """P7 against its plain version: R, w and tau within UPDATE_TOL
+    (bitwise printed). Timed rows add the kernel by CUDA events, the plain
+    version's one call, torch.geqrf of [R; U] and the bound. Returns (row,
+    (w, tau) of the kernel)."""
+    r0, u = qr_append_operands(torch, npad, n, P, p_live, dtype, gen)
+    rk, rp = r0.clone(), r0.clone()
+    wk, tk = ho.qr_append_build(rk, u, n)
+    (wp, tp), plain_ms = once_ms(torch, lambda: ho.qr_append_build_plain(
+        rp, u, n))
+    dt = dtype_name(dtype)
+    name = f"qr_append_build npad={npad} n={n} P={P} {dt}"
+    err = max(rel_diff(torch, a, b) for a, b in ((rk, rp), (wk, wp),
+                                                  (tk, tp)))
+    check(err <= UPDATE_TOL[dt] and bool(torch.isfinite(rk).all()),
+          f"{name}: {err} from the plain version")
+    row = {"npad": npad, "n": n, "P": P, "p_live": p_live, "dtype": dt,
+           "max_abs_err": err, "launches_per_call": 1,
+           "plan": {"ctas": -(-npad // ho.P7_COLS), "threads": ho.P7_COLS},
+           "bitwise_equal": all(same_bits(torch, a, b) for a, b in (
+               (rk, rp), (wk, wp), (tk, tp)))}
+    if timed:
+        rt = r0.clone()
+        row["ms"] = cuda_ms(lambda: ho.qr_append_build(rt, u, n))
+        row["device_ms"] = device_ms(lambda: ho.qr_append_build(rt, u, n),
+                                     launches=5)
+        row["plain_ms"] = plain_ms
+        ru = torch.cat([r0, u])
+        row["library_ms"] = cuda_ms(lambda: torch.geqrf(ru))
+        it = r0.element_size()
+        nbytes = (npad * (npad + 1) + 2 * P * npad + npad) * it
+        flops = 3.0 * n * n * P
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dt)
+    zr = r0.clone()
+    ho.qr_append_build(zr, torch.zeros_like(u), n)
+    check(same_bits(torch, zr, r0), f"{name}: zero appended rows changed R")
+    row["zero_rows_bitwise"] = True
+    return row, (wk, tk)
+
+
+def p8_case(torch, ho, npad, n, q, P, dtype, gen, wt=None, timed=False):
+    """P8 against its plain version on the reflectors of a P7 run (``wt``,
+    else a fresh one): ct within UPDATE_TOL (bitwise printed). Timed rows
+    add the kernel by CUDA events, the plain version's one call,
+    torch.ormqr of the same reflectors (held to the kernel's ct) and the
+    bound."""
+    if wt is None:
+        _, wt = p7_case(torch, ho, npad, n, P, P - 1, dtype, gen)
+    w, tau = wt
+    ct = torch.randn((npad, q), generator=gen, device="cuda",
+                     dtype=torch.float64).to(dtype)
+    d = torch.zeros((P, q), dtype=dtype, device="cuda")
+    d[:P - 1] = torch.randn((P - 1, q), generator=gen, device="cuda",
+                            dtype=torch.float64).to(dtype)
+    ck, cp = ct.clone(), ct.clone()
+    ho.qr_append_apply(ck, d, w, tau, n)
+    _, plain_ms = once_ms(torch, lambda: ho.qr_append_apply_plain(
+        cp, d, w, tau, n))
+    dt = dtype_name(dtype)
+    err = rel_diff(torch, ck, cp)
+    check(err <= UPDATE_TOL[dt], f"qr_append_apply npad={npad} q={q} P={P} "
+          f"{dt}: {err} from the plain version")
+    row = {"npad": npad, "n": n, "q": q, "P": P, "dtype": dt,
+           "max_abs_err": err, "bitwise_equal": same_bits(torch, ck, cp),
+           "launches_per_call": 1,
+           "plan": {"ctas": -(-q // ho.P8_THREADS),
+                    "threads": ho.P8_THREADS}}
+    if timed:
+        c2 = ct.clone()
+        row["ms"] = cuda_ms(lambda: ho.qr_append_apply(c2, d, w, tau, n))
+        row["device_ms"] = device_ms(
+            lambda: ho.qr_append_apply(c2, d, w, tau, n), launches=5)
+        row["plain_ms"] = plain_ms
+        # the same function as one LAPACK call: the reflectors [e_j; w_j]
+        # in ormqr's form (implicit unit at row j, zeros to npad, w_j in
+        # the last P rows), Qᴴ applied to [ct; d] (conj(tau): ormqr's
+        # reflector is I − tau·v·vᴴ, applied conjugate-transposed)
+        v = torch.zeros((npad + P, n), dtype=dtype, device="cuda")
+        v[npad:] = w[:, :n]
+        v.diagonal().fill_(1)
+        taus = tau[:n].conj().contiguous()
+        cd = torch.cat([ct, d])
+        lib = torch.ormqr(v, taus, cd, left=True, transpose=True)
+        lib_err = rel_diff(torch, lib[:npad], ck)
+        check(lib_err <= UPDATE_TOL[dt], f"qr_append_apply npad={npad} "
+              f"{dt}: torch.ormqr {lib_err} from the kernel")
+        row["library_max_abs_err"] = lib_err
+        row["library_ms"] = cuda_ms(lambda: torch.ormqr(
+            v, taus, cd, left=True, transpose=True))
+        del v, cd, lib
+        it = ct.element_size()
+        nbytes = (2 * npad * q + P * q + P * npad + npad) * it
+        flops = 4.0 * n * q * P
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dt)
+    return row
+
+
+def update_kernel_rows(torch, ho, gen, n):
+    """P6, P7 and P8 against their plain versions: first at the update
+    phase's shapes in float32 (timed: the dense sweep at n, kb = 16 and
+    kb = 1; the (1000, 256, 256) stack at kb = 2; untimed: kb = 4 up and
+    down and the bfloat16 route at kb = 16; P7 at the 2n × n/2 qr
+    operator's 16 appended rows; P8 at its 16-column solve, padded to 512
+    columns), then at 2048 in float32, float64, complex64 and complex128
+    (an update and a failed downdate for P6), then P6's exact contracts.
+    Returns (P6 rows, P7 rows, P8 rows, P6 invariants)."""
+    f32 = torch.float32
+    t0 = time.perf_counter()
+    p6 = [p6_case(torch, ho, n, 16, f32, gen, scale=0.01, timed=True),
+          p6_case(torch, ho, n, 1, f32, gen, scale=0.01, timed=True),
+          p6_case(torch, ho, UPDATE_SMALL_N, 2, f32, gen, bsz=1000,
+                  timed=True),
+          # the update phase's other instances at its size: k = 3 at
+          # bucket 4, the downdate that undoes it, and the refined
+          # operator's bfloat16 route at kb = 16
+          p6_case(torch, ho, n, 4, f32, gen, scale=0.01, k=3),
+          p6_case(torch, ho, n, 4, f32, gen, sign=-1, scale=0.005, k=3),
+          p6_case(torch, ho, n, 16, torch.bfloat16, gen, scale=0.01)]
+    check(p6[4]["info_max"] == 0, "chol_update_sweep: the downdate at "
+          f"n = {n} failed")
+    p7_main, wt = p7_case(torch, ho, n // 2, n // 2, 16, 16, f32, gen,
+                          timed=True)
+    p7 = [p7_main]
+    p8 = [p8_case(torch, ho, n // 2, n // 2, 512, 16, f32, gen, wt=wt,
+                  timed=True)]
+    for dt in (f32, torch.float64, torch.complex64, torch.complex128):
+        p6.append(p6_case(torch, ho, 2000, 4, dt, gen, k=3))
+        p6.append(p6_case(torch, ho, 2000, 4, dt, gen, sign=-1, scale=3.0,
+                          k=3))
+        check(p6[-1]["info_max"] > 0, "chol_update_sweep: the downdate did "
+              "not fail")
+        row, wt = p7_case(torch, ho, 2048, 2000, 4, 3, dt, gen)
+        p7.append(row)
+        p8.append(p8_case(torch, ho, 2048, 2000, 24, 4, dt, gen, wt=wt))
+    inv = p6_invariants(torch, ho, gen)
+    inv["seconds"] = time.perf_counter() - t0
+    return p6, p7, p8, inv
+
+
+def spd_operand(torch, n, gen):
+    """x·xᵀ/n + I in float32 (the main phase's SPD operand)."""
+    x = torch.randn((n, n), generator=gen, device="cuda")
+    a = x @ x.T / n
+    a.diagonal().add_(1.0)
+    return a
+
+
+def spike_vectors(torch, n, k, a, gen):
+    """(n, k) update vectors of four ±v entries per column at random rows,
+    v = √‖A‖₁ / 8: ‖W‖₁² = ‖A‖₁/4, so each update charges exactly its
+    rank to the update budget (obs/numerics.py), while A' differs from A
+    by up to v² ≈ ‖A‖₁/64 in an entry, which a factor of the old operand
+    would fail the residual gate on."""
+    v = math.sqrt(a.abs().sum(dim=0).max().item()) / 8
+    w = torch.zeros((n, k), device="cuda")
+    rows = torch.randint(0, n, (4, k), generator=gen, device="cuda")
+    signs = torch.randint(0, 2, (4, k), generator=gen, device="cuda") * 2 - 1
+    w.scatter_(0, rows, v * signs.float())
+    return w
+
+
+def update_gate(torch, a64, X, B):
+    """The worst ‖b − A'·x‖∞ / (n·ε·‖A'‖∞·‖x‖∞) of the served float32
+    columns, computed in float64 against the float64 operand A' (ε of
+    float32)."""
+    x, b = X.double(), B.double()
+    r = (b - a64 @ x).abs().max(dim=0).values
+    scale = (a64.shape[0] * torch.finfo(torch.float32).eps
+             * a64.abs().sum(dim=1).max() * x.abs().max(dim=0).values)
+    return (r / scale).max().item()
+
+
+def update_chol(torch, stt, ho, n, nb, gen):
+    """The chol operator: warmup(nrhs=16, update_k=16), then updates at
+    k = 1, 3, 16, the downdate that undoes the k = 3 one, an injected
+    update_abort, and a downdate made indefinite on purpose. After each
+    step 16 columns are served (a graph replay on the warmed plain
+    operator), every column under the gate against A' in float64, the
+    replay bit for bit the eager solve on the updated resident; on the
+    happy path factors_total and aot_compiles do not move and the
+    factor's storage is the warmed one."""
+    from slate_tpu_torch.runtime import FaultPlan, FaultSpec
+    dev = "cuda"
+    a = spd_operand(torch, n, gen)
+    a64 = a.double()
+    sess = stt.Session(device=dev)
+    h = sess.register(stt.hermitian(a, nb, stt.Uplo.Lower, device=dev),
+                      op="chol")
+    t0 = time.perf_counter()
+    sess.warmup(h, nrhs=16, update_k=16)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    m = sess.metrics
+    ptr = sess.factor(h).payload[0].data.data_ptr()
+    base = {k: m.get(k) for k in ("factors_total", "aot_compiles")}
+    steps = []
+    w3 = None
+
+    def step(label, w, downdate=False, happy=True):
+        nonlocal a64
+        sign = -1.0 if downdate else 1.0
+        t0 = time.perf_counter()
+        out = sess.update(h, w, downdate=downdate)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        w64 = w.double()
+        a64 = a64 + sign * (w64 @ w64.T)
+        rec = {"step": label, "k": int(w.shape[1]), "wall_s": wall,
+               "result": out}
+        if out["info"] == 0:
+            B = torch.randn((n, 16), generator=gen, device=dev)
+            Bt = stt.from_dense(B, nb, device=dev)
+            replays = m.get("graph_replays")
+            X = sess.solve_matrix(h, Bt)
+            rec["replayed"] = m.get("graph_replays") == replays + 1
+            Xe = eager_solve(stt, "chol", sess.factor(h).payload, Bt)
+            torch.cuda.synchronize()
+            rec["replay_bitwise_eager"] = same_bits(
+                torch, X.dense_canonical(), Xe.dense_canonical())
+            rec["gate"] = update_gate(torch, a64, X.dense()[:n, :16], B)
+            check(rec["replayed"] and rec["replay_bitwise_eager"]
+                  and rec["gate"] <= RESIDUAL_BOUND,
+                  f"update chol {label}: {rec}")
+        if happy:
+            check(out["applied"] and not out["refactored"]
+                  and all(m.get(k) == v for k, v in base.items())
+                  and sess.factor(h).payload[0].data.data_ptr() == ptr,
+                  f"update chol {label}: left the happy path: {out}, "
+                  f"{ {k: m.get(k) for k in base} }")
+        steps.append(rec)
+        return out
+
+    for k in (1, 3, 16):
+        w = spike_vectors(torch, n, k, a, gen)
+        if k == 3:
+            w3 = w
+        step(f"update k={k}", w)
+    step("downdate undoing k=3", w3, downdate=True)
+    # the injected abort: the resident's factor bits stay as they were
+    res0 = sess.factor(h)
+    l_before = res0.payload[0].data.clone()
+    sess.enable_faults(FaultPlan(seed=3, specs=(FaultSpec(
+        "update_abort", rate=1.0, count=1),)))
+    out = step("update_abort", spike_vectors(torch, n, 2, a, gen),
+               happy=False)
+    check(out["refactored"] and out["reason"] == "abort"
+          and same_bits(torch, res0.payload[0].data, l_before)
+          and m.get("update_aborts_total") == 1,
+          f"update chol abort: {out}")
+    refactor_s = steps[-1]["wall_s"]
+    # a downdate made indefinite on purpose: refactored, never served
+    wbad = torch.zeros((n, 1), device=dev)
+    wbad[0, 0] = 100.0
+    out = step("indefinite downdate", wbad, downdate=True, happy=False)
+    check(out["refactored"] and out["reason"] == "downdate_indefinite"
+          and out["info"] > 0 and m.get("update_downdate_failures_total") == 1,
+          f"update chol indefinite downdate: {out}")
+    try:
+        sess.solve(h, torch.ones(n, device=dev))
+        refused = False
+    except stt.SlateError:
+        refused = True
+    check(refused, "update chol: the indefinite operator was served")
+    counters = {k: m.get(k) for k in (
+        "updates_total", "update_refactors_total", "update_aborts_total",
+        "update_downdate_failures_total", "update_flops_total",
+        "factors_total", "aot_compiles", "graph_replays")}
+    sess.close()
+    return {"n": n, "nb": nb, "warmup_s": warm_s,
+            "refactor_s (the abort's)": refactor_s, "steps": steps,
+            "counters": counters}, a
+
+
+def update_qr(torch, stt, ho, n, nb, gen):
+    """The 2n × n/2 qr operator: warmup(nrhs=16, update_k=16) (append
+    slots and the appended solve's graph), 16 appended rows, one appended
+    row deleted (applied), then a base row (a counted refactor). After
+    each, 16 columns served and held within QR_REL_LIMIT of a float64
+    normal-equations solve of the operand; the appended solves replay
+    their graph bit for bit the eager solve, with factors_total and
+    aot_compiles unchanged."""
+    dev = "cuda"
+    m_q, n_q = 2 * n, n // 2
+    aq = torch.randn((m_q, n_q), generator=gen, device=dev)
+    sess = stt.Session(device=dev)
+    h = sess.register(stt.from_dense(aq, nb, device=dev), op="qr")
+    t0 = time.perf_counter()
+    sess.warmup(h, nrhs=16, update_k=16)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    m = sess.metrics
+    base = {k: m.get(k) for k in ("factors_total", "aot_compiles")}
+    rows = aq
+    steps = []
+
+    def serve(label, out, wall, happy):
+        nonlocal rows
+        mm = sess._ops[h].m
+        B = torch.randn((mm, 16), generator=gen, device=dev)
+        Bt = stt.from_dense(B, nb, device=dev)
+        replays = m.get("graph_replays")
+        X = sess.solve_matrix(h, Bt)
+        replayed = m.get("graph_replays") == replays + 1
+        Xe = eager_solve(stt, "qr", sess.factor(h).payload, Bt)
+        torch.cuda.synchronize()
+        ref = lstsq_normal64(torch, rows.double(), B)
+        rec = {"step": label, "m": mm, "wall_s": wall, "result": out,
+               "replayed": replayed,
+               "replay_bitwise_eager": same_bits(
+                   torch, X.dense_canonical(), Xe.dense_canonical()),
+               "rel_err_max": max(rel_errors(torch, X.dense()[:n_q, :16],
+                                             ref))}
+        check(rec["rel_err_max"] <= QR_REL_LIMIT and (
+            not happy or (replayed and rec["replay_bitwise_eager"]
+                          and out["applied"] and not out["refactored"]
+                          and all(m.get(k) == v for k, v in base.items()))),
+              f"update qr {label}: {rec}")
+        steps.append(rec)
+
+    u = torch.randn((16, n_q), generator=gen, device=dev)
+    t0 = time.perf_counter()
+    out = sess.update(h, u)
+    torch.cuda.synchronize()
+    rows = torch.cat([aq, u])
+    serve("append 16 rows", out, time.perf_counter() - t0, True)
+    t0 = time.perf_counter()
+    out = sess.update(h, delete=[m_q + 3])
+    torch.cuda.synchronize()
+    rows = torch.cat([aq, u[:3], u[4:]])
+    serve("delete an appended row", out, time.perf_counter() - t0, True)
+    t0 = time.perf_counter()
+    out = sess.update(h, delete=[5])
+    torch.cuda.synchronize()
+    check(out["refactored"] and out["reason"] == "base_delete",
+          f"update qr base delete: {out}")
+    rows = torch.cat([aq[:5], aq[6:], u[:3], u[4:]])
+    serve("delete a base row", out, time.perf_counter() - t0, False)
+    counters = {k: m.get(k) for k in (
+        "updates_total", "update_refactors_total", "update_flops_total",
+        "factors_total", "aot_compiles", "graph_replays")}
+    sess.close()
+    return {"m": m_q, "n": n_q, "nb": nb, "warmup_s": warm_s,
+            "steps": steps, "counters": counters}
+
+
+def update_small(torch, stt, ho, gen):
+    """UPDATE_SMALL_OPS chol_small operators at n = UPDATE_SMALL_N: one
+    update_small_batched at k = 2 (wall) beside the same updates as
+    UPDATE_SMALL_OPS B = 1 Session.update calls on a second Session; every
+    item's factor bit for bit its B = 1 one, every item served under the
+    gate against A' in float64."""
+    dev = "cuda"
+    bsz, n = UPDATE_SMALL_OPS, UPDATE_SMALL_N
+    x = torch.randn((bsz, n, n), generator=gen, device=dev)
+    mats = x @ x.mT / n
+    mats.diagonal(dim1=1, dim2=2).add_(1.0)
+    del x
+    ws = 0.05 * torch.randn((bsz, n, 2), generator=gen, device=dev)
+    sessions = [stt.Session(device=dev) for _ in range(2)]
+    handles = [[s.register(mats[i], op="chol_small") for i in range(bsz)]
+               for s in sessions]
+    zero = [torch.zeros(n, device=dev)] * bsz
+    for s, hs in zip(sessions, handles):
+        s.solve_small_batched(hs, zero)  # factor every operator at once
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = sessions[0].update_small_batched(handles[0], list(ws))
+    torch.cuda.synchronize()
+    grouped_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    singles = [sessions[1].update(h, ws[i]) for i, h in
+               enumerate(handles[1])]
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    check(all(o["applied"] and not o["refactored"] for o in outs + singles),
+          "update_small_batched: an item left the happy path")
+    lg = torch.stack([sessions[0].factor(h).payload[0] for h in handles[0]])
+    l1 = torch.stack([sessions[1].factor(h).payload[0] for h in handles[1]])
+    bitwise = same_bits(torch, lg, l1)
+    b = torch.randn((bsz, n, 2), generator=gen, device=dev)
+    xs, infos = sessions[0].solve_small_batched(handles[0], list(b))
+    xs = torch.from_numpy(xs).to(dev).double()
+    a2 = mats.double() + ws.double() @ ws.double().mT
+    r = (b.double() - a2 @ xs).abs().amax(dim=(1, 2))
+    gate = (r / (n * torch.finfo(torch.float32).eps
+                 * a2.abs().sum(2).amax(1) * xs.abs().amax(dim=(1, 2))))
+    check(bitwise and not any(infos) and gate.max().item() <= RESIDUAL_BOUND,
+          f"update_small_batched: bitwise {bitwise}, gate "
+          f"{gate.max().item()}")
+    for s in sessions:
+        s.close()
+    return {"B": bsz, "n": n, "k": 2, "grouped_s": grouped_s,
+            "b1_calls_s": single_s, "grouped_bitwise_b1": bitwise,
+            "gate_max": gate.max().item()}
+
+
+def update_refined(torch, stt, ho, a, n, nb, gen):
+    """A bf16-refined chol operator on the chol operand ``a``: warmup
+    (nrhs = 16, update_k = 16), one k = 16 update (the factor swept by P6's
+    float32 instance on a float32 copy; the operand moves to the Session's
+    storage, so the refine graphs are captured again, counted), then 16
+    refined columns under the float32 gate against A' in float64."""
+    dev = "cuda"
+    sess = stt.Session(device=dev)
+    h = sess.register(stt.hermitian(a, nb, stt.Uplo.Lower, device=dev),
+                      op="chol", refine=stt.RefinePolicy("bfloat16"))
+    sess.warmup(h, nrhs=16, update_k=16)
+    m = sess.metrics
+    compiles = m.get("aot_compiles")
+    w = spike_vectors(torch, n, 16, a, gen)
+    t0 = time.perf_counter()
+    out = sess.update(h, w)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    B = torch.randn((n, 16), generator=gen, device=dev)
+    X = sess.solve_matrix(h, stt.from_dense(B, nb, device=dev))
+    a64 = a.double() + w.double() @ w.double().T
+    gate = update_gate(torch, a64, X.dense()[:n, :16], B)
+    check(out["applied"] and gate <= RESIDUAL_BOUND,
+          f"update refined chol: {out}, gate {gate}")
+    rec = {"n": n, "k": 16, "wall_s": wall, "result": out, "gate": gate,
+           "factor_dtype": str(sess.factor(h).payload[0].dtype),
+           "recaptured_graphs": m.get("aot_compiles") - compiles,
+           "refine_iterations": m.snapshot()["histograms"][
+               "refine_iterations"]["sum"]}
+    sess.close()
+    return rec
+
+
+def update_phase(torch, stt, ho, n, nb, gen):
+    """Phase 9 (see the module docstring)."""
+    t0 = time.perf_counter()
+    chol, a = update_chol(torch, stt, ho, n, nb, gen)
+    torch.cuda.empty_cache()
+    qr = update_qr(torch, stt, ho, n, nb, gen)
+    torch.cuda.empty_cache()
+    small = update_small(torch, stt, ho, gen)
+    torch.cuda.empty_cache()
+    refined = update_refined(torch, stt, ho, a, n, nb, gen)
+    del a
+    torch.cuda.empty_cache()
+    return {"chol": chol, "qr": qr, "chol_small": small,
+            "refined_chol": refined, "seconds": time.perf_counter() - t0}
+
+
 def complex_spills(_build):
     """ptxas's registers and spill stores for every complex instance (Cx
     in the mangled name) of the sources this run built, from the build
@@ -4148,6 +4811,13 @@ def main(argv=None) -> int:
                                                     args.nb)
         emit("kernel", name="bfloat16", herk_lower_update=k5_bf16_rows,
              routes=route_rows, seconds=time.perf_counter() - t_bf16)
+        # P6–P8: the incremental-update kernels
+        p6_rows, p7_rows, p8_rows, p6_inv = update_kernel_rows(
+            torch, ho, gen, args.n)
+        emit("kernel", name="chol_update_sweep", cases=p6_rows,
+             invariants=p6_inv)
+        emit("kernel", name="qr_append_build", cases=p7_rows)
+        emit("kernel", name="qr_append_apply", cases=p8_rows)
         # counted paths: the check phase, then the main phase
         ho.reset_launches()
         small = small_check(torch, stt, gen)
@@ -4193,8 +4863,14 @@ def main(argv=None) -> int:
         mixed = mixed_phase(torch, stt, ho, args.n, args.nb, gen)
         mixed["seconds"] = time.perf_counter() - t_mixed
         mixed_launches, mixed_types = launch_snapshot(ho)
-    emit("mixed", **mixed, launches=mixed_launches,
-         launches_by_dtype=mixed_types)
+        emit("mixed", **mixed, launches=mixed_launches,
+             launches_by_dtype=mixed_types)
+        torch.cuda.empty_cache()
+        ho.reset_launches()
+        upd = update_phase(torch, stt, ho, args.n, args.nb, gen)
+        upd_launches, upd_types = launch_snapshot(ho)
+    emit("update", **upd, launches=upd_launches,
+         launches_by_dtype=upd_types)
 
     # each kernel's first timed f32 row (K1 at b = nb, the nb = 512
     # factor's tile), and K1 at b = 128 beside it
@@ -4237,11 +4913,12 @@ def main(argv=None) -> int:
         launches = (check_launches[name] + main["launches"][name]
                     + serve_launches[name] + small_launches[name]
                     + cx["launches"][name] + cx_small_launches[name]
-                    + mixed_launches[name])
+                    + mixed_launches[name] + upd_launches[name])
         check(launches > 0, f"{name} was not launched on a counted path")
         by_type = {}
         for phase in (check_types, main_types, serve_types, small_types,
-                      cx["launches_by_dtype"], cx_small_types, mixed_types):
+                      cx["launches_by_dtype"], cx_small_types, mixed_types,
+                      upd_types):
             for dt, k in phase[name].items():
                 by_type[dt] = by_type.get(dt, 0) + k
         kernels.append({
@@ -4320,6 +4997,35 @@ def main(argv=None) -> int:
         by_name[r["name"]]["at_bfloat16_route"] = r
         check("bfloat16" in by_name[r["name"]]["dtypes"],
               f"{r['name']}: no bfloat16 launch on a counted path")
+    # P6–P8: no Pallas kernel; they replace the reference's update scans.
+    # Their launches are the update phase's (its factors', solves' and
+    # graphs' launches of the kernels above are in their sums)
+    update_keys = ("max_abs_err", "bitwise_equal", "ms", "device_ms",
+                   "plain_ms", "bound_ms", "bound_by", "library_ms", "plan")
+    for name, src, rep, rows in (
+            ("chol_update_sweep", "chol_update.cu",
+             "slate_tpu/linalg/update.py:94", p6_rows),
+            ("qr_append_build", "qr_append.cu",
+             "slate_tpu/linalg/update.py:207", p7_rows),
+            ("qr_append_apply", "qr_append.cu",
+             "slate_tpu/linalg/update.py:275", p8_rows)):
+        row = rows[0]
+        by_type = dict(upd_types[name])
+        check(upd_launches[name] > 0,
+              f"{name} was not launched in the update phase")
+        kern = {"name": name, "route": "cuda",
+                "source": f"slate_tpu_torch/csrc/{src}", "replaces": rep,
+                "launches": upd_launches[name], "dtypes": sorted(by_type),
+                "launches_by_dtype": by_type,
+                **{k: row[k] for k in update_keys}}
+        for r in rows[1:]:
+            shape = "x".join(str(r[k]) for k in ("B", "n", "kb", "npad", "P",
+                                                 "q") if r.get(k))
+            key = f"at_{shape}_{r['dtype']}" + (
+                "_down" if r.get("sign") == -1 else "")
+            kern[key] = {k: r.get(k) for k in update_keys + (
+                "info_max",) if k in r}
+        kernels.append(kern)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,312 @@
+// P7 and P8: QR row append in float32, float64, complex64 and complex128.
+//
+// P7 (qr_append_build): the structured QR of [R; U], in place on the
+// upper-triangular R (npad × npad), U the (P × npad) appended rows, P one
+// of 1, 2, 4, 8, 16. Per column j < n,
+//     alpha = R[j][j],  x = U[:, j],  ‖x‖² = Σ_p |x_p|²  (p increasing),
+//     phase = alpha/|alpha| (1 for alpha = 0),
+//     beta = −phase·sqrt(|alpha|² + ‖x‖²),
+//     tau_j = (beta − alpha)/beta,  w_j = x/(alpha − beta)
+//     (‖x‖² = 0: tau_j = 0, w_j = 0, the diagonal keeps alpha),
+//     then for every column c > j, with v = [1; w_j]:
+//       vy = R[j][c] + Σ_p conj(w_j[p])·U[p][c]   (p increasing, added last),
+//       R[j][c] −= tau_j·vy,  U[p][c] −= tau_j·(w_j[p]·vy),
+//     R[j][j] = beta and U[:, j] = 0.
+// That is the reference's convention (beta complex in complex types), not
+// K3's larfg. Outputs w (P × npad) and tau (npad), zero beyond column n.
+//
+// P8 (qr_append_apply): applies those n reflectors to [ct; d], in place on
+// ct (npad × q); d (P × q) is the appended rows' right-hand sides. Per
+// column j < n and right-hand-side column c, the same reflection of
+// (ct[j][c], d[:, c]).
+//
+// No Pallas kernels: they replace the reference's lax.scans in
+// slate_tpu/linalg/update.py, qr_append_build (:189-241) and the forward
+// sweep of appended_gels (:275-286), with the contracts of the plain
+// versions hopper_ops.qr_append_build_plain and qr_append_apply_plain:
+// every product, sum and quotient rounded apart (complex products part by
+// part, complex quotients by Smith's form with the divisor made once,
+// csrc/cx.cuh), sums over the appended rows in increasing order, so a zero
+// appended row adds exact zeros at the end of each sum and changes no bit.
+//
+// What bounds them. P7 reads and writes R's upper triangle once and does
+// about 2·n²·P multiply-adds; P8 reads ct once and does about 4·n·q·P.
+// Both are far below the card's rates in the time they take, which is the
+// chain of n dependent steps (P7: a reduction over P, a square root and
+// three divisions each; P8: a reduction over P).
+//
+// Design. P7 is P6's structure transposed: the update of column c at step
+// j needs only (w_j, tau_j), R's row j and U's column c, so one thread owns
+// one column, with U's column in registers, and 128 columns make a CTA.
+// CTA b first applies the reflectors the CTAs left of it publish (in the
+// outputs w and tau, 32 steps at a time, behind their progress counters),
+// then makes its own: for each step j in its columns, the thread owning
+// column j makes the reflector alone, writes it to shared memory (and to
+// w and tau), and after one barrier every thread right of it reflects its
+// column. R's row j is read and written once, at step j, by coalesced
+// accesses across the CTA's threads. A multi-CTA call is one cooperative
+// launch, so a spinning CTA cannot keep the one it waits on off the card.
+// P8 gives each right-hand-side column one thread with its column of d in
+// registers: the columns are independent, so the n steps run in order with
+// no barrier, every thread reading w's column j and tau_j (one address,
+// broadcast) and its entry of ct's row j.
+//
+// Built with nvcc for sm_90a WITHOUT --use_fast_math (IEEE square root and
+// division are part of the contract).
+
+#include <cuda_runtime.h>
+
+#include "cx.cuh"
+
+namespace {
+
+constexpr int kCols = 128;   // P7: columns (threads) per CTA
+constexpr int kStep = 32;    // P7: steps published and consumed at a time
+constexpr int kApplyThreads = 128;  // P8: right-hand-side columns per CTA
+
+using cx::add_rn;
+using cx::conj;
+using cx::mul_rn;
+using cx::sub_rn;
+
+template <typename R>
+__device__ __forceinline__ R scale_rn(R a, R c) { return mul_rn(a, c); }
+template <typename R>
+__device__ __forceinline__ Cx<R> scale_rn(Cx<R> a, R c) {
+  return {mul_rn(a.re, c), mul_rn(a.im, c)};
+}
+template <typename R> __device__ __forceinline__ R neg(R a) { return -a; }
+template <typename R> __device__ __forceinline__ Cx<R> neg(Cx<R> a) {
+  return {-a.re, -a.im};
+}
+
+// (top, mat[:, c]) ← (I − tau·v·vᴴ)·(top, mat[:, c]) for v = [1; w]
+template <typename T, int P>
+__device__ __forceinline__ void reflect(T& top, T (&col)[P], const T* w,
+                                        T tau) {
+  T acc = mul_rn(conj(w[0]), col[0]);
+#pragma unroll
+  for (int p = 1; p < P; ++p) acc = add_rn(acc, mul_rn(conj(w[p]), col[p]));
+  const T vy = add_rn(top, acc);
+  top = sub_rn(top, mul_rn(tau, vy));
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    col[p] = sub_rn(col[p], mul_rn(tau, mul_rn(w[p], vy)));
+}
+
+template <typename T, int P>
+__global__ void __launch_bounds__(kCols) qr_append_build_kernel(
+    T* __restrict__ R, long long rsr, const T* __restrict__ U,
+    T* __restrict__ Wout, T* __restrict__ tau, int n, int npad,
+    int* __restrict__ progress, int ctas) {
+  using Re = real_t<T>;
+  __shared__ T s_w[kStep][P];
+  __shared__ T s_tau[kStep];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int c0 = b * kCols, c1 = min(npad, c0 + kCols);
+  const int col = c0 + tid;
+  const bool valid = col < c1;
+  T u[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    u[p] = valid ? U[(size_t)p * npad + col] : T(0);
+
+  // 1. the steps of the CTAs left of this one, as they publish them
+  const int e1 = min(c0, n);
+  for (int j0 = 0; j0 < e1; j0 += kStep) {
+    const int src = j0 / kCols, need = (j0 - src * kCols) / kStep + 1;
+    const int cnt = min(kStep, e1 - j0);
+    if (tid == 0) {
+      while (*reinterpret_cast<volatile int*>(progress + src) < need) {
+      }
+      __threadfence();
+    }
+    __syncthreads();
+    for (int idx = tid; idx < cnt * P; idx += blockDim.x) {
+      const int s = idx / P, p = idx % P;
+      s_w[s][p] = cx::ldcg(Wout + (size_t)p * npad + j0 + s);
+    }
+    for (int s = tid; s < cnt; s += blockDim.x)
+      s_tau[s] = cx::ldcg(tau + j0 + s);
+    __syncthreads();
+    if (valid)
+      for (int s = 0; s < cnt; ++s) {
+        T* rj = R + (size_t)(j0 + s) * rsr + col;
+        T top = *rj;
+        reflect<T, P>(top, u, s_w[s], s_tau[s]);
+        *rj = top;
+      }
+    __syncthreads();
+  }
+
+  // 2. this CTA's own steps
+  const int e2 = min(c1, n);
+  int published = 0;
+  for (int j0 = c0; j0 < e2; j0 += kStep) {
+    const int cnt = min(kStep, e2 - j0);
+    for (int s = 0; s < cnt; ++s) {
+      const int j = j0 + s;
+      if (col == j) {
+        T* rjj = R + (size_t)j * rsr + j;
+        const T alpha = *rjj;
+        Re xn2 = cx::abs2_rn(u[0]);
+#pragma unroll
+        for (int p = 1; p < P; ++p) xn2 = add_rn(xn2, cx::abs2_rn(u[p]));
+        const Re an = cx::modulus(alpha);
+        const T phase = an > Re(0) ? cx::div_real_rn(alpha, an) : T(1);
+        const T beta = scale_rn(neg(phase),
+                                cx::sqrt_rn(add_rn(mul_rn(an, an), xn2)));
+        const bool inert = xn2 == Re(0);
+        const T tj = inert ? T(0) : cx::div(sub_rn(beta, alpha), beta);
+        const auto dv = cx::make_divisor(inert ? T(1) : sub_rn(alpha, beta));
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          const T wp = inert ? T(0) : cx::divide(u[p], dv);
+          s_w[s][p] = wp;
+          Wout[(size_t)p * npad + j] = wp;
+          u[p] = T(0);
+        }
+        s_tau[s] = tj;
+        tau[j] = tj;
+        *rjj = inert ? alpha : beta;
+      }
+      __syncthreads();
+      if (valid && col > j) {
+        T* rj = R + (size_t)j * rsr + col;
+        T top = *rj;
+        reflect<T, P>(top, u, s_w[s], s_tau[s]);
+        *rj = top;
+      }
+    }
+    __threadfence();
+    __syncthreads();
+    if (ctas > 1 && tid == 0) atomicExch(progress + b, ++published);
+  }
+}
+
+template <typename T, int P>
+__global__ void __launch_bounds__(kApplyThreads) qr_append_apply_kernel(
+    T* __restrict__ C, long long rsc, const T* __restrict__ D,
+    const T* __restrict__ W, const T* __restrict__ tau, int n, int npad,
+    int q) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= q) return;
+  T d[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) d[p] = D[(size_t)p * q + col];
+  T w[P];
+  for (int j = 0; j < n; ++j) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) w[p] = W[(size_t)p * npad + j];
+    T* cj = C + (size_t)j * rsc + col;
+    T top = *cj;
+    reflect<T, P>(top, d, w, tau[j]);
+    *cj = top;
+  }
+}
+
+int finish(cudaError_t e) {
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int P>
+int build(void* r, long long rsr, const void* u, void* w, void* tau, int n,
+          int npad, int ctas, void* progress, void* stream) {
+  auto kernel = qr_append_build_kernel<T, P>;
+  T* R = static_cast<T*>(r);
+  const T* U = static_cast<const T*>(u);
+  T* W = static_cast<T*>(w);
+  T* tw = static_cast<T*>(tau);
+  int* pr = static_cast<int*>(progress);
+  void* args[] = {&R, &rsr, &U, &W, &tw, &n, &npad, &pr, &ctas};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ctas == 1)
+    return finish(cudaLaunchKernel(reinterpret_cast<const void*>(kernel),
+                                         dim3(1), dim3(kCols), args, 0, st));
+  int dev = 0, coop = 0, n_sm = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return (int)cudaErrorNotSupported;
+  e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kCols, 0);
+  if (e != cudaSuccess) return (int)e;
+  if (ctas > per_sm * n_sm) return (int)cudaErrorCooperativeLaunchTooLarge;
+  return finish(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel), dim3(ctas), dim3(kCols), args, 0,
+      st));
+}
+
+template <typename T>
+int append_build(void* r, long long rsr, const void* u, void* w, void* tau,
+                 int n, int npad, int P, int ctas, void* progress,
+                 void* stream) {
+  if (n < 0 || n > npad || ctas != (npad + kCols - 1) / kCols || ctas < 1)
+    return (int)cudaErrorInvalidValue;
+  switch (P) {
+    case 1: return build<T, 1>(r, rsr, u, w, tau, n, npad, ctas, progress, stream);
+    case 2: return build<T, 2>(r, rsr, u, w, tau, n, npad, ctas, progress, stream);
+    case 4: return build<T, 4>(r, rsr, u, w, tau, n, npad, ctas, progress, stream);
+    case 8: return build<T, 8>(r, rsr, u, w, tau, n, npad, ctas, progress, stream);
+    case 16: return build<T, 16>(r, rsr, u, w, tau, n, npad, ctas, progress, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, int P>
+int apply(void* c, long long rsc, const void* d, const void* w,
+          const void* tau, int n, int npad, int q, void* stream) {
+  const int blocks = (q + kApplyThreads - 1) / kApplyThreads;
+  qr_append_apply_kernel<T, P><<<blocks, kApplyThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<T*>(c), rsc, static_cast<const T*>(d),
+      static_cast<const T*>(w), static_cast<const T*>(tau), n, npad, q);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int append_apply(void* c, long long rsc, const void* d, const void* w,
+                 const void* tau, int n, int npad, int q, int P,
+                 void* stream) {
+  if (n < 0 || n > npad || q < 1) return (int)cudaErrorInvalidValue;
+  switch (P) {
+    case 1: return apply<T, 1>(c, rsc, d, w, tau, n, npad, q, stream);
+    case 2: return apply<T, 2>(c, rsc, d, w, tau, n, npad, q, stream);
+    case 4: return apply<T, 4>(c, rsc, d, w, tau, n, npad, q, stream);
+    case 8: return apply<T, 8>(c, rsc, d, w, tau, n, npad, q, stream);
+    case 16: return apply<T, 16>(c, rsc, d, w, tau, n, npad, q, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+#define SLATE_QR_APPEND(SFX, T)                                               \
+  int slate_qr_append_build_##SFX(void* r, long long rsr, const void* u,      \
+                                  void* w, void* tau, int n, int npad, int P, \
+                                  int ctas, void* progress, void* stream) {   \
+    return append_build<T>(r, rsr, u, w, tau, n, npad, P, ctas, progress,     \
+                           stream);                                           \
+  }                                                                           \
+  int slate_qr_append_apply_##SFX(void* c, long long rsc, const void* d,      \
+                                  const void* w, const void* tau, int n,      \
+                                  int npad, int q, int P, void* stream) {     \
+    return append_apply<T>(c, rsc, d, w, tau, n, npad, q, P, stream);         \
+  }
+
+SLATE_QR_APPEND(f32, float)
+SLATE_QR_APPEND(f64, double)
+SLATE_QR_APPEND(c64, Cx<float>)
+SLATE_QR_APPEND(c128, Cx<double>)
+
+#undef SLATE_QR_APPEND
+
+const char* slate_qr_append_error_string(int e) {
+  return cudaGetErrorString(static_cast<cudaError_t>(e));
+}
+
+}  // extern "C"

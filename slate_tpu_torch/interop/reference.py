@@ -53,8 +53,11 @@ def factor_from_arrays(op: str, arrays: Sequence[np.ndarray], *, nb: int,
     ``op="chol"``: ``(L,)`` → (triangular TiledMatrix,);
     ``op="lu"``: ``(LU, perm)`` → (TiledMatrix, int32 perm tensor);
     ``op="qr"``: ``(vr, t)`` → (QRFactors,) with ``logical_shape``
-    = (m, n). The factor keeps its type: a low-precision payload of a
-    refined operator (bf16, f32 or c64) stays in it."""
+    = (m, n), or an appended-rows resident's 5-tuple ``((vr, t), u, w,
+    tau, r)`` (``Session.update``'s payload, the base factors' pair first,
+    ``logical_shape`` the base's) → (QRFactors, u, w, tau, r). The factor
+    keeps its type: a low-precision payload of a refined operator (bf16,
+    f32 or c64) stays in it."""
     if op == "chol":
         (l,) = arrays
         return (tiled_from_arrays(l, nb=nb, kind=MatrixKind.Triangular,
@@ -66,7 +69,13 @@ def factor_from_arrays(op: str, arrays: Sequence[np.ndarray], *, nb: int,
                                   device=device),
                 as_tensor(np.asarray(perm, dtype=np.int32), device))
     if op == "qr":
-        vr, t = (as_tensor(np.asarray(x), device) for x in arrays)
+        appended = len(arrays) == 5
+        vr, t = (as_tensor(np.asarray(x), device)
+                 for x in (arrays[0] if appended else arrays))
         m, n = logical_shape
-        return (QRFactors(vr, t, m, n, nb),)
+        base = QRFactors(vr, t, m, n, nb)
+        if not appended:
+            return (base,)
+        return (base,) + tuple(as_tensor(np.asarray(x), device)
+                               for x in arrays[1:])
     raise SlateError(f"factor_from_arrays: unsupported op {op!r}")

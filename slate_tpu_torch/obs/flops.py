@@ -78,3 +78,27 @@ def solve_flops(op: str, m: int, n: int, k: int) -> float:
     if op == "qr":
         return (4.0 * m * n - 2.0 * n * n) * k
     raise ValueError(f"solve_flops: unsupported op {op!r}")
+
+
+def update_chol(n: int, k: int) -> float:
+    """Rank-k Cholesky up/downdate of a resident n×n L (the rotation
+    sweep): each of the k vectors touches every column once, about 2n²
+    per vector."""
+    return 2.0 * n * n * k
+
+
+def update_qr(n: int, k: int) -> float:
+    """Append k rows to a resident QR of n columns: the structured
+    factorization of [R; U], about 3n²k (the base's rows do not enter)."""
+    return 3.0 * n * n * k
+
+
+def update_flops(op: str, n: int, k: int) -> float:
+    """Model flops of one rank-k/row-k incremental update against a
+    resident factor, keyed by the Session op kind (chol/chol_small share
+    the dense model; the batched dispatch credits B×)."""
+    if op in ("chol", "chol_small"):
+        return update_chol(n, k)
+    if op == "qr":
+        return update_qr(n, k)
+    raise ValueError(f"update_flops: unsupported op {op!r}")

@@ -33,7 +33,8 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("chol_tile", "lu_panel", "qr_panel", "herk_lower",
            "trtri_leaves", "lu_nopiv", "lu_panel_batched",
-           "chol_tile_batched", "qr_panel_batched")
+           "chol_tile_batched", "qr_panel_batched", "chol_update",
+           "qr_append")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

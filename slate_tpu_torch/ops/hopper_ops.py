@@ -57,8 +57,8 @@ cluster barriers per 32-wide step. K5 (``herk_lower_update``) runs on
 the tensor cores through warp-level ``mma.sync`` (FP64 DMMA, 3×TF32 in
 float32), one block per lower tile pair of the plan ``herk_plan``.
 
-Five kernels have no Pallas counterpart: they replace programs the
-reference fuses with ``jax.vmap``/``fori_loop`` and the port would
+Eight kernels have no Pallas counterpart: they replace programs the
+reference fuses with ``jax.vmap``/``fori_loop``/``lax.scan`` and the port would
 otherwise run as Python loops of small launches. P1
 (``trtri_leaves``) inverts a stack of lower-triangular leaves of at most
 64 rows, one block per leaf; P2 (``lu_nopiv_base``) is the no-pivot LU of
@@ -73,7 +73,12 @@ batched LU. The batched small-problem engine adds P4
 (``chol_tile_batched``: the guarded Cholesky of every tile of a (B, s, s)
 stack, one warp per item) and P5 (``qr_panel_batched``: the Householder
 QR of every panel of a (B, H, w) stack, its rows owned by the threads of
-a warp or a CTA with the plan ``qr_panel_batched_plan``).
+a warp or a CTA with the plan ``qr_panel_batched_plan``). The incremental
+updates (``linalg/update.py``) add P6 (``chol_update_sweep``: a rank-k
+Cholesky up/downdate in place, row-block CTAs in one cooperative launch),
+P7 (``qr_append_build``: the structured QR of [R; U]) and P8
+(``qr_append_apply``: the appended reflectors applied to a solve's
+right-hand sides), each bit for bit its plain version.
 """
 
 from __future__ import annotations
@@ -94,7 +99,9 @@ LAUNCHES: Dict[str, int] = {"chol_tile": 0, "lu_panel_base": 0,
                             "qr_panel_base": 0, "qr_panel_base_wide": 0,
                             "herk_lower_update": 0, "trtri_leaves": 0,
                             "lu_nopiv_base": 0, "lu_panel_batched": 0,
-                            "chol_tile_batched": 0, "qr_panel_batched": 0}
+                            "chol_tile_batched": 0, "qr_panel_batched": 0,
+                            "chol_update_sweep": 0, "qr_append_build": 0,
+                            "qr_append_apply": 0}
 
 TYPE_LAUNCHES: Dict[str, Dict[str, int]] = {k: {} for k in LAUNCHES}
 
@@ -187,6 +194,17 @@ def _fn(lib: str, sym: str, argtypes, restype=ctypes.c_int):
         f.restype = restype
         _fns[sym] = f
     return f
+
+
+# the build unit (csrc/<unit>.cu) of the kernels a Session preloads
+_UNIT = {"chol_update_sweep": "chol_update", "qr_append_build": "qr_append",
+         "qr_append_apply": "qr_append"}
+
+
+def preload(name: str):
+    """Build (at first use) and load the library of kernel ``name`` now,
+    off a request's path."""
+    _build.load(_UNIT[name])
 
 
 def _check_cuda_args(name: str, a: torch.Tensor):
@@ -1642,3 +1660,398 @@ def qr_panel_batched(stack: torch.Tensor
                   f"qr_panel_batched (B={bsz}, H={hh}, w={w}, plan {plan})")
     _count("qr_panel_batched", vr)
     return vr, taus
+
+
+# ---------------------------------------------------------------------------
+# P6–P8: incremental factor updates (no Pallas counterpart)
+# ---------------------------------------------------------------------------
+# The reference writes these sweeps as lax.scan programs over the n columns
+# (slate_tpu/linalg/update.py). Each step is O(n·k) work, so a plain torch
+# port issues about n·k launches per call; the three kernels make each
+# sweep one launch. Their plain versions replay the kernels' arithmetic:
+# every product, sum and quotient rounded apart (complex products part by
+# part through ``cx_mul``, complex quotients by Smith's form through
+# ``cx_divisor``/``cx_div``), sums over the appended rows in increasing
+# order, so a zero update lane or appended row adds exact zeros at the end
+# of each sum and is a bitwise no-op.
+
+UPDATE_BUCKETS = (1, 2, 4, 8, 16)  # the kernels' rank / row-count instances
+P6_ROWS = 128    # rows (one thread each) per CTA of a multi-CTA sweep
+P6_ONE_CTA = 256  # an item of at most this many rows is swept by one CTA
+P7_COLS = 128    # csrc/qr_append.cu: columns (one thread each) per CTA
+P8_THREADS = 128  # right-hand-side columns (one thread each) per CTA
+
+
+def _check_bucket(name: str, k: int):
+    if k not in UPDATE_BUCKETS:
+        raise SlateError(f"{name}: the rank / row count {k} is not one of "
+                         f"the buckets {UPDATE_BUCKETS} (pad with zero lanes)")
+
+
+def _scale_real(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """x·c for a real c (broadcast), part by part for a complex x."""
+    if not x.is_complex():
+        return x * c
+    re, im = _parts(x)
+    return torch.complex(re * c, im * c)
+
+
+class P6Plan(NamedTuple):
+    """One P6 item is swept by ``ctas`` CTAs of ``rows`` threads, CTA b
+    owning rows [b·rows, (b+1)·rows)."""
+    ctas: int
+    rows: int
+
+
+def chol_update_plan(n: int) -> P6Plan:
+    """P6's plan for an item of ``n`` live rows: one CTA of 32·⌈n/32⌉
+    threads up to P6_ONE_CTA rows, else ⌈n / P6_ROWS⌉ CTAs of P6_ROWS.
+    It depends on n alone, so an item's bits do not depend on the batch
+    (and, the arithmetic per entry being fixed, not on the plan either)."""
+    if n < 1:
+        raise SlateError(f"chol_update_plan: no plan for n = {n}")
+    if n <= P6_ONE_CTA:
+        return P6Plan(1, 32 * -(-n // 32))
+    return P6Plan(-(-n // P6_ROWS), P6_ROWS)
+
+
+def chol_update_sweep_plain(l: torch.Tensor, w: torch.Tensor, sign: int,
+                            n: int = None) -> torch.Tensor:
+    """Plain version of P6 (the reference's ``chol_update_dense`` scan
+    body, ``slate_tpu/linalg/update.py:94-132``), IN PLACE on ``l``: for
+    A' = A + sign·W·Wᴴ, per column j < n and vector i, on every item at
+    once, ljj = re(L[j, j]), r² = ljj² ± |w[j, i]|² (a downdate with
+    r² ≤ 0 sets info = j + 1 and freezes the sweep from there on: no
+    entry changes after it), r = √max(r², tiny), c = ljj/r, s = w[j, i]/r,
+    then over the rows r ≥ j: L[r, j] ← c·L[r, j] ± conj(s)·w[r, i] and
+    w[r, i] ← c·w[r, i] − s·L[r, j] (on a working copy: ``w`` is only
+    read). Returns info (int32, 0-d for one item, (B,) for a stack)."""
+    batched = l.ndim == 3
+    L = l if batched else l[None]
+    x = (w if batched else w[None]).transpose(1, 2).clone()
+    bsz, npad, _ = L.shape
+    kb = x.shape[1]
+    n = npad if n is None else n
+    rdt = L.real.dtype if L.is_complex() else L.dtype
+    tiny = torch.tensor(torch.finfo(rdt).tiny, dtype=rdt, device=l.device)
+    info = torch.zeros(bsz, dtype=torch.int32, device=l.device)
+    live = torch.ones(bsz, dtype=torch.bool, device=l.device)
+    for j in range(n):
+        lc = L[:, j:n, j].clone()
+        for i in range(kb):
+            xi = x[:, i, j:n]
+            ljj = lc[:, 0].real if lc.is_complex() else lc[:, 0]
+            xj = xi[:, :1]
+            ax2 = abs2(xi[:, 0])
+            l2 = ljj * ljj
+            r2 = l2 + ax2 if sign > 0 else l2 - ax2
+            if sign < 0:
+                bad = r2 <= 0
+                info = torch.where(live & bad, torch.full_like(info, j + 1),
+                                   info)
+                live = live & ~bad
+            r = torch.sqrt(torch.maximum(r2, tiny))[:, None]
+            c = ljj[:, None] / r
+            s = cx_div_real(xj, r)
+            t = cx_mul(s.conj(), xi)
+            cl = _scale_real(lc, c)
+            new = cl + t if sign > 0 else cl - t
+            newx = _scale_real(xi, c) - cx_mul(s, lc)
+            if sign < 0:
+                new = torch.where(live[:, None], new, lc)
+                newx = torch.where(live[:, None], newx, xi)
+            lc = new
+            x[:, i, j:n] = newx
+        L[:, j:n, j] = lc
+    return info if batched else info[0]
+
+
+def chol_update_sweep(l: torch.Tensor, w: torch.Tensor, sign: int,
+                      n: int = None) -> torch.Tensor:
+    """P6: rank-k update (``sign`` +1) or downdate (−1) of lower Cholesky
+    factors IN PLACE, A' = A + sign·W·Wᴴ. ``l`` is one (npad, npad) factor
+    (zero above the diagonal and beyond the logical ``n``) or a (B, s, s)
+    stack; ``w`` the (npad, kb) or (B, s, kb) update vectors, zero beyond
+    the live rows and rank, kb one of UPDATE_BUCKETS. Only the lower
+    triangle of the first ``n`` rows and columns changes; ``w`` is read,
+    never written. Returns info as the plain version does: the 1-based
+    column of the first failed downdate (the factor is then to be
+    discarded; it stays finite), 0 if none. A zero vector lane is a
+    bitwise no-op, and an item's bits do not depend on the batch.
+
+    No Pallas counterpart: replaces the reference's ``chol_update_dense``
+    scan (slate_tpu/linalg/update.py:70-137) and its ``vmap`` in
+    ``_k_chol_update`` (:158-169). The CUDA kernel (csrc/chol_update.cu)
+    owns one row per thread with the row's kb vector entries in registers
+    and sweeps L in 32-column tiles staged through shared memory; CTA b of
+    an item (plan ``chol_update_plan``) first applies the (c, s) pairs the
+    CTAs above it publish, then sweeps its own diagonal block, one thread
+    making column j's kb pairs while the others wait at a barrier, and
+    publishes them. A multi-CTA item is one cooperative launch (every CTA
+    resident, so the spin-waits cannot deadlock). Arithmetic as the plain
+    version's, rounded apart. A bfloat16 factor (a refined operator's)
+    takes the float32 instance on a float32 copy, written back rounded."""
+    name = "chol_update_sweep"
+    if l.dtype == torch.bfloat16:  # the bf16 route, in place on a copy
+        t = _upcast(l)
+        with _counted_as_bf16():
+            info = chol_update_sweep(t, w.to(torch.float32), sign, n)
+        l.copy_(t)
+        return info
+    _check_type(name, l)
+    batched = l.ndim == 3
+    if l.ndim not in (2, 3) or l.shape[-1] != l.shape[-2] or (
+            w.ndim != l.ndim or w.shape[:-1] != l.shape[:-1]):
+        raise SlateError(f"{name}: expects l (npad, npad) or (B, s, s) and "
+                         f"w (…, kb) beside it, got {tuple(l.shape)} and "
+                         f"{tuple(w.shape)}")
+    if w.dtype != l.dtype or w.device != l.device:
+        raise SlateError(f"{name}: w must match l's type and device")
+    if sign not in (1, -1):
+        raise SlateError(f"{name}: sign must be +1 or -1, got {sign}")
+    kb = w.shape[-1]
+    _check_bucket(name, kb)
+    npad = l.shape[-1]
+    n = npad if n is None else int(n)
+    if not 0 <= n <= npad:
+        raise SlateError(f"{name}: n = {n} outside [0, {npad}]")
+    if l.device.type == "cpu":
+        return chol_update_sweep_plain(l, w, sign, n)
+    if l.device.type != "cuda":
+        raise SlateError(f"{name}: unsupported device {l.device}")
+    if l.is_conj() or l.is_neg() or l.stride(-1) != 1:
+        # the kernel writes rows of unit column stride: sweep a copy
+        t = _resolved(l).contiguous()
+        info = chol_update_sweep(t, w, sign, n)
+        l.copy_(t)
+        return info
+    L = l if batched else l[None]
+    W = (_resolved(w) if batched else _resolved(w)[None]).contiguous()
+    bsz = L.shape[0]
+    info = torch.zeros(bsz, dtype=torch.int32, device=l.device)
+    if bsz == 0 or n == 0:
+        return info if batched else info[0]
+    plan = chol_update_plan(n)
+    real = torch.empty((), dtype=L.dtype).real.dtype if L.is_complex() \
+        else L.dtype
+    nsc = bsz * n * kb if plan.ctas > 1 else 1
+    sc_c = torch.empty(nsc, dtype=real, device=l.device)
+    sc_s = torch.empty(nsc, dtype=L.dtype, device=l.device)
+    sc_live = torch.empty(bsz * n if plan.ctas > 1 else 1, dtype=torch.int32,
+                          device=l.device)
+    progress = torch.zeros(bsz * plan.ctas, dtype=torch.int32,
+                           device=l.device)
+    f = _fn("chol_update", f"slate_chol_update_{_SUFFIX[L.dtype]}",
+            [_P, _L, _L, _P, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+             _P, _P])
+    rc = _on_device(L, f, L.data_ptr(), L.stride(0), L.stride(1),
+                    W.data_ptr(), W.stride(0), n, kb, int(sign < 0), bsz,
+                    plan.ctas, plan.rows, info.data_ptr(), sc_c.data_ptr(),
+                    sc_s.data_ptr(), sc_live.data_ptr(), progress.data_ptr())
+    if rc:
+        _raise_on(rc, "chol_update", "slate_chol_update_error_string",
+                  f"{name} (B={bsz}, n={n}, kb={kb}, plan {plan})")
+    _count(name, L)
+    return info if batched else info[0]
+
+
+def _householder_append(alpha: torch.Tensor, x: torch.Tensor):
+    """The reference's reflector of [alpha; x] for a structured QR step
+    (slate_tpu/linalg/update.py:209-222): beta = −phase·√(|α|² + ‖x‖²)
+    with phase = α/|α| (1 for α = 0), so beta is complex in complex types;
+    tau = (beta − α)/beta and the tail x/(α − beta); a zero x is inert
+    (tau = 0, tail 0, the diagonal keeps α). ``x``: the (P,) appended
+    entries, ‖x‖² summed in increasing order. Returns (diag, tau, tail)."""
+    xn2 = abs2(x[0])
+    for p in range(1, x.shape[0]):
+        xn2 = xn2 + abs2(x[p])
+    an = cx_abs(alpha)
+    one = torch.ones_like(alpha)
+    phase = torch.where(an > 0, cx_div_real(alpha, torch.where(
+        an > 0, an, torch.ones_like(an))), one)
+    beta = _scale_real(-phase, torch.sqrt(an * an + xn2))
+    inert = xn2 == 0
+    zero = torch.zeros_like(alpha)
+    tau = torch.where(inert, zero, cx_div(beta - alpha, cx_divisor(
+        torch.where(inert, one, beta))))
+    tail = torch.where(inert, torch.zeros_like(x), cx_div(x, cx_divisor(
+        torch.where(inert, one, alpha - beta))))
+    return torch.where(inert, alpha, beta), tau, tail
+
+
+def _reflect_rows(top: torch.Tensor, mat: torch.Tensor, tail: torch.Tensor,
+                  tau: torch.Tensor):
+    """[top; mat] ← (I − tau·v·vᴴ)·[top; mat] for v = [1; tail] (top a row
+    of q entries, mat (P, q)), vᴴ·y summed over the P rows in increasing
+    order and added to the top row last → (new top, new mat)."""
+    acc = cx_mul(tail[0].conj(), mat[0])
+    for p in range(1, mat.shape[0]):
+        acc = acc + cx_mul(tail[p].conj(), mat[p])
+    vy = top + acc
+    new_top = top - cx_mul(tau, vy)
+    new_mat = mat - cx_mul(tau, cx_mul(tail[:, None], vy[None, :]))
+    return new_top, new_mat
+
+
+def qr_append_build_plain(r: torch.Tensor, u: torch.Tensor, n: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of P7 (the reference's ``qr_append_build`` scan body,
+    slate_tpu/linalg/update.py:207-241), IN PLACE on the upper-triangular
+    ``r`` (npad, npad): per column j < n, the reflector of [R[j, j];
+    U[:, j]] (``_householder_append``), then R's row j and U's columns
+    right of j reflected, R[j, j] = beta (α when inert) and U[:, j] = 0.
+    ``u`` (P, npad) is read on a working copy. Returns (w (P, npad), tau
+    (npad,)), zero beyond column n."""
+    npad = r.shape[1]
+    umat = _resolved(u).clone()
+    w = torch.zeros_like(umat)
+    tau = torch.zeros(npad, dtype=r.dtype, device=r.device)
+    for j in range(n):
+        d, tj, wj = _householder_append(r[j, j], umat[:, j])
+        top, mat = _reflect_rows(r[j, j + 1:], umat[:, j + 1:], wj, tj)
+        r[j, j + 1:] = top
+        umat[:, j + 1:] = mat
+        r[j, j] = d
+        umat[:, j] = 0
+        w[:, j] = wj
+        tau[j] = tj
+    return w, tau
+
+
+def _check_append(name: str, top: torch.Tensor, rows: torch.Tensor,
+                  what: str):
+    _check_type(name, top)
+    if rows.dtype != top.dtype or rows.device != top.device:
+        raise SlateError(f"{name}: {what} must match the type and device")
+    _check_bucket(name, rows.shape[0])
+
+
+def qr_append_build(r: torch.Tensor, u: torch.Tensor, n: int,
+                    w: torch.Tensor = None, tau: torch.Tensor = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """P7: the structured QR of [R; U] IN PLACE on the upper-triangular
+    ``r`` (npad, npad): per column j < n one reflector v = [e_j; w_j] with
+    the reference's convention (beta = −phase·√(|α|² + ‖x‖²), complex in
+    complex types, on the diagonal; not K3's larfg), R's row j and U's
+    trailing columns reflected. ``u`` is the (P, npad) block of appended
+    rows, P one of UPDATE_BUCKETS, zero beyond the live rows and the
+    logical n (a zero row is a bitwise no-op); it is read, never written.
+    Returns (w (P, npad), tau (npad,)), zero beyond column n, written into
+    ``w`` and ``tau`` when given (a Session's append slots).
+
+    No Pallas counterpart: replaces the reference's ``qr_append_build``
+    scan (slate_tpu/linalg/update.py:189-241). The CUDA kernel
+    (csrc/qr_append.cu) owns one column of R and U per thread (U's column
+    in registers), P7_COLS columns a CTA: CTA b applies the reflectors the
+    CTAs left of it publish (P7_STEP at a time), then makes its own, one
+    thread making step j's reflector while the others wait at a barrier,
+    and publishes them; R's row j is read and written once, at step j. A
+    multi-CTA call is one cooperative launch. Arithmetic as the plain
+    version's, rounded apart."""
+    name = "qr_append_build"
+    _check_append(name, r, u, "u")
+    npad = r.shape[-1]
+    if r.ndim != 2 or r.shape[0] != npad or u.ndim != 2 or (
+            u.shape[1] != npad) or not 0 <= n <= npad:
+        raise SlateError(f"{name}: expects r (npad, npad), u (P, npad) and "
+                         f"n ≤ npad, got {tuple(r.shape)}, {tuple(u.shape)}, "
+                         f"{n}")
+    P = u.shape[0]
+    if r.device.type == "cpu":
+        w2, tau2 = qr_append_build_plain(r, u, n)
+        if w is None:
+            return w2, tau2
+        w.copy_(w2)
+        tau.copy_(tau2)
+        return w, tau
+    if r.device.type != "cuda":
+        raise SlateError(f"{name}: unsupported device {r.device}")
+    if r.is_conj() or r.is_neg() or r.stride(1) != 1:
+        raise SlateError(f"{name}: r must be a row-major view")
+    if w is None:
+        w = torch.zeros((P, npad), dtype=r.dtype, device=r.device)
+        tau = torch.zeros(npad, dtype=r.dtype, device=r.device)
+    else:
+        if not (w.shape == (P, npad) and tau.shape == (npad,)
+                and w.is_contiguous() and tau.is_contiguous()):
+            raise SlateError(f"{name}: w must be ({P}, {npad}) and tau "
+                             f"({npad},), both contiguous")
+        w.zero_()
+        tau.zero_()
+    if n == 0:
+        return w, tau
+    u = _resolved(u).contiguous()
+    ctas = -(-npad // P7_COLS)
+    progress = torch.zeros(ctas, dtype=torch.int32, device=r.device)
+    f = _fn("qr_append", f"slate_qr_append_build_{_SUFFIX[r.dtype]}",
+            [_P, _L, _P, _P, _P, _I, _I, _I, _I, _P, _P])
+    rc = _on_device(r, f, r.data_ptr(), r.stride(0), u.data_ptr(),
+                    w.data_ptr(), tau.data_ptr(), n, npad, P, ctas,
+                    progress.data_ptr())
+    if rc:
+        _raise_on(rc, "qr_append", "slate_qr_append_error_string",
+                  f"{name} (npad={npad}, P={P}, n={n})")
+    _count(name, r)
+    return w, tau
+
+
+def qr_append_apply_plain(ct: torch.Tensor, d: torch.Tensor, w: torch.Tensor,
+                          tau: torch.Tensor, n: int) -> None:
+    """Plain version of P8 (the forward sweep of the reference's
+    ``appended_gels``, slate_tpu/linalg/update.py:275-286), IN PLACE on
+    ``ct`` (npad, q): per column j < n, [ct[j]; d] ← (I − tau_j·v·vᴴ)·
+    [ct[j]; d] with v = [1; w[:, j]]; ``d`` (P, q) is read on a working
+    copy."""
+    dm = _resolved(d).clone()
+    for j in range(n):
+        top, dm = _reflect_rows(ct[j], dm, w[:, j], tau[j])
+        ct[j] = top
+
+
+def qr_append_apply(ct: torch.Tensor, d: torch.Tensor, w: torch.Tensor,
+                    tau: torch.Tensor, n: int) -> None:
+    """P8: applies the n appended reflectors of ``qr_append_build`` (w
+    (P, npad), tau (npad,)) to [ct; d] IN PLACE on ``ct`` (npad, q): the
+    top rows' Qᴴ·B that the base factor's ``unmqr`` made, and ``d`` (P, q)
+    the appended rows' right-hand sides, zero beyond the live rows (read,
+    never written). Column j touches only ct's row j and d, which is all
+    that is carried from step to step.
+
+    No Pallas counterpart: replaces the forward scan of the reference's
+    ``appended_gels`` (slate_tpu/linalg/update.py:275-286). The CUDA kernel
+    (csrc/qr_append.cu) gives each right-hand-side column one thread with
+    its column of d in registers, P8_THREADS columns a CTA: the n steps
+    run in order with no barrier, each reading w's column j and tau_j (the
+    same address across the CTA) and ct's row j (coalesced). Arithmetic as
+    the plain version's, rounded apart."""
+    name = "qr_append_apply"
+    _check_append(name, ct, d, "d")
+    if w.dtype != ct.dtype or tau.dtype != ct.dtype:
+        raise SlateError(f"{name}: w and tau must match ct's type")
+    if ct.ndim != 2 or d.ndim != 2 or d.shape[1] != ct.shape[1] or (
+            w.shape != (d.shape[0], ct.shape[0])) or not 0 <= n <= ct.shape[0]:
+        raise SlateError(f"{name}: expects ct (npad, q), d (P, q), w "
+                         f"(P, npad), got {tuple(ct.shape)}, {tuple(d.shape)},"
+                         f" {tuple(w.shape)}")
+    if ct.device.type == "cpu":
+        qr_append_apply_plain(ct, d, w, tau, n)
+        return
+    if ct.device.type != "cuda":
+        raise SlateError(f"{name}: unsupported device {ct.device}")
+    if ct.is_conj() or ct.is_neg() or ct.stride(1) != 1:
+        raise SlateError(f"{name}: ct must be a row-major view")
+    npad, q = ct.shape
+    P = d.shape[0]
+    if n == 0 or q == 0:
+        return
+    d = _resolved(d).contiguous()
+    w = _resolved(w).contiguous()
+    tau = _resolved(tau).contiguous()
+    f = _fn("qr_append", f"slate_qr_append_apply_{_SUFFIX[ct.dtype]}",
+            [_P, _L, _P, _P, _P, _I, _I, _I, _I, _P])
+    rc = _on_device(ct, f, ct.data_ptr(), ct.stride(0), d.data_ptr(),
+                    w.data_ptr(), tau.data_ptr(), n, npad, q, P)
+    if rc:
+        _raise_on(rc, "qr_append", "slate_qr_append_error_string",
+                  f"{name} (npad={npad}, q={q}, P={P}, n={n})")
+    _count(name, ct)

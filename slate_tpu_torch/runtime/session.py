@@ -30,7 +30,19 @@ converge, takes the counted working-precision fallback
 (``refine_fallbacks_total``; the operator is served unrefined from then
 on), or raises when the policy disables fallback.
 ``demote_to_working_precision`` is the Executor's ``working_precision``
-rung. Meshes, band and spectral operators, tenants, SLOs, attribution,
+rung.
+
+Incremental updates: ``update`` serves a mutated operand against the
+resident factor at O(n²k) (``linalg/update.py``): a rank-k up/downdate of
+a chol or chol_small operator, rows appended to or deleted from a qr
+operator, and ``update_small_batched`` for many chol_small operators at
+once. A chol factor is updated in its own storage, so the solve graphs
+captured on it stay valid; a qr append writes its factors into the
+resident's append slots, which ``warmup(update_k=...)`` makes at the
+bucket and captures the appended solve on. Every degraded path
+(a failed downdate, a deleted base row, an injected ``update_abort``, the
+update budget coming due) is a counted refactor of the committed operand.
+Meshes, band and spectral operators, tenants, SLOs, attribution,
 the recorder and tracing are later slices: they raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
@@ -50,13 +62,17 @@ import torch
 
 from .. import api
 from ..core.exceptions import SlateError
+from ..core.precision import full_precision
 from ..linalg.qr import QRFactors
 from ..core.tiled_matrix import (TiledMatrix, from_dense, num_tiles,
                                  resolve_device)
 from ..core.types import MatrixKind, Norm, Options, DEFAULT_OPTIONS
 from ..linalg import batched as _batched
+from ..linalg import update as _upd
 from ..linalg.norms import norm
 from ..obs import flops as _flops
+from ..obs import numerics as _num
+from ..ops import hopper_ops as ho
 from ..refine import engine as _refine
 from ..refine.policy import (PolicyTable, RefinePolicy,
                              canonical_dtype_name, default_factor_dtype)
@@ -64,6 +80,8 @@ from .metrics import Metrics
 
 SMALL_OPS = ("lu_small", "chol_small")
 OPS = ("lu", "chol", "qr") + SMALL_OPS
+# the op kinds with an incremental-update form (Session.update)
+UPDATE_OPS = ("chol", "chol_small", "qr")
 # the op kinds a refine policy covers
 REFINE_KINDS = _refine.REFINE_OPS + SMALL_OPS
 # op kinds of the reference Session that later slices port
@@ -85,6 +103,13 @@ class _Operator:
     # (set to None for good by a refine fallback or a demotion)
     refine: Optional[RefinePolicy] = None
     anorm: Optional[float] = None  # ‖A‖∞, taken at the first refined solve
+    # updates applied since the last fresh factor, and their accumulated
+    # weight (obs/numerics.py's budget)
+    updates: int = 0
+    update_weight: float = 0.0
+    # the operand's storage is the Session's (a committed update made it),
+    # so a later update may write it in place
+    owned: bool = False
 
 
 @dataclasses.dataclass
@@ -122,9 +147,14 @@ class _Resident:
     info: int
     nbytes: int  # the payload's bytes plus its graphs'
     # the CUDA graphs of the warmed solves on this factor, by padded
-    # right-hand side (rows, cols, dtype); they go with the factor
+    # right-hand side (rows, cols, dtype), with "append" after them for a
+    # qr resident's appended solve; they go with the factor
     graphs: Dict[Tuple, _SolveGraph] = dataclasses.field(
         default_factory=dict)
+    # a qr resident's append slots (u, w, tau, r) at one row bucket: every
+    # append writes its factors there (an appended payload is the base
+    # with the slots), so the appended solve's graphs stay valid
+    slots: Optional[Tuple] = None
 
 
 def _payload_nbytes(payload) -> int:
@@ -216,9 +246,25 @@ def _make_solve_fn(op: str, opts: Options):
             return api.chol_solve_using_factor(payload[0], B, opts)
     else:
         def solve(payload, B):
+            if _appended(payload):
+                return _upd.appended_gels(payload, B, opts)
             return api.least_squares_solve_using_factor(payload[0], B,
                                                         opts)
     return solve
+
+
+def _tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _appended(payload) -> bool:
+    """Is ``payload`` an appended-rows qr resident's (base, u, w, tau, r)?"""
+    return isinstance(payload[0], QRFactors) and len(payload) > 1
+
+
+def _norm1(t: torch.Tensor) -> float:
+    """‖t‖₁ of a plain (rows, cols) tensor: the largest column sum of |t|."""
+    return float(t.abs().sum(0).max()) if t.numel() else 0.0
 
 
 def _failing_call(e: BaseException) -> str:
@@ -490,9 +536,14 @@ class Session:
         self.metrics.inc("evicted_bytes", nbytes)
 
     def _insert(self, handle: Hashable, res: _Resident):
-        """Cache a new factor (MRU), then evict to the budget."""
+        """Cache a new factor (MRU), then evict to the budget. A fresh
+        factor zeroes the operator's update accrual."""
         self._cache[handle] = res
         self._cached_total += res.nbytes
+        entry = self._ops.get(handle)
+        if entry is not None:
+            entry.updates = 0
+            entry.update_weight = 0.0
         self._evict_to_budget(keep=handle)
 
     def _evict_to_budget(self, keep: Hashable):
@@ -782,14 +833,26 @@ class Session:
         (a GMRES-IR one captures nothing). The graphs belong to the
         resident factor; their bytes join the factor's in the budget. A
         CPU session captures nothing. A failed capture raises SlateError
-        naming the op and the failing call."""
-        if update_k is not None:
-            raise NotImplementedError(
-                "Session.warmup: update_k (incremental updates) is not "
-                "ported yet (ROADMAP Queue 1 item 7)")
+        naming the op and the failing call.
+
+        ``update_k`` prepares ``update`` at ``bucket_k(update_k)``. The
+        port's kernels are built once per process, so there is nothing to
+        compile: chol and chol_small operators only load the sweep's
+        library. A qr operator on a CUDA device also gets append slots
+        (u, w, tau, r at the bucket, zero, so inert; their bytes join the
+        resident's) and the appended solve's graphs on them, one per
+        padded row count of m + 1 … m + bucket rows: an append of up to
+        the bucket's rows writes the slots in place and its solves replay
+        those graphs. A warmed shape is its columns and type: its rows
+        follow the operator's, which updates change (a graph for a new row
+        count is captured at its first solve, counted)."""
         with self._lock:
             entry = self._entry(handle)
             res = self.factor(handle)
+            if (update_k is not None and entry.op in UPDATE_OPS
+                    and self.device.type == "cuda"):
+                ho.preload("qr_append_build" if entry.op == "qr"
+                           else "chol_update_sweep")
             if entry.op in SMALL_OPS:
                 if res.info == 0:
                     b0 = torch.zeros((1, entry.n, nrhs),
@@ -806,25 +869,73 @@ class Session:
                     and entry.refine.strategy == "gmres")):
                 return
             nb = entry.A.nb
-            key = (num_tiles(entry.m, nb) * nb, num_tiles(nrhs, nb) * nb,
-                   entry.A.dtype)
-            self._warm.setdefault(handle, set()).add(key)
-            if key not in res.graphs:
-                self._capture(handle, entry, res, key)
+            cols = num_tiles(nrhs, nb) * nb
+            keys = [(num_tiles(entry.m, nb) * nb, cols, entry.A.dtype)
+                    + (("append",) if _appended(res.payload) else ())]
+            if update_k is not None and entry.op == "qr":
+                base_m = res.payload[0].m
+                if res.slots is None or (res.slots[0].shape[0]
+                                         < _upd.bucket_k(update_k)):
+                    self._add_slots(res, _upd.bucket_k(update_k))
+                top = base_m + res.slots[0].shape[0]
+                keys += [(t * nb, cols, entry.A.dtype, "append") for t in
+                         range(num_tiles(base_m + 1, nb),
+                               num_tiles(top, nb) + 1)]
+            for key in keys:
+                self._warm.setdefault(handle, set()).add(key)
+                if key not in res.graphs:
+                    self._capture(handle, entry, res, key)
+
+    def _add_slots(self, res: _Resident, P: int):
+        """Give a cached qr resident zero append slots of P rows (caller
+        holds the lock), charged to its bytes. Slots it had before, and
+        the appended graphs that read them, are dropped."""
+        if res.slots is not None:
+            nbytes = _tensor_bytes(res.slots)
+            res.nbytes -= nbytes
+            self._cached_total -= nbytes
+            self._clear_graphs(res, appended_only=True)
+        base = res.payload[0]
+        npad = base.vr.shape[1]
+        u = base.vr.new_zeros((P, npad))
+        res.slots = (u, torch.zeros_like(u), base.vr.new_zeros(npad),
+                     torch.triu(base.vr[:npad, :npad]))
+        nbytes = _tensor_bytes(res.slots)
+        res.nbytes += nbytes
+        self._cached_total += nbytes
+
+    @staticmethod
+    def _graph_payload(res: _Resident, key: Tuple):
+        """The payload a graph of ``key`` is captured on: the resident's
+        own for a base key, the base with the append slots for an appended
+        one (an appended payload is exactly that)."""
+        return res.payload if len(key) == 3 else (
+            (res.payload[0],) + res.slots)
+
+    def _clear_graphs(self, res: _Resident, appended_only: bool = False):
+        """Drop a cached resident's graphs, or only its appended solves'
+        (their bytes leave the budget); a warmed operator captures them
+        again on its next matching solve."""
+        gone = [k for k in res.graphs if not appended_only or len(k) > 3]
+        nbytes = sum(res.graphs.pop(k).nbytes for k in gone)
+        res.nbytes -= nbytes
+        self._cached_total -= nbytes
 
     def _graph_for(self, handle, entry: _Operator, res: _Resident,
                    B: TiledMatrix) -> Optional[_SolveGraph]:
         """The graph that serves B on this resident factor, captured now
-        (counted) when warmup asked for B's padded shape and the factor
-        was refactored since; None: the eager solve."""
+        (counted) when warmup asked for B's padded columns and type (and
+        appended-ness) and the factor was refactored, or its rows changed,
+        since; None: the eager solve."""
         keys = self._warm.get(handle)
         if not keys or B.shape[0] != entry.m or B.device != self.device or (
                 entry.refine is not None
                 and entry.refine.strategy == "gmres"):
             return None
         b = B.dense_canonical()
-        key = (int(b.shape[0]), int(b.shape[1]), b.dtype)
-        if key not in keys:
+        key = (int(b.shape[0]), int(b.shape[1]), b.dtype) + (
+            ("append",) if _appended(res.payload) else ())
+        if not any(k[1:] == key[1:] for k in keys):
             return None
         graph = res.graphs.get(key)
         return graph if graph is not None else self._capture(
@@ -837,18 +948,26 @@ class Session:
         operator the refine engine's ``start`` and ``step`` (each its own
         graph; ``step`` takes a static iterate too). The static tensors'
         logical width is the padded one: no column is masked, so one
-        capture serves every width up to ``cols``. Counts one
-        ``aot_compiles`` per graph; their bytes join the resident's."""
-        rows, cols, dtype = key
+        capture serves every width up to ``cols``. An appended qr key is
+        captured on the append slots with m + (slot rows) logical rows:
+        rows past a request's are zero in its padded right-hand side and
+        in the slots, so inert (at most ``rows``: the rows past the padded
+        ones are zero too). Counts one ``aot_compiles`` per graph;
+        their bytes join the resident's."""
+        rows, cols, dtype = key[:3]
+        appended = len(key) > 3
         if self.faults is not None:
             self._fault("compile")
         t0 = time.perf_counter()
+        payload = self._graph_payload(res, key)
+        m = min(rows, payload[0].m + payload[1].shape[0]) if appended \
+            else entry.m
         b = torch.zeros((rows, cols), dtype=dtype, device=self.device)
-        B = TiledMatrix(b, entry.m, cols, entry.A.nb)
+        B = TiledMatrix(b, m, cols, entry.A.nb)
         if entry.refine is None:
             solve = _make_solve_fn(entry.op, entry.opts)
             (graph,), (X,), pool = self._graphs(
-                handle, entry, key, [lambda: solve(res.payload, B)])
+                handle, entry, key, [lambda: solve(payload, B)])
             sg = _SolveGraph(graph, b, X, b.numel() * b.element_size() + pool)
         else:
             start = _refine.make_start_fn(entry.op, entry.opts, entry.refine,
@@ -902,8 +1021,9 @@ class Session:
                 torch.cuda.synchronize(dev)
                 pool = max(torch.cuda.memory_reserved(dev) - before, 0)
         except Exception as e:
-            rows, cols, dtype = key
-            what = "refined " if entry.refine is not None else ""
+            rows, cols, dtype = key[:3]
+            what = ("refined " if entry.refine is not None
+                    else "appended " if len(key) > 3 else "")
             raise SlateError(
                 f"Session.warmup: capturing the {what}{entry.op} solve of "
                 f"operator {handle!r} at ({rows}, {cols}) {dtype} failed "
@@ -1156,6 +1276,380 @@ class Session:
             if res.info == 0:
                 x[i] = _small_solve(op, [res.payload], bstack[i][None])[0]
         return x
+
+    # -- incremental updates (linalg/update.py) --------------------------------
+    def update(self, handle: Hashable, delta=None, *, downdate: bool = False,
+               delete=None, tenant: Optional[str] = None) -> dict:
+        """Serve an operand mutation against the RESIDENT factor at O(n²k)
+        instead of the O(n³) refactor:
+
+        * ``chol``/``chol_small``: ``delta`` is the (n, k) vector block W
+          of A' = A + W·Wᴴ (``downdate=True``: A − W·Wᴴ; a downdate that
+          fails the positivity check degrades to a counted refactor of the
+          committed operand, never a wrong factor);
+        * ``qr``: ``delta`` is (p, n) rows to APPEND, or ``delete=`` row
+          indices to remove (incremental for appended rows; deleting a base
+          row degrades to a counted refactor).
+
+        The mutated operand is staged on the device and committed as the
+        Session's own storage on every path (the caller's arrays are never
+        written), so the refactor of a degraded path answers from A'. A
+        chol factor is updated in its own storage (P6), so its warmed
+        solve graphs stay valid; a qr append builds (w, tau, r) against the
+        resident R (P7), in the resident's append slots. Ranks and row
+        counts pad to pow2 buckets (zero lanes are inert).
+
+        Returns a dict: ``applied`` (the incremental path served it),
+        ``refactored`` (a counted refactor ran: reason "abort",
+        "downdate_indefinite", "base_delete" or "update_budget"),
+        ``deferred`` (no resident to maintain: the mutation committed, the
+        next factor is a plain miss), ``info``, ``op``, ``k`` and
+        ``k_bucket``."""
+        if tenant is not None:
+            raise NotImplementedError(f"Session.update: {_TENANTS_LATER}")
+        with self._lock:
+            entry = self._entry(handle)
+            if entry.op not in UPDATE_OPS:
+                raise SlateError(
+                    f"Session.update: operator kind {entry.op!r} has no "
+                    f"incremental form (supported: {UPDATE_OPS}); "
+                    "re-register the mutated operand instead")
+            if entry.op == "qr":
+                return self._update_qr(entry, handle, delta, delete)
+            if delete is not None:
+                raise SlateError("Session.update: delete= applies to qr "
+                                 "operators only")
+            return self._update_chol(entry, handle, delta, downdate)
+
+    def _update_vectors(self, entry: _Operator, delta,
+                        what: str = "Session.update") -> torch.Tensor:
+        """``delta`` as the (n, k) update vectors on the device, in the
+        operator's type (a vector is one column)."""
+        if delta is None:
+            raise SlateError(f"{what}: chol update needs delta (the (n, k) "
+                             "update-vector block W)")
+        w = delta if isinstance(delta, torch.Tensor) else torch.as_tensor(
+            np.asarray(delta))
+        if w.ndim == 1:
+            w = w[:, None]
+        if w.ndim != 2 or w.shape[0] != entry.n:
+            raise SlateError(f"{what}: delta must be ({entry.n}, k) update "
+                             f"vectors, got shape {tuple(w.shape)}")
+        return w.to(self.device, entry.A.dtype)
+
+    def _stage_chol(self, entry: _Operator, w: torch.Tensor, sign: int):
+        """A' = A + sign·W·Wᴴ on the device, full precision: a small
+        operand as a new tensor; a dense one written into the Session's own
+        storage (a full copy of the caller's operand at the first update,
+        both triangles) → (A', ‖A‖₁ of the current operand)."""
+        with full_precision():
+            if entry.op in SMALL_OPS:
+                a = entry.A
+                return a + sign * (w @ w.mH), _norm1(a)
+            A, n = entry.A, entry.n
+            anorm1 = float(norm(A, Norm.One))
+            data = A.data if entry.owned else A.full_dense()
+            if not entry.owned and data.data_ptr() == A.data.data_ptr():
+                data = data.clone()
+            data[:n, :n].addmm_(w, w.mH, alpha=sign)
+            return dataclasses.replace(A, data=data), anorm1
+
+    def _update_chol(self, entry: _Operator, handle: Hashable, delta,
+                     downdate: bool) -> dict:
+        """Caller holds the lock. Rank-k A' = A ± W·Wᴴ against the resident
+        potrf factor, in its own storage: the dense factor by one P6 sweep,
+        a small one by the B = 1 run of the batched sweep that
+        ``update_small_batched`` uses (bit for bit its lane)."""
+        small = entry.op == "chol_small"
+        w = self._update_vectors(entry, delta)
+        k = int(w.shape[1])
+        sign = -1 if downdate else 1
+        A2, anorm1 = self._stage_chol(entry, w, sign)
+        self.metrics.inc("updates_total")
+        # the fault seam fires before any resident byte is touched: the
+        # resident stays as it was and the committed operand refactors
+        if self.faults is not None and self._fault("update"):
+            self.metrics.inc("update_aborts_total")
+            self._update_commit(entry, handle, A2)
+            return self._update_refactor(entry, handle, "abort")
+        res = self._cache.get(handle)
+        if res is None:
+            # nothing resident: the next factor is a plain miss
+            self._update_commit(entry, handle, A2)
+            self.metrics.inc("updates_deferred_total")
+            return {"applied": False, "refactored": False, "deferred": True,
+                    "info": 0, "op": entry.op, "k": k}
+        L = res.payload[0]
+        kb = _upd.bucket_k(k)
+        ldt = L.dtype  # the factor's type (low under a refine policy)
+        if small:
+            wpad = w.new_zeros((1, entry.n, kb), dtype=ldt)
+            wpad[0, :, :k] = w.to(ldt)
+            _, infos = _upd.chol_update_batched(L[None], wpad, sign,
+                                                inplace=True)
+            info = int(infos[0])
+        else:
+            wpad = w.new_zeros((L.data.shape[-1], kb), dtype=ldt)
+            wpad[:entry.n, :k] = w.to(ldt)
+            _, info = _upd.chol_update_factor(L, wpad, sign, inplace=True)
+            info = int(info)
+        self._update_commit(entry, handle, A2)
+        if downdate and info > 0:
+            # A − W·Wᴴ is not (numerically) positive definite along the
+            # sweep: the updated factor is discarded and the refactor of
+            # the committed operand answers (or reports its own info)
+            self.metrics.inc("update_downdate_failures_total")
+            return self._update_refactor(entry, handle, "downdate_indefinite")
+        return self._update_finish(entry, handle, res, res.payload, kb, k,
+                                   _norm1(w) ** 2, anorm1)
+
+    def _update_qr(self, entry: _Operator, handle: Hashable, rows,
+                   delete) -> dict:
+        """Caller holds the lock. QR row maintenance: append (``rows``, the
+        (p, n) new rows) or delete (``delete``, row indices). The base
+        factors are never touched: an append rebuilds (w, tau, r) from the
+        whole appended stack against the resident R (P7), in the append
+        slots when they hold it; deleting a BASE row has no incremental
+        form and degrades to a counted refactor of the pruned operand.
+        The append factors are always written into the resident's append
+        slots, made (or grown to the rows' bucket, which drops the appended
+        graphs) at the first append that needs them."""
+        if (rows is None) == (delete is None):
+            raise SlateError("Session.update(qr): exactly one of delta (rows "
+                             "to append) or delete= (row indices) per call")
+        m, n, nb = entry.m, entry.n, entry.A.nb
+        a = entry.A.dense_canonical()[:m, :n]
+        res = self._cache.get(handle)
+        base_m = res.payload[0].m if res is not None else None
+        if rows is not None:
+            u = rows if isinstance(rows, torch.Tensor) else torch.as_tensor(
+                np.asarray(rows))
+            if u.ndim == 1:
+                u = u[None, :]
+            if u.ndim != 2 or u.shape[1] != n:
+                raise SlateError(
+                    f"Session.update(qr): delta must be (p, {n}) rows to "
+                    f"append, got shape {tuple(u.shape)}")
+            u = u.to(self.device, entry.A.dtype)
+            k_live = int(u.shape[0])
+            m_new = m + k_live
+            wn1_sq = _norm1(u) ** 2
+            base_delete = False
+            kept = None
+        else:
+            idx = np.unique(np.atleast_1d(np.asarray(delete, dtype=np.int64)))
+            if idx.size == 0:
+                raise SlateError("Session.update(qr): delete= is empty")
+            if int(idx[0]) < 0 or int(idx[-1]) >= m:
+                raise SlateError(f"Session.update(qr): delete= indices out "
+                                 f"of range for {m} rows")
+            k_live = int(idx.size)
+            m_new = m - k_live
+            if m_new < n:
+                raise SlateError(
+                    "Session.update(qr): delete would leave an "
+                    f"underdetermined operator ({m_new} rows < {n} cols)")
+            gone = torch.as_tensor(idx, device=self.device)
+            wn1_sq = _norm1(a[gone]) ** 2
+            kept = torch.ones(m, dtype=torch.bool, device=self.device)
+            kept[gone] = False
+            base_delete = res is None or bool((idx < base_m).any())
+        data = a.new_zeros((num_tiles(m_new, nb) * nb,
+                            entry.A.data.shape[1]))
+        if kept is None:
+            data[:m, :n] = a
+            data[m:m_new, :n] = u
+        else:
+            data[:m_new, :n] = a[kept]
+        A2 = TiledMatrix(data, m_new, n, nb)
+        anorm1 = float(norm(entry.A, Norm.One))
+        self.metrics.inc("updates_total")
+        if self.faults is not None and self._fault("update"):
+            self.metrics.inc("update_aborts_total")
+            self._update_commit(entry, handle, A2, m=m_new)
+            return self._update_refactor(entry, handle, "abort")
+        if res is None:
+            self._update_commit(entry, handle, A2, m=m_new)
+            self.metrics.inc("updates_deferred_total")
+            return {"applied": False, "refactored": False, "deferred": True,
+                    "info": 0, "op": "qr", "k": k_live}
+        if base_delete:
+            self._update_commit(entry, handle, A2, m=m_new)
+            return self._update_refactor(entry, handle, "base_delete")
+        base = res.payload[0]
+        # the rows already appended, from the resident payload itself
+        prev = (res.payload[1][: m - base.m, :n] if _appended(res.payload)
+                else a.new_zeros((0, n)))
+        u_all = torch.cat([prev, u]) if kept is None else prev[kept[base.m:]]
+        p_all = int(u_all.shape[0])
+        self._update_commit(entry, handle, A2, m=m_new)
+        if p_all == 0:
+            # every appended row deleted: the base factors alone factor
+            # the pruned operand, no device work
+            return self._update_finish(entry, handle, res, (base,), 0,
+                                       k_live, wn1_sq, anorm1)
+        P = _upd.bucket_k(p_all)
+        if res.slots is None or res.slots[0].shape[0] < p_all:
+            self._add_slots(res, P)
+        upad = res.slots[0]
+        upad.zero_()
+        upad[:p_all, :n] = u_all
+        _upd.qr_append_factor(base, upad, res.slots[1:])
+        return self._update_finish(entry, handle, res, (base,) + res.slots,
+                                   P, k_live, wn1_sq, anorm1)
+
+    def update_small_batched(self, handles, deltas, downdate: bool = False,
+                             tenant: Optional[str] = None) -> list:
+        """Grouped incremental maintenance of many chol_small operators
+        (Kalman-filter/RLS fleets): one P6 launch up/downdates B residents
+        at once, each item bit for bit its B = 1 ``update``, with per-item
+        info isolation (a failed downdate degrades THAT item to a counted
+        refactor; the rest commit). Cold handles are factored first (plain
+        misses). Ranks may differ per item: zero pad columns are inert, so
+        the group runs at the largest rank's bucket. One (op, n, dtype
+        [, policy]) group per call. Returns one result dict per handle."""
+        if tenant is not None:
+            raise NotImplementedError(
+                f"Session.update_small_batched: {_TENANTS_LATER}")
+        handles, deltas = list(handles), list(deltas)
+        if len(handles) != len(deltas):
+            raise SlateError("Session.update_small_batched: handles and "
+                             "deltas length mismatch")
+        if not handles:
+            return []
+        sign = -1 if downdate else 1
+        with self._lock:
+            entries = [self._entry(h) for h in handles]
+            for h, e in zip(handles, entries):
+                if e.op != "chol_small":
+                    raise SlateError(
+                        "Session.update_small_batched: chol_small operators "
+                        f"only (got {e.op!r} for {h!r})")
+            keys = {self.small_group_key(h) for h in handles}
+            if len(keys) != 1:
+                raise SlateError(
+                    "Session.update_small_batched: one (op, n, dtype"
+                    "[, refine]) group per call, got "
+                    f"{sorted(map(str, keys))}")
+            n = entries[0].n
+            ws = [self._update_vectors(e, d, "Session.update_small_batched")
+                  for e, d in zip(entries, deltas)]
+            kb = _upd.bucket_k(max(int(w.shape[1]) for w in ws))
+            residents = [self.factor(h) for h in handles]
+            for h, r in zip(handles, residents):
+                if r.info != 0:
+                    raise SlateError(f"Session: operator {h!r} factorization "
+                                     f"failed (info={r.info})")
+            bsz = len(handles)
+            # every A' = A + sign·W·Wᴴ and the norms at once, one host read
+            wide = ws[0].new_zeros((bsz, n, kb))
+            for i, w in enumerate(ws):
+                wide[i, :, :w.shape[1]] = w
+            with full_precision():
+                a = torch.stack([e.A for e in entries])
+                a2s = a + sign * (wide @ wide.mH)
+            an1s, wn1s = torch.stack([a.abs().sum(1).amax(1),
+                                      wide.abs().sum(1).amax(1)]).tolist()
+            self.metrics.inc("updates_total", bsz)
+            if self.faults is not None and self._fault("update"):
+                self.metrics.inc("update_aborts_total", bsz)
+                outs = []
+                for i, (h, e) in enumerate(zip(handles, entries)):
+                    self._update_commit(e, h, a2s[i].clone())
+                    outs.append(self._update_refactor(e, h, "abort"))
+                return outs
+            ldt = residents[0].payload[0].dtype
+            wpad = wide.to(ldt)
+            ls = torch.stack([r.payload[0] for r in residents])
+            _, infos = _upd.chol_update_batched(ls, wpad, sign, inplace=True)
+            infos = infos.tolist()
+            outs = []
+            for i, (h, e, res) in enumerate(zip(handles, entries, residents)):
+                # a copy of the item, not a view of the stack
+                self._update_commit(e, h, a2s[i].clone())
+                if downdate and infos[i] > 0:
+                    self.metrics.inc("update_downdate_failures_total")
+                    outs.append(self._update_refactor(
+                        e, h, "downdate_indefinite"))
+                    continue
+                res.payload[0].copy_(ls[i])
+                outs.append(self._update_finish(
+                    e, h, res, res.payload, kb, int(ws[i].shape[1]),
+                    wn1s[i] ** 2, an1s[i]))
+            return outs
+
+    def _update_commit(self, entry: _Operator, handle: Hashable, A2,
+                       m: Optional[int] = None):
+        """Caller holds the lock: the mutated operand becomes the operator's
+        truth (the Session's own storage) and the cached ‖A‖∞ is stale. A
+        refined dense operator whose operand moved to new storage drops
+        its resident's graphs, which read the old operand (captured again,
+        counted, at the next matching solve)."""
+        moved = (entry.op not in SMALL_OPS
+                 and A2.data.data_ptr() != entry.A.data.data_ptr())
+        entry.A = A2
+        entry.owned = True
+        if m is not None:
+            entry.m = m
+        entry.anorm = None
+        res = self._cache.get(handle)
+        if moved and entry.refine is not None and res is not None:
+            self._clear_graphs(res)
+
+    def _update_refactor(self, entry: _Operator, handle: Hashable,
+                         reason: str, applied: bool = False) -> dict:
+        """Caller holds the lock, mutated operand committed. The counted
+        degrade path of every update failure: evict the stale or discarded
+        resident (and its graphs) and refactor A', which either serves
+        correctly or reports its own info."""
+        self.metrics.inc("update_refactors_total")
+        self._drop(handle)
+        res = self.factor(handle)
+        return {"applied": applied, "refactored": True, "reason": reason,
+                "info": int(res.info), "op": entry.op}
+
+    def _update_finish(self, entry: _Operator, handle: Hashable,
+                       res: _Resident, payload2: Tuple, kb: int, k: int,
+                       wnorm1_sq: float, anorm1: float) -> dict:
+        """Caller holds the lock, operand committed. Install the maintained
+        payload on the resident (cached again if a budget eviction of this
+        call dropped it), credit the bucket's update flops, then accrue
+        the update's weight: if the budget comes due, the resident is
+        refactored now (counted), off the next request's path."""
+        res.payload = payload2
+        res.info = 0
+        if self._cache.get(handle) is res:
+            self._cache.move_to_end(handle)
+        else:
+            self._cache[handle] = res
+            self._cached_total += res.nbytes
+        if kb:
+            fl = _flops.update_flops(entry.op, entry.n, kb)
+            self.metrics.inc("flops_total", fl)
+            self.metrics.inc("update_flops_total", fl)
+        self._evict_to_budget(keep=handle)
+        refactored = self._update_health(entry, handle, k, wnorm1_sq, anorm1)
+        out = {"applied": True, "refactored": refactored, "info": 0,
+               "op": entry.op, "k": k, "k_bucket": kb}
+        if refactored:
+            out["reason"] = "update_budget"
+        return out
+
+    def _update_health(self, entry: _Operator, handle: Hashable, k: int,
+                       wnorm1_sq: float, anorm1: float) -> bool:
+        """Caller holds the lock. Accrue the update's growth-weighted error
+        mass on the operator (the numerics monitor, which would keep its
+        own copy, is ROADMAP Queue 1 item 10) and consult the refactor-due
+        predicate of ``obs/numerics.py``. True when the budget came due and
+        a counted refactor replaced the resident."""
+        entry.updates += 1
+        entry.update_weight += _num.update_weight(k, wnorm1_sq, anorm1)
+        if not _num.update_refactor_due(entry.update_weight,
+                                        _num.DEFAULT_UPDATE_BUDGET):
+            return False
+        self.metrics.inc("update_budget_refactors_total")
+        self._update_refactor(entry, handle, "budget", applied=True)
+        return True
 
     # -- lifetime ------------------------------------------------------------
     def close(self):

@@ -154,7 +154,10 @@ def test_cpu_dispatch_counts_no_launch_and_rejects_complex():
                                         "herk_lower_update", "trtri_leaves",
                                         "lu_nopiv_base", "lu_panel_batched",
                                         "chol_tile_batched",
-                                        "qr_panel_batched"}
+                                        "qr_panel_batched",
+                                        "chol_update_sweep",
+                                        "qr_append_build",
+                                        "qr_append_apply"}
     assert not any(hopper_ops.LAUNCHES.values())
     # complex: K1-K4 take it (their plain versions here, no launch); K5
     # raises and names the ROADMAP part that brings it

@@ -312,10 +312,12 @@ def test_failed_capture_raises_and_never_serves_eagerly():
 
 
 def test_update_k_raises_not_implemented():
+    # incremental updates are ported: update_k no longer raises, and a CPU
+    # warmup with it captures nothing
     sess = stt.Session(device="cpu")
     h, _ = _chol_handle(sess)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        sess.warmup(h, update_k=4)
+    sess.warmup(h, update_k=4)
+    assert sess.metrics.get("aot_compiles") == 0
 
 
 # -- the Session surface the front end uses -----------------------------------
