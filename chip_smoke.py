@@ -284,7 +284,7 @@ ties in modulus; for the Householder kernels a zero column (tau = 0,
 alpha kept), zero tails under an alpha with an imaginary part (tau ≠ 0)
 and a NaN), K4 at (10000, 128) complex128, which streams, and a
 "spills" line gives ptxas's registers and spill stores for every complex
-instance.
+instance and every instance of P6 and P7.
 
 The kernels' launch counters are zeroed just before the check phase,
 the main phase, the serve phase, the small phase, the complex phase, the
@@ -3990,7 +3990,8 @@ def p6_case(torch, ho, n, kb, dtype, gen, sign=1, scale=0.3, k=None,
     row = {"n": n, "kb": kb, "k": k, "B": bsz, "dtype": dt, "sign": sign,
            "info_max": max(ik_l), "max_abs_err": err,
            "bitwise_equal": same_bits(torch, lk, lp),
-           "plan": ho.chol_update_plan(n)._asdict(), "launches_per_call": 1}
+           "plan": ho.chol_update_plan_for(n, kb, dtype)._asdict(),
+           "launches_per_call": 1}
     if timed:
         lt = l.clone()
         row["ms"] = cuda_ms(lambda: ho.chol_update_sweep(lt, w, 1, narg))
@@ -4514,7 +4515,8 @@ def update_phase(torch, stt, ho, n, nb, gen):
 
 def complex_spills(_build):
     """ptxas's registers and spill stores for every complex instance (Cx
-    in the mangled name) of the sources this run built, from the build
+    in the mangled name) of the sources this run built, and for every
+    instance of P6 (chol_update) and P7 (qr_append_build), from the build
     log; names demangled by c++filt where it is installed."""
     import re
     import shutil
@@ -4532,7 +4534,8 @@ def complex_spills(_build):
                 continue
             m = re.search(r"Used (\d+) registers", line)
             if m and fn is not None:
-                if "2CxI" in fn:
+                if "2CxI" in fn or src == "chol_update" or (
+                        "qr_append_build" in fn):
                     rows.append({"source": src, "function": fn,
                                  "registers": int(m.group(1)),
                                  "spill_stores": spill})

@@ -33,19 +33,38 @@
 // about 2·n²·P multiply-adds; P8 reads ct once and does about 4·n·q·P.
 // Both are far below the card's rates in the time they take, which is the
 // chain of n dependent steps (P7: a reduction over P, a square root and
-// three divisions each; P8: a reduction over P).
+// two divisions, then one division of the tail and a reflection of the
+// next column; P8: a reduction over P).
 //
-// Design. P7 is P6's structure transposed: the update of column c at step
-// j needs only (w_j, tau_j), R's row j and U's column c, so one thread owns
-// one column, with U's column in registers, and 128 columns make a CTA.
-// CTA b first applies the reflectors the CTAs left of it publish (in the
-// outputs w and tau, 32 steps at a time, behind their progress counters),
-// then makes its own: for each step j in its columns, the thread owning
-// column j makes the reflector alone, writes it to shared memory (and to
-// w and tau), and after one barrier every thread right of it reflects its
-// column. R's row j is read and written once, at step j, by coalesced
-// accesses across the CTA's threads. A multi-CTA call is one cooperative
-// launch, so a spinning CTA cannot keep the one it waits on off the card.
+// Design of P7. The update of column c at step j needs only (w_j, tau_j),
+// R's row j and U's column c, so one thread owns one column, with U's
+// column in registers, and 128 columns make a CTA (four warps of 32).
+// - No step writes R's row j before step j, so alpha = R[j][j] and the
+//   row's entries are the input's: each thread stages its entries of R's
+//   rows 32 at a time into shared memory by cp.async, double-buffered
+//   (one buffer where two would not keep every CTA of a cooperative
+//   launch resident), the next 32 rows fetched while the current ones are
+//   worked, and writes them back once; no global load sits on a step.
+// - CTA b first applies the reflectors the CTAs left of it publish (in
+//   the outputs w and tau, 32 steps at a time, behind their progress
+//   counters), every thread its own column;
+// - then its own steps, 32 per warp: warp q's columns are the steps of
+//   chunk q, and that warp is the front. At step j its lane s makes the
+//   scalars (‖x‖², alpha's phase, beta, tau) from alpha and its column of
+//   U, lane p divides the tail's entry p (one divisor for all), and every
+//   lane right of j reflects its column, so the owner of column j + 1 has
+//   its column one reflection later; the warp is synchronised by
+//   __syncwarp alone. Each step's reflector goes to shared memory and is
+//   released through a step counter there to the warps to the right,
+//   which follow step by step; a chunk's reflector buffer is reused two
+//   chunks later, after the warps to the right have left it.
+// - A chunk's reflectors are published for the CTAs right of it (fenced,
+//   then the progress counter raised, in chunk order). A multi-CTA call is
+//   one cooperative launch, so a spinning CTA cannot keep the one it
+//   waits on off the card.
+// The order of operations on every entry is the plain version's (each
+// column reflected by steps 0, 1, … in turn), so the results are bit for
+// bit its results.
 // P8 gives each right-hand-side column one thread with its column of d in
 // registers: the columns are independent, so the n steps run in order with
 // no barrier, every thread reading w's column j and tau_j (one address,
@@ -57,6 +76,7 @@
 #include <cuda_runtime.h>
 
 #include "cx.cuh"
+#include "pipeline.cuh"
 
 namespace {
 
@@ -68,6 +88,14 @@ using cx::add_rn;
 using cx::conj;
 using cx::mul_rn;
 using cx::sub_rn;
+using pipe::cp_async;
+using pipe::cp_commit;
+using pipe::cp_wait;
+using pipe::fence_release_gpu;
+using pipe::ld_acquire;
+using pipe::ld_acquire_gpu;
+using pipe::lds_row;
+using pipe::st_release;
 
 template <typename R>
 __device__ __forceinline__ R scale_rn(R a, R c) { return mul_rn(a, c); }
@@ -94,15 +122,34 @@ __device__ __forceinline__ void reflect(T& top, T (&col)[P], const T* w,
     col[p] = sub_rn(col[p], mul_rn(tau, mul_rn(w[p], vy)));
 }
 
+template <typename T>
+size_t build_smem_bytes(int P, int bufs) {
+  return ((size_t)bufs * kStep * kCols + 2 * kStep * P + 2 * kStep) *
+         sizeof(T);
+}
+
+// reflect with the reflector's tail in shared memory, read in one row
+template <typename T, int P>
+__device__ __forceinline__ void reflect_staged(T& top, T (&col)[P],
+                                               const T* w, T tau) {
+  T wv[P];
+  lds_row(wv, w);
+  reflect<T, P>(top, col, wv, tau);
+}
+
 template <typename T, int P>
 __global__ void __launch_bounds__(kCols) qr_append_build_kernel(
     T* __restrict__ R, long long rsr, const T* __restrict__ U,
     T* __restrict__ Wout, T* __restrict__ tau, int n, int npad,
-    int* __restrict__ progress, int ctas) {
+    int* __restrict__ progress, int ctas, int bufs) {
   using Re = real_t<T>;
-  __shared__ T s_w[kStep][P];
-  __shared__ T s_tau[kStep];
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* stage = reinterpret_cast<T*>(smem);        // bufs × kStep × kCols
+  T* s_w = stage + (size_t)bufs * kStep * kCols;  // 2 × kStep × P
+  T* s_tau = s_w + 2 * kStep * P;                 // 2 × kStep
+  __shared__ int s_front, s_pub, s_wdone[kCols / 32];
   const int b = blockIdx.x, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
   const int c0 = b * kCols, c1 = min(npad, c0 + kCols);
   const int col = c0 + tid;
   const bool valid = col < c1;
@@ -110,77 +157,175 @@ __global__ void __launch_bounds__(kCols) qr_append_build_kernel(
 #pragma unroll
   for (int p = 0; p < P; ++p)
     u[p] = valid ? U[(size_t)p * npad + col] : T(0);
+  if (tid == 0) {
+    s_front = 0;
+    s_pub = 0;
+  }
+  if (tid < kCols / 32) s_wdone[tid] = 0;
+
+  // this thread's entries of R's rows [j0, j0 + cnt) (the rows at or
+  // above its diagonal: the only ones a step changes in its column) ↔ its
+  // column of buffer tb; no other thread reads them
+  auto rows_of = [&](int tb) { return stage + (size_t)tb * kStep * kCols; };
+  auto fetch_rows = [&](int tb, int j0, int cnt) {
+    T* st = rows_of(tb) + tid;
+    if (valid)
+      for (int s = 0; s < cnt && j0 + s <= col; ++s)
+        cp_async<sizeof(T)>(st + s * kCols, R + (size_t)(j0 + s) * rsr + col);
+  };
+  auto store_rows = [&](int tb, int j0, int cnt) {
+    const T* st = rows_of(tb) + tid;
+    if (valid)
+      for (int s = 0; s < cnt && j0 + s <= col; ++s)
+        R[(size_t)(j0 + s) * rsr + col] = st[s * kCols];
+  };
+  auto tbuf = [&](int j0) { return bufs == 2 ? (j0 / kStep) & 1 : 0; };
 
   // 1. the steps of the CTAs left of this one, as they publish them
   const int e1 = min(c0, n);
+  if (n > 0) fetch_rows(tbuf(0), 0, min(kStep, n));
+  cp_commit();
   for (int j0 = 0; j0 < e1; j0 += kStep) {
+    const int cnt = min(kStep, e1 - j0), tb = tbuf(j0);
+    const int nxt = j0 + kStep, ncnt = min(kStep, n - nxt);
+    if (bufs == 2) {  // the next rows: a later chunk or the first own one
+      if (ncnt > 0) fetch_rows(tb ^ 1, nxt, ncnt);
+      cp_commit();
+    }
     const int src = j0 / kCols, need = (j0 - src * kCols) / kStep + 1;
-    const int cnt = min(kStep, e1 - j0);
     if (tid == 0) {
-      while (*reinterpret_cast<volatile int*>(progress + src) < need) {
+      while (ld_acquire_gpu(progress + src) < need) {
       }
-      __threadfence();
     }
     __syncthreads();
-    for (int idx = tid; idx < cnt * P; idx += blockDim.x) {
+    for (int idx = tid; idx < cnt * P; idx += kCols) {
       const int s = idx / P, p = idx % P;
-      s_w[s][p] = cx::ldcg(Wout + (size_t)p * npad + j0 + s);
+      s_w[s * P + p] = cx::ldcg(Wout + (size_t)p * npad + j0 + s);
     }
-    for (int s = tid; s < cnt; s += blockDim.x)
-      s_tau[s] = cx::ldcg(tau + j0 + s);
+    for (int s = tid; s < cnt; s += kCols) s_tau[s] = cx::ldcg(tau + j0 + s);
+    if (bufs == 2)
+      cp_wait<1>();
+    else
+      cp_wait<0>();
     __syncthreads();
-    if (valid)
+    if (valid) {
+      T* st = rows_of(tb) + tid;
       for (int s = 0; s < cnt; ++s) {
-        T* rj = R + (size_t)(j0 + s) * rsr + col;
-        T top = *rj;
-        reflect<T, P>(top, u, s_w[s], s_tau[s]);
-        *rj = top;
+        T top = st[s * kCols];
+        reflect_staged<T, P>(top, u, s_w + s * P, s_tau[s]);
+        st[s * kCols] = top;
       }
-    __syncthreads();
+    }
+    store_rows(tb, j0, cnt);
+    if (bufs == 1) {
+      if (ncnt > 0) fetch_rows(0, nxt, ncnt);
+      cp_commit();
+    }
   }
+  __syncthreads();
+  if (c0 + warp * 32 >= c1) return;  // a warp with no columns
 
-  // 2. this CTA's own steps
-  const int e2 = min(c1, n);
-  int published = 0;
-  for (int j0 = c0; j0 < e2; j0 += kStep) {
-    const int cnt = min(kStep, e2 - j0);
-    for (int s = 0; s < cnt; ++s) {
-      const int j = j0 + s;
-      if (col == j) {
-        T* rjj = R + (size_t)j * rsr + j;
-        const T alpha = *rjj;
-        Re xn2 = cx::abs2_rn(u[0]);
+  // 2. this CTA's own steps: chunk q is warp q's 32 columns
+  for (int q = 0; q <= warp; ++q) {
+    const int j0 = c0 + q * kStep;
+    if (j0 >= n) break;
+    const int cnt = min(kStep, n - j0), tb = tbuf(j0), pb = q & 1;
+    const int base = q * (kStep + 1);
+    T* pw = s_w + pb * kStep * P;
+    T* pt = s_tau + pb * kStep;
+    T* st = rows_of(tb) + tid;
+    const int nxt = j0 + kStep, ncnt = min(kStep, n - nxt);
+    if (bufs == 2 && q < warp) {  // this thread's rows of the next chunk
+      if (ncnt > 0) fetch_rows(tb ^ 1, nxt, ncnt);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      if (bufs == 1 && q > 0) {
+        fetch_rows(0, j0, cnt);
+        cp_commit();
+      }
+      cp_wait<0>();
+    }
+    if (q < warp) {
+      // -- follow the front of chunk q, step by step
+      for (int s = 0; s < cnt; ++s) {
+        const int need = base + s + 1;
+        while (ld_acquire(&s_front) < need) {
+        }
+        if (valid) {
+          T top = st[s * kCols];
+          reflect_staged<T, P>(top, u, pw + s * P, pt[s]);
+          st[s * kCols] = top;
+        }
+      }
+    } else {
+      // -- the front: wait until the warps to the right have left chunk
+      // q − 2, whose reflector buffer this one reuses
+      for (int v = warp + 1; v < kCols / 32 && c0 + v * 32 < c1; ++v)
+        while (ld_acquire(&s_wdone[v]) < q - 1) {
+        }
+      for (int s = 0; s < cnt; ++s) {
+        const int j = j0 + s;
+        // lane s: the reflector's scalars from alpha = R[j][j] (staged)
+        // and its column of U
+        T alpha = T(0), beta = T(0);
+        int inert = 1;
+        if (lane == s) {
+          alpha = st[s * kCols];
+          Re xn2 = cx::abs2_rn(u[0]);
 #pragma unroll
-        for (int p = 1; p < P; ++p) xn2 = add_rn(xn2, cx::abs2_rn(u[p]));
-        const Re an = cx::modulus(alpha);
-        const T phase = an > Re(0) ? cx::div_real_rn(alpha, an) : T(1);
-        const T beta = scale_rn(neg(phase),
-                                cx::sqrt_rn(add_rn(mul_rn(an, an), xn2)));
-        const bool inert = xn2 == Re(0);
-        const T tj = inert ? T(0) : cx::div(sub_rn(beta, alpha), beta);
+          for (int p = 1; p < P; ++p) xn2 = add_rn(xn2, cx::abs2_rn(u[p]));
+          const Re an = cx::modulus(alpha);
+          const T phase = an > Re(0) ? cx::div_real_rn(alpha, an) : T(1);
+          beta = scale_rn(neg(phase), cx::sqrt_rn(add_rn(mul_rn(an, an),
+                                                         xn2)));
+          inert = xn2 == Re(0);
+          const T tj = inert ? T(0) : cx::div(sub_rn(beta, alpha), beta);
+          pt[s] = tj;
+          st[s * kCols] = inert ? alpha : beta;
+        }
+        alpha = cx::shfl(alpha, s);
+        beta = cx::shfl(beta, s);
+        inert = __shfl_sync(0xffffffffu, inert, s);
+        // the tail w_j = U[:, j]/(alpha − beta): lane p divides entry p
         const auto dv = cx::make_divisor(inert ? T(1) : sub_rn(alpha, beta));
+        T up = T(0);
 #pragma unroll
         for (int p = 0; p < P; ++p) {
-          const T wp = inert ? T(0) : cx::divide(u[p], dv);
-          s_w[s][p] = wp;
-          Wout[(size_t)p * npad + j] = wp;
-          u[p] = T(0);
+          const T v = cx::shfl(u[p], s);
+          if (lane == p) up = v;
         }
-        s_tau[s] = tj;
-        tau[j] = tj;
-        *rjj = inert ? alpha : beta;
+        if (lane < P) pw[s * P + lane] = inert ? T(0) : cx::divide(up, dv);
+        if (lane == s)
+#pragma unroll
+          for (int p = 0; p < P; ++p) u[p] = T(0);
+        __syncwarp();
+        if (lane == 0) st_release(&s_front, base + s + 1);
+        if (valid && lane > s) {
+          T top = st[s * kCols];
+          reflect_staged<T, P>(top, u, pw + s * P, pt[s]);
+          st[s * kCols] = top;
+        }
       }
-      __syncthreads();
-      if (valid && col > j) {
-        T* rj = R + (size_t)j * rsr + col;
-        T top = *rj;
-        reflect<T, P>(top, u, s_w[s], s_tau[s]);
-        *rj = top;
+      // the chunk's reflectors to the outputs, then (several CTAs) the
+      // chunk published for the CTAs right, in order
+      for (int idx = lane; idx < cnt * P; idx += 32)
+        Wout[(size_t)(idx % P) * npad + j0 + idx / P] = pw[idx];
+      if (lane < cnt) tau[j0 + lane] = pt[lane];
+      if (ctas > 1) {
+        while (ld_acquire(&s_pub) < q) {
+        }
+        fence_release_gpu();
+        __syncwarp();
+        if (lane == 0) {
+          atomicExch(progress + b, q + 1);
+          st_release(&s_pub, q + 1);
+        }
       }
     }
-    __threadfence();
-    __syncthreads();
-    if (ctas > 1 && tid == 0) atomicExch(progress + b, ++published);
+    store_rows(tb, j0, cnt);
+    __syncwarp();
+    if (lane == 0) st_release(&s_wdone[warp], q + 1);
   }
 }
 
@@ -219,24 +364,35 @@ int build(void* r, long long rsr, const void* u, void* w, void* tau, int n,
   T* W = static_cast<T*>(w);
   T* tw = static_cast<T*>(tau);
   int* pr = static_cast<int*>(progress);
-  void* args[] = {&R, &rsr, &U, &W, &tw, &n, &npad, &pr, &ctas};
+  int bufs = 2;
+  void* args[] = {&R, &rsr, &U, &W, &tw, &n, &npad, &pr, &ctas, &bufs};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)build_smem_bytes<T>(P, 2));
+  if (e != cudaSuccess) return (int)e;
   if (ctas == 1)
     return finish(cudaLaunchKernel(reinterpret_cast<const void*>(kernel),
-                                         dim3(1), dim3(kCols), args, 0, st));
+                                   dim3(1), dim3(kCols), args,
+                                   build_smem_bytes<T>(P, bufs), st));
   int dev = 0, coop = 0, n_sm = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (!coop) return (int)cudaErrorNotSupported;
   e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kCols, 0);
-  if (e != cudaSuccess) return (int)e;
-  if (ctas > per_sm * n_sm) return (int)cudaErrorCooperativeLaunchTooLarge;
+  // every CTA resident: one staging buffer where two would not let them be
+  for (; bufs >= 1; --bufs) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, kCols, build_smem_bytes<T>(P, bufs));
+    if (e != cudaSuccess) return (int)e;
+    if ((long long)ctas <= (long long)per_sm * n_sm) break;
+  }
+  if (bufs < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   return finish(cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(kernel), dim3(ctas), dim3(kCols), args, 0,
-      st));
+      reinterpret_cast<const void*>(kernel), dim3(ctas), dim3(kCols), args,
+      build_smem_bytes<T>(P, bufs), st));
 }
 
 template <typename T>

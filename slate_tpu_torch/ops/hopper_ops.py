@@ -1677,8 +1677,13 @@ def qr_panel_batched(stack: torch.Tensor
 
 UPDATE_BUCKETS = (1, 2, 4, 8, 16)  # the kernels' rank / row-count instances
 P6_ROWS = 128    # rows (one thread each) per CTA of a multi-CTA sweep
-P6_ONE_CTA = 256  # an item of at most this many rows is swept by one CTA
-P7_COLS = 128    # csrc/qr_append.cu: columns (one thread each) per CTA
+P6_ONE_CTA = 256  # csrc/chol_update.cu kMaxThreads: the largest one-CTA item
+P6_TILE = 32     # csrc/chol_update.cu kTw: columns of a block and a panel
+P6_SMEM_MAX = 232448  # csrc/chol_update.cu kSmemMax: a CTA's shared memory
+P6_SMEM_PER_SM = 233472  # an H100 SM's shared memory (1024 B of it per CTA
+#                          kept by the system)
+P7_COLS = 128    # csrc/qr_append.cu kCols: columns (one thread each) per CTA
+P7_STEP = 32     # csrc/qr_append.cu kStep: steps staged and published at once
 P8_THREADS = 128  # right-hand-side columns (one thread each) per CTA
 
 
@@ -1698,21 +1703,57 @@ def _scale_real(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 class P6Plan(NamedTuple):
     """One P6 item is swept by ``ctas`` CTAs of ``rows`` threads, CTA b
-    owning rows [b·rows, (b+1)·rows)."""
+    owning rows [b·rows, (b+1)·rows) and warp w of it rows [32w, 32w + 32)
+    of those; ``bufs`` (1 or 2) 32-column blocks of L per row in shared
+    memory (2: the next block is fetched while one is worked)."""
     ctas: int
     rows: int
+    bufs: int
 
 
-def chol_update_plan(n: int) -> P6Plan:
-    """P6's plan for an item of ``n`` live rows: one CTA of 32·⌈n/32⌉
-    threads up to P6_ONE_CTA rows, else ⌈n / P6_ROWS⌉ CTAs of P6_ROWS.
-    It depends on n alone, so an item's bits do not depend on the batch
+def chol_update_smem(rows: int, kb: int, itemsize: int, real_itemsize: int,
+                     bufs: int) -> int:
+    """P6's dynamic shared memory (csrc/chol_update.cu ``smem_bytes``):
+    the blocks, two buffers of (c, s) pairs (P6_TILE + kb steps of kb
+    pairs), two panels' live counts."""
+    return (bufs * rows * (P6_TILE + 1) * itemsize
+            + 2 * (P6_TILE + kb) * kb * (itemsize + real_itemsize)
+            + 2 * P6_TILE * 4)
+
+
+def chol_update_plan(n: int, kb: int, itemsize: int,
+                     real_itemsize: int = None) -> P6Plan:
+    """P6's plan for an item of ``n`` live rows at rank bucket ``kb`` and
+    element size ``itemsize`` (``real_itemsize`` that of its real part,
+    itemsize by default): one CTA of 32·⌈n/32⌉ threads up to P6_ONE_CTA
+    rows, else ⌈n / P6_ROWS⌉ CTAs of P6_ROWS. Two block buffers where they
+    fit (one CTA: in P6_SMEM_MAX; several: two CTAs in an SM, so that the
+    cooperative launch stays resident up to 2·132 CTAs), else one. It
+    reads no batch size, so an item's bits do not depend on the batch
     (and, the arithmetic per entry being fixed, not on the plan either)."""
     if n < 1:
         raise SlateError(f"chol_update_plan: no plan for n = {n}")
+    rit = itemsize if real_itemsize is None else real_itemsize
     if n <= P6_ONE_CTA:
-        return P6Plan(1, 32 * -(-n // 32))
-    return P6Plan(-(-n // P6_ROWS), P6_ROWS)
+        ctas, rows = 1, 32 * -(-n // 32)
+        room = P6_SMEM_MAX
+    else:
+        ctas, rows = -(-n // P6_ROWS), P6_ROWS
+        room = P6_SMEM_PER_SM // 2 - 1024
+    bufs = 2 if chol_update_smem(rows, kb, itemsize, rit, 2) <= room else 1
+    if chol_update_smem(rows, kb, itemsize, rit, bufs) > P6_SMEM_MAX:
+        raise SlateError(f"chol_update_plan: n = {n}, kb = {kb} does not "
+                         f"fit one CTA's shared memory")
+    return P6Plan(ctas, rows, bufs)
+
+
+def chol_update_plan_for(n: int, kb: int, dtype: torch.dtype) -> P6Plan:
+    """P6's plan for an item of ``n`` live rows of ``dtype`` at rank
+    bucket ``kb`` (bfloat16 takes the float32 instance)."""
+    if dtype == torch.bfloat16:
+        dtype = torch.float32
+    it = torch.empty((), dtype=dtype).element_size()
+    return chol_update_plan(n, kb, it, it // 2 if dtype.is_complex else it)
 
 
 def chol_update_sweep_plain(l: torch.Tensor, w: torch.Tensor, sign: int,
@@ -1783,14 +1824,24 @@ def chol_update_sweep(l: torch.Tensor, w: torch.Tensor, sign: int,
     scan (slate_tpu/linalg/update.py:70-137) and its ``vmap`` in
     ``_k_chol_update`` (:158-169). The CUDA kernel (csrc/chol_update.cu)
     owns one row per thread with the row's kb vector entries in registers
-    and sweeps L in 32-column tiles staged through shared memory; CTA b of
-    an item (plan ``chol_update_plan``) first applies the (c, s) pairs the
-    CTAs above it publish, then sweeps its own diagonal block, one thread
-    making column j's kb pairs while the others wait at a barrier, and
-    publishes them. A multi-CTA item is one cooperative launch (every CTA
-    resident, so the spin-waits cannot deadlock). Arithmetic as the plain
-    version's, rounded apart. A bfloat16 factor (a refined operator's)
-    takes the float32 instance on a float32 copy, written back rounded."""
+    and the rows' entries of L in 32-column blocks of shared memory, one
+    per warp, the next block fetched by cp.async while one is worked (plan
+    ``chol_update_plan``: CTAs of P6_ROWS rows, one CTA of up to
+    P6_ONE_CTA for a small item; one or two block buffers). CTA b first
+    applies the (c, s) pairs the CTAs above it publish, then its diagonal
+    block one 32-column panel per warp: the panel's warp makes the pairs
+    as a (column, vector) wavefront (lane l makes pair (j0 + l, t − l) at
+    step t, so a panel takes its width + kb − 1 warp-synchronous steps),
+    releasing each step through a counter in shared memory to the warps
+    below, which follow it step by step; no block-wide barrier sits on a
+    column. A panel in which a downdate fails is restored to its entry
+    state and replayed in the plain version's order, so pairs leave a
+    panel only final, with each column's live count. A multi-CTA item is
+    one cooperative launch (every CTA resident, so the spin-waits cannot
+    deadlock). Every entry sees the plain version's operations in its
+    order, rounded apart, so the factor is bit for bit the plain
+    version's. A bfloat16 factor (a refined operator's) takes the float32
+    instance on a float32 copy, written back rounded."""
     name = "chol_update_sweep"
     if l.dtype == torch.bfloat16:  # the bf16 route, in place on a copy
         t = _upcast(l)
@@ -1831,7 +1882,7 @@ def chol_update_sweep(l: torch.Tensor, w: torch.Tensor, sign: int,
     info = torch.zeros(bsz, dtype=torch.int32, device=l.device)
     if bsz == 0 or n == 0:
         return info if batched else info[0]
-    plan = chol_update_plan(n)
+    plan = chol_update_plan_for(n, kb, L.dtype)
     real = torch.empty((), dtype=L.dtype).real.dtype if L.is_complex() \
         else L.dtype
     nsc = bsz * n * kb if plan.ctas > 1 else 1
@@ -1839,15 +1890,19 @@ def chol_update_sweep(l: torch.Tensor, w: torch.Tensor, sign: int,
     sc_s = torch.empty(nsc, dtype=L.dtype, device=l.device)
     sc_live = torch.empty(bsz * n if plan.ctas > 1 else 1, dtype=torch.int32,
                           device=l.device)
+    # a downdate's W entries at a panel's entry (a replay's restart)
+    sc_x = torch.empty(bsz * n * kb if sign < 0 else 1, dtype=L.dtype,
+                       device=l.device)
     progress = torch.zeros(bsz * plan.ctas, dtype=torch.int32,
                            device=l.device)
     f = _fn("chol_update", f"slate_chol_update_{_SUFFIX[L.dtype]}",
-            [_P, _L, _L, _P, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-             _P, _P])
+            [_P, _L, _L, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+             _P, _P, _P, _P])
     rc = _on_device(L, f, L.data_ptr(), L.stride(0), L.stride(1),
                     W.data_ptr(), W.stride(0), n, kb, int(sign < 0), bsz,
-                    plan.ctas, plan.rows, info.data_ptr(), sc_c.data_ptr(),
-                    sc_s.data_ptr(), sc_live.data_ptr(), progress.data_ptr())
+                    plan.ctas, plan.rows, plan.bufs, info.data_ptr(),
+                    sc_c.data_ptr(), sc_s.data_ptr(), sc_live.data_ptr(),
+                    sc_x.data_ptr(), progress.data_ptr())
     if rc:
         _raise_on(rc, "chol_update", "slate_chol_update_error_string",
                   f"{name} (B={bsz}, n={n}, kb={kb}, plan {plan})")
@@ -1942,12 +1997,19 @@ def qr_append_build(r: torch.Tensor, u: torch.Tensor, n: int,
     No Pallas counterpart: replaces the reference's ``qr_append_build``
     scan (slate_tpu/linalg/update.py:189-241). The CUDA kernel
     (csrc/qr_append.cu) owns one column of R and U per thread (U's column
-    in registers), P7_COLS columns a CTA: CTA b applies the reflectors the
-    CTAs left of it publish (P7_STEP at a time), then makes its own, one
-    thread making step j's reflector while the others wait at a barrier,
-    and publishes them; R's row j is read and written once, at step j. A
-    multi-CTA call is one cooperative launch. Arithmetic as the plain
-    version's, rounded apart."""
+    in registers), P7_COLS columns a CTA, and stages R's rows P7_STEP at a
+    time into shared memory by cp.async, double-buffered, so no global
+    load sits on a step (alpha = R[j][j] is in the staged row: no earlier
+    step writes row j). CTA b applies the reflectors the CTAs left of it
+    publish, then makes its own a chunk of P7_STEP steps per warp: the
+    chunk's warp is the front, its lane s making step j's scalars from
+    alpha and its U column, the P entries of the tail divided one per lane
+    by one divisor, and every lane right of j reflecting its column, so
+    the next column's owner is ready one reflection later; each step is
+    released through a counter in shared memory to the warps to the right,
+    which follow it. A multi-CTA call is one cooperative launch (two
+    staging buffers, or one where two would not keep every CTA resident).
+    Arithmetic as the plain version's, rounded apart."""
     name = "qr_append_build"
     _check_append(name, r, u, "u")
     npad = r.shape[-1]

@@ -273,14 +273,14 @@ def test_wrappers_check_buckets_and_shapes():
 
 
 def test_chol_update_plan_and_buckets():
-    assert ho.chol_update_plan(1) == (1, 32)
-    assert ho.chol_update_plan(256) == (1, 256)
-    assert ho.chol_update_plan(257) == (3, 128)
-    assert ho.chol_update_plan(16384) == (128, 128)
+    assert ho.chol_update_plan(1, 1, 4) == (1, 32, 2)
+    assert ho.chol_update_plan(256, 1, 4) == (1, 256, 2)
+    assert ho.chol_update_plan(257, 1, 4) == (3, 128, 2)
+    assert ho.chol_update_plan(16384, 1, 4) == (128, 128, 2)
     assert [upd.bucket_k(k) for k in (0, 1, 2, 3, 5, 16)] == [1, 1, 2, 4, 8,
                                                               16]
     with pytest.raises(SlateError):
-        ho.chol_update_plan(0)
+        ho.chol_update_plan(0, 1, 4)
 
 
 def test_bf16_route_sweeps_a_float32_copy():
