@@ -243,7 +243,9 @@ Phases, one JSON line each:
            deleted (a counted refactor), every served column within
            QR_REL_LIMIT of a float64 normal-equations solve of the mutated
            operand, the appended solves replayed bit for bit the eager
-           appended_gels with factors_total and aot_compiles unchanged;
+           appended_gels with factors_total and aot_compiles unchanged,
+           and the replayed 16-column solve timed by CUDA events (median
+           of 5) before the append and after it;
            UPDATE_SMALL_OPS chol_small operators at n = 256 updated at
            k = 2 by one update_small_batched (wall) and as many B = 1
            Session.update calls on a second Session (wall), each item's
@@ -259,9 +261,14 @@ printed; on the H100 they have been bit for bit): at the update phase's
 shapes in float32 (P6 on the dense n × n factor at kb = 16 and kb = 1 and
 on a (1000, 256, 256) stack at kb = 2; P7 on the qr operator's n/2 × n/2
 R with 16 appended rows; P8 on its 16-column solve padded to 512
-columns), timed by CUDA events beside the plain version's one call, the
-refactor it replaces (torch.linalg.cholesky of A'; torch.geqrf of
-[R; U]) and the bound; at n = 2000 (2048 rows) in float32, float64,
+columns, also in float64, complex64 and complex128), timed by CUDA
+events beside the plain version's one call, the refactor it replaces
+(torch.linalg.cholesky of A'; torch.geqrf of [R; U]; for P8 torch.ormqr
+of its reflectors) and the bound (P8 also its chain bound, P + 4
+dependent rounded operations a step, P + 7 in complex types, at
+DEP_CYCLES and the top SM clock); P8 bit for bit its plain version,
+its plan's shared memory the launcher's; P8 also at a ragged
+(2048, 1999, 200, 16); at n = 2000 (2048 rows) in float32, float64,
 complex64 and complex128 (P6 also a failed downdate: info equal, finite);
 and P6's exact contracts (a zero update and bucket 4 against 8 bit for
 bit, each lane of a stack bit for bit its B = 1 run). The kernel phase
@@ -284,7 +291,7 @@ ties in modulus; for the Householder kernels a zero column (tau = 0,
 alpha kept), zero tails under an alpha with an imaginary part (tau ≠ 0)
 and a NaN), K4 at (10000, 128) complex128, which streams, and a
 "spills" line gives ptxas's registers and spill stores for every complex
-instance and every instance of P6 and P7.
+instance and every instance of P6, P7 and P8.
 
 The kernels' launch counters are zeroed just before the check phase,
 the main phase, the serve phase, the small phase, the complex phase, the
@@ -3905,6 +3912,11 @@ UPDATE_TOL = {"float32": 1e-5, "complex64": 1e-5, "float64": 1e-12,
               # one bfloat16 ulp at the largest entry: the float32 results
               # within 1e-5, rounded apart
               "bfloat16": 2.0 ** -7}
+# P8's chain bound: cycles of one dependent rounded add or multiply, by
+# real type (tools/p67_ablation.py's clock64() chains on an H100 80GB
+# HBM3 at 700 W: 4.055 and 8.024 for both), at the SM's top clock
+# (nvidia-smi clocks.max.sm)
+DEP_CYCLES = {"float32": 4.055, "float64": 8.024}
 UPDATE_SMALL_OPS = 1000  # chol_small operators of the update phase
 UPDATE_SMALL_N = 256
 
@@ -4108,12 +4120,30 @@ def p7_case(torch, ho, npad, n, P, p_live, dtype, gen, timed=False):
     return row, (wk, tk)
 
 
+def max_sm_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0].split()[0])
+
+
+def p8_chain_bound(n, P, dt: str) -> float:
+    """Least time (ms) of P8's n steps by their dependent chain: P + 4
+    rounded operations a step in real types, P + 7 in complex ones (a
+    product part by part is two deep), each DEP_CYCLES of its real type, at
+    the SM's top clock."""
+    real = {"complex64": "float32", "complex128": "float64"}.get(dt, dt)
+    ops = P + (7 if dt.startswith("complex") else 4)
+    return n * ops * DEP_CYCLES[real] / (max_sm_mhz() * 1e3)
+
+
 def p8_case(torch, ho, npad, n, q, P, dtype, gen, wt=None, timed=False):
     """P8 against its plain version on the reflectors of a P7 run (``wt``,
-    else a fresh one): ct within UPDATE_TOL (bitwise printed). Timed rows
-    add the kernel by CUDA events, the plain version's one call,
-    torch.ormqr of the same reflectors (held to the kernel's ct) and the
-    bound."""
+    else a fresh one): ct within UPDATE_TOL (bitwise printed), the plan's
+    shared memory the C launcher's. Timed rows add the kernel by CUDA
+    events and behind the sleep, the plain version's one call,
+    torch.ormqr of the same reflectors (held to the kernel's ct), the
+    bound and the chain bound."""
     if wt is None:
         _, wt = p7_case(torch, ho, npad, n, P, P - 1, dtype, gen)
     w, tau = wt
@@ -4128,13 +4158,16 @@ def p8_case(torch, ho, npad, n, q, P, dtype, gen, wt=None, timed=False):
         cp, d, w, tau, n))
     dt = dtype_name(dtype)
     err = rel_diff(torch, ck, cp)
-    check(err <= UPDATE_TOL[dt], f"qr_append_apply npad={npad} q={q} P={P} "
-          f"{dt}: {err} from the plain version")
+    check(err <= UPDATE_TOL[dt] and same_bits(torch, ck, cp),
+          f"qr_append_apply npad={npad} q={q} P={P} {dt}: {err} from the "
+          "plain version, or not bit for bit")
+    plan = ho.qr_append_apply_plan(q, P, dtype)
+    check(plan.smem_bytes == ho.qr_append_apply_launch_smem(P, dtype),
+          f"qr_append_apply P={P} {dt}: plan {plan} against the launcher's "
+          f"{ho.qr_append_apply_launch_smem(P, dtype)} bytes")
     row = {"npad": npad, "n": n, "q": q, "P": P, "dtype": dt,
            "max_abs_err": err, "bitwise_equal": same_bits(torch, ck, cp),
-           "launches_per_call": 1,
-           "plan": {"ctas": -(-q // ho.P8_THREADS),
-                    "threads": ho.P8_THREADS}}
+           "launches_per_call": 1, "plan": plan._asdict()}
     if timed:
         c2 = ct.clone()
         row["ms"] = cuda_ms(lambda: ho.qr_append_apply(c2, d, w, tau, n))
@@ -4162,7 +4195,15 @@ def p8_case(torch, ho, npad, n, q, P, dtype, gen, wt=None, timed=False):
         nbytes = (2 * npad * q + P * q + P * npad + npad) * it
         flops = 4.0 * n * q * P
         row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dt)
+        row["bound_chain_ms"] = p8_chain_bound(n, P, dt)
     return row
+
+
+def p7_reflectors(torch, ho, npad, n, P, p_live, dtype, gen):
+    """(w, tau) of P7's kernel on qr_append_operands (P7's own rows hold
+    it to its plain version)."""
+    r, u = qr_append_operands(torch, npad, n, P, p_live, dtype, gen)
+    return ho.qr_append_build(r, u, n)
 
 
 def update_kernel_rows(torch, ho, gen, n):
@@ -4193,6 +4234,13 @@ def update_kernel_rows(torch, ho, gen, n):
     p7 = [p7_main]
     p8 = [p8_case(torch, ho, n // 2, n // 2, 512, 16, f32, gen, wt=wt,
                   timed=True)]
+    # the served shape in the other types, and a ragged one (n not a
+    # multiple of the chunk, q not of the CTA's columns)
+    p8 += [p8_case(torch, ho, n // 2, n // 2, 512, 16, dt, gen, timed=True,
+                   wt=p7_reflectors(torch, ho, n // 2, n // 2, 16, 15, dt,
+                                    gen))
+           for dt in (torch.float64, torch.complex64, torch.complex128)]
+    p8.append(p8_case(torch, ho, 2048, 1999, 200, 16, f32, gen))
     for dt in (f32, torch.float64, torch.complex64, torch.complex128):
         p6.append(p6_case(torch, ho, 2000, 4, dt, gen, k=3))
         p6.append(p6_case(torch, ho, 2000, 4, dt, gen, sign=-1, scale=3.0,
@@ -4348,7 +4396,8 @@ def update_qr(torch, stt, ho, n, nb, gen):
     each, 16 columns served and held within QR_REL_LIMIT of a float64
     normal-equations solve of the operand; the appended solves replay
     their graph bit for bit the eager solve, with factors_total and
-    aot_compiles unchanged."""
+    aot_compiles unchanged. The replayed 16-column solve is timed before
+    the append and after it (``solve_replayed_16_ms``)."""
     dev = "cuda"
     m_q, n_q = 2 * n, n // 2
     aq = torch.randn((m_q, n_q), generator=gen, device=dev)
@@ -4362,6 +4411,20 @@ def update_qr(torch, stt, ho, n, nb, gen):
     base = {k: m.get(k) for k in ("factors_total", "aot_compiles")}
     rows = aq
     steps = []
+
+    def replayed_ms(mm):
+        """The replayed 16-column solve of an mm-row right-hand side by
+        CUDA events, median of 5 (after one warm-up), every call a
+        replay."""
+        bt = stt.from_dense(torch.randn((mm, 16), generator=gen, device=dev),
+                            nb, device=dev)
+        r0 = m.get("graph_replays")
+        ms = cuda_ms(lambda: sess.solve_matrix(h, bt), reps=5)
+        check(m.get("graph_replays") == r0 + 6,
+              f"update qr: a timed {mm}-row solve did not replay its graph")
+        return ms
+
+    solve_ms = {"base": replayed_ms(m_q)}
 
     def serve(label, out, wall, happy):
         nonlocal rows
@@ -4393,6 +4456,7 @@ def update_qr(torch, stt, ho, n, nb, gen):
     torch.cuda.synchronize()
     rows = torch.cat([aq, u])
     serve("append 16 rows", out, time.perf_counter() - t0, True)
+    solve_ms["appended 16 rows"] = replayed_ms(m_q + 16)
     t0 = time.perf_counter()
     out = sess.update(h, delete=[m_q + 3])
     torch.cuda.synchronize()
@@ -4410,7 +4474,8 @@ def update_qr(torch, stt, ho, n, nb, gen):
         "factors_total", "aot_compiles", "graph_replays")}
     sess.close()
     return {"m": m_q, "n": n_q, "nb": nb, "warmup_s": warm_s,
-            "steps": steps, "counters": counters}
+            "steps": steps, "solve_replayed_16_ms": solve_ms,
+            "counters": counters}
 
 
 def update_small(torch, stt, ho, gen):
@@ -4516,7 +4581,7 @@ def update_phase(torch, stt, ho, n, nb, gen):
 def complex_spills(_build):
     """ptxas's registers and spill stores for every complex instance (Cx
     in the mangled name) of the sources this run built, and for every
-    instance of P6 (chol_update) and P7 (qr_append_build), from the build
+    instance of P6 (chol_update), P7 and P8 (qr_append), from the build
     log; names demangled by c++filt where it is installed."""
     import re
     import shutil
@@ -4534,8 +4599,7 @@ def complex_spills(_build):
                 continue
             m = re.search(r"Used (\d+) registers", line)
             if m and fn is not None:
-                if "2CxI" in fn or src == "chol_update" or (
-                        "qr_append_build" in fn):
+                if "2CxI" in fn or src in ("chol_update", "qr_append"):
                     rows.append({"source": src, "function": fn,
                                  "registers": int(m.group(1)),
                                  "spill_stores": spill})
@@ -5027,7 +5091,9 @@ def main(argv=None) -> int:
             key = f"at_{shape}_{r['dtype']}" + (
                 "_down" if r.get("sign") == -1 else "")
             kern[key] = {k: r.get(k) for k in update_keys + (
-                "info_max",) if k in r}
+                "info_max", "bound_chain_ms") if k in r}
+        if "bound_chain_ms" in row:
+            kern["bound_chain_ms"] = row["bound_chain_ms"]
         kernels.append(kern)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,8 +1,9 @@
-// Helpers of the update kernels (P6 csrc/chol_update.cu, P7
+// Helpers of the update kernels (P6 csrc/chol_update.cu, P7 and P8
 // csrc/qr_append.cu): flags in shared memory written with release and read
 // with acquire at CTA scope, a CTA's progress counter read with acquire at
-// GPU scope (raised after a release fence), one element copied into shared
-// memory by cp.async, and a row read from shared memory 16 bytes at a time.
+// GPU scope (raised after a release fence), one element or 16 bytes (part
+// of them zero-filled) copied into shared memory by cp.async, and a row
+// read from shared memory 16 bytes at a time.
 
 #pragma once
 
@@ -43,6 +44,14 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
                "l"(src), "n"(N));
+}
+// cp.async of 16 bytes that reads the first src_bytes (0 to 16) and
+// zero-fills the rest
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::);

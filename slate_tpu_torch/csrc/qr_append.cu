@@ -34,7 +34,7 @@
 // Both are far below the card's rates in the time they take, which is the
 // chain of n dependent steps (P7: a reduction over P, a square root and
 // two divisions, then one division of the tail and a reflection of the
-// next column; P8: a reduction over P).
+// next column; P8: the reflection of one column, below).
 //
 // Design of P7. The update of column c at step j needs only (w_j, tau_j),
 // R's row j and U's column c, so one thread owns one column, with U's
@@ -65,15 +65,48 @@
 // The order of operations on every entry is the plain version's (each
 // column reflected by steps 0, 1, … in turn), so the results are bit for
 // bit its results.
-// P8 gives each right-hand-side column one thread with its column of d in
-// registers: the columns are independent, so the n steps run in order with
-// no barrier, every thread reading w's column j and tau_j (one address,
-// broadcast) and its entry of ct's row j.
+//
+// What bounds P8. Column c of [ct; d] is reflected by steps 0, 1, …, n − 1
+// in turn, and step j needs the d that step j − 1 left: vy = ct[j][c] +
+// Σ_p conj(w_j[p])·d[p] (p increasing, each product and sum rounded
+// apart), then d[p] −= tau_j·(w_j[p]·vy). So each step is a dependent
+// chain of P + 4 operations in real types (the first product, P − 1
+// adds, the add of ct's entry, then w_j[p]·vy, tau_j·(…) and the
+// subtraction that the next step's first product waits on) and P + 7 in
+// complex types (a product part by part is two deep). Nothing else is on
+// it: w_j, tau_j and ct's row j depend on nothing the sweep computes.
+//
+// Design of P8. The columns are independent, so no CTA waits on another;
+// kApplyThreads threads a CTA work on columns, each with its share of d in
+// registers, and the time is the column's chain of n steps. A warp issues
+// a step's P + 4 chain operations and its 4P + 2 other rounded operations
+// in order, and on the card that costs about twice the chain (tools/
+// p67_ablation.py, no_loads). So a column takes two lanes where P is 16,
+// or 8 in complex types (apply_lanes): each lane holds P/2 entries of d
+// and does half of the products and updates; lane 0 of the pair sums its
+// half, lane 1 continues from that partial (one shuffle) and hands vy back
+// (another), so the sum runs over p in increasing order as one lane's
+// would. Below that a column keeps one lane (the two shuffles would cost
+// more than the halved issue saves).
+// - The reflectors and ct's rows depend on nothing the sweep computes, so
+//   they are staged kApplyBufs − 1 chunks of kApplyStep steps ahead by
+//   cp.async, every thread a share: w's columns transposed so a step's P
+//   entries lie side by side (P·itemsize / 16 broadcast 16-byte reads),
+//   their tau, and ct's rows across the CTA's columns, 16 bytes a copy
+//   where the rows are 16-byte aligned (zero-filled past q). Two barriers
+//   a chunk hand a buffer over.
+// - A thread reads step s + 1's operands from shared memory while step s
+//   runs, and stores ct's finished entry with a plain store nothing waits
+//   on; the step loop is unrolled by 4 (2 in complex types).
+// The order of operations on every entry is the plain version's, so the
+// results are bit for bit its results.
 //
 // Built with nvcc for sm_90a WITHOUT --use_fast_math (IEEE square root and
 // division are part of the contract).
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "cx.cuh"
 #include "pipeline.cuh"
@@ -82,13 +115,27 @@ namespace {
 
 constexpr int kCols = 128;   // P7: columns (threads) per CTA
 constexpr int kStep = 32;    // P7: steps published and consumed at a time
-constexpr int kApplyThreads = 128;  // P8: right-hand-side columns per CTA
+constexpr int kApplyThreads = 128;  // P8: threads per CTA on the columns
+constexpr int kApplyStep = 32;      // P8: steps staged at a time
+constexpr int kApplyBufs = 3;       // P8: chunks in flight (staged ahead)
+constexpr int kApplySplitP = 16;    // P8: the least P (P/2 complex) split
+//                                     over two lanes
+static_assert(kApplyThreads % 32 == 0 && kApplyThreads >= kApplyStep,
+              "P8 stages a chunk's tau one per thread");
+
+// P8's lanes per right-hand-side column at P appended rows
+template <typename T>
+__host__ __device__ constexpr int apply_lanes(int P) {
+  return P * (sizeof(T) == sizeof(real_t<T>) ? 1 : 2) >= kApplySplitP ? 2
+                                                                      : 1;
+}
 
 using cx::add_rn;
 using cx::conj;
 using cx::mul_rn;
 using cx::sub_rn;
 using pipe::cp_async;
+using pipe::cp_async16_zfill;
 using pipe::cp_commit;
 using pipe::cp_wait;
 using pipe::fence_release_gpu;
@@ -120,6 +167,14 @@ __device__ __forceinline__ void reflect(T& top, T (&col)[P], const T* w,
 #pragma unroll
   for (int p = 0; p < P; ++p)
     col[p] = sub_rn(col[p], mul_rn(tau, mul_rn(w[p], vy)));
+}
+
+// P8's shared memory: kApplyBufs buffers of a chunk's w (P a step), tau
+// and ct slots (one per column of the CTA)
+template <typename T>
+size_t apply_smem_bytes(int P) {
+  return (size_t)kApplyBufs * kApplyStep *
+         (P + 1 + kApplyThreads / apply_lanes<T>(P)) * sizeof(T);
 }
 
 template <typename T>
@@ -329,24 +384,138 @@ __global__ void __launch_bounds__(kCols) qr_append_build_kernel(
   }
 }
 
+// One step of P8 on one lane of a column: its H entries of d (and of w_j),
+// H = P / L. With L = 2, lane 0 of the pair sums its half of the products
+// and lane 1 continues from lane 0's partial, so the sum runs over p in
+// increasing order, as one lane's would; lane 1 adds ct's entry and hands
+// vy back. Returns ct's new entry (lane 1's).
+template <typename T, int H, int L>
+__device__ __forceinline__ T apply_step(T top, T (&d)[H], const T (&w)[H],
+                                        T tj) {
+  if constexpr (L == 1) {
+    reflect<T, H>(top, d, w, tj);
+    return top;
+  } else {
+    T prod[H];
+#pragma unroll
+    for (int h = 0; h < H; ++h) prod[h] = mul_rn(conj(w[h]), d[h]);
+    T acc = prod[0];
+#pragma unroll
+    for (int h = 1; h < H; ++h) acc = add_rn(acc, prod[h]);
+    acc = cx::shfl_xor(acc, 1);  // lane 1 ← lane 0's partial
+#pragma unroll
+    for (int h = 0; h < H; ++h) acc = add_rn(acc, prod[h]);
+    const T vy = cx::shfl(add_rn(top, acc), (threadIdx.x & 31) | 1);
+    top = sub_rn(top, mul_rn(tj, vy));
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+      d[h] = sub_rn(d[h], mul_rn(tj, mul_rn(w[h], vy)));
+    return top;
+  }
+}
+
 template <typename T, int P>
 __global__ void __launch_bounds__(kApplyThreads) qr_append_apply_kernel(
     T* __restrict__ C, long long rsc, const T* __restrict__ D,
     const T* __restrict__ W, const T* __restrict__ tau, int n, int npad,
     int q) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= q) return;
-  T d[P];
+  constexpr int L = apply_lanes<T>(P), H = P / L;
+  constexpr int kColsCta = kApplyThreads / L;  // a CTA's columns
+  // the step loop's unrolling (measured: 4 in real types, 2 in complex)
+  constexpr int kUnroll = sizeof(T) == sizeof(real_t<T>) ? 4 : 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int B = kApplyBufs;
+  T* s_w = reinterpret_cast<T*>(smem);   // B × kApplyStep × P, [buf][s][p]
+  T* s_tau = s_w + B * kApplyStep * P;   // B × kApplyStep
+  T* s_top = s_tau + B * kApplyStep;     // B × kApplyStep × kColsCta
+  const int tid = threadIdx.x, half = tid % L, cl = tid / L;
+  const int col = blockIdx.x * kColsCta + cl;
+  static_assert(kColsCta * sizeof(T) % 16 == 0, "P8 stages whole 16 bytes");
+  const bool valid = col < q, owner = valid && half == L - 1;
+  T d[H];
 #pragma unroll
-  for (int p = 0; p < P; ++p) d[p] = D[(size_t)p * q + col];
-  T w[P];
-  for (int j = 0; j < n; ++j) {
+  for (int h = 0; h < H; ++h)
+    d[h] = valid ? D[(size_t)(half * H + h) * q + col] : T(0);
+
+  // ct's rows as 16-byte copies where they are 16-byte aligned (then a
+  // CTA's columns are: kColsCta·itemsize is a multiple of 16)
+  constexpr int V = 16 / sizeof(T);
+  const int c0 = blockIdx.x * kColsCta;
+  const bool vec = reinterpret_cast<uintptr_t>(C) % 16 == 0 &&
+                   rsc * (long long)sizeof(T) % 16 == 0;
+
+  // steps [j0, j0 + cnt) into buffer buf, every thread a share: w's
+  // columns transposed (a step's P entries side by side), their tau, and
+  // ct's rows across the CTA's columns (zero past q)
+  auto stage = [&](int buf, int j0, int cnt) {
+    T* sw = s_w + buf * kApplyStep * P;
+    for (int idx = tid; idx < kApplyStep * P; idx += kApplyThreads) {
+      const int s = idx % kApplyStep, p = idx / kApplyStep;
+      if (s < cnt)
+        cp_async<sizeof(T)>(sw + s * P + p, W + (size_t)p * npad + j0 + s);
+    }
+    if (tid < cnt)
+      cp_async<sizeof(T)>(s_tau + buf * kApplyStep + tid, tau + j0 + tid);
+    T* st = s_top + (size_t)buf * kApplyStep * kColsCta;
+    const T* src = C + (size_t)j0 * rsc + c0;
+    if (vec) {
+      for (int idx = tid; idx < cnt * (kColsCta / V);
+           idx += kApplyThreads) {
+        const int s = idx / (kColsCta / V), c = idx % (kColsCta / V) * V;
+        const int live = max(0, min(V, q - c0 - c));
+        cp_async16_zfill(st + s * kColsCta + c,
+                         live ? src + (size_t)s * rsc + c : C,
+                         live * (int)sizeof(T));
+      }
+    } else {
+      for (int idx = tid; idx < cnt * kColsCta; idx += kApplyThreads) {
+        const int s = idx / kColsCta, c = idx % kColsCta;
+        if (c0 + c < q)
+          cp_async<sizeof(T)>(st + s * kColsCta + c,
+                              src + (size_t)s * rsc + c);
+      }
+    }
+  };
+
+  // chunk i in buffer i % B, staged B − 1 chunks ahead (one commit group
+  // a chunk, empty past n)
+  for (int i = 0; i < B - 1; ++i) {
+    if (i * kApplyStep < n)
+      stage(i, i * kApplyStep, min(kApplyStep, n - i * kApplyStep));
+    cp_commit();
+  }
+  for (int j0 = 0, buf = 0; j0 < n; j0 += kApplyStep, buf = (buf + 1) % B) {
+    const int cnt = min(kApplyStep, n - j0);
+    const int ahead = j0 + (B - 1) * kApplyStep;
+    if (ahead < n)
+      stage((buf + B - 1) % B, ahead, min(kApplyStep, n - ahead));
+    cp_commit();
+    cp_wait<B - 1>();
+    __syncthreads();  // chunk j0 has landed
+    const T* ws = s_w + buf * kApplyStep * P + half * H;
+    const T* ts = s_tau + buf * kApplyStep;
+    const T* tops = s_top + (size_t)buf * kApplyStep * kColsCta + cl;
+    // step s's operands, read from shared memory one step ahead
+    T wv[H], tj, top;
+    auto operands = [&](int s, T (&w_)[H], T& t_, T& top_) {
+      lds_row(w_, ws + s * P);
+      t_ = ts[s];
+      top_ = tops[s * kColsCta];
+    };
+    operands(0, wv, tj, top);
+    T* out = C + (size_t)j0 * rsc + col;
+#pragma unroll(kUnroll)
+    for (int s = 0; s < cnt; ++s, out += rsc) {
+      T wn[H], tn, topn;
+      operands(s + 1 < cnt ? s + 1 : s, wn, tn, topn);
+      top = apply_step<T, H, L>(top, d, wv, tj);
+      if (owner) *out = top;
 #pragma unroll
-    for (int p = 0; p < P; ++p) w[p] = W[(size_t)p * npad + j];
-    T* cj = C + (size_t)j * rsc + col;
-    T top = *cj;
-    reflect<T, P>(top, d, w, tau[j]);
-    *cj = top;
+      for (int h = 0; h < H; ++h) wv[h] = wn[h];
+      tj = tn;
+      top = topn;
+    }
+    __syncthreads();  // buffer buf is staged again at the next chunk
   }
 }
 
@@ -414,9 +583,14 @@ int append_build(void* r, long long rsr, const void* u, void* w, void* tau,
 template <typename T, int P>
 int apply(void* c, long long rsc, const void* d, const void* w,
           const void* tau, int n, int npad, int q, void* stream) {
-  const int blocks = (q + kApplyThreads - 1) / kApplyThreads;
-  qr_append_apply_kernel<T, P><<<blocks, kApplyThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = qr_append_apply_kernel<T, P>;
+  const size_t smem = apply_smem_bytes<T>(P);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int per_cta = kApplyThreads / apply_lanes<T>(P);
+  kernel<<<(q + per_cta - 1) / per_cta, kApplyThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<T*>(c), rsc, static_cast<const T*>(d),
       static_cast<const T*>(w), static_cast<const T*>(tau), n, npad, q);
   return (int)cudaGetLastError();
@@ -460,6 +634,16 @@ SLATE_QR_APPEND(c64, Cx<float>)
 SLATE_QR_APPEND(c128, Cx<double>)
 
 #undef SLATE_QR_APPEND
+
+#define SLATE_QR_APPEND_SMEM(SFX, T)                                   \
+  long long slate_qr_append_apply_smem_bytes_##SFX(int P) {            \
+    return (long long)apply_smem_bytes<T>(P);                          \
+  }
+SLATE_QR_APPEND_SMEM(f32, float)
+SLATE_QR_APPEND_SMEM(f64, double)
+SLATE_QR_APPEND_SMEM(c64, Cx<float>)
+SLATE_QR_APPEND_SMEM(c128, Cx<double>)
+#undef SLATE_QR_APPEND_SMEM
 
 const char* slate_qr_append_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));

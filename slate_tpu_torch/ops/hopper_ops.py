@@ -1684,7 +1684,11 @@ P6_SMEM_PER_SM = 233472  # an H100 SM's shared memory (1024 B of it per CTA
 #                          kept by the system)
 P7_COLS = 128    # csrc/qr_append.cu kCols: columns (one thread each) per CTA
 P7_STEP = 32     # csrc/qr_append.cu kStep: steps staged and published at once
-P8_THREADS = 128  # right-hand-side columns (one thread each) per CTA
+P8_THREADS = 128  # csrc/qr_append.cu kApplyThreads: threads on columns a CTA
+P8_STEP = 32     # csrc/qr_append.cu kApplyStep: steps staged at a time
+P8_BUFS = 3      # csrc/qr_append.cu kApplyBufs: chunks in flight
+P8_SPLIT_P = 16  # csrc/qr_append.cu kApplySplitP: the least P (P/2 in
+#                  complex types) whose column takes two lanes
 
 
 def _check_bucket(name: str, k: int):
@@ -2057,6 +2061,57 @@ def qr_append_build(r: torch.Tensor, u: torch.Tensor, n: int,
     return w, tau
 
 
+class P8Plan(NamedTuple):
+    """A P8 call on q right-hand-side columns: ``ctas`` CTAs of
+    ``threads`` threads on ``cols`` columns (``lanes`` to a column, lanes
+    l·lanes … l·lanes + lanes − 1 on the CTA's column l, each holding
+    P/lanes entries of its d), which also stage the operands: ``step``
+    reflectors (and ct's rows) staged at a time, ``bufs`` chunks of them
+    in flight in ``smem_bytes``."""
+    ctas: int
+    threads: int
+    lanes: int
+    cols: int
+    step: int
+    bufs: int
+    smem_bytes: int
+
+
+def qr_append_apply_lanes(P: int, complex_: bool) -> int:
+    """P8's lanes per column (csrc/qr_append.cu ``apply_lanes``): two from
+    P8_SPLIT_P appended rows on, or P8_SPLIT_P / 2 in complex types."""
+    return 2 if P * (2 if complex_ else 1) >= P8_SPLIT_P else 1
+
+
+def qr_append_apply_smem(P: int, itemsize: int, complex_: bool) -> int:
+    """P8's dynamic shared memory (csrc/qr_append.cu ``apply_smem_bytes``):
+    P8_BUFS buffers of a chunk's w (P entries a step), tau and ct slots (one
+    per column of the CTA)."""
+    cols = P8_THREADS // qr_append_apply_lanes(P, complex_)
+    return P8_BUFS * P8_STEP * (P + 1 + cols) * itemsize
+
+
+def qr_append_apply_plan(q: int, P: int, dtype: torch.dtype) -> P8Plan:
+    """P8's launch for ``q`` columns at P appended rows of ``dtype``: the
+    constants of csrc/qr_append.cu, ⌈q / cols⌉ CTAs."""
+    if q < 1:
+        raise SlateError(f"qr_append_apply_plan: no plan for q = {q}")
+    cx_ = dtype.is_complex
+    lanes = qr_append_apply_lanes(P, cx_)
+    cols = P8_THREADS // lanes
+    return P8Plan(-(-q // cols), P8_THREADS, lanes, cols, P8_STEP,
+                  P8_BUFS, qr_append_apply_smem(
+                      P, torch.empty((), dtype=dtype).element_size(), cx_))
+
+
+def qr_append_apply_launch_smem(P: int, dtype: torch.dtype) -> int:
+    """The shared memory per CTA that the C launcher gives P8
+    (``slate_qr_append_apply_smem_bytes_*``); ``chip_smoke.py`` holds the
+    plan's ``smem_bytes`` against it. Needs the built kernel."""
+    return _fn("qr_append", "slate_qr_append_apply_smem_bytes_"
+               f"{_SUFFIX[dtype]}", [_I], ctypes.c_longlong)(P)
+
+
 def qr_append_apply_plain(ct: torch.Tensor, d: torch.Tensor, w: torch.Tensor,
                           tau: torch.Tensor, n: int) -> None:
     """Plain version of P8 (the forward sweep of the reference's
@@ -2081,11 +2136,18 @@ def qr_append_apply(ct: torch.Tensor, d: torch.Tensor, w: torch.Tensor,
 
     No Pallas counterpart: replaces the forward scan of the reference's
     ``appended_gels`` (slate_tpu/linalg/update.py:275-286). The CUDA kernel
-    (csrc/qr_append.cu) gives each right-hand-side column one thread with
-    its column of d in registers, P8_THREADS columns a CTA: the n steps
-    run in order with no barrier, each reading w's column j and tau_j (the
-    same address across the CTA) and ct's row j (coalesced). Arithmetic as
-    the plain version's, rounded apart."""
+    (csrc/qr_append.cu, plan ``qr_append_apply_plan``) gives each
+    right-hand-side column one lane, or two from P8_SPLIT_P appended rows
+    on (P8_SPLIT_P / 2 in complex types; each lane holds half of the
+    column's d in registers, the first sums its half of the products, the
+    second continues from that partial, so the sum keeps its order),
+    P8_THREADS such threads a CTA. They copy the reflectors and ct's rows
+    by cp.async P8_BUFS − 1 chunks of P8_STEP steps ahead (w transposed, a
+    step's P entries side by side; tau; ct's rows in 16-byte copies where
+    aligned), and each reads a step's operands from shared memory one step
+    ahead, so no global load sits on a step; each finished entry goes back
+    by a plain store. Arithmetic as the plain version's, rounded apart,
+    steps in order."""
     name = "qr_append_apply"
     _check_append(name, ct, d, "d")
     if w.dtype != ct.dtype or tau.dtype != ct.dtype:
