@@ -254,6 +254,36 @@ Phases, one JSON line each:
            operand moves to the Session's storage, so its two refine graphs
            are captured again, counted) with 16 refined columns under the
            float32 gate.
+10. eig   the Hermitian eigensolvers (eig_phase), every operator
+           Q·diag(λ)·Qᴴ with λ uniform in [−1, 1] and the Gaussian whose QR
+           gives Q drawn by numpy from the seed: heev with MethodEig.QR and
+           vectors at n = EIG_VEC_N (the host steqr with vectors takes
+           about 50 s at 4096 on the H100 machine's 8-CPU host, so
+           vectors run at 2048), nb = EIG_NB in float64 and float32,
+           through he2td and through two_stage (he2hb + hb2td's chase);
+           values only at EIG_VALUES_N (the steqr cap) in float32; Auto
+           (he2hb + a dense eigh of the band) at the uneven EIG_AUTO_N;
+           complex128 and complex64 at EIG_COMPLEX_N through both stage-1
+           paths; hegv itype 1 at EIG_N in float64 (potrf: K1 and P1;
+           hegst and the back-transform: P1), its launches on its own;
+           and Auto at EIG_N, which must raise NotImplementedError naming
+           ROADMAP item 8(b). Each case prints its wall, GFLOP/s by the
+           flop model, each stage's ms (CUDA events; steqr on the host
+           clock) and torch.linalg.eigh's (values only: eigvalsh's) ms on
+           the same operand; with vectors ‖A·Z − Z·Λ‖₁/(n·ε·‖A‖₁) and
+           ‖ZᴴZ − I‖₁/(n·ε) must stay under EIG_GATE and the eigenvalues
+           within EIG_VALUE_TOL·‖A‖ of numpy's float64 eigvalsh of the
+           same matrix, values only within it of λ; hegv's residual
+           ‖A·X − B·X·Λ‖₁/(‖A‖₁·n) under HEGV_TOL. The two sequential
+           chains that could become port-only kernels are measured:
+           he2td's latrd column (device events a column by the profiler
+           at n = EIG_CHAIN_N, µs a column at full size, the columns'
+           matrix-vector bytes bound) and hb2td's hop (events a hop at
+           EIG_CHAIN_N, hops and µs a hop at full size); their profiled
+           runs come after the heev launches are read and before hegv's
+           are zeroed, so they are not counted. The line also
+           gives the host's CPU count and torch's thread count (the host
+           steqr's OpenMP threads).
 The kernel phase also holds the incremental-update kernels P6
 (chol_update_sweep), P7 (qr_append_build) and P8 (qr_append_apply)
 against their plain versions (UPDATE_TOL of max |plain|, bitwise
@@ -295,8 +325,8 @@ instance and every instance of P6, P7 and P8.
 
 The kernels' launch counters are zeroed just before the check phase,
 the main phase, the serve phase, the small phase, the complex phase, the
-complex_small phase, the mixed phase and the update phase and read just
-after each (also by element type:
+complex_small phase, the mixed phase, the update phase and the eig phase
+(and its hegv) and read just after each (also by element type:
 each kernel's "dtypes" and "launches_by_dtype" in the kernels line);
 the launches made to compare a kernel with its plain version are not
 counted.
@@ -321,6 +351,7 @@ This script imports nothing of JAX and nothing of slate_tpu.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import math
@@ -4618,6 +4649,289 @@ def complex_spills(_build):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 10: Hermitian eigensolvers
+# ---------------------------------------------------------------------------
+
+EIG_N = 4096          # hegv, and Auto's refusal
+EIG_VEC_N = 2048      # heev with vectors: cut by the host steqr
+EIG_NB = 256
+EIG_VALUES_N = 8192   # values only: the steqr cap
+EIG_AUTO_N = 2000     # Auto's band-dense path, uneven n
+EIG_COMPLEX_N = 2048
+EIG_CHAIN_N = 1024    # he2td's and hb2td's launches counted by the profiler
+EIG_GATE = 500.0      # tests/test_eig_svd.py's residual and orthogonality
+EIG_VALUE_TOL = {"float64": 1e-9, "complex128": 1e-9, "float32": 1e-4,
+                 "complex64": 1e-4}
+HEGV_TOL = 1e-10
+def eig_operator(torch, n, complex_, rng):
+    """A Hermitian n × n operator on the card with a spectrum known in
+    advance, Q·diag(λ)·Qᴴ in float64 (complex128): λ uniform in [−1, 1]
+    and the Gaussian whose QR gives Q drawn by numpy; returns (A, λ)."""
+    import numpy as np
+    lam = np.sort(rng.uniform(-1.0, 1.0, n))
+    g = rng.standard_normal((n, n))
+    if complex_:
+        g = g + 1j * rng.standard_normal((n, n))
+    q, _ = torch.linalg.qr(torch.as_tensor(g, device="cuda"))
+    a = (q * torch.as_tensor(lam, device="cuda").to(q.dtype)) @ q.mH
+    return 0.5 * (a + a.mH), lam
+
+
+@contextlib.contextmanager
+def eig_stage_timer(torch):
+    """Times the stage functions heev and hegv call (``obs/stages.py``)
+    while in use: CUDA events around the device stages (synchronized
+    after each), the host clock around steqr; yields the ms summed by
+    stage."""
+    from slate_tpu_torch.obs.stages import wrapped_stages
+    ms = {}
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            if name == "steqr":
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                took = (time.perf_counter() - t0) * 1e3
+            else:
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = fn(*args, **kw)
+                e1.record()
+                e1.synchronize()
+                took = e0.elapsed_time(e1)
+            ms[name] = ms.get(name, 0.0) + took
+            return out
+        return run
+
+    with wrapped_stages(timed):
+        yield ms
+
+
+def eig_yardstick(torch, a, vectors):
+    """torch.linalg.eigh's (or eigvalsh's) ms on the card's dense
+    operand (one call after a warm-up at 256; cuSOLVER's syevd)."""
+    fn = torch.linalg.eigh if vectors else torch.linalg.eigvalsh
+    fn(a[:256, :256])
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    fn(a)
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1)
+
+
+def eig_case(torch, stt, flops, a64, lam, dtype, label, opts,
+             vectors, memo, failures):
+    """heev of ``a64`` rounded to ``dtype`` at EIG_NB under ``opts``: wall
+    (host clock ending in a sync), per-stage ms, GFLOP/s by the flop
+    model, torch.linalg.eigh's (eigvalsh's) ms on the same operand; with
+    vectors the residual and orthogonality gates and the eigenvalues
+    against numpy's float64 eigvalsh of the same matrix, values only
+    against λ. ``memo`` keeps the host eigvalsh and the yardstick per
+    shape and type; a failed gate is appended to ``failures``."""
+    import numpy as np
+    n = a64.shape[0]
+    a = a64.to(dtype)
+    A = stt.hermitian(torch.tril(a), EIG_NB, stt.Uplo.Lower, device="cuda")
+    torch.cuda.synchronize()
+    with eig_stage_timer(torch) as stages:
+        t0 = time.perf_counter()
+        w, Z = stt.heev(A, opts, want_vectors=vectors)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dt = dtype_name(dtype)
+    model = (flops.heev_2stage(n) if opts.eig_stage1 == "two_stage"
+             else flops.heev(n, vectors))
+    row = {"case": label, "n": n, "nb": EIG_NB, "dtype": dt,
+           "method": opts.method_eig.value, "stage1": opts.eig_stage1,
+           "vectors": vectors, "wall_s": wall,
+           "gflops": model / wall / 1e9, "stages_ms": dict(stages)}
+    norm_a = float(np.abs(lam).max())
+    if vectors:
+        eps = torch.finfo(w.dtype).eps
+        aw, z, wd = wide(torch, a), wide(torch, Z.dense()[:n, :n]), \
+            wide(torch, w)
+        row["residual"] = float(
+            torch.linalg.matrix_norm(aw @ z - z * wd[None, :], 1)
+            / (n * eps * torch.linalg.matrix_norm(aw, 1)))
+        row["orthogonality"] = float(torch.linalg.matrix_norm(
+            z.mH @ z - torch.eye(n, dtype=z.dtype, device=z.device), 1)
+            / (n * eps))
+        if ("ref", n, dt) not in memo:
+            memo[("ref", n, dt)] = np.linalg.eigvalsh(aw.cpu().numpy())
+        ref = memo[("ref", n, dt)]
+        if not (row["residual"] < EIG_GATE
+                and row["orthogonality"] < EIG_GATE):
+            failures.append(f"heev {label}: residual {row['residual']} / "
+                            f"orthogonality {row['orthogonality']} over "
+                            f"{EIG_GATE}")
+    else:
+        ref = lam
+    row["value_err_rel"] = float(np.abs(w.double().cpu().numpy()
+                                        - ref).max()) / norm_a
+    if not row["value_err_rel"] < EIG_VALUE_TOL[dt]:
+        failures.append(f"heev {label}: eigenvalues "
+                        f"{row['value_err_rel']}·‖A‖ off")
+    key = ("yardstick", n, dt, vectors)
+    if key not in memo:
+        memo[key] = eig_yardstick(torch, a, vectors)
+    row["yardstick_ms"] = {("eigh" if vectors else "eigvalsh"): memo[key]}
+    emit("eig_case", **row)
+    return row
+
+
+def chain_events(torch, fn):
+    """Device events (kernels, copies, sets: the host's launches) of one
+    call of ``fn`` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA"))
+
+
+def eig_chains(torch, stt, rng, cases):
+    """The two sequential chains that would be port-only kernel
+    candidates: he2td's latrd column (device events a column by the
+    profiler at n = EIG_CHAIN_N; µs a column and the columns' matrix-
+    vector bytes bound in every case that ran he2td) and hb2td's hop
+    (events a hop at EIG_CHAIN_N with b = EIG_NB; hops and µs a hop in
+    every case that ran the chase)."""
+    from slate_tpu_torch.linalg.eig import chase_hops
+    a, _ = eig_operator(torch, EIG_CHAIN_N, False, rng)
+    A = stt.hermitian(torch.tril(a), EIG_NB, stt.Uplo.Lower, device="cuda")
+    stt.he2td(A)
+    td_events = chain_events(torch, lambda: stt.he2td(A))
+    band, _ = stt.he2hb(A)
+    hb_events = chain_events(torch, lambda: stt.hb2td(band))
+    latrd, hops = [], []
+    for r in cases:
+        npad = -(-r["n"] // EIG_NB) * EIG_NB
+        item = 16 if r["dtype"] == "complex128" else {
+            "float32": 4, "float64": 8, "complex64": 8}[r["dtype"]]
+        if "he2td" in r["stages_ms"]:
+            latrd.append({
+                "case": r["case"], "columns": npad - 1,
+                "us_per_column": r["stages_ms"]["he2td"] * 1e3 / (npad - 1),
+                "matvec_bytes_bound_ms": sum(
+                    (npad - 1 - j) ** 2 for j in range(npad - 1))
+                * item / PEAK_BYTES_PER_S * 1e3})
+        if "hb2td" in r["stages_ms"]:
+            h = sum(chase_hops(npad, EIG_NB))
+            hops.append({"case": r["case"], "hops": h,
+                         "us_per_hop": r["stages_ms"]["hb2td"] * 1e3 / h})
+    return {"latrd_column": {"events_per_column_at_1024":
+                             td_events / (EIG_CHAIN_N - 1), "cases": latrd},
+            "bulge_hop": {"events_per_hop_at_1024": hb_events / sum(
+                chase_hops(EIG_CHAIN_N, EIG_NB)), "cases": hops}}
+
+
+def eig_phase(torch, stt, ho, seed):
+    """heev, hegv and the dispatch's refusals on the card (see the module
+    docstring, phase 10). Returns (row, launches, launches by type); the
+    row's "failures" lists every gate that failed."""
+    import numpy as np
+    from slate_tpu_torch.obs import flops
+    f32, f64 = torch.float32, torch.float64
+    c64, c128 = torch.complex64, torch.complex128
+    rng = np.random.default_rng(seed)
+    qr = stt.Options(method_eig=stt.MethodEig.QR)
+    two = stt.Options(method_eig=stt.MethodEig.QR, eig_stage1="two_stage")
+    auto = stt.Options()
+    memo, failures, cases = {}, [], []
+    t_phase = time.perf_counter()
+    ho.reset_launches()
+
+    def run(a, lam, specs, vectors=True):
+        for dt, name, o in specs:
+            cases.append(eig_case(torch, stt, flops, a, lam, dt,
+                                  f"{name}_{dtype_name(dt)}", o, vectors,
+                                  memo, failures))
+
+    # (a), (b) QR with vectors through both stage-1 paths
+    a_vec, lam = eig_operator(torch, EIG_VEC_N, False, rng)
+    run(a_vec, lam, [(dt, name, o) for dt in (f64, f32)
+                     for name, o in (("qr", qr), ("two_stage", two))])
+    # (e) complex through both stage-1 paths
+    a, lam = eig_operator(torch, EIG_COMPLEX_N, True, rng)
+    run(a, lam, [(dt, name, o) for dt in (c128, c64)
+                 for name, o in (("qr", qr), ("two_stage", two))])
+    # (d) Auto's band-dense path at an uneven n
+    a, lam = eig_operator(torch, EIG_AUTO_N, False, rng)
+    run(a, lam, [(f64, "auto", auto), (f32, "auto", auto)])
+    # (c) values only at the steqr cap, float32
+    a, lam = eig_operator(torch, EIG_VALUES_N, False, rng)
+    run(a, lam, [(f32, "qr_values", qr)], vectors=False)
+    del a, a_vec
+    torch.cuda.empty_cache()
+    # (g) Auto at n ≥ 2048 is stedc's: refused from n alone
+    try:
+        stt.heev(stt.zeros(EIG_N, EIG_N, EIG_NB, torch.float64,
+                           kind=stt.MatrixKind.Hermitian,
+                           uplo=stt.Uplo.Lower, device="cuda"))
+        refused = None
+    except NotImplementedError as exc:
+        refused = str(exc)
+    if refused is None or "8(b)" not in refused:
+        failures.append(f"heev Auto at n = {EIG_N} did not refuse naming "
+                        "item 8(b)")
+    heev_launches, heev_types = launch_snapshot(ho)
+    # the chains' profiled runs are not the main path's: not counted
+    chains = eig_chains(torch, stt, rng, cases)
+    # (f) hegv itype 1: potrf (K1, P1), hegst (trsm: P1), heev QR, trsm
+    n = EIG_N
+    a_g, _ = eig_operator(torch, n, False, rng)
+    g = torch.as_tensor(rng.standard_normal((n, n)), device="cuda")
+    b = g @ g.T / n + torch.eye(n, dtype=f64, device="cuda")
+    A = stt.hermitian(torch.tril(a_g), EIG_NB, stt.Uplo.Lower,
+                      device="cuda")
+    B = stt.hermitian(torch.tril(b), EIG_NB, stt.Uplo.Lower, device="cuda")
+    ho.reset_launches()
+    torch.cuda.synchronize()
+    with eig_stage_timer(torch) as stages:
+        t0 = time.perf_counter()
+        w, X, info = stt.hegv(A, B, qr)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    hegv_launches, hegv_types = launch_snapshot(ho)
+    x = X.dense()[:n, :n]
+    res = float(torch.linalg.matrix_norm(a_g @ x - (b @ x) * w[None, :], 1)
+                / (torch.linalg.matrix_norm(a_g, 1) * n))
+    # model: potrf n³/3, heev's 10n³/3, and n³ for each of hegst's two
+    # triangular solves and the back-transform's
+    hegv = {"n": n, "nb": EIG_NB, "dtype": "float64", "itype": 1,
+            "method": "qr", "info": int(info), "wall_s": wall,
+            "gflops": (flops.potrf(n) + flops.heev(n, True) + 3 * n ** 3)
+            / wall / 1e9,
+            "stages_ms": dict(stages), "generalized_residual": res,
+            "launches": {k: v for k, v in hegv_launches.items() if v}}
+    emit("eig_case", case="hegv_float64", **hegv)
+    if not (int(info) == 0 and res < HEGV_TOL):
+        failures.append(f"hegv: info {int(info)}, generalized residual "
+                        f"{res}")
+    for k in ("chol_tile", "trtri_leaves"):
+        if not hegv_launches[k] > 0:
+            failures.append(f"hegv launched no {k}")
+    del a_g, b, g, A, B, X
+    torch.cuda.empty_cache()
+    launches = {k: v + heev_launches[k] for k, v in hegv_launches.items()}
+    types = {k: dict(v) for k, v in heev_types.items()}
+    for k, by in hegv_types.items():
+        for dt, v in by.items():
+            types[k][dt] = types[k].get(dt, 0) + v
+    row = {"cases": cases, "hegv": hegv, "chains": chains,
+           "auto_refused": refused, "host_cpus": os.cpu_count(),
+           "torch_threads": torch.get_num_threads(),
+           "seconds": time.perf_counter() - t_phase, "failures": failures}
+    return row, launches, types
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=16384)
@@ -4936,8 +5250,12 @@ def main(argv=None) -> int:
         ho.reset_launches()
         upd = update_phase(torch, stt, ho, args.n, args.nb, gen)
         upd_launches, upd_types = launch_snapshot(ho)
-    emit("update", **upd, launches=upd_launches,
-         launches_by_dtype=upd_types)
+        emit("update", **upd, launches=upd_launches,
+             launches_by_dtype=upd_types)
+        torch.cuda.empty_cache()
+        eig, eig_launches, eig_types = eig_phase(torch, stt, ho, args.seed)
+    emit("eig", **eig, launches=eig_launches, launches_by_dtype=eig_types)
+    check(not eig["failures"], "; ".join(eig["failures"]))
 
     # each kernel's first timed f32 row (K1 at b = nb, the nb = 512
     # factor's tile), and K1 at b = 128 beside it
@@ -4980,12 +5298,13 @@ def main(argv=None) -> int:
         launches = (check_launches[name] + main["launches"][name]
                     + serve_launches[name] + small_launches[name]
                     + cx["launches"][name] + cx_small_launches[name]
-                    + mixed_launches[name] + upd_launches[name])
+                    + mixed_launches[name] + upd_launches[name]
+                    + eig_launches[name])
         check(launches > 0, f"{name} was not launched on a counted path")
         by_type = {}
         for phase in (check_types, main_types, serve_types, small_types,
                       cx["launches_by_dtype"], cx_small_types, mixed_types,
-                      upd_types):
+                      upd_types, eig_types):
             for dt, k in phase[name].items():
                 by_type[dt] = by_type.get(dt, 0) + k
         kernels.append({

@@ -6,6 +6,7 @@ time, on one NVIDIA GPU.
     python3 profile_factors.py --n 2048   # a shorter run
     python3 profile_factors.py --factors chol,chol_f64   # only these
     python3 profile_factors.py --solves chol,lu,qr,chol_nb128  # solves only
+    python3 profile_factors.py --factors heev_qr,heev_2stage,hegv
 
 By default factors the SPD (n × n, op "chol", at nb and at nb = n/128,
 where potrf takes its recursion and K1 runs at b = n/128), the general
@@ -54,6 +55,17 @@ that wall), the device time of the cuBLAS gemm kernels (every device
 event whose name holds "gemm", or "nvjet" in bf16) and its share of the
 busy time beside the port's kernels' shares (``shares``), and the top
 twelve device events by device time and host ops by self CPU time.
+
+``--factors`` also takes the Hermitian eigensolvers, "heev_qr" (heev
+with MethodEig.QR through he2td), "heev_2stage" (through he2hb and the
+hb2td bulge chase) and "hegv" (itype 1, QR), of a symmetrized Gaussian
+float64 operator at ``--eig-n`` (4096) and ``--eig-nb`` (256), after a
+warm-up of each at 512: besides the walls, busy time, events and the
+port's kernels, each stage's device and CPU time (a ``record_function``
+range per stage: he2td, he2hb, hb2td, the back-transforms, potrf,
+hegst; the host steqr is the wall they leave), the matrix-vector
+kernels' device time beside the latrd columns' bytes bound, and the
+columns and hops of he2td's and hb2td's sequential chains.
 
 ``--solves`` (alone it runs no factor) profiles one-column solves
 against the resident factors of the same operators (names as above:
@@ -296,6 +308,98 @@ def profile_factor(torch, stt, sess, shape, op, nb, dtype, gen, top=12):
                      [:top]]}
 
 
+EIG_FACTORS = ("heev_qr", "heev_2stage", "hegv")
+
+
+def eig_ranges():
+    """Each stage function heev and hegv call (``obs/stages.py``) under a
+    ``record_function`` range "eig::<stage>", whose device events the
+    profiler attributes to it."""
+    from torch.profiler import record_function
+    from slate_tpu_torch.obs.stages import wrapped_stages
+
+    def ranged(name, fn):
+        def run(*args, **kw):
+            with record_function(f"eig::{name}"):
+                return fn(*args, **kw)
+        return run
+    return wrapped_stages(ranged)
+
+
+def profile_eig(torch, stt, name, n, nb, gen, top=12):
+    """heev (MethodEig.QR; "heev_2stage" with eig_stage1 "two_stage") or
+    hegv (itype 1, QR) of a float64 operator (Gaussian, symmetrized; hegv's
+    B = G·Gᵀ/n + I) under torch.profiler, then once more without it: the
+    walls, device busy time and share, device events, the port's kernels,
+    each stage's range (device ms, CPU ms, events), the matrix-vector
+    kernels' ("gemv" in the name) device time beside the latrd columns'
+    bytes bound, and events per he2td column and per hb2td hop."""
+    from torch.profiler import ProfilerActivity, profile
+    from slate_tpu_torch.linalg import eig
+    g = torch.randn((n, n), generator=gen, device="cuda",
+                    dtype=torch.float64)
+    a = 0.5 * (g + g.T)
+    A = stt.hermitian(a, nb, stt.Uplo.Lower, device="cuda")
+    opts = stt.Options(method_eig=stt.MethodEig.QR,
+                       eig_stage1="two_stage" if name == "heev_2stage"
+                       else "auto")
+    if name == "hegv":
+        b = g @ g.T / n + torch.eye(n, dtype=g.dtype, device="cuda")
+        B = stt.hermitian(b, nb, stt.Uplo.Lower, device="cuda")
+        run = lambda: stt.hegv(A, B, opts)  # noqa: E731
+    else:
+        run = lambda: stt.heev(A, opts)  # noqa: E731
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, eig_ranges():
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    unprofiled = time.perf_counter() - t0
+    events = prof.key_averages()
+    ranges = {e.key[len("eig::"):]: e for e in events
+              if e.key.startswith("eig::")}
+    dev = [e for e in events if on_device(e) and not e.key.startswith("eig::")]
+    host = [e for e in events if not on_device(e)
+            and not e.key.startswith("eig::")]
+    busy_us = sum(dev_us(e) for e in dev)
+    gemv = [e for e in dev if "gemv" in e.key.lower()]
+    npad = -(-n // nb) * nb
+    hops = sum(eig.chase_hops(npad, nb))
+    return {
+        "n": n, "nb": nb, "dtype": "float64", "wall_s": wall,
+        "unprofiled_wall_s": unprofiled,
+        "device_busy_s": busy_us / 1e6,
+        "device_busy_share": busy_us / 1e6 / wall,
+        "device_events": sum(e.count for e in dev),
+        "port_kernels": port_kernels(dev),
+        "stages": {k: {"device_ms": getattr(e, "device_time_total",
+                                            getattr(e, "cuda_time_total",
+                                                    0.0)) / 1e3,
+                       "cpu_ms": e.cpu_time_total / 1e3, "calls": e.count}
+                   for k, e in ranges.items()},
+        "gemv": {"device_ms": sum(dev_us(e) for e in gemv) / 1e3,
+                 "count": sum(e.count for e in gemv),
+                 # the latrd columns' matrix-vector products read the
+                 # trailing block once each: Σ (npad − 1 − j)² entries
+                 "bytes_bound_ms": sum((npad - 1 - j) ** 2
+                                       for j in range(npad - 1))
+                 * 8 / 3.35e12 * 1e3},
+        "columns": npad - 1, "hops": hops,
+        "top_device": [{"name": e.key[:80], "count": e.count,
+                        "device_ms": dev_us(e) / 1e3}
+                       for e in sorted(dev, key=lambda e: -dev_us(e))[:top]],
+        "top_host": [{"name": e.key[:80], "count": e.count,
+                      "self_cpu_ms": e.self_cpu_time_total / 1e3}
+                     for e in sorted(host,
+                                     key=lambda e: -e.self_cpu_time_total)
+                     [:top]]}
+
+
 SOLVE_REPS = 16
 
 
@@ -367,7 +471,10 @@ def main(argv=None) -> int:
                     "(default chol,lu,qr,chol_nb128 unless --solves is "
                     "given; also nopiv, calu, chol_f64, chol_nb1024, "
                     "qr_f64_nb32, chol_c64, lu_c64, chol_c64_nb128, "
-                    "qr_c64, chol_bf16, chol_bf16_nb128, lu_bf16)")
+                    "qr_c64, chol_bf16, chol_bf16_nb128, lu_bf16, and the "
+                    "eigensolvers heev_qr, heev_2stage, hegv at --eig-n)")
+    ap.add_argument("--eig-n", type=int, default=4096)
+    ap.add_argument("--eig-nb", type=int, default=256)
     ap.add_argument("--solves", default="",
                     help="which solves to profile eager and graph-replayed, "
                     "comma-separated: chol, lu, qr, chol_nb128")
@@ -406,8 +513,11 @@ def main(argv=None) -> int:
                "lu_bf16": ((n, n), "lu_bf16", args.nb, f32)}
     chosen = [c for c in args.factors.split(",") if c]
     solves = [c for c in args.solves.split(",") if c]
+    eigs = [c for c in chosen if c in EIG_FACTORS]
+    chosen = [c for c in chosen if c not in EIG_FACTORS]
     if not set(chosen) <= set(factors):
-        ap.error(f"--factors: choose from {sorted(factors)}")
+        ap.error(f"--factors: choose from {sorted(factors)} or "
+                 f"{', '.join(EIG_FACTORS)}")
     if not set(solves) <= {"chol", "lu", "qr", "chol_nb128"}:
         ap.error("--solves: choose from chol, lu, qr, chol_nb128")
     warm = {((1024, 1024) if op != "qr" else (2048, 512), op, dt)
@@ -428,6 +538,13 @@ def main(argv=None) -> int:
             shape, op, nb, _ = factors[name]
             print(json.dumps({"solve": name, **profile_solve(
                 torch, stt, sess, shape, op, nb, gen)}), flush=True)
+        if eigs:  # a warm-up at 512, then each at --eig-n
+            for name in eigs:
+                profile_eig(torch, stt, name, 512, 128, gen)
+        for name in eigs:
+            print(json.dumps({"factor": name, **profile_eig(
+                torch, stt, name, args.eig_n, args.eig_nb, gen)}),
+                flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,

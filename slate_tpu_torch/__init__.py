@@ -19,11 +19,14 @@ from .core.exceptions import SlateError
 from .core.tiled_matrix import (TiledMatrix, from_dense, hermitian, pad_mask,
                                 resolve_device, symmetric, triangular, zeros)
 from .core.types import (Diag, MatrixKind, MethodGels, MethodGemm,
-                         MethodHemm, MethodLU, MethodTrsm, Norm, NormScope,
+                         MethodEig, MethodHemm, MethodLU, MethodTrsm, Norm,
+                         NormScope,
                          Op, Options, Side, Uplo)
 from .linalg.blas3 import (gemm, hemm, her2k, herk, symm, syr2k, syrk, trmm,
                            trsm)
 from .linalg.cholesky import posv, potrf, potri, potrs, trtri, trtrm
+from .linalg.eig import (hb2td, he2hb, he2td, heev, hegst, hegv, steqr,
+                          sterf, unmtr_hb2td, unmtr_he2hb, unmtr_he2td)
 from .linalg.elementwise import (add, copy, redistribute, scale,
                                  scale_row_col, set_lambda, set_matrix)
 from .linalg.lu import (gerbt, gesv, gesv_nopiv, gesv_rbt, getrf,
@@ -52,7 +55,8 @@ __all__ = [
     "triangular_solve", "SlateError",
     "TiledMatrix", "from_dense", "hermitian", "pad_mask", "resolve_device",
     "symmetric", "triangular", "zeros",
-    "Diag", "MatrixKind", "MethodGels", "MethodGemm", "MethodHemm",
+    "Diag", "MatrixKind", "MethodEig", "MethodGels", "MethodGemm",
+    "MethodHemm",
     "MethodLU", "MethodTrsm", "Norm", "NormScope", "Op", "Options",
     "Side", "Uplo", "gemm", "hemm", "her2k", "herk", "symm", "syr2k", "syrk",
     "trmm", "trsm", "add", "copy", "redistribute", "scale", "scale_row_col",
@@ -62,6 +66,8 @@ __all__ = [
     "getri", "getri_oop", "getrs",
     "QRFactors", "cholqr", "gelqf", "gels", "gels_using_factor", "geqrf",
     "qr_multiply_explicit", "tsqr", "unmlq", "unmqr", "Session",
+    "hb2td", "he2hb", "he2td", "heev", "hegst", "hegv", "steqr", "sterf",
+    "unmtr_hb2td", "unmtr_he2hb", "unmtr_he2td",
     "Batcher", "Executor", "Histogram", "Metrics", "ShedPolicy",
     "default_session", "DEGRADATION_LADDER", "DeadlineExceeded",
     "FaultInjector", "FaultPlan", "FaultSpec", "QuotaExceeded",

@@ -56,7 +56,8 @@ def as_tensor(a, device) -> torch.Tensor:
 class TiledMatrix:
     """An (m × n) matrix stored as padded (mt·nb × nt·nb) dense data.
 
-    Padding rows/cols beyond (m, n) are zero."""
+    Padding rows/cols beyond (m, n) are zero. Band kinds carry their
+    bandwidths (kl, ku) and are stored as masked dense."""
 
     data: torch.Tensor
     m: int
@@ -66,6 +67,8 @@ class TiledMatrix:
     uplo: Uplo = Uplo.General
     op: Op = Op.NoTrans
     diag: Diag = Diag.NonUnit
+    kl: int = 0
+    ku: int = 0
 
     @property
     def shape(self):
@@ -97,9 +100,10 @@ class TiledMatrix:
         if self.op is Op.ConjTrans:  # (Aᴴ)ᵀ = conj(A)
             return dataclasses.replace(
                 self, data=self.data.conj().resolve_conj(), op=Op.NoTrans,
-                uplo=self.uplo.flipped())
+                uplo=self.uplo.flipped(), kl=self.ku, ku=self.kl)
         new_op = Op.NoTrans if self.op is Op.Trans else Op.Trans
-        return dataclasses.replace(self, op=new_op, uplo=self.uplo.flipped())
+        return dataclasses.replace(self, op=new_op, uplo=self.uplo.flipped(),
+                                   kl=self.ku, ku=self.kl)
 
     @property
     def T(self) -> "TiledMatrix":
@@ -111,8 +115,9 @@ class TiledMatrix:
         if self.op is Op.Trans:  # (Aᵀ)ᴴ = conj(A)
             return dataclasses.replace(
                 self, data=self.data.conj().resolve_conj(), op=Op.NoTrans,
-                uplo=self.uplo.flipped())
-        return dataclasses.replace(self, op=new_op, uplo=self.uplo.flipped())
+                uplo=self.uplo.flipped(), kl=self.ku, ku=self.kl)
+        return dataclasses.replace(self, op=new_op, uplo=self.uplo.flipped(),
+                                   kl=self.ku, ku=self.kl)
 
     @property
     def H(self) -> "TiledMatrix":
@@ -141,15 +146,25 @@ class TiledMatrix:
         explicit, as a new tensor: Symmetric/Hermitian mirror the stored
         triangle (a Hermitian diagonal is taken as real),
         Triangular/Trapezoid zero the other triangle and put 1 on the
-        whole diagonal when ``Diag.Unit``. A General matrix has no
-        implicit structure: its padded view is returned, not a copy.
-        Band kinds are a later slice."""
-        if self.kind in (MatrixKind.Band, MatrixKind.TriangularBand,
-                         MatrixKind.HermitianBand):
+        whole diagonal when ``Diag.Unit``. A HermitianBand keeps the band
+        of width kl = ku = its bandwidth around the diagonal and mirrors
+        its stored triangle (the reference's masked dense; its diagonal is
+        used as stored). A General matrix has no implicit structure: its
+        padded view is returned, not a copy. Band and TriangularBand are a
+        later slice."""
+        if self.kind in (MatrixKind.Band, MatrixKind.TriangularBand):
             raise NotImplementedError(
                 "full_dense: band kinds are not ported yet (ROADMAP Queue 1 "
                 "item 9)")
         a = self.dense_canonical()
+        if self.kind is MatrixKind.HermitianBand:
+            kb = self.kl or self.ku
+            r = torch.arange(a.shape[0], device=a.device)[:, None]
+            c = torch.arange(a.shape[1], device=a.device)[None, :]
+            a = torch.where((c - r <= kb) & (r - c <= kb), a, 0)
+            if self.uplo is Uplo.Upper:
+                return torch.triu(a) + torch.triu(a, 1).mH
+            return torch.tril(a) + torch.tril(a, -1).mH
         lower = self.uplo is Uplo.Lower
         if self.kind in (MatrixKind.Symmetric, MatrixKind.Hermitian):
             tri = torch.tril(a) if lower else torch.triu(a)
@@ -181,10 +196,11 @@ class TiledMatrix:
 
 def from_dense(a, nb: int, *, kind: MatrixKind = MatrixKind.General,
                uplo: Uplo = Uplo.General, diag: Diag = Diag.NonUnit,
-               logical_shape=None, grid=None,
+               kl: int = 0, ku: int = 0, logical_shape=None, grid=None,
                device="cuda") -> TiledMatrix:
     """Wrap a dense array (numpy or tensor) as a TiledMatrix on
-    ``device``, zero-padded to whole tiles. With ``logical_shape``
+    ``device``, zero-padded to whole tiles (band kinds carry their
+    bandwidths ``kl``/``ku``). With ``logical_shape``
     smaller than the array, storage beyond it is zeroed (the invariant
     the factorizations rely on). A tensor already on ``device`` with the
     canonical shape and no masking needed is wrapped without a copy."""
@@ -206,7 +222,8 @@ def from_dense(a, nb: int, *, kind: MatrixKind = MatrixKind.General,
     if m < rows or n < cols:
         t[m:, :] = 0
         t[:, n:] = 0
-    return TiledMatrix(t, m, n, nb, kind=kind, uplo=uplo, diag=diag)
+    return TiledMatrix(t, m, n, nb, kind=kind, uplo=uplo, diag=diag, kl=kl,
+                       ku=ku)
 
 
 def hermitian(a, nb: int, uplo: Uplo, *, device="cuda") -> TiledMatrix:

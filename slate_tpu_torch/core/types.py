@@ -102,12 +102,21 @@ class MethodGels(enum.Enum):
     CholQR = "cholqr"
 
 
+class MethodEig(enum.Enum):
+    Auto = "auto"
+    QR = "qr"  # steqr QR iteration
+    DC = "dc"  # divide & conquer (stedc: ROADMAP Queue 1 item 8(b))
+
+
 @dataclasses.dataclass(frozen=True)
 class Options:
     """Per-call options bag (the fields the ported slices read).
 
     ``method_lu``, ``pivot_threshold`` and ``method_gels`` are read, and
     ``method_gemm`` for SUMMA (the unported methods raise); so are
+    ``method_eig`` and ``eig_stage1`` (heev's tridiagonal method and its
+    stage-1 reduction: "auto" and "he2td" the direct tridiagonalization,
+    "two_stage" he2hb + the hb2td bulge chase), and
     ``max_iterations`` and ``use_fallback_solver`` (gesv_rbt's and the
     mixed-precision drivers' refinement steps and their fallbacks),
     ``tolerance`` (GMRES-IR's) and ``depth`` (the butterfly depth of
@@ -139,6 +148,10 @@ class Options:
     # GMRES-IR convergence tolerance; None = eps(working)·√n
     tolerance: Optional[float] = None
     depth: int = 2  # RBT butterfly depth
+    method_eig: MethodEig = MethodEig.Auto
+    # stage-1 reduction of heev's tridiagonal path: "auto" (= "he2td"),
+    # "he2td" or "two_stage"
+    eig_stage1: str = "auto"
 
     def replace(self, **kw) -> "Options":
         return dataclasses.replace(self, **kw)

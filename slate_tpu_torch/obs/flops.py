@@ -57,6 +57,16 @@ def gels(m: int, n: int) -> float:
     return 2.0 * m * n * n
 
 
+def heev(n: int, vectors: bool = False) -> float:
+    """values: (4/3)n³ (the he2td reduction dominates); +2n³ for the
+    eigenvector back-transform."""
+    return (4.0 / 3.0 + (2.0 if vectors else 0.0)) * n ** 3
+
+
+def heev_2stage(n: int) -> float:
+    return 9.0 * n ** 3
+
+
 def factor_flops(op: str, m: int, n: int) -> float:
     """Model flops of one factorization, by Session op kind (a small op
     counts as its dense kind)."""

@@ -12,6 +12,15 @@ and of the flags, so an edited source or header is rebuilt and a stale
 library is never loaded. Only the sources in the repository are
 used, ``--use_fast_math`` is never passed (the kernels' NaN contracts
 need IEEE arithmetic), and a failed build raises.
+
+Host libraries (``csrc/host/*.cc``: the steqr QR iteration) take the
+same route through the host compiler::
+
+    g++ -O3 -fPIC -fopenmp -shared -o _build/lib<name>-<hash>.so <name>.cc
+
+built at first use into the same directory, hashed the same way, and a
+failed build raises ``SlateError`` naming the command: there is no
+Python fallback.
 """
 
 from __future__ import annotations
@@ -37,6 +46,9 @@ SOURCES = ("chol_tile", "lu_panel", "qr_panel", "herk_lower",
            "qr_append")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_DIR = os.path.join(CSRC_DIR, "host")
+HOST_SOURCES = ("steqr",)
+GXX_FLAGS = ("-O3", "-fPIC", "-fopenmp", "-shared")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -54,6 +66,21 @@ def nvcc_path() -> str:
                      "put nvcc on PATH) — the CUDA kernels cannot be built")
 
 
+def gxx_path() -> str:
+    cand = shutil.which("g++")
+    if not cand:
+        raise SlateError("slate_tpu_torch: no host C++ compiler (g++) found "
+                         "— the host libraries cannot be built")
+    return cand
+
+
+def _host_lib_path(name: str) -> str:
+    digest = hashlib.sha1(" ".join(GXX_FLAGS).encode())
+    with open(os.path.join(HOST_DIR, f"{name}.cc"), "rb") as f:
+        digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+
+
 def _lib_path(name: str) -> str:
     digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
@@ -63,30 +90,45 @@ def _lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
-def _compile(name: str) -> str:
-    out = _lib_path(name)
+def _built(name: str, out: str, compiler: str, flags, src: str) -> str:
+    """``out``, compiled from ``src`` unless it exists (written under a
+    temporary name, then moved into place). A failed build raises,
+    naming the command and what the compiler printed."""
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           os.path.join(CSRC_DIR, f"{name}.cu")]
+    cmd = [compiler, *flags, "-o", tmp, src]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise SlateError(f"nvcc failed for {name}.cu "
-                         f"(exit {proc.returncode}):\n{proc.stderr}")
+        raise SlateError(f"build failed for {os.path.basename(src)} (exit "
+                         f"{proc.returncode}): {' '.join(cmd)}\n"
+                         f"{proc.stderr}")
     os.replace(tmp, out)
     BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
                        "ptxas": proc.stderr.strip()}
     return out
 
 
+def _compile(name: str) -> str:
+    return _built(name, _lib_path(name), nvcc_path(), NVCC_FLAGS,
+                  os.path.join(CSRC_DIR, f"{name}.cu"))
+
+
+def _compile_host(name: str) -> str:
+    return _built(name, _host_lib_path(name), gxx_path(), GXX_FLAGS,
+                  os.path.join(HOST_DIR, f"{name}.cc"))
+
+
 def build_all() -> Dict[str, dict]:
-    """Compile every kernel source, one nvcc per source, all started
-    together. Returns BUILD_LOG (seconds and ptxas output per source)."""
-    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
-        for fut in [pool.submit(_compile, s) for s in SOURCES]:
+    """Compile every kernel source and host library, one compiler per
+    source, all started together. Returns BUILD_LOG (seconds and what the
+    compiler printed per source: ptxas's registers and spills for nvcc)."""
+    jobs = [(_compile, s) for s in SOURCES] + [(_compile_host, s)
+                                               for s in HOST_SOURCES]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        for fut in [pool.submit(fn, s) for fn, s in jobs]:
             fut.result()
     return dict(BUILD_LOG)
 
@@ -97,4 +139,15 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(_compile(name))
+        return lib
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library ``csrc/host/<name>.cc`` (built with g++ on
+    first use; a failed build raises)."""
+    key = f"host/{name}"
+    with _lock:
+        lib = _libs.get(key)
+        if lib is None:
+            lib = _libs[key] = ctypes.CDLL(_compile_host(name))
         return lib

@@ -354,6 +354,43 @@ def panel_geqrf(a: torch.Tensor, ib: int = PANEL_IB
     return vr, torch.cat([taus1, taus2])
 
 
+def apply_block_reflectors_stacked(Vs: torch.Tensor, Ts: torch.Tensor,
+                                   C: torch.Tensor, rows0) -> torch.Tensor:
+    """C ← Q·C IN PLACE for Q = ∏ₖ(I − VₖTₖVₖᴴ) given stacked per-panel
+    block reflectors Vs (k, n, b) / Ts (k, b, b), the shared back-transform
+    of the two-sided reductions (unmtr_he2td, unmtr_he2hb); the last panel
+    applies first. ``rows0[k]`` is the first row on which Vₖ is not zero:
+    panel k reads and writes C's rows from there on. Returns C."""
+    for k in reversed(range(Vs.shape[0])):
+        V, c = Vs[k, rows0[k]:], C[rows0[k]:]
+        c -= V @ (Ts[k] @ (V.mH @ c))
+    return C
+
+
+def apply_block_reflectors_stacked_H(Vs: torch.Tensor, Ts: torch.Tensor,
+                                     C: torch.Tensor, rows0) -> torch.Tensor:
+    """C ← Qᴴ·C IN PLACE for the same stacked Q as
+    apply_block_reflectors_stacked (first panel applies first;
+    Hᴴ = I − V·Tᴴ·Vᴴ). Returns C."""
+    for k in range(Vs.shape[0]):
+        V, c = Vs[k, rows0[k]:], C[rows0[k]:]
+        c -= V @ (Ts[k].mH @ (V.mH @ c))
+    return C
+
+
+def level_plan(rem: int, min_panels: int = 4):
+    """Panel counts per level of the halving two-sided reductions
+    (he2hb): halve the remaining panels until few are left, then finish.
+    The port keeps the reference's levels because they fix the layout of
+    he2hb's reflectors, (offset, Vs, Ts) per level."""
+    plan = []
+    while rem > 0:
+        kp = rem if rem <= min_panels else rem // 2
+        plan.append(kp)
+        rem -= kp
+    return plan
+
+
 def panel_geqrf_with_t(a: torch.Tensor):
     """Panel QR and its T factor: (vr_packed, taus, T (w, w))."""
     vr, taus = panel_geqrf(a)
