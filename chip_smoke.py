@@ -256,34 +256,57 @@ Phases, one JSON line each:
            float32 gate.
 10. eig   the Hermitian eigensolvers (eig_phase), every operator
            Q·diag(λ)·Qᴴ with λ uniform in [−1, 1] and the Gaussian whose QR
-           gives Q drawn by numpy from the seed: heev with MethodEig.QR and
-           vectors at n = EIG_VEC_N (the host steqr with vectors takes
-           about 50 s at 4096 on the H100 machine's 8-CPU host, so
-           vectors run at 2048), nb = EIG_NB in float64 and float32,
-           through he2td and through two_stage (he2hb + hb2td's chase);
-           values only at EIG_VALUES_N (the steqr cap) in float32; Auto
-           (he2hb + a dense eigh of the band) at the uneven EIG_AUTO_N;
-           complex128 and complex64 at EIG_COMPLEX_N through both stage-1
-           paths; hegv itype 1 at EIG_N in float64 (potrf: K1 and P1;
-           hegst and the back-transform: P1), its launches on its own;
-           and Auto at EIG_N, which must raise NotImplementedError naming
-           ROADMAP item 8(b). Each case prints its wall, GFLOP/s by the
-           flop model, each stage's ms (CUDA events; steqr on the host
-           clock) and torch.linalg.eigh's (values only: eigvalsh's) ms on
-           the same operand; with vectors ‖A·Z − Z·Λ‖₁/(n·ε·‖A‖₁) and
-           ‖ZᴴZ − I‖₁/(n·ε) must stay under EIG_GATE and the eigenvalues
-           within EIG_VALUE_TOL·‖A‖ of numpy's float64 eigvalsh of the
-           same matrix, values only within it of λ; hegv's residual
-           ‖A·X − B·X·Λ‖₁/(‖A‖₁·n) under HEGV_TOL. The two sequential
-           chains that could become port-only kernels are measured:
-           he2td's latrd column (device events a column by the profiler
-           at n = EIG_CHAIN_N, µs a column at full size, the columns'
-           matrix-vector bytes bound) and hb2td's hop (events a hop at
-           EIG_CHAIN_N, hops and µs a hop at full size); their profiled
-           runs come after the heev launches are read and before hegv's
-           are zeroed, so they are not counted. The line also
+           gives Q drawn by numpy from the seed. First stedc alone at
+           n = STEDC_N in float64 on its three arms (STEDC_KINDS: a
+           Gaussian tridiagonal, glued Wilkinson W21⁺ blocks joined by
+           1e-9, d = 1 with e = 1e-12): its wall, P9's launches and
+           scipy.linalg.eigh_tridiagonal's wall on the same (d, e), the
+           eigenvalues within n·STEDC_VALUE_C·max(1, |w|) of scipy's,
+           ‖ZᵀZ − I‖max under n·STEDC_ORTH_C and ‖T·Z − Z·Λ‖max under
+           n·STEDC_RES_C·max(1, |w|) (tests/test_stedc.py's torture
+           bounds). Then heev with MethodEig.QR and vectors at
+           n = EIG_VEC_N (the host steqr with vectors takes about 50 s at
+           4096 on the H100 machine's 8-CPU host, so QR's vectors run at
+           2048), nb = EIG_NB in float64 and float32, through he2td and
+           through two_stage (he2hb + hb2td's chase), and MethodEig.DC
+           through two_stage in float64; complex128 and complex64 at
+           EIG_COMPLEX_N through both stage-1 paths under QR and through
+           he2td under DC; Auto (he2hb + a dense eigh of the band) at the
+           uneven EIG_AUTO_N; values only at EIG_VALUES_N (the steqr cap)
+           in float32 under QR and under DC; QR at EIG_REDIRECT_N, above
+           the cap, values only in float32, which must warn the
+           reference's RuntimeWarning once and run stedc, not steqr; DC
+           with vectors at EIG_N in float64 and float32, and Auto there,
+           which must run stedc; then hegv itype 1 under Auto at EIG_N in
+           float64 (potrf: K1 and P1; hegst and the back-transform: P1;
+           stedc: P9), its launches on its own, which must include K1, P1
+           and P9. Each case prints its wall, GFLOP/s by the flop model,
+           each stage's ms (CUDA events; steqr and stedc on the host clock
+           ending in a sync) and torch.linalg.eigh's (values only:
+           eigvalsh's) ms on the same operand; with vectors
+           ‖A·Z − Z·Λ‖₁/(n·ε·‖A‖₁) and ‖ZᴴZ − I‖₁/(n·ε) must stay under
+           EIG_GATE and the eigenvalues within EIG_VALUE_TOL·‖A‖ of numpy's
+           float64 eigvalsh of the same matrix, values only within it of
+           λ; hegv's residual ‖A·X − B·X·Λ‖₁/(‖A‖₁·n) under HEGV_TOL. The
+           two sequential chains that could become port-only kernels are
+           measured: he2td's latrd column (device events a column by the
+           profiler at n = EIG_CHAIN_N, µs a column at full size, the
+           columns' matrix-vector bytes bound) and hb2td's hop (events a
+           hop at EIG_CHAIN_N, hops and µs a hop at full size); their
+           profiled runs come after the heev launches are read and before
+           hegv's are zeroed, so they are not counted. The line also
            gives the host's CPU count and torch's thread count (the host
            steqr's OpenMP threads).
+The kernel phase also holds P9 (secular_roots, stedc's secular roots)
+against its plain version at k = 4096, 512 and 16384 (P9_KS) on a
+Gaussian spectrum, a clustered one (half of δ 1e-9 to 2e-9 apart) and
+one with every third z 1e-7 of the others (roots against their poles):
+the roots δ[shift] + μ within SECULAR_ROOT_C·ε·max(max|δ|, ρ) (a flipped
+pole choice is counted, not failed), the merge's eigenvectors built from
+the kernel's (shift, μ) orthogonal to k·SECULAR_ORTH; timed by CUDA
+events and device ms beside the plain version's one call, its bound
+(61·k² pole terms at 3 float64 operations at the FMA rate) and
+torch.linalg.eigvalsh of the dense k × k diag(δ) + ρ·z·zᵀ.
 The kernel phase also holds the incremental-update kernels P6
 (chol_update_sweep), P7 (qr_append_build) and P8 (qr_append_apply)
 against their plain versions (UPDATE_TOL of max |plain|, bitwise
@@ -340,7 +363,8 @@ P4 and P5 at the engine's other shapes under "at_..."; the complex
 instances of K1-K4 and P2-P5 under "at_complex64_..." and
 "at_complex128_..."; P6-P8 with their update-phase launches, whether
 they equal their plain versions bit for bit, and their other rows
-under "at_..."), the nvidia-smi line,
+under "at_..."; P9 with its eig-phase launches, its k = 4096 Gaussian
+row and its other rows under "at_k<k>_<spectrum>"), the nvidia-smi line,
 and last
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device, or
@@ -4650,13 +4674,178 @@ def complex_spills(_build):
 
 
 # ---------------------------------------------------------------------------
+# P9 (the secular roots of stedc's merges) and stedc on its own
+# ---------------------------------------------------------------------------
+
+P9_KS = (4096, 512, 16384)   # the first: a merge at the top of n = 8192
+P9_SPECTRA = ("random", "clustered", "tiny_z")
+P9_DEVICE_LAUNCHES = 10      # P9 launches queued behind the sleep
+STEDC_N = 4096
+STEDC_KINDS = ("random", "glued_wilkinson", "ties")
+# tests/test_stedc.py's torture bounds, as multiples of n
+STEDC_VALUE_C = 1e-13  # |w − scipy's| ≤ n·c·max(1, |w|)
+STEDC_ORTH_C = 1e-13   # ‖ZᵀZ − I‖max < n·c
+STEDC_RES_C = 1e-12    # ‖T·Z − Z·Λ‖max < n·c·max(1, |w|)
+
+
+def p9_spectrum(kind, k, rng):
+    """A merge's (δ ascending, z unit, ρ) after deflation: δ Gaussian
+    ("random"); half of δ 1e-9 to 2e-9 apart in one cluster
+    ("clustered"); or every third z 1e-7 of the others, whose roots sit
+    against their poles ("tiny_z")."""
+    import numpy as np
+    if kind == "clustered":
+        delta = np.sort(np.concatenate([
+            0.3 + np.cumsum(rng.uniform(1e-9, 2e-9, k // 2)),
+            rng.uniform(-2.0, 2.0, k - k // 2)]))
+    else:
+        delta = np.sort(rng.standard_normal(k))
+    z = rng.standard_normal(k)
+    if kind == "tiny_z":
+        z[::3] *= 1e-7
+    return delta, z / np.linalg.norm(z), 0.7
+
+
+def p9_case(torch, ho, k, kind, rng):
+    """P9 against its plain version on the card at k roots: the roots
+    λ = δ[shift] + μ within SECULAR_ROOT_C·ε·max(max|δ|, ρ) (a pole
+    choice flipped where f at the midpoint is within rounding of zero
+    moves μ, not λ: counted as "flipped"), and the merge's eigenvectors
+    built from the kernel's (shift, μ) orthogonal to k·SECULAR_ORTH.
+    Timed by CUDA events (median of 3 after a warm-up), device ms (queued
+    behind the sleep), the plain version's one call, and the library
+    yardstick torch.linalg.eigvalsh of the dense k × k diag(δ) + ρ·z·zᵀ,
+    which has the same roots; the bound counts 61·k² pole terms at 3
+    float64 operations each at the FMA rate."""
+    import numpy as np
+    from slate_tpu_torch.linalg import stedc as sd
+    delta_np, z_np, rho = p9_spectrum(kind, k, rng)
+    delta = torch.as_tensor(delta_np, device="cuda")
+    z2 = torch.as_tensor(z_np * z_np, device="cuda")
+    up, mu = ho.secular_roots(delta, z2, rho)
+    (up_p, mu_p), plain_ms = once_ms(
+        torch, lambda: ho.secular_roots_plain(delta, z2, rho))
+    idx = torch.arange(k, device="cuda")
+    shift = idx + up.long()
+    lam = delta[shift] + mu
+    lam_p = delta[idx + up_p.long()] + mu_p
+    err = float((lam - lam_p).abs().max())
+    scale = max(float(np.abs(delta_np).max()), rho)
+    tol = ho.SECULAR_ROOT_C * float(np.finfo(np.float64).eps) * scale
+    check(err <= tol and bool(torch.isfinite(mu).all()),
+          f"secular_roots: k = {k} {kind}: roots {err} off the plain "
+          f"version's (tolerance {tol})")
+    V = sd._vectors(delta_np, z_np, rho, shift, mu)
+    orth = float((V.T @ V - torch.eye(k, dtype=V.dtype,
+                                      device="cuda")).abs().max())
+    del V
+    check(orth < k * ho.SECULAR_ORTH, f"secular_roots: k = {k} {kind}: "
+          f"eigenvectors {orth} from orthogonal")
+    row = {"k": k, "spectrum": kind, "dtype": "float64", "rho": rho,
+           "max_abs_err": err, "tolerance": tol,
+           "flipped": int((up != up_p).sum()), "orthogonality": orth,
+           "plan": {"ctas": -(-k // ho.SECULAR_THREADS),
+                    "threads": ho.SECULAR_THREADS,
+                    "tile": ho.SECULAR_TILE}}
+
+    def run():
+        ho.secular_roots(delta, z2, rho)
+    row["ms"] = cuda_ms(run, reps=3)
+    row["device_ms"] = device_ms(run, P9_DEVICE_LAUNCHES)
+    row["plain_ms"] = plain_ms
+    row["bound_ms"], row["bound_by"] = bound(2 * k * 8 + k * 9, 61 * k * k * 3,
+                                             "float64", FMA_FLOPS)
+    zt = torch.as_tensor(z_np, device="cuda")
+    dense = torch.diag(delta) + rho * torch.outer(zt, zt)
+    w_lib, row["library_ms"] = once_ms(
+        torch, lambda: torch.linalg.eigvalsh(dense))
+    row["library_max_diff"] = float((w_lib - lam.sort().values).abs().max())
+    row["library"] = "torch.linalg.eigvalsh (dense k × k)"
+    return row
+
+
+def p9_rows(torch, ho, rng):
+    """P9 at every k of P9_KS on every spectrum of P9_SPECTRA (the first
+    row, k = 4096 random, is the kernels line's)."""
+    return [p9_case(torch, ho, k, kind, rng) for k in P9_KS
+            for kind in P9_SPECTRA]
+
+
+def stedc_tridiagonal(kind, n, rng):
+    """stedc's three arms at order n: a Gaussian tridiagonal ("random":
+    secular roots), glued Wilkinson matrices W21⁺ joined by 1e-9
+    ("glued_wilkinson": near-equal pairs, rotations) and d = 1, e = 1e-12
+    ("ties": almost everything deflates)."""
+    import numpy as np
+    if kind == "random":
+        return rng.standard_normal(n), rng.standard_normal(n - 1)
+    if kind == "glued_wilkinson":
+        m = 21
+        d = np.concatenate([np.abs(np.arange(m) - (m - 1) / 2.0)]
+                           * -(-n // m))[:n]
+        e = np.ones(n - 1)
+        e[m - 1::m] = 1e-9
+        return d, e
+    return np.ones(n), np.full(n - 1, 1e-12)
+
+
+def tridiag_times(torch, d, e, z):
+    """T·Z for the tridiagonal (d, e) (tensors on Z's device)."""
+    tz = d[:, None] * z
+    tz[:-1] += e[:, None] * z[1:]
+    tz[1:] += e[:, None] * z[:-1]
+    return tz
+
+
+def stedc_case(torch, ho, kind, n, rng, failures):
+    """stedc alone on the card: its wall (host clock ending in a sync),
+    P9's launches, and scipy.linalg.eigh_tridiagonal's wall (with
+    vectors, on the host) on the same (d, e); the gates of STEDC_*_C
+    against scipy's eigenvalues. A failed gate is appended to
+    ``failures``."""
+    import numpy as np
+    from scipy.linalg import eigh_tridiagonal
+    from slate_tpu_torch.linalg.stedc import stedc
+    d, e = stedc_tridiagonal(kind, n, rng)
+    before = ho.LAUNCHES["secular_roots"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w, z = stedc(d, e, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ho.LAUNCHES["secular_roots"] - before
+    t0 = time.perf_counter()
+    w_ref, _ = eigh_tridiagonal(d, e)
+    scipy_s = time.perf_counter() - t0
+    scale = max(1.0, float(np.abs(w_ref).max()))
+    dt, et, wt = (torch.as_tensor(x, device="cuda") for x in (d, e, w))
+    row = {"case": kind, "n": n, "wall_s": wall,
+           "secular_roots_launches": launches, "scipy_s": scipy_s,
+           "value_err": float(np.abs(w - w_ref).max()) / scale,
+           "orthogonality": float((z.T @ z - torch.eye(
+               n, dtype=z.dtype, device="cuda")).abs().max()),
+           "residual": float((tridiag_times(torch, dt, et, z)
+                              - z * wt[None, :]).abs().max()) / scale}
+    del z
+    if not (row["value_err"] <= n * STEDC_VALUE_C
+            and row["orthogonality"] < n * STEDC_ORTH_C
+            and row["residual"] < n * STEDC_RES_C):
+        failures.append(f"stedc {kind} at n = {n}: eigenvalues "
+                        f"{row['value_err']}, orthogonality "
+                        f"{row['orthogonality']}, residual {row['residual']}")
+    emit("stedc_case", **row)
+    return row
+
+
+# ---------------------------------------------------------------------------
 # phase 10: Hermitian eigensolvers
 # ---------------------------------------------------------------------------
 
-EIG_N = 4096          # hegv, and Auto's refusal
-EIG_VEC_N = 2048      # heev with vectors: cut by the host steqr
+EIG_N = 4096          # hegv, Auto and DC with vectors
+EIG_VEC_N = 2048      # heev QR with vectors: cut by the host steqr
 EIG_NB = 256
-EIG_VALUES_N = 8192   # values only: the steqr cap
+EIG_VALUES_N = 8192   # values only: the steqr cap (QR, and DC)
+EIG_REDIRECT_N = EIG_VALUES_N + EIG_NB  # QR above the cap: warns, runs DC
 EIG_AUTO_N = 2000     # Auto's band-dense path, uneven n
 EIG_COMPLEX_N = 2048
 EIG_CHAIN_N = 1024    # he2td's and hb2td's launches counted by the profiler
@@ -4682,16 +4871,18 @@ def eig_operator(torch, n, complex_, rng):
 def eig_stage_timer(torch):
     """Times the stage functions heev and hegv call (``obs/stages.py``)
     while in use: CUDA events around the device stages (synchronized
-    after each), the host clock around steqr; yields the ms summed by
-    stage."""
+    after each), the host clock around steqr and stedc (stedc's merges
+    alternate host and device work; a sync ends it); yields the ms summed
+    by stage."""
     from slate_tpu_torch.obs.stages import wrapped_stages
     ms = {}
 
     def timed(name, fn):
         def run(*args, **kw):
-            if name == "steqr":
+            if name in ("steqr", "stedc"):
                 t0 = time.perf_counter()
                 out = fn(*args, **kw)
+                torch.cuda.synchronize()
                 took = (time.perf_counter() - t0) * 1e3
             else:
                 e0 = torch.cuda.Event(enable_timing=True)
@@ -4833,9 +5024,11 @@ def eig_chains(torch, stt, rng, cases):
 
 
 def eig_phase(torch, stt, ho, seed):
-    """heev, hegv and the dispatch's refusals on the card (see the module
-    docstring, phase 10). Returns (row, launches, launches by type); the
-    row's "failures" lists every gate that failed."""
+    """heev, hegv and stedc on the card (see the module docstring, phase
+    10). Returns (row, launches, launches by type); the row's "failures"
+    lists every gate that failed."""
+    import warnings
+
     import numpy as np
     from slate_tpu_torch.obs import flops
     f32, f64 = torch.float32, torch.float64
@@ -4843,6 +5036,8 @@ def eig_phase(torch, stt, ho, seed):
     rng = np.random.default_rng(seed)
     qr = stt.Options(method_eig=stt.MethodEig.QR)
     two = stt.Options(method_eig=stt.MethodEig.QR, eig_stage1="two_stage")
+    dc = stt.Options(method_eig=stt.MethodEig.DC)
+    dc_two = stt.Options(method_eig=stt.MethodEig.DC, eig_stage1="two_stage")
     auto = stt.Options()
     memo, failures, cases = {}, [], []
     t_phase = time.perf_counter()
@@ -4854,37 +5049,58 @@ def eig_phase(torch, stt, ho, seed):
                                   f"{name}_{dtype_name(dt)}", o, vectors,
                                   memo, failures))
 
-    # (a), (b) QR with vectors through both stage-1 paths
+    # stedc alone on its three arms
+    stedc_rows = [stedc_case(torch, ho, kind, STEDC_N, rng, failures)
+                  for kind in STEDC_KINDS]
+    # (a), (b) QR with vectors through both stage-1 paths, and DC through
+    # two_stage
     a_vec, lam = eig_operator(torch, EIG_VEC_N, False, rng)
     run(a_vec, lam, [(dt, name, o) for dt in (f64, f32)
                      for name, o in (("qr", qr), ("two_stage", two))])
-    # (e) complex through both stage-1 paths
+    run(a_vec, lam, [(f64, "dc_two_stage", dc_two)])
+    # (e) complex through both stage-1 paths under QR, and DC
     a, lam = eig_operator(torch, EIG_COMPLEX_N, True, rng)
     run(a, lam, [(dt, name, o) for dt in (c128, c64)
-                 for name, o in (("qr", qr), ("two_stage", two))])
+                 for name, o in (("qr", qr), ("two_stage", two), ("dc", dc))])
     # (d) Auto's band-dense path at an uneven n
     a, lam = eig_operator(torch, EIG_AUTO_N, False, rng)
     run(a, lam, [(f64, "auto", auto), (f32, "auto", auto)])
-    # (c) values only at the steqr cap, float32
+    # (c) values only at the steqr cap, float32, under QR and DC
     a, lam = eig_operator(torch, EIG_VALUES_N, False, rng)
-    run(a, lam, [(f32, "qr_values", qr)], vectors=False)
+    run(a, lam, [(f32, "qr_values", qr), (f32, "dc_values", dc)],
+        vectors=False)
     del a, a_vec
     torch.cuda.empty_cache()
-    # (g) Auto at n ≥ 2048 is stedc's: refused from n alone
-    try:
-        stt.heev(stt.zeros(EIG_N, EIG_N, EIG_NB, torch.float64,
-                           kind=stt.MatrixKind.Hermitian,
-                           uplo=stt.Uplo.Lower, device="cuda"))
-        refused = None
-    except NotImplementedError as exc:
-        refused = str(exc)
-    if refused is None or "8(b)" not in refused:
-        failures.append(f"heev Auto at n = {EIG_N} did not refuse naming "
-                        "item 8(b)")
+    # (h) QR above the cap warns as the reference does and runs DC
+    a, lam = eig_operator(torch, EIG_REDIRECT_N, False, rng)
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        run(a, lam, [(f32, "qr_redirect_values", qr)], vectors=False)
+    redirect = [str(r.message) for r in rec
+                if issubclass(r.category, RuntimeWarning)]
+    if not (len(redirect) == 1 and f"redirecting n={EIG_REDIRECT_N} to "
+            "MethodEig.DC" in redirect[0]
+            and "stedc" in cases[-1]["stages_ms"]
+            and "steqr" not in cases[-1]["stages_ms"]):
+        failures.append(f"heev QR at n = {EIG_REDIRECT_N}: warnings "
+                        f"{redirect}, stages {sorted(cases[-1]['stages_ms'])}")
+    del a
+    torch.cuda.empty_cache()
+    # (g) DC with vectors at EIG_N in float64 and float32, and Auto there
+    # (stedc, from n alone)
+    a, lam = eig_operator(torch, EIG_N, False, rng)
+    run(a, lam, [(f64, "dc", dc), (f32, "dc", dc), (f64, "auto_dc", auto)])
+    if "stedc" not in cases[-1]["stages_ms"]:
+        failures.append(f"heev Auto at n = {EIG_N} did not run stedc")
+    del a
+    torch.cuda.empty_cache()
     heev_launches, heev_types = launch_snapshot(ho)
+    if not heev_launches["secular_roots"] > 0:
+        failures.append("heev and stedc launched no secular_roots")
     # the chains' profiled runs are not the main path's: not counted
     chains = eig_chains(torch, stt, rng, cases)
-    # (f) hegv itype 1: potrf (K1, P1), hegst (trsm: P1), heev QR, trsm
+    # (f) hegv itype 1 under Auto: potrf (K1, P1), hegst (trsm: P1), heev
+    # DC (P1 in he2td's larft, P9 in stedc), trsm
     n = EIG_N
     a_g, _ = eig_operator(torch, n, False, rng)
     g = torch.as_tensor(rng.standard_normal((n, n)), device="cuda")
@@ -4896,7 +5112,7 @@ def eig_phase(torch, stt, ho, seed):
     torch.cuda.synchronize()
     with eig_stage_timer(torch) as stages:
         t0 = time.perf_counter()
-        w, X, info = stt.hegv(A, B, qr)
+        w, X, info = stt.hegv(A, B, auto)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     hegv_launches, hegv_types = launch_snapshot(ho)
@@ -4906,16 +5122,16 @@ def eig_phase(torch, stt, ho, seed):
     # model: potrf n³/3, heev's 10n³/3, and n³ for each of hegst's two
     # triangular solves and the back-transform's
     hegv = {"n": n, "nb": EIG_NB, "dtype": "float64", "itype": 1,
-            "method": "qr", "info": int(info), "wall_s": wall,
+            "method": "auto", "info": int(info), "wall_s": wall,
             "gflops": (flops.potrf(n) + flops.heev(n, True) + 3 * n ** 3)
             / wall / 1e9,
             "stages_ms": dict(stages), "generalized_residual": res,
             "launches": {k: v for k, v in hegv_launches.items() if v}}
     emit("eig_case", case="hegv_float64", **hegv)
-    if not (int(info) == 0 and res < HEGV_TOL):
+    if not (int(info) == 0 and res < HEGV_TOL and "stedc" in stages):
         failures.append(f"hegv: info {int(info)}, generalized residual "
-                        f"{res}")
-    for k in ("chol_tile", "trtri_leaves"):
+                        f"{res}, stages {sorted(stages)}")
+    for k in ("chol_tile", "trtri_leaves", "secular_roots"):
         if not hegv_launches[k] > 0:
             failures.append(f"hegv launched no {k}")
     del a_g, b, g, A, B, X
@@ -4925,8 +5141,9 @@ def eig_phase(torch, stt, ho, seed):
     for k, by in hegv_types.items():
         for dt, v in by.items():
             types[k][dt] = types[k].get(dt, 0) + v
-    row = {"cases": cases, "hegv": hegv, "chains": chains,
-           "auto_refused": refused, "host_cpus": os.cpu_count(),
+    row = {"stedc": stedc_rows, "cases": cases, "hegv": hegv,
+           "chains": chains, "qr_redirect_warning": redirect,
+           "host_cpus": os.cpu_count(),
            "torch_threads": torch.get_num_threads(),
            "seconds": time.perf_counter() - t_phase, "failures": failures}
     return row, launches, types
@@ -5199,6 +5416,12 @@ def main(argv=None) -> int:
              invariants=p6_inv)
         emit("kernel", name="qr_append_build", cases=p7_rows)
         emit("kernel", name="qr_append_apply", cases=p8_rows)
+        # P9: stedc's secular roots
+        import numpy as np
+        t_p9 = time.perf_counter()
+        p9 = p9_rows(torch, ho, np.random.default_rng(args.seed))
+        emit("kernel", name="secular_roots", cases=p9,
+             seconds=time.perf_counter() - t_p9)
         # counted paths: the check phase, then the main phase
         ho.reset_launches()
         small = small_check(torch, stt, gen)
@@ -5414,6 +5637,24 @@ def main(argv=None) -> int:
         if "bound_chain_ms" in row:
             kern["bound_chain_ms"] = row["bound_chain_ms"]
         kernels.append(kern)
+    # P9: no Pallas kernel; it replaces the reference's df32 secular sweep.
+    # Its launches are the eig phase's (stedc alone, heev and hegv)
+    p9_keys = ("max_abs_err", "tolerance", "flipped", "orthogonality", "ms",
+               "device_ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms", "plan")
+    check(eig_launches["secular_roots"] > 0,
+          "secular_roots was not launched in the eig phase")
+    kern = {"name": "secular_roots", "route": "cuda",
+            "source": "slate_tpu_torch/csrc/secular.cu",
+            "replaces": "slate_tpu/linalg/stedc.py:171",
+            "launches": eig_launches["secular_roots"],
+            "dtypes": sorted(eig_types["secular_roots"]),
+            "launches_by_dtype": dict(eig_types["secular_roots"]),
+            "k": p9[0]["k"], "spectrum": p9[0]["spectrum"],
+            **{k: p9[0][k] for k in p9_keys}}
+    for r in p9[1:]:
+        kern[f"at_k{r['k']}_{r['spectrum']}"] = {k: r[k] for k in p9_keys}
+    kernels.append(kern)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,7 @@ time, on one NVIDIA GPU.
     python3 profile_factors.py --factors chol,chol_f64   # only these
     python3 profile_factors.py --solves chol,lu,qr,chol_nb128  # solves only
     python3 profile_factors.py --factors heev_qr,heev_2stage,hegv
+    python3 profile_factors.py --factors heev_dc,hegv
 
 By default factors the SPD (n × n, op "chol", at nb and at nb = n/128,
 where potrf takes its recursion and K1 runs at b = n/128), the general
@@ -58,14 +59,17 @@ twelve device events by device time and host ops by self CPU time.
 
 ``--factors`` also takes the Hermitian eigensolvers, "heev_qr" (heev
 with MethodEig.QR through he2td), "heev_2stage" (through he2hb and the
-hb2td bulge chase) and "hegv" (itype 1, QR), of a symmetrized Gaussian
-float64 operator at ``--eig-n`` (4096) and ``--eig-nb`` (256), after a
-warm-up of each at 512: besides the walls, busy time, events and the
-port's kernels, each stage's device and CPU time (a ``record_function``
-range per stage: he2td, he2hb, hb2td, the back-transforms, potrf,
-hegst; the host steqr is the wall they leave), the matrix-vector
-kernels' device time beside the latrd columns' bytes bound, and the
-columns and hops of he2td's and hb2td's sequential chains.
+hb2td bulge chase), "heev_dc" (MethodEig.DC through he2td: stedc) and
+"hegv" (itype 1 under its default method, Auto: stedc at n ≥ 2048), of
+a symmetrized Gaussian float64 operator at ``--eig-n`` (4096) and
+``--eig-nb`` (256), after a warm-up of each at 512: besides the walls,
+busy time, events and the port's kernels (P9 ``secular_roots``
+included), each stage's device and CPU time (a ``record_function``
+range per stage: he2td, he2hb, hb2td, stedc, the back-transforms,
+potrf, hegst; the host steqr is the wall they leave), the
+matrix-vector kernels' device time beside the latrd columns' bytes
+bound, and the columns and hops of he2td's and hb2td's sequential
+chains.
 
 ``--solves`` (alone it runs no factor) profiles one-column solves
 against the resident factors of the same operators (names as above:
@@ -99,7 +103,8 @@ KERNEL_FUNCS = {"chol_tile": "chol_tile_kernel",
                 "herk_lower_update": "herk_lower_kernel",
                 "trtri_leaves": "trtri_leaves_kernel",
                 "lu_nopiv_base": "lu_nopiv_kernel",
-                "lu_panel_batched": "lu_panel_batched_kernel"}
+                "lu_panel_batched": "lu_panel_batched_kernel",
+                "secular_roots": "secular_roots_kernel"}
 
 
 def register(torch, stt, sess, shape, op, nb, gen, dtype):
@@ -308,7 +313,7 @@ def profile_factor(torch, stt, sess, shape, op, nb, dtype, gen, top=12):
                      [:top]]}
 
 
-EIG_FACTORS = ("heev_qr", "heev_2stage", "hegv")
+EIG_FACTORS = ("heev_qr", "heev_2stage", "heev_dc", "hegv")
 
 
 def eig_ranges():
@@ -327,8 +332,9 @@ def eig_ranges():
 
 
 def profile_eig(torch, stt, name, n, nb, gen, top=12):
-    """heev (MethodEig.QR; "heev_2stage" with eig_stage1 "two_stage") or
-    hegv (itype 1, QR) of a float64 operator (Gaussian, symmetrized; hegv's
+    """heev (MethodEig.QR; "heev_2stage" with eig_stage1 "two_stage";
+    "heev_dc" MethodEig.DC) or hegv (itype 1, its default method) of a
+    float64 operator (Gaussian, symmetrized; hegv's
     B = G·Gᵀ/n + I) under torch.profiler, then once more without it: the
     walls, device busy time and share, device events, the port's kernels,
     each stage's range (device ms, CPU ms, events), the matrix-vector
@@ -340,10 +346,12 @@ def profile_eig(torch, stt, name, n, nb, gen, top=12):
                     dtype=torch.float64)
     a = 0.5 * (g + g.T)
     A = stt.hermitian(a, nb, stt.Uplo.Lower, device="cuda")
-    opts = stt.Options(method_eig=stt.MethodEig.QR,
+    opts = stt.Options(method_eig=stt.MethodEig.DC if name == "heev_dc"
+                       else stt.MethodEig.QR,
                        eig_stage1="two_stage" if name == "heev_2stage"
                        else "auto")
     if name == "hegv":
+        opts = stt.Options()
         b = g @ g.T / n + torch.eye(n, dtype=g.dtype, device="cuda")
         B = stt.hermitian(b, nb, stt.Uplo.Lower, device="cuda")
         run = lambda: stt.hegv(A, B, opts)  # noqa: E731
@@ -371,7 +379,8 @@ def profile_eig(torch, stt, name, n, nb, gen, top=12):
     npad = -(-n // nb) * nb
     hops = sum(eig.chase_hops(npad, nb))
     return {
-        "n": n, "nb": nb, "dtype": "float64", "wall_s": wall,
+        "n": n, "nb": nb, "dtype": "float64",
+        "method": opts.method_eig.value, "wall_s": wall,
         "unprofiled_wall_s": unprofiled,
         "device_busy_s": busy_us / 1e6,
         "device_busy_share": busy_us / 1e6 / wall,
@@ -472,7 +481,8 @@ def main(argv=None) -> int:
                     "given; also nopiv, calu, chol_f64, chol_nb1024, "
                     "qr_f64_nb32, chol_c64, lu_c64, chol_c64_nb128, "
                     "qr_c64, chol_bf16, chol_bf16_nb128, lu_bf16, and the "
-                    "eigensolvers heev_qr, heev_2stage, hegv at --eig-n)")
+                    "eigensolvers heev_qr, heev_2stage, heev_dc, hegv at "
+                    "--eig-n)")
     ap.add_argument("--eig-n", type=int, default=4096)
     ap.add_argument("--eig-nb", type=int, default=256)
     ap.add_argument("--solves", default="",

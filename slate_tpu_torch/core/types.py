@@ -105,7 +105,7 @@ class MethodGels(enum.Enum):
 class MethodEig(enum.Enum):
     Auto = "auto"
     QR = "qr"  # steqr QR iteration
-    DC = "dc"  # divide & conquer (stedc: ROADMAP Queue 1 item 8(b))
+    DC = "dc"  # divide & conquer (stedc, linalg/stedc.py)
 
 
 @dataclasses.dataclass(frozen=True)

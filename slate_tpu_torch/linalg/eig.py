@@ -1,14 +1,16 @@
 """Hermitian eigensolvers: heev, hegv, hegst, he2hb, unmtr_he2hb, hb2td,
 unmtr_hb2td, he2td, unmtr_he2td, steqr, sterf (counterpart of
-``slate_tpu/linalg/eig.py`` without ``stedc``).
+``slate_tpu/linalg/eig.py``; stedc is ``linalg/stedc.py``).
 
 Stage 1 has two strategies (``Options.eig_stage1``): ``he2td``, the
 direct blocked tridiagonalization (LAPACK's latrd/sytrd: one matrix-
 vector product per column, a rank-2b update per 64-column panel), and
 ``two_stage``, he2hb's band reduction (panel QR and a two-sided update per
-nb columns) then hb2td's bulge chase on 3b × 3b windows. Stage 3 is the
-port's own host steqr (``csrc/host/steqr.cc``, built with g++ at first
-use); the back-transforms are stacked block reflectors applied by gemms.
+nb columns) then hb2td's bulge chase on 3b × 3b windows. Stage 3 is
+stedc's divide & conquer (``linalg/stedc.py``: the merges on the device,
+their secular roots on P9) or the port's own host steqr
+(``csrc/host/steqr.cc``, built with g++ at first use); the
+back-transforms are stacked block reflectors applied by gemms.
 
 The reference's fixed-shape full-matrix masks exist so that XLA compiles
 one program; here each column's product and each panel's update touch
@@ -19,16 +21,16 @@ a host ``int``. The results keep the reference's layouts: he2td's
 Th (sweeps, hops), phase). Each driver works in place on one working
 copy of its operand.
 
-Until ROADMAP Queue 1 item 8(b) ports stedc, ``MethodEig.DC``,
-``MethodEig.Auto`` at n ≥ ``_DC_MIN_N`` and ``MethodEig.QR`` above the
-steqr cap (where the reference warns and redirects to DC) raise
-``NotImplementedError``, decided from n alone before any device work.
+``MethodEig.DC`` and ``MethodEig.Auto`` at n ≥ ``_DC_MIN_N`` run stedc;
+``MethodEig.QR`` above the steqr cap warns as the reference does and
+runs stedc too, decided from n alone before any device work.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import warnings
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -43,15 +45,12 @@ from ..ops import _build, blocked
 from ..ops.hopper_ops import abs2, larfg
 from . import blas3
 from .norms import norm
+from .stedc import stedc
 
-# Auto takes the dense eigh of he2hb's band below this order (the
-# reference's stedc path above it is ROADMAP Queue 1 item 8(b))
+# Auto takes the dense eigh of he2hb's band below this order, stedc above
 _DC_MIN_N = 2048
 _TD_PANEL = 64       # latrd panel width of he2td
 _STEQR_MAX_N = 8192  # QR iteration with vectors is Θ(n³) on the host
-
-_DC_LATER = ("MethodEig.DC (stedc divide & conquer) is not ported yet "
-             "(ROADMAP Queue 1 item 8(b))")
 
 
 def _working_copy(A: TiledMatrix) -> torch.Tensor:
@@ -565,10 +564,12 @@ def _nan_eigenpairs(A: TiledMatrix, want_vectors: bool):
     return w, from_dense(z, A.nb, logical_shape=(n, n), device=A.device)
 
 
-def _heev_td(A: TiledMatrix, opts: Options, want_vectors: bool):
+def _heev_td(A: TiledMatrix, opts: Options, want_vectors: bool,
+             use_steqr: bool):
     """The tridiagonal path: he2td (or he2hb + hb2td when
-    ``opts.eig_stage1`` is "two_stage" and n ≥ 3·nb), the host steqr,
-    then the back-transform on the device."""
+    ``opts.eig_stage1`` is "two_stage" and n ≥ 3·nb), stedc on A's device
+    (or the host steqr with ``use_steqr``), then the back-transform on the
+    device."""
     n, nb = A.shape[0], A.nb
     two_stage = opts.eig_stage1 == "two_stage" and n >= 3 * nb
     if two_stage:
@@ -580,7 +581,10 @@ def _heev_td(A: TiledMatrix, opts: Options, want_vectors: bool):
     en = e[:n - 1].double().cpu().numpy()
     if not (np.isfinite(dn).all() and np.isfinite(en).all()):
         return _nan_eigenpairs(A, want_vectors)
-    w, z = steqr(dn, en, compute_z=want_vectors)
+    if use_steqr:
+        w, z = steqr(dn, en, compute_z=want_vectors)
+    else:
+        w, z = stedc(dn, en, compute_z=want_vectors, device=A.device)
     w = torch.as_tensor(w, device=A.device).to(_real_dtype(A.dtype))
     if not want_vectors:
         return w, None
@@ -596,23 +600,21 @@ def _heev_td(A: TiledMatrix, opts: Options, want_vectors: bool):
 
 
 def _heev_method(n: int, opts: Options = DEFAULT_OPTIONS) -> MethodEig:
-    """The tridiagonal method heev runs at order n under ``opts``
-    (MethodEig.Auto below ``_DC_MIN_N`` is the band-dense path). Raises
-    NotImplementedError where it would be stedc, before any device work:
-    DC, Auto at n ≥ ``_DC_MIN_N``, and QR above ``_STEQR_MAX_N``, where
-    the reference warns and redirects to DC."""
+    """The method heev runs at order n under ``opts``, from n alone and
+    before any device work: DC for MethodEig.DC and for Auto at
+    n ≥ ``_DC_MIN_N``; QR above ``_STEQR_MAX_N`` warns as the reference
+    does and runs DC; otherwise the method asked for (Auto below
+    ``_DC_MIN_N`` is the band-dense path)."""
     method = opts.method_eig
     if method is MethodEig.Auto and n >= _DC_MIN_N:
-        raise NotImplementedError(
-            f"heev: MethodEig.Auto at n={n} ≥ {_DC_MIN_N} runs stedc; "
-            f"{_DC_LATER}; use MethodEig.QR up to n={_STEQR_MAX_N}")
-    if method is MethodEig.DC:
-        raise NotImplementedError(f"heev: {_DC_LATER}")
+        return MethodEig.DC
     if method is MethodEig.QR and n > _STEQR_MAX_N:
-        raise NotImplementedError(
-            f"heev: MethodEig.QR is capped at n={_STEQR_MAX_N} (QR "
-            f"iteration with vectors is Θ(n³) on the host) and the "
-            f"redirect to DC at n={n} waits for stedc; {_DC_LATER}")
+        warnings.warn(
+            f"heev: MethodEig.QR capped at n={_STEQR_MAX_N} "
+            f"(QR iteration with vectors is Θ(n³) at rotation "
+            f"rates); redirecting n={n} to MethodEig.DC",
+            RuntimeWarning, stacklevel=3)
+        return MethodEig.DC
     return method
 
 
@@ -622,10 +624,12 @@ def heev(A: TiledMatrix, opts: Options = DEFAULT_OPTIONS,
          ) -> Tuple[torch.Tensor, Optional[TiledMatrix]]:
     """Hermitian eigensolver (slate::heev): scale, reduce, tridiagonal
     eigensolver, back-transform, rescale, with the reference's MethodEig
-    dispatch (``_heev_method``): MethodEig.QR runs he2td (or two_stage) +
-    the host steqr + the back-transform on the device; Auto below
-    ``_DC_MIN_N`` he2hb + a dense eigh of the band. Returns (Lambda
-    ascending, Z or None) on A's device."""
+    dispatch (``_heev_method``): MethodEig.DC (and Auto at n ≥
+    ``_DC_MIN_N``, and QR above ``_STEQR_MAX_N`` after a warning) runs
+    he2td (or two_stage) + stedc + the back-transform on the device;
+    MethodEig.QR the same with the host steqr; Auto below ``_DC_MIN_N``
+    he2hb + a dense eigh of the band. Returns (Lambda ascending, Z or
+    None) on A's device."""
     n, nb = A.shape[0], A.nb
     if n == 0:
         return torch.zeros((0,), dtype=torch.float32, device=A.device), None
@@ -648,8 +652,9 @@ def heev(A: TiledMatrix, opts: Options = DEFAULT_OPTIONS,
     else:
         A = from_dense(A.dense_canonical() * sigma, nb, kind=A.kind,
                        uplo=A.uplo, logical_shape=A.shape, device=A.device)
-    if method is MethodEig.QR:
-        w, Z = _heev_td(A, opts, want_vectors)
+    if method in (MethodEig.QR, MethodEig.DC):
+        w, Z = _heev_td(A, opts, want_vectors,
+                        use_steqr=method is MethodEig.QR)
     else:
         w, Z = _heev_band_dense(A, want_vectors)
     return w / sigma, Z
@@ -700,7 +705,9 @@ def hegv(A: TiledMatrix, B: TiledMatrix, opts: Options = DEFAULT_OPTIONS,
     info > 0 when B is not positive definite (potrf's code), and then
     the results are NaN, as the reference's."""
     from .cholesky import potrf
-    _heev_method(A.shape[0], opts)
+    # decided (and QR's redirect warned) once, before potrf
+    opts = dataclasses.replace(opts,
+                               method_eig=_heev_method(A.shape[0], opts))
     Lb, info = potrf(B, opts)
     As = hegst(A, Lb, opts, itype=itype)
     w, Z = heev(As, opts, want_vectors=want_vectors)

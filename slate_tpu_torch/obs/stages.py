@@ -13,7 +13,7 @@ import contextlib
 from typing import Callable, Dict, Iterator
 
 EIG_STAGES = ("potrf", "hegst", "he2td", "he2hb", "hb2td", "steqr",
-              "unmtr_he2td", "unmtr_hb2td", "unmtr_he2hb")
+              "stedc", "unmtr_he2td", "unmtr_hb2td", "unmtr_he2hb")
 
 
 @contextlib.contextmanager

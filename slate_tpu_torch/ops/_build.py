@@ -43,7 +43,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("chol_tile", "lu_panel", "qr_panel", "herk_lower",
            "trtri_leaves", "lu_nopiv", "lu_panel_batched",
            "chol_tile_batched", "qr_panel_batched", "chol_update",
-           "qr_append")
+           "qr_append", "secular")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HOST_DIR = os.path.join(CSRC_DIR, "host")

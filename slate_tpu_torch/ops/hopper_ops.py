@@ -57,7 +57,7 @@ cluster barriers per 32-wide step. K5 (``herk_lower_update``) runs on
 the tensor cores through warp-level ``mma.sync`` (FP64 DMMA, 3×TF32 in
 float32), one block per lower tile pair of the plan ``herk_plan``.
 
-Eight kernels have no Pallas counterpart: they replace programs the
+Nine kernels have no Pallas counterpart: they replace programs the
 reference fuses with ``jax.vmap``/``fori_loop``/``lax.scan`` and the port would
 otherwise run as Python loops of small launches. P1
 (``trtri_leaves``) inverts a stack of lower-triangular leaves of at most
@@ -78,7 +78,10 @@ updates (``linalg/update.py``) add P6 (``chol_update_sweep``: a rank-k
 Cholesky up/downdate in place, row-block CTAs in one cooperative launch),
 P7 (``qr_append_build``: the structured QR of [R; U]) and P8
 (``qr_append_apply``: the appended reflectors applied to a solve's
-right-hand sides), each bit for bit its plain version.
+right-hand sides), each bit for bit its plain version. The divide &
+conquer eigensolver (``linalg/stedc.py``) adds P9 (``secular_roots``: the
+roots of a merge's secular equation, a thread a root, float64 only),
+within a stated tolerance of its plain version.
 """
 
 from __future__ import annotations
@@ -101,7 +104,7 @@ LAUNCHES: Dict[str, int] = {"chol_tile": 0, "lu_panel_base": 0,
                             "lu_nopiv_base": 0, "lu_panel_batched": 0,
                             "chol_tile_batched": 0, "qr_panel_batched": 0,
                             "chol_update_sweep": 0, "qr_append_build": 0,
-                            "qr_append_apply": 0}
+                            "qr_append_apply": 0, "secular_roots": 0}
 
 TYPE_LAUNCHES: Dict[str, Dict[str, int]] = {k: {} for k in LAUNCHES}
 
@@ -2179,3 +2182,163 @@ def qr_append_apply(ct: torch.Tensor, d: torch.Tensor, w: torch.Tensor,
         _raise_on(rc, "qr_append", "slate_qr_append_error_string",
                   f"{name} (npad={npad}, q={q}, P={P}, n={n})")
     _count(name, ct)
+
+
+# ---------------------------------------------------------------------------
+# P9: the secular roots of a divide-and-conquer merge (no Pallas kernel)
+# ---------------------------------------------------------------------------
+
+SECULAR_BISECT = 55   # halvings: the bracket to w·2⁻⁵⁵, full f64 accuracy
+SECULAR_NEWTON = 4    # bracket-safeguarded Newton steps after them
+SECULAR_FIXED = 2     # near-pole fixed-point steps
+SECULAR_CHUNK = 2048  # roots a plain-version pass takes (k × chunk temporaries)
+SECULAR_THREADS = 32  # P9's threads a CTA, one root each (csrc/secular.cu)
+SECULAR_TILE = 1024   # poles a CTA stages in shared memory at a time
+# P9 against its plain version (chip_smoke.py): the roots
+# λ_j = δ[shift_j] + μ_j within SECULAR_ROOT_C·ε₆₄·max(max|δ|, ρ) (both
+# bracket each root to about w·2⁻⁵⁵ and sum the same terms in other
+# orders), and the merge's eigenvectors built from the kernel's
+# (shift, μ) orthogonal to k·SECULAR_ORTH
+SECULAR_ROOT_C = 64.0
+SECULAR_ORTH = 1e-14
+
+
+def _secular_f(gap: torch.Tensor, m: torch.Tensor, z2: torch.Tensor,
+               rho: float) -> torch.Tensor:
+    """1 + ρ·Σᵢ z2ᵢ / (gapᵢ − m) for each root's row of ``gap``, a zero
+    denominator replaced by 1e-300."""
+    denom = gap - m[:, None]
+    denom = torch.where(denom == 0, 1e-300, denom)
+    return 1.0 + rho * (z2[None, :] / denom).sum(dim=1)
+
+
+def secular_roots_plain(delta: torch.Tensor, z2: torch.Tensor, rho: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of P9: all k roots of 1 + ρ·Σ z2ᵢ/(δᵢ − λ) = 0 for
+    δ ascending, z2 > 0, ρ > 0 (float64). Returns (upper, μ): root j is
+    λ_j = δ[j + upper_j] + μ_j, shifted to its nearer pole as dlaed4 does,
+    so δᵢ − λ_j = (δᵢ − δ[shift_j]) − μ_j never cancels.
+
+    The reference's host ``_secular_roots`` (slate_tpu/linalg/stedc.py:
+    74-168) in torch, stage for stage over chunks of SECULAR_CHUNK roots:
+    the pole chosen by the sign of f at the interval's midpoint, 55
+    bisections, 4 Newton steps that also shrink the bracket, and 2
+    fixed-point steps μ = ρ·z2ₚ/(1 + ρ·Σ_{i≠p} …) for the roots closer to
+    their pole than the bisection resolves. One guard is the port's own:
+    a fixed-point candidate must lie inside the bisection's bracket. The
+    reference accepts any candidate of the right sign below 1e-5 of the
+    interval, so a root about 1e-7 of the interval from a pole of
+    negligible weight, whose place the other poles set (the rest of f
+    nearly zero there), jumps to a false root at the pole: 2e-7 off on
+    glued Wilkinson matrices (ROADMAP queue 3)."""
+    k = delta.numel()
+    dev = delta.device
+    width = torch.empty_like(delta)
+    width[:-1] = delta[1:] - delta[:-1]
+    width[-1] = rho * z2.sum()  # last interval: (δ_k, δ_k + ρ‖z‖²)
+    mu = torch.empty_like(delta)
+    upper_all = torch.empty(k, dtype=torch.bool, device=dev)
+    for c0 in range(0, k, SECULAR_CHUNK):
+        c1 = min(c0 + SECULAR_CHUNK, k)
+        j = torch.arange(c0, c1, device=dev)
+        w = width[c0:c1]
+        notlast = j < k - 1
+        fmid = _secular_f(delta[None, :] - delta[j][:, None], 0.5 * w, z2,
+                          rho)
+        upper = (fmid < 0) & notlast  # f < 0 there: the root's upper half
+        sj = j + upper.long()
+        upper_all[c0:c1] = upper
+        gap = delta[None, :] - delta[sj][:, None]
+        zero = torch.zeros_like(w)
+        lo = torch.where(upper, -0.5 * w, zero)
+        hi = torch.where(upper, zero, torch.where(notlast, 0.5 * w, w))
+        for _ in range(SECULAR_BISECT):
+            mid = 0.5 * (lo + hi)
+            up = _secular_f(gap, mid, z2, rho) < 0
+            lo = torch.where(up, mid, lo)
+            hi = torch.where(up, hi, mid)
+        blo, bhi = lo, hi  # the bisection's bracket of the root
+        m = 0.5 * (lo + hi)
+        for _ in range(SECULAR_NEWTON):
+            denom = gap - m[:, None]
+            denom = torch.where(denom == 0, 1e-300, denom)
+            r = z2[None, :] / denom
+            f = 1.0 + rho * r.sum(dim=1)
+            fp = rho * (r / denom).sum(dim=1)  # f' = ρ·Σ z2/denom²
+            up = f < 0  # every evaluation also shrinks the bracket
+            lo = torch.where(up, m, lo)
+            hi = torch.where(up, hi, m)
+            m_new = m - torch.where(fp > 0, f / fp, zero)
+            bad = (m_new <= lo) | (m_new >= hi) | ~torch.isfinite(m_new)
+            m = torch.where(bad, 0.5 * (lo + hi), m_new)
+        # roots below the bisection's resolution need relative accuracy,
+        # or the revised ẑ inflates a tiny component (dlaed4's rational
+        # correction)
+        zp2 = z2[sj]
+        colmask = torch.zeros((c1 - c0, k), dtype=torch.bool, device=dev)
+        colmask[torch.arange(c1 - c0, device=dev), sj] = True
+        weff = torch.where(upper, 0.5 * w, w)
+        near_pole = m.abs() < 1e-6 * weff
+        want = torch.where(upper, -1.0, 1.0).to(delta.dtype)
+        for _ in range(SECULAR_FIXED):
+            denom = gap - m[:, None]
+            denom = torch.where(colmask | (denom == 0), 1e300, denom)
+            rest = 1.0 + rho * (z2[None, :] / denom).sum(dim=1)
+            cand = rho * zp2 / torch.where(rest == 0, 1e-300, rest)
+            ok = (torch.isfinite(cand) & (rest != 0)
+                  & (torch.sign(cand) == want) & (cand.abs() < 1e-5 * weff)
+                  & (cand >= blo) & (cand <= bhi))
+            m = torch.where(near_pole & ok, cand, m)
+        mu[c0:c1] = m
+    return upper_all, mu
+
+
+def secular_roots(delta: torch.Tensor, z2: torch.Tensor, rho: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """P9: the k roots of a merge's secular equation, (upper, μ) with
+    root j = δ[j + upper_j] + μ_j (``secular_roots_plain``'s contract):
+    δ ascending and z2 > 0 as 1-D float64 tensors of one length on one
+    device, ρ > 0 a float. Any other type raises.
+
+    No Pallas counterpart: replaces the reference's df32 sweep
+    ``_secular_kernel_body`` (slate_tpu/linalg/stedc.py:171-290, a
+    ``lax.map`` of ``fori_loop``s XLA fuses into one program) and its host
+    ``_secular_roots`` (:74-168). The CUDA kernel (csrc/secular.cu) gives
+    each root one thread, SECULAR_THREADS a CTA, and runs the plain
+    version's whole schedule in one launch: the pole choice, 55
+    bisections, 4 safeguarded Newton steps and 2 fixed-point steps, every
+    f a float64 sum over the poles in index order, which the CTA streams
+    through shared memory SECULAR_TILE at a time (all threads read the
+    same pole at once: a broadcast). The widths δ_{j+1} − δ_j and ρ‖z‖²
+    are made in the kernel. Its sums run in another order than the plain
+    version's, so the two agree within SECULAR_ROOT_C·ε·max(max|δ|, ρ) on
+    the roots; a pole choice flipped where f at the midpoint is within
+    rounding of zero changes (upper, μ) but not the root."""
+    name = "secular_roots"
+    if delta.dtype != torch.float64 or z2.dtype != torch.float64:
+        raise SlateError(f"{name}: float64 only, got {delta.dtype} and "
+                         f"{z2.dtype}")
+    if delta.ndim != 1 or z2.shape != delta.shape or delta.numel() < 1 or (
+            z2.device != delta.device):
+        raise SlateError(f"{name}: expects δ and z2 of one length k ≥ 1 on "
+                         f"one device, got {tuple(delta.shape)} on "
+                         f"{delta.device} and {tuple(z2.shape)} on "
+                         f"{z2.device}")
+    if delta.device.type == "cpu":
+        return secular_roots_plain(delta, z2, float(rho))
+    if delta.device.type != "cuda":
+        raise SlateError(f"{name}: unsupported device {delta.device}")
+    delta = delta.contiguous()
+    z2 = z2.contiguous()
+    k = delta.numel()
+    upper = torch.empty(k, dtype=torch.bool, device=delta.device)
+    mu = torch.empty_like(delta)
+    f = _fn("secular", "slate_secular_roots_f64",
+            [_P, _P, ctypes.c_double, _P, _P, _I, _P])
+    rc = _on_device(delta, f, delta.data_ptr(), z2.data_ptr(), float(rho),
+                    upper.data_ptr(), mu.data_ptr(), k)
+    if rc:
+        _raise_on(rc, "secular", "slate_secular_error_string",
+                  f"{name} (k={k})")
+    _count(name, mu)
+    return upper, mu

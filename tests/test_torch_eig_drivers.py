@@ -20,10 +20,12 @@ numpy inputs (CPU):
   reference's and its X by the problem's residual, and a B that is not
   positive definite: potrf's info (5), NaN results, no exception, as the
   reference's;
-- the refusals until ROADMAP queue 1 item 8(b): MethodEig.DC, Auto at
-  n ≥ ``_DC_MIN_N`` and QR above the steqr cap (where the reference warns
-  and redirects to DC) raise NotImplementedError naming 8(b), decided
-  before any work on the operand;
+- the divide & conquer arms (stedc): MethodEig.DC, Auto at
+  n ≥ ``_DC_MIN_N`` (patched to 64) and hegv under both, against the
+  reference's heev and hegv with MethodEig.DC in every type, values only
+  and with vectors (eigenvalues within the tolerances above, Z by the
+  gates and up to a unit phase); QR above the steqr cap warns with the
+  reference's RuntimeWarning word for word and returns DC's result;
 - profile_factors.py imports nothing of JAX or slate_tpu (the AST scan of
   tests/test_torch_session.py covers the package and chip_smoke.py).
 """
@@ -304,44 +306,143 @@ def test_hegv_not_positive_definite_reports_info(opts):
                     ROptions(method_eig=RMethodEig.QR))
 
 
-# -- refusals until item 8(b) ----------------------------------------------
+# -- divide & conquer (stedc) ------------------------------------------------
 
-def _no_work(monkeypatch):
-    def boom(*a, **kw):
-        raise AssertionError("device work before the dispatch decided")
-    for name in ("norm", "he2td", "he2hb", "_working_copy"):
-        monkeypatch.setattr(eig, name, boom)
-    monkeypatch.setattr(cholesky, "potrf", boom)
+DC_N = 96  # tests/test_eig_svd.py test_hegv_with_dc's order and tile
+
+
+def _dc_pair(dt):
+    """test_hegv_with_dc's shape: a symmetric A and an SPD B (n = 96)."""
+    a = _separated(DC_N, 31, dt)
+    rng = np.random.default_rng(31)
+    g = rng.standard_normal((DC_N, DC_N))
+    if _is_complex(dt):
+        g = g + 1j * rng.standard_normal((DC_N, DC_N))
+    b = (g @ g.conj().T + DC_N * np.eye(DC_N)).astype(dt)
+    return a, b
+
+
+def _check_dc(dt, a, w, Z, rw, RZ, vectors=True):
+    w = w.numpy()
+    assert np.all(np.abs(w - np.asarray(rw)) <= _value_tol(dt, np.asarray(
+        rw)))
+    assert np.all(np.diff(w) >= 0)
+    if not vectors:
+        assert Z is None
+        return
+    z = Z.to_numpy().astype(np.complex128)
+    res, orth = _gates(a, w, z, dt)
+    assert res < 500 and orth < 500, (res, orth)
+    rz = np.asarray(RZ.to_numpy()).astype(np.complex128)
+    assert _same_up_to_phase(z, rz, 10 * DC_N * DC_N * _eps(dt))
 
 
 def test_dc_and_large_auto_raise_naming_item_8b(monkeypatch):
-    a = _separated(N, 5, np.float64)
+    """Under its old name (these calls raised NotImplementedError naming
+    ROADMAP item 8(b) until stedc was ported): MethodEig.DC and Auto at
+    n ≥ ``_DC_MIN_N`` (patched to 64) run stedc and match the reference's
+    heev and hegv with MethodEig.DC, in float64."""
+    dt = np.float64
+    a, b = _dc_pair(dt)
     A = stt.hermitian(np.tril(a), NB, stt.Uplo.Lower, device="cpu")
-    B = stt.hermitian(np.eye(N), NB, stt.Uplo.Lower, device="cpu")
+    B = stt.hermitian(np.tril(b), NB, stt.Uplo.Lower, device="cpu")
+    R = st.hermitian(np.tril(a), nb=NB, uplo=RUplo.Lower)
+    RB = st.hermitian(np.tril(b), nb=NB, uplo=RUplo.Lower)
+    rdc = ROptions(method_eig=RMethodEig.DC)
+    rw, RZ = st.heev(R, rdc)
+    rwv, _ = st.heev(R, rdc, want_vectors=False)
     monkeypatch.setattr(eig, "_DC_MIN_N", 64)
-    _no_work(monkeypatch)
     dc = stt.Options(method_eig=stt.MethodEig.DC)
-    for call in (lambda: stt.heev(A), lambda: stt.heev(A, dc),
-                 lambda: stt.heev(A, dc, want_vectors=False),
-                 lambda: stt.hegv(A, B), lambda: stt.hegv(A, B, dc)):
-        with pytest.raises(NotImplementedError, match=r"8\(b\)"):
-            call()
+    for opts in (dc, stt.Options()):
+        assert eig._heev_method(DC_N, opts) is stt.MethodEig.DC
+        w, Z = stt.heev(A, opts)
+        _check_dc(dt, a, w, Z, rw, RZ)
+        wv, Zv = stt.heev(A, opts, want_vectors=False)
+        _check_dc(dt, a, wv, Zv, rwv, None, vectors=False)
+        gw, X, info = stt.hegv(A, B, opts)
+        grw, _, rinfo = st.hegv(R, RB, rdc)
+        assert int(info) == int(rinfo) == 0
+        assert np.all(np.abs(gw.numpy() - np.asarray(grw))
+                      <= _value_tol(dt, np.asarray(grw)))
+        x = X.to_numpy()
+        # test_hegv_with_dc's residual bound
+        assert np.abs(a @ x - (b @ x) * gw.numpy()).max() < DC_N * 1e-11 * \
+            max(1.0, np.abs(gw.numpy()).max())
+
+
+@pytest.mark.parametrize("vectors", [True, False])
+@pytest.mark.parametrize("dt", TYPES)
+def test_heev_dc_matches_reference(dt, vectors):
+    a, _ = _dc_pair(dt)
+    A = stt.hermitian(np.tril(a), NB, stt.Uplo.Lower, device="cpu")
+    R = st.hermitian(np.tril(a), nb=NB, uplo=RUplo.Lower)
+    w, Z = stt.heev(A, stt.Options(method_eig=stt.MethodEig.DC),
+                    want_vectors=vectors)
+    rw, RZ = st.heev(R, ROptions(method_eig=RMethodEig.DC),
+                     want_vectors=vectors)
+    real = torch.float32 if dt in (np.float32, np.complex64) else \
+        torch.float64
+    assert w.dtype == real
+    _check_dc(dt, a, w, Z, rw, RZ, vectors)
+    if vectors:
+        assert Z.dtype == A.dtype
+
+
+@pytest.mark.parametrize("dt", [np.float64, np.complex128, np.float32])
+def test_hegv_dc_matches_reference(dt):
+    a, b = _dc_pair(dt)
+    A = stt.hermitian(np.tril(a), NB, stt.Uplo.Lower, device="cpu")
+    B = stt.hermitian(np.tril(b), NB, stt.Uplo.Lower, device="cpu")
+    w, X, info = stt.hegv(A, B, stt.Options(method_eig=stt.MethodEig.DC))
+    rw, _, rinfo = st.hegv(st.hermitian(np.tril(a), nb=NB, uplo=RUplo.Lower),
+                           st.hermitian(np.tril(b), nb=NB, uplo=RUplo.Lower),
+                           ROptions(method_eig=RMethodEig.DC))
+    assert int(info) == int(rinfo) == 0
+    w = w.numpy()
+    assert np.all(np.abs(w - np.asarray(rw)) <= _value_tol(dt, np.asarray(rw)))
+    x = X.to_numpy().astype(np.complex128)
+    a64, b64 = a.astype(np.complex128), b.astype(np.complex128)
+    tol = DC_N * (1e-11 if dt is not np.float32 else 1e-2)
+    assert np.abs(a64 @ x - (b64 @ x) * w).max() < tol * max(
+        1.0, np.abs(w).max())
 
 
 def test_qr_above_the_cap_raises_where_the_reference_redirects(monkeypatch):
-    """As tests/test_eig_svd.py's test_heev_qr_redirects_above_cap, with
-    the cap at 64 and n = 96: the reference warns and runs stedc, the
-    port raises naming item 8(b) until stedc is ported."""
-    monkeypatch.setattr(eig, "_STEQR_MAX_N", 64)
+    """Under its old name (the port raised here until stedc was ported):
+    as tests/test_eig_svd.py's test_heev_qr_redirects_above_cap, with the
+    cap at 64 and n = 96, both packages warn with the same RuntimeWarning
+    and run DC; hegv warns once. At the cap QR runs."""
+    import warnings
+
+    from slate_tpu.linalg import eig as reig
     a = _separated(96, 1, np.float64)
     A = stt.hermitian(np.tril(a), 32, stt.Uplo.Lower, device="cpu")
+    R = st.hermitian(np.tril(a), nb=32, uplo=RUplo.Lower)
     qr = stt.Options(method_eig=stt.MethodEig.QR)
-    _no_work(monkeypatch)
-    with pytest.raises(NotImplementedError, match=r"capped at n=64.*8\(b\)"):
-        stt.heev(A, qr)
-    monkeypatch.undo()
+    monkeypatch.setattr(eig, "_STEQR_MAX_N", 64)
+    monkeypatch.setattr(reig, "_STEQR_MAX_N", 64)
+    monkeypatch.setattr(reig, "_STEQR_PY_MAX_N", 64)
+
+    def warned(call):
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            out = call()
+        return out, [(r.category, str(r.message)) for r in rec]
+
+    (w, Z), got = warned(lambda: stt.heev(A, qr))
+    (rw, RZ), want = warned(lambda: st.heev(
+        R, ROptions(method_eig=RMethodEig.QR)))
+    assert got == want and len(got) == 1 and got[0][0] is RuntimeWarning
+    assert "redirecting n=96 to MethodEig.DC" in got[0][1]
+    wd, Zd = stt.heev(A, stt.Options(method_eig=stt.MethodEig.DC))
+    assert torch.equal(w, wd) and torch.equal(Z.data, Zd.data)
+    _check_dc(np.float64, a, w, Z, rw, RZ)
+    B = stt.hermitian(np.eye(96) * 2.0, 32, stt.Uplo.Lower, device="cpu")
+    (_, _, info), got = warned(lambda: stt.hegv(A, B, qr))
+    assert int(info) == 0 and got == want
     monkeypatch.setattr(eig, "_STEQR_MAX_N", 96)
-    w, _ = stt.heev(A, qr, want_vectors=False)  # at the cap it runs
+    (w, _), got = warned(lambda: stt.heev(A, qr, want_vectors=False))
+    assert got == []  # at the cap it runs QR
     assert np.abs(w.numpy() - np.linspace(-1, 1, 96)).max() < 1e-12
 
 
@@ -353,8 +454,14 @@ def test_qr_above_the_cap_raises_where_the_reference_redirects(monkeypatch):
                    "unmtr_he2hb"}),
     ("auto", {"he2hb", "unmtr_he2hb"}),
     ("hegv", {"potrf", "hegst", "he2td", "steqr", "unmtr_he2td"}),
+    ("dc", {"he2td", "stedc", "unmtr_he2td"}),
+    ("dc_two_stage", {"he2hb", "hb2td", "stedc", "unmtr_hb2td",
+                      "unmtr_he2hb"}),
+    ("auto_dc", {"he2td", "stedc", "unmtr_he2td"}),
+    ("hegv_dc", {"potrf", "hegst", "he2td", "stedc", "unmtr_he2td"}),
 ])
-def test_drivers_call_every_stage_through_the_hooks(arm, stages):
+def test_drivers_call_every_stage_through_the_hooks(arm, stages,
+                                                    monkeypatch):
     """chip_smoke.py times and profile_factors.py profiles the eig stages
     by replacing their module names (obs/stages.py): each driver arm
     calls exactly its stages through them, and the hooks are restored."""
@@ -370,18 +477,25 @@ def test_drivers_call_every_stage_through_the_hooks(arm, stages):
             return fn(*args, **kw)
         return run
 
+    qr, dc = stt.MethodEig.QR, stt.MethodEig.DC
+    if arm == "auto_dc":
+        monkeypatch.setattr(eig, "_DC_MIN_N", 32)
     with wrapped_stages(note) as saved:
-        if arm == "hegv":
+        if arm.startswith("hegv"):
             B = stt.hermitian(np.eye(n) * 2.0, 8, stt.Uplo.Lower,
                               device="cpu")
             w, _, info = stt.hegv(A, B, stt.Options(
-                method_eig=stt.MethodEig.QR))
+                method_eig=dc if arm == "hegv_dc" else qr))
             assert int(info) == 0
         else:
-            opts = {"qr": stt.Options(method_eig=stt.MethodEig.QR),
-                    "two_stage": stt.Options(method_eig=stt.MethodEig.QR,
+            opts = {"qr": stt.Options(method_eig=qr),
+                    "two_stage": stt.Options(method_eig=qr,
                                              eig_stage1="two_stage"),
-                    "auto": stt.Options()}[arm]
+                    "auto": stt.Options(),
+                    "dc": stt.Options(method_eig=dc),
+                    "dc_two_stage": stt.Options(method_eig=dc,
+                                                eig_stage1="two_stage"),
+                    "auto_dc": stt.Options()}[arm]
             w, _ = stt.heev(A, opts)
     assert set(called) == stages and set(called) <= set(EIG_STAGES)
     assert np.isfinite(w.numpy()).all()

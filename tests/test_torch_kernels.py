@@ -157,7 +157,8 @@ def test_cpu_dispatch_counts_no_launch_and_rejects_complex():
                                         "qr_panel_batched",
                                         "chol_update_sweep",
                                         "qr_append_build",
-                                        "qr_append_apply"}
+                                        "qr_append_apply",
+                                        "secular_roots"}
     assert not any(hopper_ops.LAUNCHES.values())
     # complex: K1-K4 take it (their plain versions here, no launch); K5
     # raises and names the ROADMAP part that brings it
