@@ -259,7 +259,9 @@ Phases, one JSON line each:
            gives Q drawn by numpy from the seed. First stedc alone at
            n = STEDC_N in float64 on its three arms (STEDC_KINDS: a
            Gaussian tridiagonal, glued Wilkinson W21⁺ blocks joined by
-           1e-9, d = 1 with e = 1e-12): its wall, P9's launches and
+           1e-9, d = 1 with e = 1e-12): its wall, P9's launches (on the
+           Gaussian one also P9's device ms over them, by torch.profiler
+           on one more run) and
            scipy.linalg.eigh_tridiagonal's wall on the same (d, e), the
            eigenvalues within n·STEDC_VALUE_C·max(1, |w|) of scipy's,
            ‖ZᵀZ − I‖max under n·STEDC_ORTH_C and ‖T·Z − Z·Λ‖max under
@@ -298,15 +300,22 @@ Phases, one JSON line each:
            gives the host's CPU count and torch's thread count (the host
            steqr's OpenMP threads).
 The kernel phase also holds P9 (secular_roots, stedc's secular roots)
-against its plain version at k = 4096, 512 and 16384 (P9_KS) on a
+against its plain version at k = 4096, 512, 16384 and 64 (P9_KS) on a
 Gaussian spectrum, a clustered one (half of δ 1e-9 to 2e-9 apart) and
 one with every third z 1e-7 of the others (roots against their poles):
 the roots δ[shift] + μ within SECULAR_ROOT_C·ε·max(max|δ|, ρ) (a flipped
 pole choice is counted, not failed), the merge's eigenvectors built from
-the kernel's (shift, μ) orthogonal to k·SECULAR_ORTH; timed by CUDA
-events and device ms beside the plain version's one call, its bound
-(61·k² pole terms at 3 float64 operations at the FMA rate) and
-torch.linalg.eigvalsh of the dense k × k diag(δ) + ρ·z·zᵀ.
+the kernel's (shift, μ) orthogonal to k·SECULAR_ORTH, and a second launch
+equal to the first bit for bit; timed by CUDA events and device ms beside
+the plain version's one call, its bound (61·k² pole terms at 3 float64
+operations at the FMA rate) and torch.linalg.eigvalsh of the dense k × k
+diag(δ) + ρ·z·zᵀ. Each row gives its plan (secular_roots_plan(k), which
+must equal the built kernel's own plan_for), ptxas's registers and spill
+stores for the instance it launches, and the ns a pole term of one
+lane's chain (device ms / (62·⌈k/L⌉)) and per term and lane over the
+card (device ms / (62·k·⌈k/L⌉)). The kernel's reciprocal is held to
+IEEE division on 2²⁰ denominators over 1e-300 ≤ |den| ≤ 1e300 (its
+largest error in ulps, printed; at most P9_RECIP_ULPS).
 The kernel phase also holds the incremental-update kernels P6
 (chol_update_sweep), P7 (qr_append_build) and P8 (qr_append_apply)
 against their plain versions (UPDATE_TOL of max |plain|, bitwise
@@ -4638,10 +4647,26 @@ def complex_spills(_build):
     in the mangled name) of the sources this run built, and for every
     instance of P6 (chol_update), P7 and P8 (qr_append), from the build
     log; names demangled by c++filt where it is installed."""
+    rows = [{k: v for k, v in r.items() if k != "mangled"}
+            for r in ptxas_rows(_build)
+            if "2CxI" in r["mangled"] or r["source"] in ("chol_update",
+                                                         "qr_append")]
+    check(rows or not _build.BUILD_LOG,
+          "the build log shows no complex instance")
+    return rows
+
+
+def ptxas_rows(_build, sources=None):
+    """ptxas's registers and spill stores for every function of the
+    sources this run built (every source, or those of ``sources``), from
+    the build log; names demangled by c++filt where it is installed
+    ("mangled" keeps ptxas's own)."""
     import re
     import shutil
     rows = []
     for src, log in sorted(_build.BUILD_LOG.items()):
+        if sources is not None and src not in sources:
+            continue
         fn, spill = None, 0
         for line in log["ptxas"].splitlines():
             m = re.search(r"Function properties for (\S+)", line)
@@ -4654,10 +4679,9 @@ def complex_spills(_build):
                 continue
             m = re.search(r"Used (\d+) registers", line)
             if m and fn is not None:
-                if "2CxI" in fn or src in ("chol_update", "qr_append"):
-                    rows.append({"source": src, "function": fn,
-                                 "registers": int(m.group(1)),
-                                 "spill_stores": spill})
+                rows.append({"source": src, "function": fn, "mangled": fn,
+                             "registers": int(m.group(1)),
+                             "spill_stores": spill})
                 fn, spill = None, 0
     cxxfilt = shutil.which("c++filt")
     if cxxfilt and rows:
@@ -4668,8 +4692,6 @@ def complex_spills(_build):
         if out.returncode == 0 and len(names) == len(rows):
             for r, name in zip(rows, names):
                 r["function"] = name
-    check(rows or not _build.BUILD_LOG,
-          "the build log shows no complex instance")
     return rows
 
 
@@ -4677,9 +4699,12 @@ def complex_spills(_build):
 # P9 (the secular roots of stedc's merges) and stedc on its own
 # ---------------------------------------------------------------------------
 
-P9_KS = (4096, 512, 16384)   # the first: a merge at the top of n = 8192
+# the first: a merge at the top of n = 8192; 64: half of stedc's merges
+P9_KS = (4096, 512, 16384, 64)
 P9_SPECTRA = ("random", "clustered", "tiny_z")
 P9_DEVICE_LAUNCHES = 10      # P9 launches queued behind the sleep
+P9_PASSES = 62               # pole choice, 55 bisections, 4 Newton, 2 fixed
+P9_RECIP_ULPS = 2.0          # the kernel's reciprocal against IEEE division
 STEDC_N = 4096
 STEDC_KINDS = ("random", "glued_wilkinson", "ties")
 # tests/test_stedc.py's torture bounds, as multiples of n
@@ -4741,17 +4766,26 @@ def p9_case(torch, ho, k, kind, rng):
     del V
     check(orth < k * ho.SECULAR_ORTH, f"secular_roots: k = {k} {kind}: "
           f"eigenvectors {orth} from orthogonal")
+    up2, mu2 = ho.secular_roots(delta, z2, rho)
+    same = bool(torch.equal(up, up2)) and bool(torch.equal(
+        mu.view(torch.int64), mu2.view(torch.int64)))
+    check(same, f"secular_roots: k = {k} {kind}: two launches differ")
+    plan = ho.secular_roots_plan(k)
+    check(tuple(plan) == p9_built_plan(ho, k), f"secular_roots: k = {k}: "
+          f"plan {tuple(plan)} is not the kernel's {p9_built_plan(ho, k)}")
     row = {"k": k, "spectrum": kind, "dtype": "float64", "rho": rho,
            "max_abs_err": err, "tolerance": tol,
            "flipped": int((up != up_p).sum()), "orthogonality": orth,
-           "plan": {"ctas": -(-k // ho.SECULAR_THREADS),
-                    "threads": ho.SECULAR_THREADS,
-                    "tile": ho.SECULAR_TILE}}
+           "deterministic": same, "plan": plan._asdict(),
+           "ptxas": p9_ptxas(plan)}
 
     def run():
         ho.secular_roots(delta, z2, rho)
     row["ms"] = cuda_ms(run, reps=3)
     row["device_ms"] = device_ms(run, P9_DEVICE_LAUNCHES)
+    chain = P9_PASSES * -(-k // plan.lanes)  # terms a lane sums a launch
+    row["ns_per_chain_term"] = row["device_ms"] * 1e6 / chain
+    row["ns_per_term_lane"] = row["device_ms"] * 1e6 / (k * chain)
     row["plain_ms"] = plain_ms
     row["bound_ms"], row["bound_by"] = bound(2 * k * 8 + k * 9, 61 * k * k * 3,
                                              "float64", FMA_FLOPS)
@@ -4764,11 +4798,71 @@ def p9_case(torch, ho, k, kind, rng):
     return row
 
 
+def p9_built_plan(ho, k):
+    """The plan the built kernel launches at k (its plan_for)."""
+    import ctypes
+    out = (ctypes.c_int * 5)()
+    rc = ho._fn("secular", "slate_secular_plan",
+                [ctypes.c_int, ctypes.c_void_p])(k, ctypes.addressof(out))
+    check(rc == 0, f"slate_secular_plan({k}) returned {rc}")
+    return out[0], out[1], out[2], bool(out[3]), out[4]
+
+
+def p9_ptxas(plan):
+    """ptxas's registers and spill stores for the kernel instance that
+    ``plan`` launches (secular_roots_kernel<lanes, resident>)."""
+    from slate_tpu_torch.ops import _build
+    want = (f"secular_roots_kernel<{plan.lanes}, "
+            f"{str(plan.resident).lower()}>")
+    mangled = f"secular_roots_kernelILi{plan.lanes}ELb{int(plan.resident)}E"
+    rows = [r for r in ptxas_rows(_build, ("secular",))
+            if want in r["function"] or mangled in r["mangled"]]
+    return {k: rows[0][k] for k in ("function", "registers",
+                                    "spill_stores")} if rows else None
+
+
+def p9_recip(torch, ho):
+    """The kernel's reciprocal of a clamped denominator against IEEE
+    division (torch's 1/x) on 2²⁰ denominators, mantissas uniform, both
+    signs, exponents uniform over 1e-300 ≤ |den| ≤ 1e300, and ±0 and
+    subnormals (clamped to ±1e-300, sign kept, a zero to +1e-300):
+    the largest error in ulps of the exact quotient."""
+    import ctypes
+    import numpy as np
+    rng = np.random.default_rng(1)
+    n = 1 << 20
+    x = (rng.uniform(1.0, 2.0, n) * 10.0 ** rng.uniform(-300, 300, n)
+         * rng.choice([-1.0, 1.0], n))
+    x[:6] = [0.0, -0.0, 5e-324, -5e-324, 1e-310, -2e-308]
+    xt = torch.as_tensor(x, device="cuda")
+    out = torch.empty_like(xt)
+    f = ho._fn("secular", "slate_secular_recip_f64",
+               [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_void_p])
+    rc = f(xt.data_ptr(), out.data_ptr(), n,
+           torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"slate_secular_recip_f64 returned {rc}")
+    got = out.cpu().numpy()
+    clamped = np.where(np.abs(x) < 1e-300,
+                       np.where(x < 0, -1e-300, 1e-300), x)
+    exact = 1.0 / clamped
+    ulps = np.abs(got - exact) / np.spacing(np.abs(exact))
+    row = {"n": n, "max_ulps": float(ulps.max()),
+           "mean_ulps": float(ulps.mean()),
+           "share_not_rounded_to_nearest": float((got != exact).mean()),
+           "tiny_and_zero": got[:6].tolist()}
+    check(bool(np.isfinite(got).all()) and row["max_ulps"] <= P9_RECIP_ULPS
+          and bool(np.all(np.sign(got) == np.sign(clamped))),
+          f"secular_roots: the reciprocal is {row['max_ulps']} ulps off")
+    return row
+
+
 def p9_rows(torch, ho, rng):
     """P9 at every k of P9_KS on every spectrum of P9_SPECTRA (the first
-    row, k = 4096 random, is the kernels line's)."""
-    return [p9_case(torch, ho, k, kind, rng) for k in P9_KS
+    row, k = 4096 random, is the kernels line's), and its reciprocal."""
+    rows = [p9_case(torch, ho, k, kind, rng) for k in P9_KS
             for kind in P9_SPECTRA]
+    return rows, p9_recip(torch, ho)
 
 
 def stedc_tridiagonal(kind, n, rng):
@@ -4795,6 +4889,35 @@ def tridiag_times(torch, d, e, z):
     tz[:-1] += e[:, None] * z[1:]
     tz[1:] += e[:, None] * z[:-1]
     return tz
+
+
+def stedc_p9_profile(torch, ho, stedc, d, e):
+    """stedc on (d, e) once more under torch.profiler: P9's device ms
+    summed over its launches (secular_roots_kernel events), their count
+    beside the wrapper's launches (a profiler has been seen to drop one
+    event of a window: a small kernel opens it), and the profiled
+    wall."""
+    from torch.profiler import ProfilerActivity, profile
+    before = ho.LAUNCHES["secular_roots"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stedc(d, e, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    mine = [ev for ev in prof.key_averages()
+            if str(ev.device_type).endswith("CUDA")
+            and "secular_roots_kernel" in ev.key]
+    us = sum(getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0)) for ev in mine)
+    count = sum(ev.count for ev in mine)
+    launches = ho.LAUNCHES["secular_roots"] - before
+    check(us > 0 and 0 < count <= launches, f"stedc: the profiler saw "
+          f"{count} P9 launches ({us} µs), the wrapper {launches}")
+    return {"p9_device_ms": us / 1e3, "p9_profiled_launches": count,
+            "p9_launches": launches, "profiled_wall_s": wall}
 
 
 def stedc_case(torch, ho, kind, n, rng, failures):
@@ -4827,6 +4950,8 @@ def stedc_case(torch, ho, kind, n, rng, failures):
            "residual": float((tridiag_times(torch, dt, et, z)
                               - z * wt[None, :]).abs().max()) / scale}
     del z
+    if kind == "random":  # P9's device time inside stedc, by the profiler
+        row.update(stedc_p9_profile(torch, ho, stedc, d, e))
     if not (row["value_err"] <= n * STEDC_VALUE_C
             and row["orthogonality"] < n * STEDC_ORTH_C
             and row["residual"] < n * STEDC_RES_C):
@@ -5419,8 +5544,8 @@ def main(argv=None) -> int:
         # P9: stedc's secular roots
         import numpy as np
         t_p9 = time.perf_counter()
-        p9 = p9_rows(torch, ho, np.random.default_rng(args.seed))
-        emit("kernel", name="secular_roots", cases=p9,
+        p9, p9_rcp = p9_rows(torch, ho, np.random.default_rng(args.seed))
+        emit("kernel", name="secular_roots", cases=p9, reciprocal=p9_rcp,
              seconds=time.perf_counter() - t_p9)
         # counted paths: the check phase, then the main phase
         ho.reset_launches()
@@ -5641,7 +5766,7 @@ def main(argv=None) -> int:
     # Its launches are the eig phase's (stedc alone, heev and hegv)
     p9_keys = ("max_abs_err", "tolerance", "flipped", "orthogonality", "ms",
                "device_ms", "plain_ms", "bound_ms", "bound_by",
-               "library_ms", "plan")
+               "library_ms", "plan", "ns_per_chain_term")
     check(eig_launches["secular_roots"] > 0,
           "secular_roots was not launched in the eig phase")
     kern = {"name": "secular_roots", "route": "cuda",

@@ -80,7 +80,8 @@ P7 (``qr_append_build``: the structured QR of [R; U]) and P8
 (``qr_append_apply``: the appended reflectors applied to a solve's
 right-hand sides), each bit for bit its plain version. The divide &
 conquer eigensolver (``linalg/stedc.py``) adds P9 (``secular_roots``: the
-roots of a merge's secular equation, a thread a root, float64 only),
+roots of a merge's secular equation, a root's pole sums split over the
+lanes of a warp with the plan ``secular_roots_plan``, float64 only),
 within a stated tolerance of its plain version.
 """
 
@@ -2192,8 +2193,17 @@ SECULAR_BISECT = 55   # halvings: the bracket to w·2⁻⁵⁵, full f64 accurac
 SECULAR_NEWTON = 4    # bracket-safeguarded Newton steps after them
 SECULAR_FIXED = 2     # near-pole fixed-point steps
 SECULAR_CHUNK = 2048  # roots a plain-version pass takes (k × chunk temporaries)
-SECULAR_THREADS = 32  # P9's threads a CTA, one root each (csrc/secular.cu)
-SECULAR_TILE = 1024   # poles a CTA stages in shared memory at a time
+# P9's plan (csrc/secular.cu's plan_for, from k alone): a root's pole sums
+# over SECULAR_MIN_LANES to 32 lanes of a warp, at most SECULAR_MAX_WARPS
+# warps a CTA, the poles resident in shared memory up to
+# SECULAR_RESIDENT_MAX (16 bytes a pole within the 227 KB a CTA may take),
+# else staged SECULAR_TILE at a time
+SECULAR_MAX_WARPS = 16
+SECULAR_MIN_LANES = 4
+SECULAR_SMS = 132     # the H100's SMs: one wave of CTAs where k allows
+SECULAR_RESIDENT_MAX = 14336
+SECULAR_TILE = 4096
+SECULAR_SMEM_MAX = 232448
 # P9 against its plain version (chip_smoke.py): the roots
 # λ_j = δ[shift_j] + μ_j within SECULAR_ROOT_C·ε₆₄·max(max|δ|, ρ) (both
 # bracket each root to about w·2⁻⁵⁵ and sum the same terms in other
@@ -2201,6 +2211,38 @@ SECULAR_TILE = 1024   # poles a CTA stages in shared memory at a time
 # (shift, μ) orthogonal to k·SECULAR_ORTH
 SECULAR_ROOT_C = 64.0
 SECULAR_ORTH = 1e-14
+
+
+class P9Plan(NamedTuple):
+    """P9's launch at k roots: ``ctas`` CTAs of ``warps`` warps, each
+    root's pole sums over ``lanes`` lanes (32 / lanes roots a warp), the
+    poles ``resident`` in shared memory for the whole schedule or staged
+    SECULAR_TILE at a time, ``smem`` dynamic shared bytes a CTA."""
+    ctas: int
+    warps: int
+    lanes: int
+    resident: bool
+    smem: int
+
+
+def secular_roots_plan(k: int) -> P9Plan:
+    """P9's plan for k roots, from k alone (csrc/secular.cu's ``plan_for``,
+    which the launch takes): the widest lanes a root of 32, 16, 8, 4 whose
+    k·lanes/32 root-warps fit one wave of SECULAR_MAX_WARPS-warp CTAs on
+    SECULAR_SMS SMs; as few warps a CTA as spread the roots over every SM;
+    the poles resident where 16·k bytes fit (k ≤ SECULAR_RESIDENT_MAX).
+    The roots' bits depend on ``lanes`` alone (the order of each sum)."""
+    if k < 1:
+        raise SlateError(f"secular_roots_plan: no plan for k = {k}")
+    lanes = 32
+    while lanes > SECULAR_MIN_LANES and (
+            k * lanes > 32 * SECULAR_SMS * SECULAR_MAX_WARPS):
+        lanes //= 2
+    per_warp = 32 // lanes
+    warps = min(SECULAR_MAX_WARPS, -(-k // (per_warp * SECULAR_SMS)))
+    resident = k <= SECULAR_RESIDENT_MAX
+    return P9Plan(-(-k // (per_warp * warps)), warps, lanes, resident,
+                  16 * (k if resident else SECULAR_TILE))
 
 
 def _secular_f(gap: torch.Tensor, m: torch.Tensor, z2: torch.Tensor,
@@ -2303,17 +2345,22 @@ def secular_roots(delta: torch.Tensor, z2: torch.Tensor, rho: float
     No Pallas counterpart: replaces the reference's df32 sweep
     ``_secular_kernel_body`` (slate_tpu/linalg/stedc.py:171-290, a
     ``lax.map`` of ``fori_loop``s XLA fuses into one program) and its host
-    ``_secular_roots`` (:74-168). The CUDA kernel (csrc/secular.cu) gives
-    each root one thread, SECULAR_THREADS a CTA, and runs the plain
-    version's whole schedule in one launch: the pole choice, 55
-    bisections, 4 safeguarded Newton steps and 2 fixed-point steps, every
-    f a float64 sum over the poles in index order, which the CTA streams
-    through shared memory SECULAR_TILE at a time (all threads read the
-    same pole at once: a broadcast). The widths δ_{j+1} − δ_j and ρ‖z‖²
-    are made in the kernel. Its sums run in another order than the plain
-    version's, so the two agree within SECULAR_ROOT_C·ε·max(max|δ|, ρ) on
-    the roots; a pole choice flipped where f at the midpoint is within
-    rounding of zero changes (upper, μ) but not the root."""
+    ``_secular_roots`` (:74-168). The CUDA kernel (csrc/secular.cu) runs
+    the plain version's whole schedule in one launch: the pole choice, 55
+    bisections, 4 safeguarded Newton steps and 2 fixed-point steps. Each
+    root's sums are split over a group of lanes of one warp (the plan
+    ``secular_roots_plan(k)``): lane l sums poles l, l + L, … in order,
+    one branch-free reciprocal a term (its denominator clamped to
+    |den| ≥ 1e-300, sign kept), and a fixed xor butterfly gives every lane
+    of the group the same f bit for bit, so the schedule stays uniform.
+    The poles stay in shared memory for the whole launch up to
+    SECULAR_RESIDENT_MAX, else are staged SECULAR_TILE at a time each
+    pass. The widths δ_{j+1} − δ_j and ρ‖z‖² are made in the kernel. Its
+    sums run in another order than the plain version's, so the two agree
+    within SECULAR_ROOT_C·ε·max(max|δ|, ρ) on the roots; a pole choice
+    flipped where f at the midpoint is within rounding of zero changes
+    (upper, μ) but not the root. Two launches on one input give the same
+    bits."""
     name = "secular_roots"
     if delta.dtype != torch.float64 or z2.dtype != torch.float64:
         raise SlateError(f"{name}: float64 only, got {delta.dtype} and "

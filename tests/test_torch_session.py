@@ -12,12 +12,15 @@
   serves the reference posv's X (at nb = 32, whose iterative loop
   compiles in seconds; the reference's recursion at nt > 64 takes about
   a minute on the CPU) to 1e-10 relative in float64;
-- no module of the port, and not chip_smoke.py, imports jax or slate_tpu;
+- no module of the port, not chip_smoke.py and not its measurement scripts
+  (profile_factors.py, tools/p*_ablation.py, p3_plans.py, stedc_split.py)
+  imports jax or slate_tpu;
 - entry points without ``device=`` raise when no CUDA device is present.
 """
 
 import ast
 import functools
+import glob
 import os
 
 import numpy as np
@@ -249,6 +252,12 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    # the port's measurement scripts
+    for f in ("profile_factors.py", "tools/p3_plans.py",
+              "tools/stedc_split.py"):
+        yield os.path.join(ROOT, f)
+    yield from sorted(glob.glob(os.path.join(ROOT, "tools",
+                                             "p*_ablation.py")))
 
 
 def _imports(path):

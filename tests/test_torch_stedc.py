@@ -216,7 +216,10 @@ def test_secular_kernel_constants_match_hopper_ops():
     with open(os.path.join(ROOT, "slate_tpu_torch", "csrc",
                            "secular.cu")) as f:
         src = f.read()
-    for cname, value in (("kThreads", ho.SECULAR_THREADS),
+    for cname, value in (("kMaxWarps", ho.SECULAR_MAX_WARPS),
+                         ("kMinLanes", ho.SECULAR_MIN_LANES),
+                         ("kSms", ho.SECULAR_SMS),
+                         ("kResidentMax", ho.SECULAR_RESIDENT_MAX),
                          ("kTile", ho.SECULAR_TILE),
                          ("kBisect", ho.SECULAR_BISECT),
                          ("kNewton", ho.SECULAR_NEWTON),
@@ -225,3 +228,5 @@ def test_secular_kernel_constants_match_hopper_ops():
         assert m and int(m.group(1)) == value, cname
     # the same guards as the plain version
     assert "1e-300" in src and "1e300" in src
+    # the resident poles (16 bytes each) fit the 227 KB a CTA may take
+    assert 16 * ho.SECULAR_RESIDENT_MAX <= ho.SECULAR_SMEM_MAX
