@@ -269,11 +269,12 @@ Phases, one JSON line each:
            bounds). Then heev with MethodEig.QR and vectors at
            n = EIG_VEC_N (the host steqr with vectors takes about 50 s at
            4096 on the H100 machine's 8-CPU host, so QR's vectors run at
-           2048), nb = EIG_NB in float64 and float32, through he2td and
-           through two_stage (he2hb + hb2td's chase), and MethodEig.DC
-           through two_stage in float64; complex128 and complex64 at
-           EIG_COMPLEX_N through both stage-1 paths under QR and through
-           he2td under DC; Auto (he2hb + a dense eigh of the band) at the
+           2048), nb = EIG_NB in float64, through he2td and through
+           two_stage (he2hb + hb2td's chase), and MethodEig.DC through
+           two_stage; the same two QR paths at EIG_REPEAT_N in float32,
+           complex128 and complex64 (the same host steqr as float64's);
+           complex128 and complex64 at EIG_COMPLEX_N through he2td under
+           DC; Auto (he2hb + a dense eigh of the band) at the
            uneven EIG_AUTO_N; values only at EIG_VALUES_N (the steqr cap)
            in float32 under QR and under DC; QR at EIG_REDIRECT_N, above
            the cap, values only in float32, which must warn the
@@ -299,6 +300,35 @@ Phases, one JSON line each:
            hegv's are zeroed, so they are not counted. The line also
            gives the host's CPU count and torch's thread count (the host
            steqr's OpenMP threads).
+11. svd   the SVD (svd_phase), every operator U·diag(σ)·Vᴴ with U and V
+           from the float64 (complex128) QR of Gaussians drawn by numpy
+           from the seed and σ geometric from 1 to 1/SVD_COND (the JAX
+           package's svd_geo, cond = 100), rounded to the case's type:
+           (a) Auto at SVD_N = 8192 square float32, nb = 1024 (the
+           reference's own svd row; DC: ge2bd + bdsqr), values only and
+           with vectors, beside torch.linalg.svdvals and
+           torch.linalg.svd(full_matrices=False) on the same operand (one
+           call each, cuSOLVER; yardsticks the port never calls); (b) the
+           tall pre-QR arm at (32768, 4096) float32, nb = 512 (geqrf: K4;
+           R by DC at 4096; unmqr), beside svdvals; (c) (4096, 1024)
+           complex128, nb = 32, under MethodSVD.DC (geqrf: K3's complex128
+           instance); (d) Auto at 2048 in complex64 and complex128; (e)
+           the band arm (ge2tb, then hb2td and stedc on the Golub–Kahan
+           embedding) at the uneven n = 1100 float64, nb = 256, values
+           only and with vectors; (f) the dense band arm through the wide
+           transpose at (700, 1000) float32, nb = 128; (g) rank 1536 of
+           2048 float64 under DC (the σ ≈ 0 columns completed). Each case
+           prints its wall, GFLOP/s by flops.svd, each stage's ms
+           (svd_stage_timer), its seconds and, where ge2bd ran, µs a labrd
+           column beside the bytes bound of its two matrix-vector
+           products; σ must lie within SVD_VALUE_TOL·σ₁ of the known
+           spectrum (zeros included), with vectors
+           ‖A − U·Σ·Vᴴ‖₁/(‖A‖₁·max(m, n)·ε), ‖UᴴU − I‖₁/(m·ε) and
+           ‖VᴴV − I‖₁/(n·ε) under SVD_GATE, and each arm must run its
+           stages (through obs/stages.SVD_STAGES). P9, P1 and K4 must be
+           launched in the phase, and K3 in complex128. The labrd chain's
+           device events a column come from the profiler at
+           SVD_CHAIN_N after the phase's launches are read.
 The kernel phase also holds P9 (secular_roots, stedc's secular roots)
 against its plain version at k = 4096, 512, 16384 and 64 (P9_KS) on a
 Gaussian spectrum, a clustered one (half of δ 1e-9 to 2e-9 apart) and
@@ -321,7 +351,8 @@ The kernel phase also holds the incremental-update kernels P6
 against their plain versions (UPDATE_TOL of max |plain|, bitwise
 printed; on the H100 they have been bit for bit): at the update phase's
 shapes in float32 (P6 on the dense n × n factor at kb = 16 and kb = 1 and
-on a (1000, 256, 256) stack at kb = 2; P7 on the qr operator's n/2 × n/2
+on a (1000, 256, 256) stack at kb = 2, untimed at P6_UNTIMED_N under the
+same CTA plan at kb = 4 up and down and through the bfloat16 route; P7 on the qr operator's n/2 × n/2
 R with 16 appended rows; P8 on its 16-column solve padded to 512
 columns, also in float64, complex64 and complex128), timed by CUDA
 events beside the plain version's one call, the refactor it replaces
@@ -357,8 +388,8 @@ instance and every instance of P6, P7 and P8.
 
 The kernels' launch counters are zeroed just before the check phase,
 the main phase, the serve phase, the small phase, the complex phase, the
-complex_small phase, the mixed phase, the update phase and the eig phase
-(and its hegv) and read just after each (also by element type:
+complex_small phase, the mixed phase, the update phase, the eig phase
+(and its hegv) and the svd phase and read just after each (also by element type:
 each kernel's "dtypes" and "launches_by_dtype" in the kernels line);
 the launches made to compare a kernel with its plain version are not
 counted.
@@ -372,7 +403,7 @@ P4 and P5 at the engine's other shapes under "at_..."; the complex
 instances of K1-K4 and P2-P5 under "at_complex64_..." and
 "at_complex128_..."; P6-P8 with their update-phase launches, whether
 they equal their plain versions bit for bit, and their other rows
-under "at_..."; P9 with its eig-phase launches, its k = 4096 Gaussian
+under "at_..."; P9 with its eig- and svd-phase launches, its k = 4096 Gaussian
 row and its other rows under "at_k<k>_<spectrum>"), the nvidia-smi line,
 and last
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
@@ -3983,6 +4014,9 @@ UPDATE_TOL = {"float32": 1e-5, "complex64": 1e-5, "float64": 1e-12,
 DEP_CYCLES = {"float32": 4.055, "float64": 8.024}
 UPDATE_SMALL_OPS = 1000  # chol_small operators of the update phase
 UPDATE_SMALL_N = 256
+# the untimed P6 rows (k = 3 at bucket 4 up and down, the bf16 route at
+# kb = 16): their plain versions took about 200 s at n = 16384
+P6_UNTIMED_N = 4096
 
 
 def once_ms(torch, fn):
@@ -4273,8 +4307,9 @@ def p7_reflectors(torch, ho, npad, n, P, p_live, dtype, gen):
 def update_kernel_rows(torch, ho, gen, n):
     """P6, P7 and P8 against their plain versions: first at the update
     phase's shapes in float32 (timed: the dense sweep at n, kb = 16 and
-    kb = 1; the (1000, 256, 256) stack at kb = 2; untimed: kb = 4 up and
-    down and the bfloat16 route at kb = 16; P7 at the 2n × n/2 qr
+    kb = 1; the (1000, 256, 256) stack at kb = 2; untimed, at
+    P6_UNTIMED_N under the n rows' CTA plan: kb = 4 up and down and the
+    bfloat16 route at kb = 16; P7 at the 2n × n/2 qr
     operator's 16 appended rows; P8 at its 16-column solve, padded to 512
     columns), then at 2048 in float32, float64, complex64 and complex128
     (an update and a failed downdate for P6), then P6's exact contracts.
@@ -4284,15 +4319,22 @@ def update_kernel_rows(torch, ho, gen, n):
     p6 = [p6_case(torch, ho, n, 16, f32, gen, scale=0.01, timed=True),
           p6_case(torch, ho, n, 1, f32, gen, scale=0.01, timed=True),
           p6_case(torch, ho, UPDATE_SMALL_N, 2, f32, gen, bsz=1000,
-                  timed=True),
-          # the update phase's other instances at its size: k = 3 at
-          # bucket 4, the downdate that undoes it, and the refined
-          # operator's bfloat16 route at kb = 16
-          p6_case(torch, ho, n, 4, f32, gen, scale=0.01, k=3),
-          p6_case(torch, ho, n, 4, f32, gen, sign=-1, scale=0.005, k=3),
-          p6_case(torch, ho, n, 16, torch.bfloat16, gen, scale=0.01)]
+                  timed=True)]
+    # the update phase's other instances, untimed, at P6_UNTIMED_N under
+    # the same plan (CTAs of P6_ROWS rows; only their count differs):
+    # k = 3 at bucket 4, the downdate that undoes it, and the refined
+    # operator's bfloat16 route at kb = 16
+    m = min(n, P6_UNTIMED_N)
+    p6 += [p6_case(torch, ho, m, 4, f32, gen, scale=0.01, k=3),
+           p6_case(torch, ho, m, 4, f32, gen, sign=-1, scale=0.005, k=3),
+           p6_case(torch, ho, m, 16, torch.bfloat16, gen, scale=0.01)]
     check(p6[4]["info_max"] == 0, "chol_update_sweep: the downdate at "
-          f"n = {n} failed")
+          f"n = {m} failed")
+    for r in p6[3:6]:
+        full = ho.chol_update_plan_for(n, r["kb"], f32)
+        check(r["plan"]["rows"] == full.rows and r["plan"]["bufs"]
+              == full.bufs, f"chol_update_sweep n = {m}, kb = {r['kb']}: "
+              f"plan {r['plan']} is not the n = {n} plan's CTA {full}")
     p7_main, wt = p7_case(torch, ho, n // 2, n // 2, 16, 16, f32, gen,
                           timed=True)
     p7 = [p7_main]
@@ -4973,6 +5015,10 @@ EIG_VALUES_N = 8192   # values only: the steqr cap (QR, and DC)
 EIG_REDIRECT_N = EIG_VALUES_N + EIG_NB  # QR above the cap: warns, runs DC
 EIG_AUTO_N = 2000     # Auto's band-dense path, uneven n
 EIG_COMPLEX_N = 2048
+# heev QR with vectors in float32, complex128 and complex64: the same host
+# steqr as float64's at EIG_VEC_N (7.8–8.6 s a call there), so these run
+# smaller to keep the smoke inside its time
+EIG_REPEAT_N = 1024
 EIG_CHAIN_N = 1024    # he2td's and hb2td's launches counted by the profiler
 EIG_GATE = 500.0      # tests/test_eig_svd.py's residual and orthogonality
 EIG_VALUE_TOL = {"float64": 1e-9, "complex128": 1e-9, "float32": 1e-4,
@@ -4993,18 +5039,19 @@ def eig_operator(torch, n, complex_, rng):
 
 
 @contextlib.contextmanager
-def eig_stage_timer(torch):
-    """Times the stage functions heev and hegv call (``obs/stages.py``)
-    while in use: CUDA events around the device stages (synchronized
-    after each), the host clock around steqr and stedc (stedc's merges
-    alternate host and device work; a sync ends it); yields the ms summed
-    by stage."""
-    from slate_tpu_torch.obs.stages import wrapped_stages
+def stage_timer(torch, hooks, host_stages):
+    """Times the stage functions a driver calls while in use (``hooks``:
+    ``obs/stages.wrapped_stages`` for heev and hegv, ``wrapped_svd_stages``
+    for svd): CUDA events around the device stages (synchronized after
+    each), the host clock ending in a sync around ``host_stages`` (steqr
+    on the host; stedc's merges, and bdsqr's, alternate host and device
+    work); yields the ms summed by stage. A stage nested in another is
+    timed inside it too (svd's bdsqr holds its stedc)."""
     ms = {}
 
     def timed(name, fn):
         def run(*args, **kw):
-            if name in ("steqr", "stedc"):
+            if name in host_stages:
                 t0 = time.perf_counter()
                 out = fn(*args, **kw)
                 torch.cuda.synchronize()
@@ -5021,14 +5068,18 @@ def eig_stage_timer(torch):
             return out
         return run
 
-    with wrapped_stages(timed):
+    with hooks(timed):
         yield ms
 
 
-def eig_yardstick(torch, a, vectors):
-    """torch.linalg.eigh's (or eigvalsh's) ms on the card's dense
-    operand (one call after a warm-up at 256; cuSOLVER's syevd)."""
-    fn = torch.linalg.eigh if vectors else torch.linalg.eigvalsh
+def eig_stage_timer(torch):
+    from slate_tpu_torch.obs.stages import wrapped_stages
+    return stage_timer(torch, wrapped_stages, ("steqr", "stedc"))
+
+
+def yardstick_ms(torch, fn, a):
+    """One timed call of a torch.linalg function (cuSOLVER) on the card's
+    operand, after a warm-up at 256², in ms by CUDA events."""
     fn(a[:256, :256])
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
@@ -5094,7 +5145,8 @@ def eig_case(torch, stt, flops, a64, lam, dtype, label, opts,
                         f"{row['value_err_rel']}·‖A‖ off")
     key = ("yardstick", n, dt, vectors)
     if key not in memo:
-        memo[key] = eig_yardstick(torch, a, vectors)
+        memo[key] = yardstick_ms(torch, torch.linalg.eigh if vectors
+                                 else torch.linalg.eigvalsh, a)
     row["yardstick_ms"] = {("eigh" if vectors else "eigvalsh"): memo[key]}
     emit("eig_case", **row)
     return row
@@ -5180,13 +5232,20 @@ def eig_phase(torch, stt, ho, seed):
     # (a), (b) QR with vectors through both stage-1 paths, and DC through
     # two_stage
     a_vec, lam = eig_operator(torch, EIG_VEC_N, False, rng)
-    run(a_vec, lam, [(dt, name, o) for dt in (f64, f32)
+    run(a_vec, lam, [(f64, name, o)
                      for name, o in (("qr", qr), ("two_stage", two))])
     run(a_vec, lam, [(f64, "dc_two_stage", dc_two)])
-    # (e) complex through both stage-1 paths under QR, and DC
-    a, lam = eig_operator(torch, EIG_COMPLEX_N, True, rng)
+    # (a), (b), (e) in the other types, at EIG_REPEAT_N: float32, then
+    # complex128 and complex64 through both stage-1 paths under QR
+    a, lam = eig_operator(torch, EIG_REPEAT_N, False, rng)
+    run(a, lam, [(f32, name, o)
+                 for name, o in (("qr", qr), ("two_stage", two))])
+    a, lam = eig_operator(torch, EIG_REPEAT_N, True, rng)
     run(a, lam, [(dt, name, o) for dt in (c128, c64)
-                 for name, o in (("qr", qr), ("two_stage", two), ("dc", dc))])
+                 for name, o in (("qr", qr), ("two_stage", two))])
+    # (e) complex under DC
+    a, lam = eig_operator(torch, EIG_COMPLEX_N, True, rng)
+    run(a, lam, [(dt, "dc", dc) for dt in (c128, c64)])
     # (d) Auto's band-dense path at an uneven n
     a, lam = eig_operator(torch, EIG_AUTO_N, False, rng)
     run(a, lam, [(f64, "auto", auto), (f32, "auto", auto)])
@@ -5270,6 +5329,213 @@ def eig_phase(torch, stt, ho, seed):
            "chains": chains, "qr_redirect_warning": redirect,
            "host_cpus": os.cpu_count(),
            "torch_threads": torch.get_num_threads(),
+           "seconds": time.perf_counter() - t_phase, "failures": failures}
+    return row, launches, types
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the SVD
+# ---------------------------------------------------------------------------
+
+SVD_N = 8192          # the reference's svd row: bench_svd(8192, 1024, f32)
+SVD_NB = 1024
+SVD_COND = 100.0      # σ geometric from 1 to 1/SVD_COND (svd_geo)
+SVD_CHAIN_N = 1024    # ge2bd's labrd column: device events by the profiler
+SVD_GATE = 500.0      # the eig phase's bounds, in units of ε
+SVD_VALUE_TOL = {"float64": 1e-9, "complex128": 1e-9, "float32": 1e-4,
+                 "complex64": 1e-4}
+
+
+def svd_operator(torch, m, n, complex_, rng, rank=None):
+    """U·diag(σ)·Vᴴ on the card in float64 (complex128): U (m × k) and
+    V (n × k) from the QR of Gaussians drawn by numpy, σ geometric from
+    1 to 1/SVD_COND over the first ``rank`` (all k = min(m, n) by
+    default), zero beyond. Returns (A, σ descending as numpy)."""
+    import numpy as np
+    k = min(m, n)
+    r = k if rank is None else rank
+    sig = np.zeros(k)
+    sig[:r] = np.geomspace(1.0, 1.0 / SVD_COND, r)
+
+    def basis(rows):
+        g = rng.standard_normal((rows, k))
+        if complex_:
+            g = g + 1j * rng.standard_normal((rows, k))
+        q, _ = torch.linalg.qr(torch.as_tensor(g, device="cuda"))
+        return q
+
+    u = basis(m)
+    v = basis(n)
+    return (u * torch.as_tensor(sig, device="cuda").to(u.dtype)) @ v.mH, sig
+
+
+def svd_stage_timer(torch):
+    from slate_tpu_torch.obs.stages import wrapped_svd_stages
+    return stage_timer(torch, wrapped_svd_stages, ("bdsqr", "stedc"))
+
+
+def svd_gates(torch, a, s, U, V):
+    """(‖A − U·Σ·Vᴴ‖₁/(‖A‖₁·max(m, n)·ε), ‖UᴴU − I‖₁/(m·ε),
+    ‖VᴴV − I‖₁/(n·ε)) in float64 (complex128), ε of A's type."""
+    m, n = a.shape
+    k = min(m, n)
+    eps = torch.finfo(s.dtype).eps
+    aw = wide(torch, a)
+    u = wide(torch, U.dense()[:m, :k])
+    v = wide(torch, V.dense()[:n, :k])
+    sw = s.double().to(u.dtype)
+    rec = torch.linalg.matrix_norm(aw - (u * sw[None, :]) @ v.mH, 1) / (
+        torch.linalg.matrix_norm(aw, 1) * max(m, n) * eps)
+    eye = torch.eye(k, dtype=u.dtype, device=u.device)
+    ou = torch.linalg.matrix_norm(u.mH @ u - eye, 1) / (m * eps)
+    ov = torch.linalg.matrix_norm(v.mH @ v - eye, 1) / (n * eps)
+    return float(rec), float(ou), float(ov)
+
+
+def labrd_bytes_ms(m, n, itemsize):
+    """The bytes bound of ge2bd's two matrix-vector products per column
+    (column j: Aᴴ·v on (m − j) × (n − j − 1), A·u on (m − j − 1) ×
+    (n − j − 1), each matrix read once), summed over the columns, in ms
+    at the card's memory rate."""
+    k = min(m, n)
+    elems = sum((m - j) * (n - j - 1) + (m - j - 1) * (n - j - 1)
+                for j in range(k))
+    return elems * itemsize / PEAK_BYTES_PER_S * 1e3
+
+
+def svd_case(torch, stt, flops, a64, sig, dtype, label, opts, nb, vectors,
+             failures, expect=(), forbid=()):
+    """svd of ``a64`` rounded to ``dtype`` at ``nb`` under ``opts``: wall
+    (host clock ending in a sync), GFLOP/s by flops.svd, each stage's ms,
+    σ against the known spectrum (within SVD_VALUE_TOL·σ₁, zeros
+    included), with vectors the three gates under SVD_GATE; the stages
+    in ``expect`` must have run and those in ``forbid`` not. A failed
+    gate is appended to ``failures``."""
+    import numpy as np
+    m, n = a64.shape
+    a = a64.to(dtype)
+    A = stt.from_dense(a, nb, device="cuda")
+    torch.cuda.synchronize()
+    with svd_stage_timer(torch) as stages:
+        t0 = time.perf_counter()
+        s, U, V = stt.svd(A, opts, want_vectors=vectors)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dt = dtype_name(dtype)
+    model = flops.svd(max(m, n), min(m, n), vectors)
+    row = {"case": label, "m": m, "n": n, "nb": nb, "dtype": dt,
+           "method": opts.method_svd.value, "vectors": vectors,
+           "wall_s": wall, "gflops": model / wall / 1e9,
+           "stages_ms": dict(stages)}
+    err = float(np.abs(s.double().cpu().numpy() - sig).max()) / sig[0]
+    row["value_err_rel"] = err
+    if not err < SVD_VALUE_TOL[dt]:
+        failures.append(f"svd {label}: σ {err}·σ₁ off the known spectrum")
+    if vectors:
+        rec, ou, ov = svd_gates(torch, a, s, U, V)
+        row.update(residual=rec, orthogonality_u=ou, orthogonality_v=ov)
+        if not max(rec, ou, ov) < SVD_GATE:
+            failures.append(f"svd {label}: residual {rec}, orthogonality "
+                            f"{ou} / {ov} over {SVD_GATE}")
+    ran = set(stages)
+    if not (set(expect) <= ran and not set(forbid) & ran):
+        failures.append(f"svd {label}: stages {sorted(ran)}, expected "
+                        f"{sorted(expect)}, none of {sorted(forbid)}")
+    if "ge2bd" in stages:
+        # ge2bd's operand: R (kpad²) on the tall arm, else A padded
+        kpad = -(-min(m, n) // nb) * nb
+        rows = kpad if max(m, n) >= 2 * min(m, n) else \
+            -(-max(m, n) // nb) * nb
+        row["labrd"] = {
+            "columns": kpad,
+            "us_per_column": stages["ge2bd"] * 1e3 / kpad,
+            "matvec_bytes_bound_ms": labrd_bytes_ms(rows, kpad,
+                                                    a.element_size())}
+    return row
+
+
+def svd_phase(torch, stt, ho, seed):
+    """svd on the card (see the module docstring, phase 11). Returns
+    (row, launches, launches by type); the row's "failures" lists every
+    gate that failed."""
+    import numpy as np
+    from slate_tpu_torch.obs import flops
+    f32, f64 = torch.float32, torch.float64
+    c64, c128 = torch.complex64, torch.complex128
+    rng = np.random.default_rng(seed + 11)
+    auto = stt.Options()
+    dc = stt.Options(method_svd=stt.MethodSVD.DC)
+    failures, cases, yard = [], [], {}
+    dc_stages = ("ge2bd", "bdsqr", "stedc")
+    t_phase = time.perf_counter()
+    ho.reset_launches()
+
+    def run(a, sig, dt, label, opts, nb, vectors=True, **kw):
+        t = time.perf_counter()
+        row = svd_case(torch, stt, flops, a, sig, dt, label, opts, nb,
+                       vectors, failures, **kw)
+        row["seconds"] = time.perf_counter() - t
+        emit("svd_case", **row)
+        cases.append(row)
+
+    # (a) the reference's svd row: Auto at 8192 f32 (DC), values and
+    # vectors, beside cuSOLVER's svdvals and svd
+    a, sig = svd_operator(torch, SVD_N, SVD_N, False, rng)
+    for vec in (False, True):
+        run(a, sig, f32, "full_" + ("vectors" if vec else "values"), auto,
+            SVD_NB, vec, expect=dc_stages, forbid=("hb2td", "ge2tb"))
+    a32 = a.to(f32)
+    yard["svdvals_8192"] = yardstick_ms(torch, torch.linalg.svdvals, a32)
+    yard["svd_8192"] = yardstick_ms(
+        torch, lambda x: torch.linalg.svd(x, full_matrices=False), a32)
+    del a, a32
+    torch.cuda.empty_cache()
+    # (b) tall pre-QR: geqrf (K4 at nb = 512), R by DC at 4096
+    a, sig = svd_operator(torch, 32768, 4096, False, rng)
+    run(a, sig, f32, "tall", auto, 512,
+        expect=("geqrf", "unmqr") + dc_stages)
+    yard["svdvals_32768x4096"] = yardstick_ms(torch, torch.linalg.svdvals,
+                                               a.to(f32))
+    del a
+    torch.cuda.empty_cache()
+    # (c) tall complex under DC: geqrf at nb = 32 (K3's complex128)
+    a, sig = svd_operator(torch, 4096, 1024, True, rng)
+    run(a, sig, c128, "tall_complex", dc, 32,
+        expect=("geqrf", "unmqr") + dc_stages)
+    # (d) complex DC: Auto at 2048 in both complex types
+    a, sig = svd_operator(torch, 2048, 2048, True, rng)
+    for dt in (c64, c128):
+        run(a, sig, dt, "dc_complex", auto, 256, expect=dc_stages)
+    # (e) the band arm at an uneven n: ge2tb + hb2td + stedc
+    a, sig = svd_operator(torch, 1100, 1100, False, rng)
+    for vec in (False, True):
+        run(a, sig, f64, "band_" + ("vectors" if vec else "values"), auto,
+            256, vec, expect=("ge2tb", "hb2td", "stedc"),
+            forbid=("ge2bd", "bdsqr"))
+    # (f) the dense band arm through the wide transpose
+    a, sig = svd_operator(torch, 700, 1000, False, rng)
+    run(a, sig, f32, "dense_band_wide", auto, 128, expect=("ge2tb",),
+        forbid=("hb2td", "bdsqr", "ge2bd"))
+    # (g) rank 1536 of 2048 under DC: the completed σ ≈ 0 columns
+    a, sig = svd_operator(torch, 2048, 2048, False, rng, rank=1536)
+    run(a, sig, f64, "rank_deficient", dc, 256, expect=dc_stages)
+    del a
+    torch.cuda.empty_cache()
+    launches, types = launch_snapshot(ho)
+    for k in ("secular_roots", "trtri_leaves", "qr_panel_base_wide"):
+        if not launches[k] > 0:
+            failures.append(f"svd launched no {k}")
+    if not types["qr_panel_base"].get("complex128", 0) > 0:
+        failures.append("svd launched no complex128 qr_panel_base")
+    # the labrd chain's device events a column (profiled: not counted)
+    a, _ = svd_operator(torch, SVD_CHAIN_N, SVD_CHAIN_N, False, rng)
+    A = stt.from_dense(a, 256, device="cuda")
+    stt.ge2bd(A)
+    events = chain_events(torch, lambda: stt.ge2bd(A))
+    row = {"cases": cases, "yardsticks_ms": yard,
+           "labrd_column": {"events_per_column_at_1024":
+                            events / SVD_CHAIN_N},
+           "host_cpus": os.cpu_count(),
            "seconds": time.perf_counter() - t_phase, "failures": failures}
     return row, launches, types
 
@@ -5602,8 +5868,13 @@ def main(argv=None) -> int:
              launches_by_dtype=upd_types)
         torch.cuda.empty_cache()
         eig, eig_launches, eig_types = eig_phase(torch, stt, ho, args.seed)
-    emit("eig", **eig, launches=eig_launches, launches_by_dtype=eig_types)
+        emit("eig", **eig, launches=eig_launches,
+             launches_by_dtype=eig_types)
+        torch.cuda.empty_cache()
+        svd, svd_launches, svd_types = svd_phase(torch, stt, ho, args.seed)
+    emit("svd", **svd, launches=svd_launches, launches_by_dtype=svd_types)
     check(not eig["failures"], "; ".join(eig["failures"]))
+    check(not svd["failures"], "; ".join(svd["failures"]))
 
     # each kernel's first timed f32 row (K1 at b = nb, the nb = 512
     # factor's tile), and K1 at b = 128 beside it
@@ -5647,12 +5918,12 @@ def main(argv=None) -> int:
                     + serve_launches[name] + small_launches[name]
                     + cx["launches"][name] + cx_small_launches[name]
                     + mixed_launches[name] + upd_launches[name]
-                    + eig_launches[name])
+                    + eig_launches[name] + svd_launches[name])
         check(launches > 0, f"{name} was not launched on a counted path")
         by_type = {}
         for phase in (check_types, main_types, serve_types, small_types,
                       cx["launches_by_dtype"], cx_small_types, mixed_types,
-                      upd_types, eig_types):
+                      upd_types, eig_types, svd_types):
             for dt, k in phase[name].items():
                 by_type[dt] = by_type.get(dt, 0) + k
         kernels.append({
@@ -5763,7 +6034,8 @@ def main(argv=None) -> int:
             kern["bound_chain_ms"] = row["bound_chain_ms"]
         kernels.append(kern)
     # P9: no Pallas kernel; it replaces the reference's df32 secular sweep.
-    # Its launches are the eig phase's (stedc alone, heev and hegv)
+    # Its launches are the eig phase's (stedc alone, heev and hegv) and
+    # the svd phase's
     p9_keys = ("max_abs_err", "tolerance", "flipped", "orthogonality", "ms",
                "device_ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "plan", "ns_per_chain_term")
@@ -5772,9 +6044,15 @@ def main(argv=None) -> int:
     kern = {"name": "secular_roots", "route": "cuda",
             "source": "slate_tpu_torch/csrc/secular.cu",
             "replaces": "slate_tpu/linalg/stedc.py:171",
-            "launches": eig_launches["secular_roots"],
-            "dtypes": sorted(eig_types["secular_roots"]),
-            "launches_by_dtype": dict(eig_types["secular_roots"]),
+            "launches": (eig_launches["secular_roots"]
+                         + svd_launches["secular_roots"]),
+            "dtypes": sorted(set(eig_types["secular_roots"])
+                             | set(svd_types["secular_roots"])),
+            "launches_by_dtype": {
+                dt: eig_types["secular_roots"].get(dt, 0)
+                + svd_types["secular_roots"].get(dt, 0)
+                for dt in set(eig_types["secular_roots"])
+                | set(svd_types["secular_roots"])},
             "k": p9[0]["k"], "spectrum": p9[0]["spectrum"],
             **{k: p9[0][k] for k in p9_keys}}
     for r in p9[1:]:

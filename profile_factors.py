@@ -8,6 +8,7 @@ time, on one NVIDIA GPU.
     python3 profile_factors.py --solves chol,lu,qr,chol_nb128  # solves only
     python3 profile_factors.py --factors heev_qr,heev_2stage,hegv
     python3 profile_factors.py --factors heev_dc,hegv
+    python3 profile_factors.py --factors svd_dc
 
 By default factors the SPD (n × n, op "chol", at nb and at nb = n/128,
 where potrf takes its recursion and K1 runs at b = n/128), the general
@@ -69,7 +70,14 @@ range per stage: he2td, he2hb, hb2td, stedc, the back-transforms,
 potrf, hegst; the host steqr is the wall they leave), the
 matrix-vector kernels' device time beside the latrd columns' bytes
 bound, and the columns and hops of he2td's and hb2td's sequential
-chains.
+chains. "svd_dc" profiles svd with vectors of an n × n float32
+Gaussian at ``--svd-n`` (8192) and ``--svd-nb`` (1024) under Auto (the
+DC arm: ge2bd, bdsqr on stedc, the back-transforms), after a warm-up at
+2048, under torch.profiler with CUDA activity only: the same walls,
+busy share and kernels, each SVD stage's ms by CUDA events
+(``obs/stages.SVD_STAGES``), the matrix-vector kernels' device time
+beside the bytes bound of ge2bd's two products a labrd column, and
+device events a column.
 
 ``--solves`` (alone it runs no factor) profiles one-column solves
 against the resident factors of the same operators (names as above:
@@ -409,6 +417,77 @@ def profile_eig(torch, stt, name, n, nb, gen, top=12):
                      [:top]]}
 
 
+SVD_FACTORS = ("svd_dc",)
+
+
+def profile_svd(torch, stt, n, nb, gen, top=12):
+    """svd with vectors of an n × n float32 Gaussian under Auto (DC at
+    n ≥ 2048: ge2bd, bdsqr on stedc and P9, the back-transforms) under
+    torch.profiler with CUDA activity only (with CPU activity as well, a
+    profile at 8192 did not finish in 15 minutes: ge2bd's columns make
+    hundreds of host ops each), then once more without it: the walls,
+    device busy time and share, device events, the port's kernels, each
+    stage's ms in the profiled run by CUDA events around its call
+    (``obs/stages.SVD_STAGES``; bdsqr holds its stedc), the matrix-vector
+    kernels' device time beside the bytes bound of ge2bd's two products a
+    labrd column, and device events a column."""
+    from torch.profiler import ProfilerActivity, profile
+    from slate_tpu_torch.obs.stages import wrapped_svd_stages
+    stage_ms = {}
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*args, **kw)
+            e1.record()
+            e1.synchronize()
+            stage_ms[name] = stage_ms.get(name, 0.0) + e0.elapsed_time(e1)
+            return out
+        return run
+
+    a = torch.randn((n, n), generator=gen, device="cuda",
+                    dtype=torch.float32) / math.sqrt(n)
+    A = stt.from_dense(a, nb, device="cuda")
+    run = lambda: stt.svd(A, stt.Options(), want_vectors=True)  # noqa: E731
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+            wrapped_svd_stages(timed):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    unprofiled = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages() if on_device(e)]
+    busy_us = sum(dev_us(e) for e in dev)
+    gemv = [e for e in dev if "gemv" in e.key.lower()]
+    npad = -(-n // nb) * nb
+    return {
+        "n": n, "nb": nb, "dtype": "float32", "method": "auto",
+        "vectors": True, "wall_s": wall, "unprofiled_wall_s": unprofiled,
+        "device_busy_s": busy_us / 1e6,
+        "device_busy_share": busy_us / 1e6 / wall,
+        "device_events": sum(e.count for e in dev),
+        "port_kernels": port_kernels(dev),
+        "stages_ms": stage_ms,
+        "gemv": {"device_ms": sum(dev_us(e) for e in gemv) / 1e3,
+                 "count": sum(e.count for e in gemv),
+                 # labrd column j reads the trailing block twice: Aᴴ·v on
+                 # (npad − j) × (npad − j − 1), A·u one row fewer
+                 "bytes_bound_ms": sum(
+                     (2 * (npad - j) - 1) * (npad - j - 1)
+                     for j in range(npad)) * 4 / 3.35e12 * 1e3},
+        "columns": npad,
+        "events_per_column": sum(e.count for e in dev) / npad,
+        "top_device": [{"name": e.key[:80], "count": e.count,
+                        "device_ms": dev_us(e) / 1e3}
+                       for e in sorted(dev, key=lambda e: -dev_us(e))[:top]]}
+
+
 SOLVE_REPS = 16
 
 
@@ -482,9 +561,11 @@ def main(argv=None) -> int:
                     "qr_f64_nb32, chol_c64, lu_c64, chol_c64_nb128, "
                     "qr_c64, chol_bf16, chol_bf16_nb128, lu_bf16, and the "
                     "eigensolvers heev_qr, heev_2stage, heev_dc, hegv at "
-                    "--eig-n)")
+                    "--eig-n, and svd_dc at --svd-n)")
     ap.add_argument("--eig-n", type=int, default=4096)
     ap.add_argument("--eig-nb", type=int, default=256)
+    ap.add_argument("--svd-n", type=int, default=8192)
+    ap.add_argument("--svd-nb", type=int, default=1024)
     ap.add_argument("--solves", default="",
                     help="which solves to profile eager and graph-replayed, "
                     "comma-separated: chol, lu, qr, chol_nb128")
@@ -524,10 +605,11 @@ def main(argv=None) -> int:
     chosen = [c for c in args.factors.split(",") if c]
     solves = [c for c in args.solves.split(",") if c]
     eigs = [c for c in chosen if c in EIG_FACTORS]
-    chosen = [c for c in chosen if c not in EIG_FACTORS]
+    svds = [c for c in chosen if c in SVD_FACTORS]
+    chosen = [c for c in chosen if c not in EIG_FACTORS + SVD_FACTORS]
     if not set(chosen) <= set(factors):
         ap.error(f"--factors: choose from {sorted(factors)} or "
-                 f"{', '.join(EIG_FACTORS)}")
+                 f"{', '.join(EIG_FACTORS + SVD_FACTORS)}")
     if not set(solves) <= {"chol", "lu", "qr", "chol_nb128"}:
         ap.error("--solves: choose from chol, lu, qr, chol_nb128")
     warm = {((1024, 1024) if op != "qr" else (2048, 512), op, dt)
@@ -555,6 +637,11 @@ def main(argv=None) -> int:
             print(json.dumps({"factor": name, **profile_eig(
                 torch, stt, name, args.eig_n, args.eig_nb, gen)}),
                 flush=True)
+        if svds:  # a warm-up at 2048 (DC, unprofiled), then at --svd-n
+            stt.svd(stt.from_dense(torch.randn((2048, 2048), device="cuda"),
+                                   256, device="cuda"), want_vectors=True)
+            print(json.dumps({"factor": "svd_dc", **profile_svd(
+                torch, stt, args.svd_n, args.svd_nb, gen)}), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,

@@ -19,7 +19,8 @@ from .core.exceptions import SlateError
 from .core.tiled_matrix import (TiledMatrix, from_dense, hermitian, pad_mask,
                                 resolve_device, symmetric, triangular, zeros)
 from .core.types import (Diag, MatrixKind, MethodGels, MethodGemm,
-                         MethodEig, MethodHemm, MethodLU, MethodTrsm, Norm,
+                         MethodEig, MethodHemm, MethodLU, MethodSVD,
+                         MethodTrsm, Norm,
                          NormScope,
                          Op, Options, Side, Uplo)
 from .linalg.blas3 import (gemm, hemm, her2k, herk, symm, syr2k, syrk, trmm,
@@ -32,6 +33,7 @@ from .linalg.elementwise import (add, copy, redistribute, scale,
 from .linalg.lu import (gerbt, gesv, gesv_nopiv, gesv_rbt, getrf,
                         getrf_nopiv, getrf_tntpiv, getri, getri_oop, getrs)
 from .linalg.norms import col_norms, norm
+from .linalg.svd import bdsqr, ge2bd, ge2tb, svd
 from .linalg.qr import (QRFactors, cholqr, gelqf, gels, gels_using_factor,
                         geqrf, qr_multiply_explicit, tsqr, unmlq, unmqr)
 from .runtime import (DEGRADATION_LADDER, Batcher, DeadlineExceeded,
@@ -57,7 +59,8 @@ __all__ = [
     "symmetric", "triangular", "zeros",
     "Diag", "MatrixKind", "MethodEig", "MethodGels", "MethodGemm",
     "MethodHemm",
-    "MethodLU", "MethodTrsm", "Norm", "NormScope", "Op", "Options",
+    "MethodLU", "MethodSVD", "MethodTrsm", "Norm", "NormScope", "Op",
+    "Options",
     "Side", "Uplo", "gemm", "hemm", "her2k", "herk", "symm", "syr2k", "syrk",
     "trmm", "trsm", "add", "copy", "redistribute", "scale", "scale_row_col",
     "set_lambda", "set_matrix", "col_norms", "norm",
@@ -67,7 +70,8 @@ __all__ = [
     "QRFactors", "cholqr", "gelqf", "gels", "gels_using_factor", "geqrf",
     "qr_multiply_explicit", "tsqr", "unmlq", "unmqr", "Session",
     "hb2td", "he2hb", "he2td", "heev", "hegst", "hegv", "steqr", "sterf",
-    "unmtr_hb2td", "unmtr_he2hb", "unmtr_he2td",
+    "unmtr_hb2td", "unmtr_he2hb", "unmtr_he2td", "bdsqr", "ge2bd", "ge2tb",
+    "svd",
     "Batcher", "Executor", "Histogram", "Metrics", "ShedPolicy",
     "default_session", "DEGRADATION_LADDER", "DeadlineExceeded",
     "FaultInjector", "FaultPlan", "FaultSpec", "QuotaExceeded",

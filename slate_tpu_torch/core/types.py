@@ -108,6 +108,12 @@ class MethodEig(enum.Enum):
     DC = "dc"  # divide & conquer (stedc, linalg/stedc.py)
 
 
+class MethodSVD(enum.Enum):
+    Auto = "auto"
+    QR = "qr"  # the ge2tb band arms at any size
+    DC = "dc"  # ge2bd + bdsqr on stedc (linalg/svd.py)
+
+
 @dataclasses.dataclass(frozen=True)
 class Options:
     """Per-call options bag (the fields the ported slices read).
@@ -117,6 +123,9 @@ class Options:
     ``method_eig`` and ``eig_stage1`` (heev's tridiagonal method and its
     stage-1 reduction: "auto" and "he2td" the direct tridiagonalization,
     "two_stage" he2hb + the hb2td bulge chase), and
+    ``method_svd`` (svd's dispatch: DC, and Auto from
+    min(m, n) ≥ 2048, run ge2bd + bdsqr; QR, and Auto below that, the
+    ge2tb band arms),
     ``max_iterations`` and ``use_fallback_solver`` (gesv_rbt's and the
     mixed-precision drivers' refinement steps and their fallbacks),
     ``tolerance`` (GMRES-IR's) and ``depth`` (the butterfly depth of
@@ -152,6 +161,7 @@ class Options:
     # stage-1 reduction of heev's tridiagonal path: "auto" (= "he2td"),
     # "he2td" or "two_stage"
     eig_stage1: str = "auto"
+    method_svd: MethodSVD = MethodSVD.Auto
 
     def replace(self, **kw) -> "Options":
         return dataclasses.replace(self, **kw)

@@ -67,6 +67,15 @@ def heev_2stage(n: int) -> float:
     return 9.0 * n ** 3
 
 
+def svd(m: int, n: int, vectors: bool = False) -> float:
+    """values: (8/3)mn² (gebrd count); +4n³ for the U and V
+    back-transforms (square-vectors convention of the tester)."""
+    f = 8.0 * m * n * n / 3.0
+    if vectors:
+        f += 4.0 * n ** 3
+    return f
+
+
 def factor_flops(op: str, m: int, n: int) -> float:
     """Model flops of one factorization, by Session op kind (a small op
     counts as its dense kind)."""
