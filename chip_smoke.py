@@ -270,17 +270,18 @@ Phases, one JSON line each:
            n = EIG_VEC_N (the host steqr with vectors takes about 50 s at
            4096 on the H100 machine's 8-CPU host, so QR's vectors run at
            2048), nb = EIG_NB in float64, through he2td and through
-           two_stage (he2hb + hb2td's chase), and MethodEig.DC through
-           two_stage; the same two QR paths at EIG_REPEAT_N in float32,
-           complex128 and complex64 (the same host steqr as float64's);
+           two_stage (he2hb + hb2td's chase); DC with vectors in float32
+           and Auto in float64 at EIG_VEC_N (= Auto's stedc threshold:
+           Auto must run stedc); MethodEig.DC through two_stage in float64
+           and the same two QR paths in float32, complex128 and complex64
+           at EIG_REPEAT_N (the same host steqr as float64's);
            complex128 and complex64 at EIG_COMPLEX_N through he2td under
            DC; Auto (he2hb + a dense eigh of the band) at the
            uneven EIG_AUTO_N; values only at EIG_VALUES_N (the steqr cap)
            in float32 under QR and under DC; QR at EIG_REDIRECT_N, above
            the cap, values only in float32, which must warn the
            reference's RuntimeWarning once and run stedc, not steqr; DC
-           with vectors at EIG_N in float64 and float32, and Auto there,
-           which must run stedc; then hegv itype 1 under Auto at EIG_N in
+           with vectors at EIG_N in float64; then hegv itype 1 under Auto at EIG_N in
            float64 (potrf: K1 and P1; hegst and the back-transform: P1;
            stedc: P9), its launches on its own, which must include K1, P1
            and P9. Each case prints its wall, GFLOP/s by the flop model,
@@ -329,6 +330,42 @@ Phases, one JSON line each:
            launched in the phase, and K3 in complex128. The labrd chain's
            device events a column come from the profiler at
            SVD_CHAIN_N after the phase's launches are read.
+12. spectral  the Session's eig and svd operators (spectral_phase) under
+           one Session, seed 0, built as phases 10 and 11 build theirs
+           (SPECTRAL_OPERATORS): Q·diag(λ)·Qᴴ at 4096 float64, nb = 512;
+           U·diag(σ)·Vᴴ at 4096 × 2048 float64, nb = 512; an eig
+           operator at 1024 complex128 and an svd operator at 1024 × 512
+           complex64, nb = 128. Each factor (the staged two-stage
+           pipeline: he2hb, hb2td, stedc, unmtr_hb2td, unmtr_he2hb, or
+           ge2tb, the Golub–Kahan chase at 2·nb, stedc, unmtr_hb2td,
+           unmbr_ge2tb) prints its wall, each stage's ms (CUDA events;
+           stedc on the host clock ending in a sync), its P1 and P9
+           launches, and the chase's hops and µs a hop; then warmup at 1
+           and 16 columns (one CUDA graph per catalog function at the
+           first, none at the second), resident and graph bytes, the
+           spectrum within EIG_VALUE_TOL·‖A‖ or SVD_VALUE_TOL·σ₁ of the
+           known one (Λ ascending, Σ descending), the resident's residual
+           and orthogonality under EIG_GATE / SVD_GATE; then for every
+           catalog function SPECTRAL_REQUESTS requests at 1 and at 16
+           columns, each at a fresh θ (eig solve at midpoints of adjacent
+           eigenvalues, truncate a rank in 1..k and one half-integer, svd
+           solve θ = 0 then ridges, whiten and psd_project θ in [0, 0.5]):
+           the replayed answer (Session.solve_matrix) bit for bit the
+           eager apply's on the same resident, each within
+           SPECTRAL_SERVED_TOL of L·diag(w)·Rᴴ·b in float64 from the
+           resident's own tensors (in units of max(m, n)·ε·max|w|·‖b‖₂),
+           eig solve's ‖(A − θI)·x − b‖∞/(n·ε·‖A − θI‖∞·‖x‖∞) under
+           RESIDUAL_BOUND, no new capture and one graph replay per request
+           (Session.apply once per function too), replayed and eager
+           p50/p99 per function and width; then SPECTRAL_EXECUTOR default
+           solves through an Executor on the float64 eig operator
+           (completed = submitted, each dispatch a replay, each answer
+           under the same gates). Its factors must launch P1 and P9.
+           Beside them, after the launches are read: heev DC with vectors
+           at 4096 float64 (the eig phase's row), svd under Auto at
+           4096 × 2048 float64 (one call; the tall arm: geqrf, then DC on
+           R), and torch.linalg.eigh and torch.linalg.svd at those shapes
+           (one call each, cuSOLVER; yardsticks the port never calls).
 The kernel phase also holds P9 (secular_roots, stedc's secular roots)
 against its plain version at k = 4096, 512, 16384 and 64 (P9_KS) on a
 Gaussian spectrum, a clustered one (half of δ 1e-9 to 2e-9 apart) and
@@ -354,7 +391,8 @@ shapes in float32 (P6 on the dense n × n factor at kb = 16 and kb = 1 and
 on a (1000, 256, 256) stack at kb = 2, untimed at P6_UNTIMED_N under the
 same CTA plan at kb = 4 up and down and through the bfloat16 route; P7 on the qr operator's n/2 × n/2
 R with 16 appended rows; P8 on its 16-column solve padded to 512
-columns, also in float64, complex64 and complex128), timed by CUDA
+columns, also in float64 and, at P8_COMPLEX_NPAD = 4096 rows, complex64
+and complex128), timed by CUDA
 events beside the plain version's one call, the refactor it replaces
 (torch.linalg.cholesky of A'; torch.geqrf of [R; U]; for P8 torch.ormqr
 of its reflectors) and the bound (P8 also its chain bound, P + 4
@@ -389,7 +427,8 @@ instance and every instance of P6, P7 and P8.
 The kernels' launch counters are zeroed just before the check phase,
 the main phase, the serve phase, the small phase, the complex phase, the
 complex_small phase, the mixed phase, the update phase, the eig phase
-(and its hegv) and the svd phase and read just after each (also by element type:
+(and its hegv), the svd phase and the spectral phase and read just after
+each (also by element type:
 each kernel's "dtypes" and "launches_by_dtype" in the kernels line);
 the launches made to compare a kernel with its plain version are not
 counted.
@@ -403,7 +442,8 @@ P4 and P5 at the engine's other shapes under "at_..."; the complex
 instances of K1-K4 and P2-P5 under "at_complex64_..." and
 "at_complex128_..."; P6-P8 with their update-phase launches, whether
 they equal their plain versions bit for bit, and their other rows
-under "at_..."; P9 with its eig- and svd-phase launches, its k = 4096 Gaussian
+under "at_..."; P9 with its eig-, svd- and spectral-phase launches (P1
+and P9 also the spectral phase's alone, "spectral_launches"), its k = 4096 Gaussian
 row and its other rows under "at_k<k>_<spectrum>"), the nvidia-smi line,
 and last
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
@@ -4017,6 +4057,9 @@ UPDATE_SMALL_N = 256
 # the untimed P6 rows (k = 3 at bucket 4 up and down, the bf16 route at
 # kb = 16): their plain versions took about 200 s at n = 16384
 P6_UNTIMED_N = 4096
+# P8's timed complex rows: the f32 row's served (n/2, 512) shape at half
+# its rows (their plain versions took about 26 s each at 8192)
+P8_COMPLEX_NPAD = 4096
 
 
 def once_ms(torch, fn):
@@ -4311,7 +4354,8 @@ def update_kernel_rows(torch, ho, gen, n):
     P6_UNTIMED_N under the n rows' CTA plan: kb = 4 up and down and the
     bfloat16 route at kb = 16; P7 at the 2n × n/2 qr
     operator's 16 appended rows; P8 at its 16-column solve, padded to 512
-    columns), then at 2048 in float32, float64, complex64 and complex128
+    columns, also timed in float64 and, at P8_COMPLEX_NPAD rows, in
+    complex64 and complex128), then at 2048 in float32, float64, complex64 and complex128
     (an update and a failed downdate for P6), then P6's exact contracts.
     Returns (P6 rows, P7 rows, P8 rows, P6 invariants)."""
     f32 = torch.float32
@@ -4340,12 +4384,14 @@ def update_kernel_rows(torch, ho, gen, n):
     p7 = [p7_main]
     p8 = [p8_case(torch, ho, n // 2, n // 2, 512, 16, f32, gen, wt=wt,
                   timed=True)]
-    # the served shape in the other types, and a ragged one (n not a
-    # multiple of the chunk, q not of the CTA's columns)
-    p8 += [p8_case(torch, ho, n // 2, n // 2, 512, 16, dt, gen, timed=True,
-                   wt=p7_reflectors(torch, ho, n // 2, n // 2, 16, 15, dt,
-                                    gen))
-           for dt in (torch.float64, torch.complex64, torch.complex128)]
+    # the served shape in float64, the complex types at P8_COMPLEX_NPAD
+    # rows, and a ragged one (n not a multiple of the chunk, q not of the
+    # CTA's columns)
+    p8 += [p8_case(torch, ho, r, r, 512, 16, dt, gen, timed=True,
+                   wt=p7_reflectors(torch, ho, r, r, 16, 15, dt, gen))
+           for dt, r in ((torch.float64, n // 2),
+                         (torch.complex64, min(n // 2, P8_COMPLEX_NPAD)),
+                         (torch.complex128, min(n // 2, P8_COMPLEX_NPAD)))]
     p8.append(p8_case(torch, ho, 2048, 1999, 200, 16, f32, gen))
     for dt in (f32, torch.float64, torch.complex64, torch.complex128):
         p6.append(p6_case(torch, ho, 2000, 4, dt, gen, k=3))
@@ -5008,8 +5054,10 @@ def stedc_case(torch, ho, kind, n, rng, failures):
 # phase 10: Hermitian eigensolvers
 # ---------------------------------------------------------------------------
 
-EIG_N = 4096          # hegv, Auto and DC with vectors
-EIG_VEC_N = 2048      # heev QR with vectors: cut by the host steqr
+EIG_N = 4096          # hegv, and DC with vectors in float64
+# heev QR with vectors (cut by the host steqr), and DC float32 and Auto
+# (repeats of EIG_N's DC float64, cut for the smoke's time)
+EIG_VEC_N = 2048
 EIG_NB = 256
 EIG_VALUES_N = 8192   # values only: the steqr cap (QR, and DC)
 EIG_REDIRECT_N = EIG_VALUES_N + EIG_NB  # QR above the cap: warns, runs DC
@@ -5234,10 +5282,17 @@ def eig_phase(torch, stt, ho, seed):
     a_vec, lam = eig_operator(torch, EIG_VEC_N, False, rng)
     run(a_vec, lam, [(f64, name, o)
                      for name, o in (("qr", qr), ("two_stage", two))])
-    run(a_vec, lam, [(f64, "dc_two_stage", dc_two)])
+    # (g) DC with vectors in float32 and Auto in float64 at EIG_VEC_N,
+    # where Auto takes stedc from n alone (n = its threshold)
+    run(a_vec, lam, [(f32, "dc", dc), (f64, "auto_dc", auto)])
+    if "stedc" not in cases[-1]["stages_ms"]:
+        failures.append(f"heev Auto at n = {EIG_VEC_N} did not run stedc")
     # (a), (b), (e) in the other types, at EIG_REPEAT_N: float32, then
-    # complex128 and complex64 through both stage-1 paths under QR
+    # complex128 and complex64 through both stage-1 paths under QR; and
+    # DC through two_stage in float64 (the served eig operator's stages,
+    # which the spectral phase runs at 4096)
     a, lam = eig_operator(torch, EIG_REPEAT_N, False, rng)
+    run(a, lam, [(f64, "dc_two_stage", dc_two)])
     run(a, lam, [(f32, name, o)
                  for name, o in (("qr", qr), ("two_stage", two))])
     a, lam = eig_operator(torch, EIG_REPEAT_N, True, rng)
@@ -5270,12 +5325,9 @@ def eig_phase(torch, stt, ho, seed):
                         f"{redirect}, stages {sorted(cases[-1]['stages_ms'])}")
     del a
     torch.cuda.empty_cache()
-    # (g) DC with vectors at EIG_N in float64 and float32, and Auto there
-    # (stedc, from n alone)
+    # (g) DC with vectors at EIG_N in float64
     a, lam = eig_operator(torch, EIG_N, False, rng)
-    run(a, lam, [(f64, "dc", dc), (f32, "dc", dc), (f64, "auto_dc", auto)])
-    if "stedc" not in cases[-1]["stages_ms"]:
-        failures.append(f"heev Auto at n = {EIG_N} did not run stedc")
+    run(a, lam, [(f64, "dc", dc)])
     del a
     torch.cuda.empty_cache()
     heev_launches, heev_types = launch_snapshot(ho)
@@ -5538,6 +5590,358 @@ def svd_phase(torch, stt, ho, seed):
            "host_cpus": os.cpu_count(),
            "seconds": time.perf_counter() - t_phase, "failures": failures}
     return row, launches, types
+
+
+# ---------------------------------------------------------------------------
+# phase 12: spectral serving
+# ---------------------------------------------------------------------------
+
+# (label, op, (m, n), type, nb): the served operators, seed 0, built as the
+# eig and svd phases build theirs
+SPECTRAL_OPERATORS = (
+    ("eig_float64", "eig", (4096, 4096), "float64", 512),
+    ("svd_float64", "svd", (4096, 2048), "float64", 512),
+    ("eig_complex128", "eig", (1024, 1024), "complex128", 128),
+    ("svd_complex64", "svd", (1024, 512), "complex64", 128),
+)
+SPECTRAL_REQUESTS = 8       # per catalog function at each width
+SPECTRAL_WIDTHS = (1, 16)
+SPECTRAL_EXECUTOR = 16      # default solves through an Executor (eig f64)
+# a served answer against L·diag(w)·Rᴴ·b in float64 from the resident's own
+# tensors: |x − x₆₄|max / (max(m, n)·ε·max|w|·max‖b_j‖₂)
+SPECTRAL_SERVED_TOL = 1.0
+
+
+def spectral_thetas(op, fname, spec, count, rng):
+    """``count`` fresh θ for a catalog function: eig solve at midpoints of
+    adjacent eigenvalues (off the spectrum); truncate a rank in 1..k, the
+    first one a half-integer (rounded half to even); svd solve θ = 0 (the
+    pseudoinverse) then ridges in [0, 0.5]; whiten and psd_project θ in
+    [0, 0.5]."""
+    import numpy as np
+    k = spec.size
+    if fname == "solve" and op == "eig":
+        j = rng.integers(0, k - 1, count)
+        return [float(x) for x in (spec[j] + spec[j + 1]) / 2]
+    if fname == "truncate":
+        r = rng.integers(1, k + 1, count).astype(np.float64)
+        r[0] -= 0.5
+        return [float(x) for x in r]
+    th = [float(x) for x in rng.uniform(0.0, 0.5, count)]
+    if fname == "solve":
+        th[0] = 0.0
+    return th
+
+
+def spectral_rhs(torch, rows, cols, dtype, rng):
+    """A Gaussian (rows, cols) right-hand side of ``dtype`` on the card."""
+    b = rng.standard_normal((rows, cols))
+    if dtype.is_complex:
+        b = b + 1j * rng.standard_normal((rows, cols))
+    return torch.as_tensor(b, device="cuda").to(dtype)
+
+
+def eig_solve_residuals(torch, a64, theta, X, B, eps):
+    """Per column ‖(A − θI)·x − b‖∞ / (n·ε·‖A − θI‖∞·‖x‖∞) in float64
+    (complex128), ε of the working type."""
+    x, b = wide(torch, X), wide(torch, B)
+    n = a64.shape[0]
+    absd = a64.diagonal().abs()
+    anorm = (a64.abs().sum(dim=1) - absd
+             + (a64.diagonal() - theta).abs()).max()
+    r = (a64 @ x - theta * x - b).abs().max(dim=0).values
+    return (r / (n * eps * anorm * x.abs().max(dim=0).values)).tolist()
+
+
+def spectral_operator_run(torch, stt, ho, sess, label, op, shape, dt, nb,
+                          rng, failures):
+    """One served operator: registered, its factor timed by stage (CUDA
+    events; stedc on the host clock ending in a sync), warmed at 1 and 16
+    columns, its spectrum and resident gated, then SPECTRAL_REQUESTS
+    requests per catalog function at each width of SPECTRAL_WIDTHS, each
+    at a fresh θ: replayed (``solve_matrix``) and eager (the apply
+    function on the same resident) timed, the two bit for bit, the
+    replayed answer against float64, eig solve's residual. Returns (row,
+    the operand in its type, the known spectrum, the handle)."""
+    import numpy as np
+    from slate_tpu_torch.linalg.eig import chase_hops
+    from slate_tpu_torch.runtime.metrics import Histogram
+    spectral = stt.spectral
+    dtype = getattr(torch, dt)
+    cx = dtype.is_complex
+    m, n = shape
+    if op == "eig":
+        a64, spec = eig_operator(torch, n, cx, rng)
+        a = a64.to(dtype)
+        A = stt.hermitian(torch.tril(a), nb, stt.Uplo.Lower, device="cuda")
+        timer = eig_stage_timer(torch)
+    else:
+        a64, spec = svd_operator(torch, m, n, cx, rng)
+        a = a64.to(dtype)
+        A = stt.from_dense(a, nb, device="cuda")
+        timer = svd_stage_timer(torch)
+    del a64
+    met = sess.metrics
+    h = sess.register(A, op=op)
+    row = {"case": label, "op": op, "m": m, "n": n, "nb": nb, "dtype": dt}
+    before = dict(ho.LAUNCHES)
+    torch.cuda.synchronize()
+    with timer as stages:
+        t0 = time.perf_counter()
+        res = sess.factor(h)
+        torch.cuda.synchronize()
+        row["factor_wall_s"] = time.perf_counter() - t0
+    row["stages_ms"] = dict(stages)
+    row["factor_launches"] = {k: ho.LAUNCHES[k] - before[k]
+                              for k in ho.LAUNCHES
+                              if ho.LAUNCHES[k] - before[k]}
+    npad = -(-n // nb) * nb
+    s, b = (npad, nb) if op == "eig" else (2 * npad, 2 * nb)
+    hops = sum(chase_hops(s, b))
+    row["chase"] = {"s": s, "b": b, "hops": hops,
+                    "us_per_hop": stages.get("hb2td", math.nan) * 1e3 / hops}
+    want = (("he2hb", "hb2td", "stedc", "unmtr_hb2td", "unmtr_he2hb")
+            if op == "eig" else ("ge2tb", "hb2td", "stedc", "unmtr_hb2td",
+                                 "unmbr_ge2tb"))
+    for name in want:
+        if name not in stages:
+            failures.append(f"spectral {label}: the factor ran no {name} "
+                            f"(stages {sorted(stages)})")
+    # warmup at 1 and 16 columns: one capture per catalog function at the
+    # first (16 columns pad to the same nb-wide key)
+    catalog = spectral.function_catalog(op)
+    warm = []
+    for nrhs in SPECTRAL_WIDTHS:
+        c0 = met.get("aot_compiles")
+        t0 = time.perf_counter()
+        sess.warmup(h, nrhs=nrhs)
+        warm.append({"nrhs": nrhs, "wall_s": time.perf_counter() - t0,
+                     "captured": met.get("aot_compiles") - c0})
+    row["warmup"] = warm
+    if not (warm[0]["captured"] == len(catalog) == len(res.graphs)
+            and warm[1]["captured"] == 0):
+        failures.append(f"spectral {label}: warmup captured {warm}, "
+                        f"{len(res.graphs)} graphs for {len(catalog)} "
+                        "functions")
+    graph_bytes = sum(g.nbytes for g in res.graphs.values())
+    row["resident_bytes"] = res.nbytes - graph_bytes
+    row["graph_bytes"] = graph_bytes
+    # the spectrum and the resident's residual and orthogonality
+    rdt = torch.empty((), dtype=dtype).real.dtype
+    eps = torch.finfo(rdt).eps
+    got = sess.eigvals(h)
+    p = res.payload
+    if op == "eig":
+        ref = np.sort(spec)
+        err = float(np.abs(got - ref).max()) / float(np.abs(spec).max())
+        order_ok = bool(np.all(np.diff(got) >= 0))
+        tol = EIG_VALUE_TOL[dt]
+        aw = wide(torch, a)
+        v = wide(torch, p.v.dense()[:n, :n])
+        lw = wide(torch, p.lam)
+        row["residual"] = float(
+            torch.linalg.matrix_norm(aw @ v - v * lw[None, :], 1)
+            / (n * eps * torch.linalg.matrix_norm(aw, 1)))
+        row["orthogonality"] = float(torch.linalg.matrix_norm(
+            v.mH @ v - torch.eye(n, dtype=v.dtype, device=v.device), 1)
+            / (n * eps))
+        gates = (row["residual"], row["orthogonality"])
+        del aw, v
+    else:
+        err = float(np.abs(got - spec).max()) / float(spec[0])
+        order_ok = bool(np.all(np.diff(got) <= 0))
+        tol = SVD_VALUE_TOL[dt]
+        rec, ou, ov = svd_gates(torch, a, p.s, p.u, p.v)
+        row.update(residual=rec, orthogonality_u=ou, orthogonality_v=ov)
+        gates = (rec, ou, ov)
+    row["value_err_rel"] = err
+    if not (err < tol and order_ok):
+        failures.append(f"spectral {label}: spectrum {err} off (limit "
+                        f"{tol}), ordered {order_ok}")
+    limit = EIG_GATE if op == "eig" else SVD_GATE
+    if not max(gates) < limit:
+        failures.append(f"spectral {label}: residual/orthogonality {gates} "
+                        f"over {limit}")
+    # the requests
+    k = got.size
+    big = max(m, n)
+    a_w = wide(torch, a) if op == "eig" else None
+    if op == "eig":
+        vw = wide(torch, p.v.dense()[:n, :n])
+        bases = {True: (vw, vw), False: (vw, vw)}
+    else:
+        uw = wide(torch, p.u.dense()[:m, :k])
+        vw = wide(torch, p.v.dense()[:n, :k])
+        bases = {True: (uw, vw), False: (vw, uw)}
+    spec64 = wide(torch, p.lam if op == "eig" else p.s)
+    c0, r0 = met.get("aot_compiles"), met.get("graph_replays")
+    calls = 0
+    timing, served, bits = {}, {}, True
+    worst_solve_res = 0.0
+    for fname, (wf, forward) in catalog.items():
+        rows = n if (op == "eig" or forward) else m
+        L64, R64 = bases[forward]
+        eager = spectral.make_apply_fn(op, fname)
+        worst = 0.0
+        for width in SPECTRAL_WIDTHS:
+            he, hg = Histogram(), Histogram()
+            for theta in spectral_thetas(op, fname, got, SPECTRAL_REQUESTS,
+                                         rng):
+                bt = spectral_rhs(torch, rows, width, dtype, rng)
+                B = stt.from_dense(bt, nb, device="cuda")
+                t0 = time.perf_counter()
+                X = sess.solve_matrix(h, B, spectral_fn=fname, theta=theta)
+                hg.observe(time.perf_counter() - t0)
+                calls += 1
+                th_t = torch.full((), theta, dtype=rdt, device="cuda")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                Xe = eager(p, B, th_t)
+                torch.cuda.synchronize()
+                he.observe(time.perf_counter() - t0)
+                bits = bits and torch.equal(X.dense(), Xe.dense())
+                x = X.dense()[:X.shape[0], :width]
+                th64 = torch.full((), float(th_t), dtype=torch.float64,
+                                  device="cuda")
+                w64 = wf(spec64, th64)
+                x64 = L64 @ (w64[:, None].to(L64.dtype)
+                             * (R64.mH @ wide(torch, bt)))
+                scale = (big * eps * float(w64.abs().max())
+                         * float(torch.linalg.vector_norm(
+                             wide(torch, bt), dim=0).max()))
+                worst = max(worst, float((wide(torch, x) - x64).abs().max())
+                            / max(scale, 1e-300))
+                if op == "eig" and fname == "solve":
+                    worst_solve_res = max(worst_solve_res, max(
+                        eig_solve_residuals(torch, a_w, float(th_t), x, bt,
+                                            eps)))
+            timing[f"{fname}_{width}"] = {
+                "eager_p50_s": he.percentile(50),
+                "eager_p99_s": he.percentile(99),
+                "replay_p50_s": hg.percentile(50),
+                "replay_p99_s": hg.percentile(99)}
+        # the array API on the last right-hand side: the same replay
+        xa = sess.apply(h, bt.cpu().numpy(), fn=fname, theta=theta)
+        calls += 1
+        bits = bits and np.array_equal(xa, x.cpu().numpy())
+        served[fname] = worst
+    row["apply_timing"] = timing
+    row["served_err_units"] = served
+    row["served_limit"] = SPECTRAL_SERVED_TOL
+    row["replay_equals_eager_bitwise"] = bits
+    row["requests"] = calls
+    row["new_captures"] = met.get("aot_compiles") - c0
+    row["replays"] = met.get("graph_replays") - r0
+    if not max(served.values()) <= SPECTRAL_SERVED_TOL:
+        failures.append(f"spectral {label}: served answers {served} over "
+                        f"{SPECTRAL_SERVED_TOL}")
+    if op == "eig":
+        row["solve_worst_scaled_residual"] = worst_solve_res
+        if not worst_solve_res <= RESIDUAL_BOUND:
+            failures.append(f"spectral {label}: solve residual "
+                            f"{worst_solve_res} over {RESIDUAL_BOUND}")
+    if not bits:
+        failures.append(f"spectral {label}: a replayed answer differs from "
+                        "the eager apply's bits")
+    if not (row["new_captures"] == 0 and row["replays"] == calls):
+        failures.append(f"spectral {label}: {row['new_captures']} captures "
+                        f"and {row['replays']} replays after warmup for "
+                        f"{calls} requests")
+    del a_w, vw, bases
+    return row, a, spec, h
+
+
+def spectral_phase(torch, stt, ho, seed, eig_row):
+    """The Session's eig and svd operators on the card (see the module
+    docstring, phase 12). Returns (row, launches, launches by type); the
+    row's "failures" lists every gate that failed."""
+    import numpy as np
+    from slate_tpu_torch.obs import flops
+    rng = np.random.default_rng(seed + 12)
+    failures, rows = [], []
+    t_phase = time.perf_counter()
+    sess = stt.Session(device="cuda")
+    met = sess.metrics
+    ho.reset_launches()
+    kept = {}
+    for label, op, shape, dt, nb in SPECTRAL_OPERATORS:
+        t = time.perf_counter()
+        row, a, spec, h = spectral_operator_run(
+            torch, stt, ho, sess, label, op, shape, dt, nb, rng, failures)
+        row["seconds"] = time.perf_counter() - t
+        emit("spectral_operator", **row)
+        rows.append(row)
+        if label in ("eig_float64", "svd_float64"):
+            kept[label] = (a, spec, h)
+        else:
+            del a
+    # the Executor's default solves on the float64 eig operator
+    a, lam, h = kept["eig_float64"]
+    n = a.shape[0]
+    res = sess.factor(h)
+    vw, lw = res.payload.v.dense()[:n, :n], res.payload.lam
+    eps = torch.finfo(torch.float64).eps
+    bs = [rng.standard_normal(n) for _ in range(SPECTRAL_EXECUTOR)]
+    counters0 = dict(met.snapshot()["counters"])
+    with stt.Executor(sess, max_batch=SPECTRAL_EXECUTOR,
+                      max_wait=2e-3) as ex:
+        answers, latency, wall = serve_clients(ex, [(h, b) for b in bs])
+    counters = met.snapshot()["counters"]
+    delta = {k: v - counters0.get(k, 0) for k, v in counters.items()}
+    bad = [x for x in answers if isinstance(x, BaseException)]
+    executor = {"submitted": len(bs), "completed": len(bs) - len(bad),
+                "wall_s": wall, **{k: delta.get(k, 0) for k in (
+                    "completed_requests", "requests_total", "batches_total",
+                    "dispatches_total", "graph_replays", "aot_compiles")}}
+    if not bad:
+        X = torch.as_tensor(np.stack(answers, 1), device="cuda")
+        B = torch.as_tensor(np.stack(bs, 1), device="cuda")
+        x64 = vw @ ((1.0 / lw)[:, None] * (vw.mH @ B))
+        scale = n * eps * float((1.0 / lw).abs().max()) * float(
+            torch.linalg.vector_norm(B, dim=0).max())
+        executor["served_err_units"] = float((X - x64).abs().max()) / scale
+        executor["worst_scaled_residual"] = max(
+            eig_solve_residuals(torch, a, 0.0, X, B, eps))
+    if not (executor["completed"] == executor["completed_requests"]
+            == executor["requests_total"] == len(bs)
+            and executor["graph_replays"] == executor["dispatches_total"]
+            and executor["aot_compiles"] == 0
+            and executor.get("served_err_units", math.inf)
+            <= SPECTRAL_SERVED_TOL
+            and executor.get("worst_scaled_residual", math.inf)
+            <= RESIDUAL_BOUND):
+        failures.append(f"spectral executor: {executor}, failed {bad[:2]}")
+    launches, types = launch_snapshot(ho)
+    for k in ("trtri_leaves", "secular_roots"):
+        inside = sum(r["factor_launches"].get(k, 0) for r in rows)
+        if not inside > 0:
+            failures.append(f"spectral: the factors launched no {k}")
+    # beside them (not counted): heev DC at 4096 f64 (the eig phase's row),
+    # svd Auto at 4096 × 2048 f64 (one call), eigh and svd (cuSOLVER)
+    dc = next(c for c in eig_row["cases"] if c["case"] == "dc_float64")
+    a_s, sig, _ = kept["svd_float64"]
+    auto = svd_case(torch, stt, flops, a_s, sig, torch.float64,
+                    "auto_4096x2048", stt.Options(), 512, True, failures,
+                    expect=("geqrf", "unmqr", "ge2bd", "bdsqr"))
+    beside = {
+        "heev_dc_float64": {"n": dc["n"], "nb": dc["nb"],
+                            "wall_s": dc["wall_s"],
+                            "stages_ms": dc["stages_ms"]},
+        "svd_auto_float64": {k: auto[k] for k in (
+            "m", "n", "nb", "wall_s", "stages_ms", "value_err_rel",
+            "residual")},
+        "yardsticks_ms": {
+            "eigh_4096": yardstick_ms(torch, torch.linalg.eigh, a),
+            "svd_4096x2048": yardstick_ms(
+                torch, lambda x: torch.linalg.svd(x, full_matrices=False),
+                a_s)}}
+    sess.close()
+    del kept, a, a_s, vw, lw, res
+    torch.cuda.empty_cache()
+    row = {"operators": [r["case"] for r in rows], "executor": executor,
+           "beside": beside, "seconds": time.perf_counter() - t_phase,
+           "failures": failures}
+    return row, rows, launches, types
 
 
 def main(argv=None) -> int:
@@ -5872,9 +6276,16 @@ def main(argv=None) -> int:
              launches_by_dtype=eig_types)
         torch.cuda.empty_cache()
         svd, svd_launches, svd_types = svd_phase(torch, stt, ho, args.seed)
-    emit("svd", **svd, launches=svd_launches, launches_by_dtype=svd_types)
+        emit("svd", **svd, launches=svd_launches,
+             launches_by_dtype=svd_types)
+        torch.cuda.empty_cache()
+        spec, _, spec_launches, spec_types = spectral_phase(
+            torch, stt, ho, args.seed, eig)
+    emit("spectral", **spec, launches=spec_launches,
+         launches_by_dtype=spec_types)
     check(not eig["failures"], "; ".join(eig["failures"]))
     check(not svd["failures"], "; ".join(svd["failures"]))
+    check(not spec["failures"], "; ".join(spec["failures"]))
 
     # each kernel's first timed f32 row (K1 at b = nb, the nb = 512
     # factor's tile), and K1 at b = 128 beside it
@@ -5918,12 +6329,13 @@ def main(argv=None) -> int:
                     + serve_launches[name] + small_launches[name]
                     + cx["launches"][name] + cx_small_launches[name]
                     + mixed_launches[name] + upd_launches[name]
-                    + eig_launches[name] + svd_launches[name])
+                    + eig_launches[name] + svd_launches[name]
+                    + spec_launches[name])
         check(launches > 0, f"{name} was not launched on a counted path")
         by_type = {}
         for phase in (check_types, main_types, serve_types, small_types,
                       cx["launches_by_dtype"], cx_small_types, mixed_types,
-                      upd_types, eig_types, svd_types):
+                      upd_types, eig_types, svd_types, spec_types):
             for dt, k in phase[name].items():
                 by_type[dt] = by_type.get(dt, 0) + k
         kernels.append({
@@ -6034,8 +6446,8 @@ def main(argv=None) -> int:
             kern["bound_chain_ms"] = row["bound_chain_ms"]
         kernels.append(kern)
     # P9: no Pallas kernel; it replaces the reference's df32 secular sweep.
-    # Its launches are the eig phase's (stedc alone, heev and hegv) and
-    # the svd phase's
+    # Its launches are the eig phase's (stedc alone, heev and hegv), the
+    # svd phase's and the spectral phase's
     p9_keys = ("max_abs_err", "tolerance", "flipped", "orthogonality", "ms",
                "device_ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "plan", "ns_per_chain_term")
@@ -6044,20 +6456,27 @@ def main(argv=None) -> int:
     kern = {"name": "secular_roots", "route": "cuda",
             "source": "slate_tpu_torch/csrc/secular.cu",
             "replaces": "slate_tpu/linalg/stedc.py:171",
-            "launches": (eig_launches["secular_roots"]
-                         + svd_launches["secular_roots"]),
+            "launches": sum(ph["secular_roots"] for ph in (
+                eig_launches, svd_launches, spec_launches)),
             "dtypes": sorted(set(eig_types["secular_roots"])
-                             | set(svd_types["secular_roots"])),
+                             | set(svd_types["secular_roots"])
+                             | set(spec_types["secular_roots"])),
             "launches_by_dtype": {
-                dt: eig_types["secular_roots"].get(dt, 0)
-                + svd_types["secular_roots"].get(dt, 0)
+                dt: sum(ph["secular_roots"].get(dt, 0) for ph in (
+                    eig_types, svd_types, spec_types))
                 for dt in set(eig_types["secular_roots"])
-                | set(svd_types["secular_roots"])},
+                | set(svd_types["secular_roots"])
+                | set(spec_types["secular_roots"])},
             "k": p9[0]["k"], "spectrum": p9[0]["spectrum"],
             **{k: p9[0][k] for k in p9_keys}}
     for r in p9[1:]:
         kern[f"at_k{r['k']}_{r['spectrum']}"] = {k: r[k] for k in p9_keys}
     kernels.append(kern)
+    # the spectral phase's share of P1's and P9's launches, beside their
+    # sums over every counted phase
+    for kern in kernels:
+        if kern["name"] in ("trtri_leaves", "secular_roots"):
+            kern["spectral_launches"] = spec_launches[kern["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -43,6 +43,7 @@ from .runtime import (DEGRADATION_LADDER, Batcher, DeadlineExceeded,
                       default_session)
 from .refine import PolicyTable, RefinePolicy
 from .runtime.session import Session
+from . import spectral
 
 __all__ = [
     "chol_factor", "chol_inverse_using_factor", "chol_solve",
@@ -75,5 +76,5 @@ __all__ = [
     "Batcher", "Executor", "Histogram", "Metrics", "ShedPolicy",
     "default_session", "DEGRADATION_LADDER", "DeadlineExceeded",
     "FaultInjector", "FaultPlan", "FaultSpec", "QuotaExceeded",
-    "RequestShed", "TransientDispatchError", "default_plan",
+    "RequestShed", "TransientDispatchError", "default_plan", "spectral",
 ]

@@ -2,7 +2,8 @@
 
 Both functions take numpy arrays only (a ``slate_tpu`` TiledMatrix's
 padded ``data`` and its metadata; a resident factor payload ``(L,)``,
-``(LU, perm)`` or a ``QRFactors``' ``(vr, t)``) and never import the JAX
+``(LU, perm)``, a ``QRFactors``' ``(vr, t)``, or a spectral resident's
+``(V, Λ)`` or ``(U, Σ, V)``) and never import the JAX
 package. A low-precision payload (a refined operator's bfloat16, float32
 or complex64 factor) is taken as it is: a bfloat16 array, which the
 reference hands out with ``ml_dtypes``' numpy type and torch cannot
@@ -22,6 +23,7 @@ import torch
 from ..core.tiled_matrix import TiledMatrix, as_tensor, from_dense
 from ..core.types import Diag, MatrixKind, Uplo
 from ..linalg.qr import QRFactors
+from ..spectral.types import EigFactors, SVDFactors
 
 
 def _port_tensor(a, device) -> torch.Tensor:
@@ -57,7 +59,10 @@ def factor_from_arrays(op: str, arrays: Sequence[np.ndarray], *, nb: int,
     tau, r)`` (``Session.update``'s payload, the base factors' pair first,
     ``logical_shape`` the base's) → (QRFactors, u, w, tau, r). The factor
     keeps its type: a low-precision payload of a refined operator (bf16,
-    f32 or c64) stays in it."""
+    f32 or c64) stays in it. The spectral residents: ``op="eig"``:
+    ``(V, Λ)`` with ``logical_shape`` = (n, n) → ``EigFactors``;
+    ``op="svd"``: ``(U, Σ, V)`` with ``logical_shape`` = (m, n) of the
+    operator → ``SVDFactors`` (U (m, k), V (n, k), k = min(m, n))."""
     if op == "chol":
         (l,) = arrays
         return (tiled_from_arrays(l, nb=nb, kind=MatrixKind.Triangular,
@@ -78,4 +83,18 @@ def factor_from_arrays(op: str, arrays: Sequence[np.ndarray], *, nb: int,
             return (base,)
         return (base,) + tuple(as_tensor(np.asarray(x), device)
                                for x in arrays[1:])
+    if op == "eig":
+        v, lam = arrays
+        return EigFactors(tiled_from_arrays(v, nb=nb,
+                                            logical_shape=logical_shape,
+                                            device=device),
+                          as_tensor(np.asarray(lam), device))
+    if op == "svd":
+        u, s, v = arrays
+        m, n = logical_shape
+        k = min(m, n)
+        return SVDFactors(
+            tiled_from_arrays(u, nb=nb, logical_shape=(m, k), device=device),
+            as_tensor(np.asarray(s), device),
+            tiled_from_arrays(v, nb=nb, logical_shape=(n, k), device=device))
     raise SlateError(f"factor_from_arrays: unsupported op {op!r}")

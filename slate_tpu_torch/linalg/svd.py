@@ -399,12 +399,15 @@ def _svd_dc(A: TiledMatrix, opts: Options, want_vectors: bool):
 
 
 def _svd_band_gk(A: TiledMatrix, band: torch.Tensor, u_refl: Reflectors,
-                 v_refl: Reflectors, k: int, want_vectors: bool):
+                 v_refl: Reflectors, k: int, want_vectors: bool,
+                 complete: bool = True):
     """The band arm: embed the upper band B in the perfect-shuffled
     Hermitian [[0, Bᴴ], [B, 0]] (bandwidth 2·nb), then hb2td, stedc and
     unmtr_hb2td on it; the top k eigenpairs (+σ, (v, u)/√2 interleaved)
     are the SVD. The embedding is stored dense, (2·npad)², as hb2td takes
-    it."""
+    it. ``complete``: rebuild the σ ≈ 0 columns as an orthonormal
+    completion (``_complete``; its rank count reads σ on the host); the
+    served ``svd_staged`` skips it, as the reference's does."""
     mpad, npad = band.shape
     nbw = A.nb
     m, n = A.shape
@@ -435,7 +438,7 @@ def _svd_band_gk(A: TiledMatrix, band: torch.Tensor, u_refl: Reflectors,
     u, v = _renormalise(zb[1::2] * r2, zb[0::2] * r2)
     tol = (sig[0] if k else 0.0) * 8 * s2 * _BD_EPS
     g = int((sig > tol).sum())
-    if g < k:
+    if complete and g < k:
         _complete((u, v), g, k)
     u_pad = torch.zeros((mpad, k), dtype=C.dtype, device=dev)
     u_pad[:npad] = u

@@ -78,7 +78,8 @@ def svd(m: int, n: int, vectors: bool = False) -> float:
 
 def factor_flops(op: str, m: int, n: int) -> float:
     """Model flops of one factorization, by Session op kind (a small op
-    counts as its dense kind)."""
+    counts as its dense kind; eig and svd are the two-stage spectral
+    residents)."""
     op = op.removesuffix("_small")
     if op == "lu":
         return getrf(n)
@@ -86,6 +87,10 @@ def factor_flops(op: str, m: int, n: int) -> float:
         return potrf(n)
     if op == "qr":
         return geqrf(m, n)
+    if op == "eig":
+        return heev_2stage(n)
+    if op == "svd":
+        return svd(m, n, vectors=True)
     raise ValueError(f"factor_flops: unsupported op {op!r}")
 
 
@@ -96,6 +101,10 @@ def solve_flops(op: str, m: int, n: int, k: int) -> float:
         return 2.0 * n * n * k
     if op == "qr":
         return (4.0 * m * n - 2.0 * n * n) * k
+    if op in ("eig", "svd"):
+        # a served spectral apply: two gemms against the resident bases
+        # (the diagonal scale, O(nk), is below the model's resolution)
+        return 4.0 * m * n * k
     raise ValueError(f"solve_flops: unsupported op {op!r}")
 
 

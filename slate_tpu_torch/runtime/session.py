@@ -42,7 +42,20 @@ resident's append slots, which ``warmup(update_k=...)`` makes at the
 bucket and captures the appended solve on. Every degraded path
 (a failed downdate, a deleted base row, an injected ``update_abort``, the
 update budget coming due) is a counted refactor of the committed operand.
-Meshes, band and spectral operators, tenants, SLOs, attribution,
+
+Spectral serving: an "eig" operator (a square Hermitian/Symmetric
+TiledMatrix) or an "svd" operator (a tall or square one) keeps its
+two-stage decomposition resident (``spectral/``: ``heev_staged`` or
+``svd_staged``, always info = 0), and ``apply`` serves every function of
+its catalog as two gemms and a diagonal scale: X = L·diag(f(Λ, θ))·Rᴴ·b.
+``solve`` serves the catalog's "solve" at θ = 0, so the Batcher and
+Executor serve a spectral handle unchanged; ``eigvals`` reads the
+resident spectrum. ``warmup`` captures one CUDA graph per catalog
+function at the warmed width; θ lives in a static 0-d tensor of the
+operand's real type, filled before each replay, so a request at any θ
+replays with no new capture.
+
+Meshes, band operators, tenants, SLOs, attribution, the numerics probe,
 the recorder and tracing are later slices: they raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
@@ -64,6 +77,8 @@ from .. import api
 from ..core.exceptions import SlateError
 from ..core.precision import full_precision
 from ..linalg.qr import QRFactors
+from .. import spectral as _spectral
+from ..spectral.types import EigFactors, SVDFactors
 from ..core.tiled_matrix import (TiledMatrix, from_dense, num_tiles,
                                  resolve_device)
 from ..core.types import MatrixKind, Norm, Options, DEFAULT_OPTIONS
@@ -79,13 +94,15 @@ from ..refine.policy import (PolicyTable, RefinePolicy,
 from .metrics import Metrics
 
 SMALL_OPS = ("lu_small", "chol_small")
-OPS = ("lu", "chol", "qr") + SMALL_OPS
+# the resident spectral decompositions (spectral/), served by ``apply``
+SPECTRAL_OPS = ("eig", "svd")
+OPS = ("lu", "chol", "qr") + SMALL_OPS + SPECTRAL_OPS
 # the op kinds with an incremental-update form (Session.update)
 UPDATE_OPS = ("chol", "chol_small", "qr")
 # the op kinds a refine policy covers
 REFINE_KINDS = _refine.REFINE_OPS + SMALL_OPS
 # op kinds of the reference Session that later slices port
-LATER_OPS = ("band_lu", "band_chol", "eig", "svd")
+LATER_OPS = ("band_lu", "band_chol")
 # where the reference Session's other serving features are queued
 _TENANTS_LATER = "tenants and tenant policies are not ported yet (ROADMAP " \
                  "Queue 1 item 11)"
@@ -116,12 +133,14 @@ class _Operator:
 class _SolveGraph:
     """One captured dense solve: replaying ``graph`` solves the static
     right-hand side ``b`` into the static solution ``x`` (a TiledMatrix
-    whose storage lives in the graph's memory pool). ``nbytes``: ``b``
-    plus the pool the capture reserved."""
+    whose storage lives in the graph's memory pool). A spectral apply's
+    graph also reads the static 0-d ``theta``. ``nbytes``: the static
+    inputs plus the pool the capture reserved."""
     graph: object
     b: torch.Tensor
     x: TiledMatrix
     nbytes: int
+    theta: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -143,12 +162,12 @@ class _RefineGraphs:
 
 @dataclasses.dataclass
 class _Resident:
-    payload: Tuple  # the *_solve_using_factor arguments
+    # the *_solve_using_factor arguments, or an EigFactors / SVDFactors
+    payload: object
     info: int
     nbytes: int  # the payload's bytes plus its graphs'
-    # the CUDA graphs of the warmed solves on this factor, by padded
-    # right-hand side (rows, cols, dtype), with "append" after them for a
-    # qr resident's appended solve; they go with the factor
+    # the CUDA graphs of the warmed solves on this factor, by key
+    # (``_key_kind``); they go with the factor
     graphs: Dict[Tuple, _SolveGraph] = dataclasses.field(
         default_factory=dict)
     # a qr resident's append slots (u, w, tau, r) at one row bucket: every
@@ -158,6 +177,10 @@ class _Resident:
 
 
 def _payload_nbytes(payload) -> int:
+    if isinstance(payload, EigFactors):
+        return _tensor_bytes((payload.v.data, payload.lam))
+    if isinstance(payload, SVDFactors):
+        return _tensor_bytes((payload.u.data, payload.s, payload.v.data))
     total = 0
     for p in payload:
         if isinstance(p, QRFactors):
@@ -219,6 +242,16 @@ def _make_factor_fn(op: str, opts: Options,
         def factor(A):
             payloads, info = _small_factor(op, A[None], policy)
             return payloads[0], info[0]
+    elif op == "eig":
+        # the staged two-stage pipeline ends in stedc, which has no
+        # failure to report: a spectral resident is always info = 0
+        def factor(A):
+            lam, V = _spectral.heev_staged(A, opts)
+            return EigFactors(V, lam), 0
+    elif op == "svd":
+        def factor(A):
+            s, U, V = _spectral.svd_staged(A, opts)
+            return SVDFactors(U, s, V), 0
     elif policy is not None:
         factor = _refine.make_factor_fn(op, opts, policy)
     elif op == "lu":
@@ -236,7 +269,8 @@ def _make_factor_fn(op: str, opts: Options,
 
 
 def _make_solve_fn(op: str, opts: Options):
-    """The *_solve_using_factor verb as a (payload, B) -> X function."""
+    """The *_solve_using_factor verb as a (payload, B) -> X function (a
+    spectral operator is served by its catalog: ``_dispatch_spectral``)."""
     if op == "lu":
         def solve(payload, B):
             LU, perm = payload
@@ -244,6 +278,9 @@ def _make_solve_fn(op: str, opts: Options):
     elif op == "chol":
         def solve(payload, B):
             return api.chol_solve_using_factor(payload[0], B, opts)
+    elif op != "qr":
+        raise SlateError(f"Session: op {op!r} has no *_solve_using_factor "
+                         "verb")
     else:
         def solve(payload, B):
             if _appended(payload):
@@ -259,7 +296,21 @@ def _tensor_bytes(tensors) -> int:
 
 def _appended(payload) -> bool:
     """Is ``payload`` an appended-rows qr resident's (base, u, w, tau, r)?"""
-    return isinstance(payload[0], QRFactors) and len(payload) > 1
+    return (isinstance(payload, tuple) and isinstance(payload[0], QRFactors)
+            and len(payload) > 1)
+
+
+def _key_kind(key: Tuple) -> str:
+    """The kind of a solve graph's key: (rows, cols, dtype) is a "base"
+    solve, (rows, cols, dtype, "append") a qr resident's appended solve and
+    (rows, cols, dtype, "spectral", fname) a spectral resident's apply of
+    the catalog function ``fname``."""
+    return key[3] if len(key) > 3 else "base"
+
+
+def _spectrum(payload) -> torch.Tensor:
+    """A spectral resident's Λ (eig) or Σ (svd)."""
+    return payload.lam if isinstance(payload, EigFactors) else payload.s
 
 
 def _norm1(t: torch.Tensor) -> float:
@@ -333,10 +384,12 @@ class Session:
                  tenant: Optional[str] = None,
                  refine=None) -> Hashable:
         """Register an operator; returns its handle (an int unless
-        given). ``op`` is "chol", "lu", "qr", "lu_small", "chol_small" or
-        "auto" (a plain array → lu_small; Hermitian/Symmetric → chol,
-        square general → lu, non-square → qr). A "qr" operator must be
-        tall (m ≥ n); the others need a square one. The dense ops take a
+        given). ``op`` is "chol", "lu", "qr", "lu_small", "chol_small",
+        "eig", "svd" or "auto" (a plain array → lu_small;
+        Hermitian/Symmetric → chol, square general → lu, non-square →
+        qr). A "qr" or "svd" operator must be tall or square (m ≥ n), an
+        "eig" one square and Hermitian/Symmetric; the others need a
+        square one. The dense and spectral ops take a
         ``TiledMatrix`` on the session's device; the small ops a plain
         (n, n) numpy array or tensor of a float or complex type, which
         the session puts on its device.
@@ -360,7 +413,7 @@ class Session:
         if op in LATER_OPS:
             raise NotImplementedError(
                 f"Session.register: op {op!r} is not ported yet (ROADMAP "
-                "Queue 1 items 8 and 9)")
+                "Queue 1 item 9)")
         if op not in OPS:
             raise SlateError(f"Session.register: unknown op {op!r}")
         if (op in SMALL_OPS) == isinstance(A, TiledMatrix):
@@ -382,6 +435,18 @@ class Session:
                     "Session.register: wide (m < n) operators are not "
                     "servable via resident QR; use least_squares_solve "
                     "per call")
+        elif op == "eig":
+            if A.kind not in (MatrixKind.Hermitian,
+                              MatrixKind.Symmetric) or m != n:
+                raise SlateError(
+                    "Session.register: op 'eig' requires a square "
+                    "Hermitian/Symmetric TiledMatrix operand")
+        elif op == "svd":
+            if m < n:
+                raise SlateError(
+                    "Session.register: wide (m < n) operators are not "
+                    "servable via resident SVD; register the transpose "
+                    "(api.svd handles wide per call)")
         elif m != n:
             raise SlateError(f"Session.register: {op} needs a square "
                              f"operand, got {(m, n)}")
@@ -680,12 +745,16 @@ class Session:
         return entry
 
     def solve_matrix(self, handle: Hashable, B: TiledMatrix,
-                     tenant: Optional[str] = None) -> TiledMatrix:
+                     tenant: Optional[str] = None,
+                     spectral_fn: str = "solve",
+                     theta: float = 0.0) -> TiledMatrix:
         """Solve with the resident factor; B is a TiledMatrix on the
         session's device. Raises on factorization failure (info > 0).
         A warmed operator replays its captured graph (a refined one: its
         start and step graphs) when B's padded shape and type match it.
-        ``solve_latency`` ends when the device has finished."""
+        A spectral operator serves ``spectral_fn`` of its catalog at
+        ``theta`` (``apply``). ``solve_latency`` ends when the device has
+        finished."""
         if tenant is not None:
             raise NotImplementedError(
                 f"Session.solve_matrix: {_TENANTS_LATER}")
@@ -694,12 +763,19 @@ class Session:
             if entry.op in SMALL_OPS:
                 raise SlateError("Session.solve_matrix: small-problem "
                                  "operators take arrays; use solve")
+            spectral = entry.op in SPECTRAL_OPS
+            fname = spectral_fn if spectral else None
+            if spectral:
+                self._check_spectral_rhs(entry, fname, B)
             res = self._factored(handle)
-            graph = self._graph_for(handle, entry, res, B)
+            graph = self._graph_for(handle, entry, res, B, fname)
             if self.faults is not None:
                 self._fault("dispatch")
             t0 = time.perf_counter()
-            if entry.refine is not None:
+            if spectral:
+                X = self._dispatch_spectral(entry, res, B, graph, fname,
+                                            theta)
+            elif entry.refine is not None:
                 X = self._dispatch_refined(handle, entry, res, B, graph)
             else:
                 X = self._dispatch_plain(entry, res, B, graph)
@@ -707,6 +783,88 @@ class Session:
             self._count_solve(entry.op, entry.m, entry.n, int(B.shape[1]),
                               time.perf_counter() - t0)
             return X
+
+    # -- resident spectral serving (spectral/) ------------------------------
+    @staticmethod
+    def _rhs_rows(entry: _Operator, fname: Optional[str] = None) -> int:
+        """The rows of a right-hand side: m, except n for an svd
+        operator's forward functions (truncate); an eig operator has
+        m = n."""
+        if entry.op == "svd" and _spectral.SVD_FUNCTIONS[fname][1]:
+            return entry.n
+        return entry.m
+
+    def _check_spectral_rhs(self, entry: _Operator, fname: str,
+                            B: TiledMatrix):
+        """A served function of the operator's catalog, on a right-hand
+        side of the rows it takes (the reference's message for an unknown
+        function)."""
+        catalog = _spectral.function_catalog(entry.op)
+        if fname not in catalog:
+            raise SlateError(
+                f"Session.apply: unknown function {fname!r} for op "
+                f"{entry.op!r}; served functions: {sorted(catalog)}")
+        rows = self._rhs_rows(entry, fname)
+        if B.shape[0] != rows:
+            raise SlateError(
+                f"Session.apply: {entry.op} {fname!r} takes {rows}-row "
+                f"right-hand sides, got {B.shape[0]}")
+
+    def _spectral_theta(self, entry: _Operator, theta) -> torch.Tensor:
+        """θ as a 0-d tensor of the operand's real type on the device
+        (the eager apply's; a graph's lives in its static tensor)."""
+        rdt = torch.empty((), dtype=entry.A.dtype).real.dtype
+        return torch.full((), float(theta), dtype=rdt, device=self.device)
+
+    def _dispatch_spectral(self, entry: _Operator, res: _Resident,
+                           B: TiledMatrix, graph, fname: str,
+                           theta) -> TiledMatrix:
+        """One served spectral apply, X = L·diag(f(spectrum, θ))·Rᴴ·B
+        against the resident decomposition: the captured graph's replay
+        (θ filled into its static tensor), or the eager apply."""
+        if graph is None:
+            return _spectral.make_apply_fn(entry.op, fname, entry.opts)(
+                res.payload, B, self._spectral_theta(entry, theta))
+        self.metrics.inc("graph_replays")
+        return self._replay(graph, B, theta)
+
+    def apply(self, handle: Hashable, b, fn: str = "solve",
+              theta: float = 0.0, tenant: Optional[str] = None
+              ) -> np.ndarray:
+        """A served matrix function of a resident spectral operator,
+        x = f(A)·b: solve-with-shift ((A − θI)⁻¹b), psd_project, whiten,
+        truncate (``spectral/types.py`` has each op's catalog). Array in,
+        array out, as ``solve``; ``theta`` is the function's scalar
+        parameter, and any value replays the warmed graph. svd: the
+        forward function (truncate) takes n-row right-hand sides, the
+        pseudoinverse-direction ones (solve, whiten) m-row ones."""
+        if tenant is not None:
+            raise NotImplementedError(f"Session.apply: {_TENANTS_LATER}")
+        with self._lock:
+            entry = self._entry(handle)
+            if entry.op not in SPECTRAL_OPS:
+                raise SlateError(
+                    f"Session.apply: operator {handle!r} is {entry.op!r}, "
+                    "not a spectral (eig/svd) resident")
+            bt = self._rhs(entry, b)
+            vector = bt.ndim == 1
+            B = from_dense(bt[:, None] if vector else bt, entry.A.nb,
+                           device=self.device)
+            x = self.solve_matrix(handle, B, spectral_fn=fn,
+                                  theta=theta).to_numpy()
+            return x[:, 0] if vector else x
+
+    def eigvals(self, handle: Hashable) -> np.ndarray:
+        """The resident spectrum: Λ ascending for an eig operator, Σ
+        descending for an svd one (factored on a miss: a spectrum read is
+        a serve and warms the resident like any other)."""
+        with self._lock:
+            entry = self._entry(handle)
+            if entry.op not in SPECTRAL_OPS:
+                raise SlateError(
+                    f"Session.eigvals: operator {handle!r} is {entry.op!r}, "
+                    "not a spectral (eig/svd) resident")
+            return _spectrum(self._factored(handle).payload).cpu().numpy()
 
     def _dispatch_plain(self, entry: _Operator, res: _Resident,
                         B: TiledMatrix, graph) -> TiledMatrix:
@@ -779,7 +937,8 @@ class Session:
               tenant: Optional[str] = None) -> np.ndarray:
         """Array in, array out: ``b`` of shape (m,) or (m, k) (numpy or
         tensor); returns the solution as numpy with the same rank (n
-        rows; m = n except for "qr" operators)."""
+        rows; m = n except for "qr" and "svd" operators). A spectral
+        operator serves its catalog's "solve" at θ = 0."""
         if tenant is not None:
             raise NotImplementedError(f"Session.solve: {_TENANTS_LATER}")
         with self._lock:
@@ -845,7 +1004,12 @@ class Session:
         the bucket's rows writes the slots in place and its solves replay
         those graphs. A warmed shape is its columns and type: its rows
         follow the operator's, which updates change (a graph for a new row
-        count is captured at its first solve, counted)."""
+        count is captured at its first solve, counted).
+
+        A spectral operator factors its two-stage decomposition, then on
+        a CUDA device captures one graph per function of its catalog at
+        the warmed width, each on the rows that function takes (θ is a
+        static tensor in the graph: every θ replays it)."""
         with self._lock:
             entry = self._entry(handle)
             res = self.factor(handle)
@@ -870,8 +1034,13 @@ class Session:
                 return
             nb = entry.A.nb
             cols = num_tiles(nrhs, nb) * nb
-            keys = [(num_tiles(entry.m, nb) * nb, cols, entry.A.dtype)
-                    + (("append",) if _appended(res.payload) else ())]
+            if entry.op in SPECTRAL_OPS:
+                keys = [(num_tiles(self._rhs_rows(entry, f), nb) * nb, cols,
+                         entry.A.dtype, "spectral", f)
+                        for f in _spectral.function_catalog(entry.op)]
+            else:
+                keys = [(num_tiles(entry.m, nb) * nb, cols, entry.A.dtype)
+                        + (("append",) if _appended(res.payload) else ())]
             if update_k is not None and entry.op == "qr":
                 base_m = res.payload[0].m
                 if res.slots is None or (res.slots[0].shape[0]
@@ -907,34 +1076,39 @@ class Session:
     @staticmethod
     def _graph_payload(res: _Resident, key: Tuple):
         """The payload a graph of ``key`` is captured on: the resident's
-        own for a base key, the base with the append slots for an appended
-        one (an appended payload is exactly that)."""
-        return res.payload if len(key) == 3 else (
+        own, or for an appended key the base with the append slots (an
+        appended payload is exactly that)."""
+        return res.payload if _key_kind(key) != "append" else (
             (res.payload[0],) + res.slots)
 
     def _clear_graphs(self, res: _Resident, appended_only: bool = False):
         """Drop a cached resident's graphs, or only its appended solves'
         (their bytes leave the budget); a warmed operator captures them
         again on its next matching solve."""
-        gone = [k for k in res.graphs if not appended_only or len(k) > 3]
+        gone = [k for k in res.graphs
+                if not appended_only or _key_kind(k) == "append"]
         nbytes = sum(res.graphs.pop(k).nbytes for k in gone)
         res.nbytes -= nbytes
         self._cached_total -= nbytes
 
     def _graph_for(self, handle, entry: _Operator, res: _Resident,
-                   B: TiledMatrix) -> Optional[_SolveGraph]:
-        """The graph that serves B on this resident factor, captured now
-        (counted) when warmup asked for B's padded columns and type (and
-        appended-ness) and the factor was refactored, or its rows changed,
-        since; None: the eager solve."""
+                   B: TiledMatrix, fname: Optional[str] = None
+                   ) -> Optional[_SolveGraph]:
+        """The graph that serves B on this resident factor (for a
+        spectral operator: its apply of ``fname``), captured now (counted)
+        when warmup asked for B's padded columns and type (and
+        appended-ness, or function) and the factor was refactored, or its
+        rows changed, since; None: the eager solve."""
         keys = self._warm.get(handle)
-        if not keys or B.shape[0] != entry.m or B.device != self.device or (
+        if not keys or B.shape[0] != self._rhs_rows(entry, fname) or (
+                B.device != self.device) or (
                 entry.refine is not None
                 and entry.refine.strategy == "gmres"):
             return None
         b = B.dense_canonical()
         key = (int(b.shape[0]), int(b.shape[1]), b.dtype) + (
-            ("append",) if _appended(res.payload) else ())
+            ("spectral", fname) if fname is not None
+            else ("append",) if _appended(res.payload) else ())
         if not any(k[1:] == key[1:] for k in keys):
             return None
         graph = res.graphs.get(key)
@@ -944,27 +1118,37 @@ class Session:
     def _capture(self, handle, entry: _Operator, res: _Resident,
                  key: Tuple):
         """Capture the solve of a static (rows, cols) right-hand side on
-        ``res`` (caller holds the lock): the solve, or for a refined
-        operator the refine engine's ``start`` and ``step`` (each its own
-        graph; ``step`` takes a static iterate too). The static tensors'
-        logical width is the padded one: no column is masked, so one
-        capture serves every width up to ``cols``. An appended qr key is
-        captured on the append slots with m + (slot rows) logical rows:
-        rows past a request's are zero in its padded right-hand side and
-        in the slots, so inert (at most ``rows``: the rows past the padded
-        ones are zero too). Counts one ``aot_compiles`` per graph;
-        their bytes join the resident's."""
+        ``res`` (caller holds the lock): the solve, a spectral operator's
+        apply of the key's function (θ a static 0-d tensor of the
+        operand's real type), or for a refined operator the refine
+        engine's ``start`` and ``step`` (each its own graph; ``step``
+        takes a static iterate too). The static tensors' logical width is
+        the padded one: no column is masked, so one capture serves every
+        width up to ``cols``. An appended qr key is captured on the append
+        slots with m + (slot rows) logical rows: rows past a request's are
+        zero in its padded right-hand side and in the slots, so inert (at
+        most ``rows``: the rows past the padded ones are zero too). Counts
+        one ``aot_compiles`` per graph; their bytes join the
+        resident's."""
         rows, cols, dtype = key[:3]
-        appended = len(key) > 3
+        kind = _key_kind(key)
         if self.faults is not None:
             self._fault("compile")
         t0 = time.perf_counter()
         payload = self._graph_payload(res, key)
-        m = min(rows, payload[0].m + payload[1].shape[0]) if appended \
-            else entry.m
+        m = (min(rows, payload[0].m + payload[1].shape[0])
+             if kind == "append" else self._rhs_rows(
+                 entry, key[4] if kind == "spectral" else None))
         b = torch.zeros((rows, cols), dtype=dtype, device=self.device)
         B = TiledMatrix(b, m, cols, entry.A.nb)
-        if entry.refine is None:
+        if kind == "spectral":
+            apply = _spectral.make_apply_fn(entry.op, key[4], entry.opts)
+            theta = self._spectral_theta(entry, 0.0)
+            (graph,), (X,), pool = self._graphs(
+                handle, entry, key, [lambda: apply(payload, B, theta)])
+            sg = _SolveGraph(graph, b, X, _tensor_bytes((b, theta)) + pool,
+                             theta)
+        elif entry.refine is None:
             solve = _make_solve_fn(entry.op, entry.opts)
             (graph,), (X,), pool = self._graphs(
                 handle, entry, key, [lambda: solve(payload, B)])
@@ -1022,10 +1206,13 @@ class Session:
                 pool = max(torch.cuda.memory_reserved(dev) - before, 0)
         except Exception as e:
             rows, cols, dtype = key[:3]
-            what = ("refined " if entry.refine is not None
-                    else "appended " if len(key) > 3 else "")
+            kind = _key_kind(key)
+            what = (f"{entry.op} {key[4]} apply" if kind == "spectral" else
+                    ("refined " if entry.refine is not None
+                     else "appended " if kind == "append" else "")
+                    + f"{entry.op} solve")
             raise SlateError(
-                f"Session.warmup: capturing the {what}{entry.op} solve of "
+                f"Session.warmup: capturing the {what} of "
                 f"operator {handle!r} at ({rows}, {cols}) {dtype} failed "
                 f"in {_failing_call(e)}: {type(e).__name__}: {e}") from e
         return graphs, outs, pool
@@ -1050,10 +1237,14 @@ class Session:
         return start, step
 
     @staticmethod
-    def _replay(sg: _SolveGraph, B: TiledMatrix) -> TiledMatrix:
-        """Copy B in, replay, and return a copy of the solution cut to
-        B's columns (the padded columns zero, as the eager solve's)."""
+    def _replay(sg: _SolveGraph, B: TiledMatrix,
+                theta: float = 0.0) -> TiledMatrix:
+        """Copy B (and a spectral apply's θ) in, replay, and return a copy
+        of the solution cut to B's columns (the padded columns zero, as
+        the eager solve's)."""
         sg.b.copy_(B.dense_canonical())
+        if sg.theta is not None:
+            sg.theta.fill_(float(theta))
         sg.graph.replay()
         x = sg.x.data.clone()
         k = int(B.shape[1])
